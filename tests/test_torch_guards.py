@@ -1,0 +1,124 @@
+"""Guards of the port: no JAX import, no silent fallback from the device or
+the kernel, and a build command that targets Hopper from csrc/ only."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import asr_craft_tpu_torch
+from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.cli import decode as port_cli
+from asr_craft_tpu_torch.kernels import _build
+from asr_craft_tpu_torch.kernels.fdt_viterbi import (build_wall,
+                                                     fdt_viterbi_cuda,
+                                                     fdt_viterbi_wall,
+                                                     launches)
+from asr_craft_tpu_torch.models.crf import CrfConfig, decode
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import pkgutil, importlib, sys
+import asr_craft_tpu_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+for n in names:
+    importlib.import_module(n)
+assert len(names) >= 12, names
+bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names only the port (and torch/numpy)."""
+    src = (REPO / "chip_smoke.py").read_text()
+    for line in src.splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert "jax" not in words[1], line
+            assert not words[1].startswith("asr_craft_tpu.")
+            assert words[1] != "asr_craft_tpu", line
+
+
+def test_device_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard is for hosts "
+                    "without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_cli.main(["--synthetic_utts", "2", "--crf_label_size", "3",
+                       "--weight_file", str(tmp_path / "missing.dat")])
+
+
+def _tiny_wall():
+    cfg = CrfConfig(num_labels=3, feat_dim=4, num_states=2,
+                    trans_range=(0, 4))
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1)
+    Wall, u0, u1, dims = build_wall(params, cfg.fmap, cfg.num_states)
+    feats = torch.zeros((2, 5, 4))
+    lengths = torch.tensor([5, 3], dtype=torch.int32)
+    kw = dict(u0=u0, u1=u1, ns=2, P=dims["P"])
+    return cfg, params, Wall, feats, lengths, kw
+
+
+def test_cuda_backend_on_cpu_tensor_raises():
+    cfg, params, Wall, feats, lengths, kw = _tiny_wall()
+    before = dict(launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fdt_viterbi_cuda(Wall, feats, lengths, **kw)
+    kernels.set_backend("cuda")
+    try:
+        assert kernels.use_kernel(feats) is True
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fdt_viterbi_wall(Wall, feats, lengths, **kw)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            decode(cfg, params, feats, lengths)
+    finally:
+        kernels.set_backend("auto")
+    assert launches == before
+
+
+def test_auto_backend_takes_plain_only_for_cpu_tensors():
+    cpu = torch.zeros(1)
+    assert kernels.use_kernel(cpu) is False             # auto
+    kernels.set_backend("torch")
+    try:
+        assert kernels.use_kernel(cpu) is False
+    finally:
+        kernels.set_backend("auto")
+    with pytest.raises(ValueError):
+        kernels.set_backend("xla")
+    cfg, params, Wall, feats, lengths, kw = _tiny_wall()
+    before = dict(launches)
+    paths, scores = fdt_viterbi_wall(Wall, feats, lengths, **kw)
+    assert paths.shape == (2, 5) and torch.isfinite(scores).all()
+    assert launches == before
+
+
+def test_nvcc_command_targets_sm90a_from_csrc_only():
+    srcs = _build.sources()
+    assert srcs and all(s.suffix == ".cu" for s in srcs)
+    cmd = _build.nvcc_command(srcs, _build.BUILD_DIR / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
+    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+        assert flag in cmd
+    inputs = [Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp"))]
+    assert inputs == srcs
+    csrc = Path(asr_craft_tpu_torch.__file__).parent / "csrc"
+    assert all(p.resolve().parent == csrc.resolve() for p in inputs)
+    lib = _build.library_path()
+    assert lib.parent == _build.BUILD_DIR
+    assert lib.name.startswith("libasr_craft_kernels_")
