@@ -29,6 +29,7 @@ from asr_craft_tpu.utils.logging import MetricsLogger
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig, decode
+from asr_craft_tpu_torch.train.trainer import to_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,7 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_noise", type=float, default=0.4)
     p.add_argument("--crf_label_size", type=int, required=True)
     p.add_argument("--crf_states", type=int, default=1)
-    p.add_argument("--crf_featuremap", default="dense")
+    p.add_argument("--crf_featuremap", choices=["dense", "sparse"],
+                   default="dense")
+    p.add_argument("--sparse_topk", type=int, default=0,
+                   help="with --crf_featuremap sparse on a dense source: "
+                        "keep the K largest-magnitude dims per frame "
+                        "(0 = all dims, i.e. exact)")
     p.add_argument("--crf_stateftr_start", type=int, default=None)
     p.add_argument("--crf_stateftr_end", type=int, default=None)
     p.add_argument("--crf_transftr_start", type=int, default=0)
@@ -101,15 +107,19 @@ def main(argv=None) -> int:
     logger = MetricsLogger()
 
     feats, labels, phone_seqs = build_corpus(args)
-    if feats and isinstance(feats[0], tuple):
-        raise NotImplementedError("sparse feature input is not ported yet "
-                                  "(ROADMAP.md Queue 1, slice 2)")
     transform, feat_dim = make_transform(args, feats)
+    sparse_input = feats and isinstance(feats[0], tuple)
+    if sparse_input and args.crf_featuremap != "sparse":
+        raise SystemExit("sparse feature input requires "
+                         "--crf_featuremap sparse")
+    sparse_k = None
+    if args.crf_featuremap == "sparse" and not sparse_input:
+        sparse_k = args.sparse_topk or feat_dim
     buckets = tuple(int(x) for x in args.bucket_sizes.split(","))
     loader = UtteranceLoader(
         feats, labels,
         LoaderConfig(batch_size=args.batch_size, buckets=buckets,
-                     shuffle=False),
+                     shuffle=False, sparse_k=sparse_k),
         transform=transform, feat_dim=feat_dim)
 
     state_rng = ((args.crf_stateftr_start, args.crf_stateftr_end)
@@ -132,9 +142,11 @@ def main(argv=None) -> int:
     hyp_mlf = {}
     have_refs = labels is not None or phone_seqs is not None
     for batch in loader.epoch_batches(0):
+        tb = to_device(batch, device)
+        sparse = (None if "sparse_idx" not in tb else
+                  (tb["sparse_idx"], tb["sparse_val"]))
         phones, _, _ = decode(
-            cfg, params, torch.from_numpy(batch["feats"]).to(device),
-            torch.from_numpy(batch["lengths"]).to(device),
+            cfg, params, tb.get("feats"), tb["lengths"], sparse=sparse,
             beam_width=args.beam_width, beam_threshold=args.beam_threshold)
         phones = phones.cpu().numpy()
         if have_refs:

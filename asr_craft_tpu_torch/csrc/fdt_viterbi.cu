@@ -9,11 +9,12 @@
 //                          in-kernel plane formation, pruning, backpointers)
 //   fdt_vit_tb_kernel   <- _fdt_vit_bwd_kernel (backpointer traceback)
 //
-// Layouts.  Wall is the packed parameter matrix of
-// kernels/fdt_viterbi.build_wall, passed TRANSPOSED and zero-padded as
-// wall_t (Dw, R4) with Dw = Du + 1 (bias last), R4 = R rounded up to a
-// multiple of 4, and rows r in [state L' | self L' | adv L' | cross P*P
-// (pi-major)], all state-major (label l = phone * ns + state).
+// Layouts.  Wall is the packed parameter matrix of kernels/wall.build_wall,
+// passed TRANSPOSED and zero-padded as wall_t (Dw, R4) with Dw = Du + 1
+// (bias last), R4 = R rounded up to a multiple of 4, and rows r in
+// [state L' | self L' | adv L' | cross P*P (pi-major)], all state-major
+// (label l = phone * ns + state).  The plane formation is fdt_common.cuh's,
+// shared with the training kernels (fdt_train.cu).
 // feats (B, T, D) f32, lengths (B,) i32.  Outputs: bp (B, T, L') i32 holds
 // the predecessor label of each state (identity at t = 0 and t >= length),
 // last (B,) i32 / score (B,) f32 the final first-argmax label and score,
@@ -50,9 +51,13 @@
 #include <cstddef>
 #include <cuda_runtime.h>
 
+#include "fdt_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;   // ops/semiring.py NEG_INF: finite
+using fdtk::kNegInf;
+using fdtk::round_up4;
+
 constexpr int kFwdThreads = 768;    // one pass over 684 flagship row groups
 constexpr int kTbThreads = 128;
 constexpr int kRedSlots = 33;       // one per warp + one for the result
@@ -96,8 +101,6 @@ __device__ void block_argmax(float& v, int& i, float* red_v, int* red_i) {
   i = red_i[kRedSlots - 1];
 }
 
-__host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
-
 size_t fwd_smem_floats(int Du, int ns, int P) {
   const size_t Lp = (size_t)ns * P;
   const size_t R4 = round_up4(3 * ns * P + P * P);
@@ -134,26 +137,9 @@ fdt_vit_fwd_kernel(const float* __restrict__ wall_t,
   // frame 0 always runs (a length-0 row still reports its initial max)
   const int tend = max(len, 1);
   for (int t = 0; t < tend; ++t) {
-    for (int k = tid; k < Du; k += nth) x[k] = xb[(size_t)t * D + k];
-    if (tid == 0) x[Du] = 1.0f;
+    fdtk::load_x(xb + (size_t)t * D, x, Du);
     __syncthreads();
-
-    // plane = Wall @ [x_t; 1]: rows 4q..4q+3 per thread, one float4 load
-    // per input dim, sequential fp32 FMAs over k (bias last)
-    for (int q = tid; q < Q; q += nth) {
-      const float4* w = reinterpret_cast<const float4*>(wall_t) + q;
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-      for (int k = 0; k < Dw; ++k) {
-        const float4 v = __ldg(w + (size_t)k * Q);
-        const float xk = x[k];
-        acc.x = fmaf(v.x, xk, acc.x);
-        acc.y = fmaf(v.y, xk, acc.y);
-        acc.z = fmaf(v.z, xk, acc.z);
-        acc.w = fmaf(v.w, xk, acc.w);
-      }
-      smem4[q] = acc;
-    }
+    fdtk::form_plane(wall_t, x, smem4, Q, Dw);   // plane = Wall @ [x_t; 1]
     __syncthreads();
 
     const bool at_end = t == len_raw - 1;

@@ -1,6 +1,7 @@
 """The flagship model and numpy-seeded inputs, shared by tests and chip_smoke.
 
-Counterpart of ``__graft_entry__._flagship`` / ``_tiny_batch``: BASELINE
+Counterpart of ``__graft_entry__._flagship`` / ``_tiny_batch`` /
+``entry``: BASELINE
 config 2, a TIMIT-shaped triphone-state CRF — 48 phones x 3 states over
 MLP-posterior features with a +/-1 context window (144 dims), and
 frame-dependent transition features over all dims.  Inputs come from
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.models.crf import CrfConfig, crf_loss
 
 
 def flagship() -> CrfConfig:
@@ -31,6 +32,21 @@ def tiny_batch(cfg: CrfConfig, B: int = 8, T: int = 64, seed: int = 0,
             "labels": torch.from_numpy(
                 runs[:, :T].astype(np.int32)).to(device),
             "lengths": torch.full((B,), T, dtype=torch.int32, device=device)}
+
+
+def entry(device="cpu"):
+    """``(fn, args)``: the flagship forward step, ``fn(*args)`` the mean
+    per-frame loss of :func:`crf_loss` on :func:`tiny_batch`, with params
+    ``init_params`` at scale 0.01 from a generator seeded 0."""
+    cfg = flagship()
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, device)
+    batch = tiny_batch(cfg, device=device)
+
+    def fn(params, feats, labels, lengths):
+        loss, _ = crf_loss(cfg, params, feats, labels, lengths)
+        return loss
+
+    return fn, (params, batch["feats"], batch["labels"], batch["lengths"])
 
 
 def ragged_lengths(B: int, T: int, seed: int = 0) -> np.ndarray:

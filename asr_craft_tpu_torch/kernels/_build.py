@@ -1,10 +1,14 @@
 """Build the port's CUDA sources with nvcc at first use; load them with ctypes.
 
 The sources are ``asr_craft_tpu_torch/csrc/*.cu`` with a plain C interface
-(no PyTorch headers, so a build takes seconds).  The shared library goes to
-``asr_craft_tpu_torch/_build/`` (listed in .gitignore) under a name that
-hashes the sources and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+(no PyTorch headers, so a build takes seconds), and the headers they share,
+``csrc/*.cuh``.  The shared library goes to ``asr_craft_tpu_torch/_build/``
+(listed in .gitignore) under a name that hashes the sources, the headers
+and the flags, so an edited source or header is rebuilt and an unchanged
+tree is loaded as it is.  Nothing here runs at import time.
+
+Also here: the checks every kernel wrapper makes before a launch
+(:func:`check_tensor`) and after it (:func:`raise_on_error`).
 """
 from __future__ import annotations
 
@@ -26,8 +30,14 @@ _lib = None
 build_info = {}      # {"seconds": ..., "log": ...} of the build, if one ran
 
 
-def sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(csrc: Path = CSRC_DIR) -> list:
+    """The translation units nvcc compiles."""
+    return sorted(csrc.glob("*.cu"))
+
+
+def headers(csrc: Path = CSRC_DIR) -> list:
+    """The headers the sources include (hashed, not compiled alone)."""
+    return sorted(csrc.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -49,9 +59,9 @@ def nvcc_command(srcs, out, nvcc: str = "nvcc") -> list:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(s) for s in srcs)]
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources(csrc) + headers(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libasr_craft_kernels_{h.hexdigest()[:16]}.so"
@@ -79,5 +89,31 @@ def load_library() -> ctypes.CDLL:
         path = library_path()
         if not path.exists():
             _build(path)
-        _lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(path))
+        lib.fdt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.fdt_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
     return _lib
+
+
+def check_tensor(name: str, t, dtype, ndim: int, device) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on the
+    CUDA ``device``: what a kernel takes."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor for the kernel "
+                         f"(got {t.device}); use the 'torch' backend on CPU")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype or t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D {dtype}, got "
+                         f"{t.dim()}-D {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_on_error(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its
+    ``cudaGetLastError()`` after the launch)."""
+    if code != 0:
+        msg = load_library().fdt_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

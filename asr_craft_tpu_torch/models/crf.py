@@ -1,11 +1,14 @@
-"""The CRF model: config, parameters and decode.
+"""The CRF model: config, parameters, training criterion and decode.
 
 Counterpart of :mod:`asr_craft_tpu.models.crf`.  Ported so far: the
-frame-dependent-transition (fdt) decode, which runs the factored Viterbi
-(kernel or plain version, :mod:`asr_craft_tpu_torch.kernels.fdt_viterbi`),
-and ``frame_accuracy``.  The training criterion, the shared-transition
-branches and sparse inputs raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+frame-dependent-transition (fdt) path — ``crf_loss`` (the dual-lattice
+objective of :func:`asr_craft_tpu_torch.ops.fdt.fdt_nll_dual`: the K1/K2
+kernels or the plain autograd loop), ``decode`` (the factored Viterbi,
+:mod:`asr_craft_tpu_torch.kernels.fdt_viterbi`), ``frame_posteriors`` —
+for dense and sparse inputs (sparse frames are densified exactly), plus
+``apply_boundaries`` and ``frame_accuracy``.  The shared-transition
+branches raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 """
 from __future__ import annotations
 
@@ -15,10 +18,12 @@ from typing import Optional, Tuple
 import torch
 
 from asr_craft_tpu_torch import kernels
-from asr_craft_tpu_torch.kernels.fdt_viterbi import (build_wall,
-                                                     fdt_viterbi_wall)
-from asr_craft_tpu_torch.models.feature_map import FeatureMapConfig
+from asr_craft_tpu_torch.kernels.fdt_viterbi import fdt_viterbi_wall
+from asr_craft_tpu_torch.kernels.wall import build_wall
+from asr_craft_tpu_torch.models.feature_map import (FeatureMapConfig,
+                                                    densify_sparse)
 from asr_craft_tpu_torch.models.topology import Topology
+from asr_craft_tpu_torch.ops import fdt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,29 +62,84 @@ class CrfConfig:
         return self.fmap.init_params(generator, scale, device)
 
 
+def _fdt_feats(cfg: CrfConfig, feats, sparse, what: str,
+               on_kernel: bool = True):
+    """The dense frames of the fdt path: ``feats``, or ``sparse =
+    (indices, values)`` densified exactly with a sparse feature map.
+    Raises for the shared-transition path and, where a kernel would run
+    (``on_kernel``), for a precision other than ``highest``."""
+    if not cfg.fmap.frame_dependent_trans:
+        raise NotImplementedError(
+            f"shared-transition {what} (trans_range of zero width) is not "
+            "ported yet (ROADMAP.md Queue 1, slice 3)")
+    if cfg.featuremap == "sparse":
+        if sparse is None:
+            raise ValueError(
+                "sparse feature map needs sparse=(indices, values)")
+        feats = densify_sparse(sparse[0], sparse[1], cfg.feat_dim)
+    feats = feats.contiguous()
+    if on_kernel and kernels.use_kernel(feats) and cfg.precision != "highest":
+        raise NotImplementedError(
+            f"precision {cfg.precision!r} on the CUDA kernels (only "
+            "'highest', IEEE fp32, is ported; ROADMAP.md Queue 2)")
+    return feats
+
+
+def apply_boundaries(cfg: CrfConfig, state, lengths):
+    """Fold start/end state masking into the state potentials ``(B, T,
+    L')``: frame 0 is restricted to phone entry states and frame
+    ``length-1`` to phone exit states.  Identity for monophone or
+    ``enforce_boundaries=False``."""
+    if cfg.num_states == 1 or not cfg.enforce_boundaries:
+        return state
+    topo = cfg.topology
+    T = state.shape[-2]
+    start = torch.from_numpy(topo.start_penalty()).to(state.device)
+    end = torch.from_numpy(topo.end_penalty()).to(state.device)
+    state = state.clone()
+    state[..., 0, :] += start
+    at_end = (torch.arange(T, device=state.device)[None, :]
+              == (lengths.to(state.device) - 1)[:, None])
+    return state + torch.where(at_end[..., None], end, 0.0)
+
+
+def crf_loss(cfg: CrfConfig, params: dict, feats, labels, lengths,
+             sparse=None, label_kind: str = "phone",
+             grad_feats: bool = False):
+    """Mean negative conditional log-likelihood per frame.
+
+    ``labels``: (B, T) int32 frame labels — phone labels by default, or
+    expanded-state labels with ``label_kind='state'``.  Rows of length 0
+    (loader padding) contribute 0, and the sum is divided by
+    ``max(sum(lengths), 1)``.  Returns (loss, aux) with per-utterance
+    ``logZ``, ``numerator`` and ``nll`` and the ``frames`` count.
+
+    ``grad_feats``: when False (the default) ``feats`` is detached, so no
+    gradient reaches it; set True to differentiate through the features.
+    """
+    feats = _fdt_feats(cfg, feats, sparse, "training criterion")
+    lengths = lengths.to(feats.device)
+    clamp_ns = 1 if label_kind == "state" else cfg.num_states
+    raw_nll, logZ, num = fdt.fdt_nll_dual(
+        cfg.fmap, cfg.num_states, params, feats, labels.to(feats.device),
+        lengths, clamp_ns, cfg.enforce_boundaries, grad_feats=grad_feats)
+    nll = torch.where(lengths > 0, raw_nll, 0.0)
+    total_frames = torch.clamp(lengths.sum(), min=1)
+    return nll.sum() / total_frames, {
+        "logZ": logZ, "numerator": num, "nll": nll, "frames": total_frames}
+
+
 def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
            beam_width: Optional[int] = None,
            beam_threshold: Optional[float] = None):
     """Batched Viterbi over expanded states, collapsed to per-frame phones.
 
-    ``feats (B, T, D)`` float32 and ``lengths (B,)`` on one device; beam
-    options as in the JAX package (both None = exact).  Returns
+    ``feats (B, T, D)`` float32 (or ``sparse = (indices, values)`` with a
+    sparse feature map) and ``lengths (B,)`` on one device; beam options as
+    in the JAX package (both None = exact).  Returns
     (phone_frames (B, T), state_paths (B, T), scores (B,)), on that device.
     """
-    if sparse is not None or cfg.featuremap != "dense":
-        raise NotImplementedError(
-            f"feature map {cfg.featuremap!r} with sparse={sparse is not None}"
-            ": only dense inputs are ported (sparse: ROADMAP.md Queue 1, "
-            "slice 2)")
-    if not cfg.fmap.frame_dependent_trans:
-        raise NotImplementedError(
-            "shared-transition decode (trans_range of zero width) is not "
-            "ported yet (ROADMAP.md Queue 1, slice 3)")
-    feats = feats.contiguous()
-    if kernels.use_kernel(feats) and cfg.precision != "highest":
-        raise NotImplementedError(
-            f"precision {cfg.precision!r} on the CUDA kernel (only "
-            "'highest', IEEE fp32, is ported; ROADMAP.md Queue 2, K3)")
+    feats = _fdt_feats(cfg, feats, sparse, "decode")
     Wall, u0, u1, dims = build_wall(params, cfg.fmap, cfg.num_states)
     paths, scores = fdt_viterbi_wall(
         Wall, feats, lengths.to(device=feats.device, dtype=torch.int32),
@@ -87,6 +147,20 @@ def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
         boundaries=cfg.enforce_boundaries, beam_threshold=beam_threshold,
         beam_width=beam_width)
     return cfg.topology.path_to_phones(paths), paths, scores
+
+
+def frame_posteriors(cfg: CrfConfig, params: dict, feats, lengths,
+                     sparse=None):
+    """(B, T, L') label posteriors over the factored frame-dependent
+    lattice (:func:`asr_craft_tpu_torch.ops.fdt.fdt_posteriors`); zero at
+    frames past each length."""
+    feats = _fdt_feats(cfg, feats, sparse, "posteriors", on_kernel=False)
+    planes = fdt.factored_planes(params, feats, cfg.fmap.num_expanded,
+                                 cfg.num_states, cfg.fmap.state_range,
+                                 cfg.fmap.trans_range,
+                                 cfg.fmap.use_state_bias)
+    return fdt.fdt_posteriors(*planes, lengths, cfg.num_states,
+                              cfg.enforce_boundaries)
 
 
 def frame_accuracy(phone_frames, labels, lengths):

@@ -1,8 +1,10 @@
 """Dense feature map: (acoustic frame, label) -> log potential, as matmuls.
 
-Counterpart of :mod:`asr_craft_tpu.models.feature_map` (dense map only; the
-sparse map is still to be ported, see ROADMAP.md).  Parameters are a plain
-dict of tensors with the JAX package's keys and shapes:
+Counterpart of :mod:`asr_craft_tpu.models.feature_map`: the dense map and
+``densify_sparse``, the exact bridge that lets sparse inputs ride the
+frame-dependent-transition path (``sparse_potentials``, which the
+shared-transition path needs, is ROADMAP.md Queue 1, slice 3).  Parameters
+are a plain dict of tensors with the JAX package's keys and shapes:
 
     w_state (Ds, L')   b_state (L',)   w_trans (Dt, L', L')   b_trans (L', L')
 
@@ -101,3 +103,14 @@ def dense_potentials(cfg: FeatureMapConfig, params: dict, feats):
     else:
         trans = params["b_trans"]
     return state, trans
+
+
+def densify_sparse(indices, values, D: int):
+    """(B, T, K) sparse (index, value) pairs -> dense (B, T, D) frames.
+
+    Exact: ``sum_k val_k * w[idx_k, l]`` equals ``densify(pairs) @ w``
+    term for term.  Padding slots (index 0, value 0) land harmlessly on
+    dim 0, and duplicate indices accumulate (a scatter-add)."""
+    B, T, K = indices.shape
+    out = torch.zeros((B, T, D), dtype=values.dtype, device=values.device)
+    return out.scatter_add(2, indices.long(), values)

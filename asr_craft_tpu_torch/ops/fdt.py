@@ -1,20 +1,23 @@
-"""Frame-dependent transition features, topology-factored: the plain decode.
+"""Frame-dependent transition features, topology-factored: the plain path.
 
-Counterpart of the decode half of :mod:`asr_craft_tpu.ops.fdt`.  Under the
-n-state left-to-right topology only three transition classes are legal —
+Counterpart of :mod:`asr_craft_tpu.ops.fdt`.  Under the n-state
+left-to-right topology only three transition classes are legal —
 
     self     (s, s)            L'  entries per frame
     advance  (s, s+1)          L' - P entries (within-phone)
     cross    (last_i, first_j) P^2 entries (phone bigram)
 
-so the decode scores per-frame factored planes ``selfp (B, T, L')``,
+so the lattice is scored on per-frame factored planes ``selfp (B, T, L')``,
 ``advp (B, T, L')`` and ``crossp (B, T, P, P)`` instead of a materialized
 ``(B, T, L', L')`` tensor.  For ``ns == 1`` every pair is legal and
 ``crossp`` is the full frame-dependent matrix.
 
 This module is the plain PyTorch reference: a Python loop over frames of
-tensor ops, the same arithmetic as the JAX ``lax.scan`` version.  The CUDA
-kernels (``kernels/fdt_viterbi.py``) are held to it.
+tensor ops, the same arithmetic as the JAX ``lax.scan`` version.  It holds
+both semirings: max-plus (the decode, :func:`fdt_viterbi`) and log
+(the training criterion, :func:`fdt_logZ_pair` / :func:`fdt_nll_dual`,
+differentiated by autograd, and :func:`fdt_posteriors`).  The CUDA kernels
+(``kernels/fdt_viterbi.py``, ``kernels/fdt_train.py``) are held to it.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 
@@ -245,3 +249,156 @@ def fdt_viterbi(state, selfp, advp, crossp, lengths, ns: int,
         state, selfp, advp, crossp, lengths, ns, boundaries, beam_width,
         beam_threshold)
     return fdt_viterbi_traceback(bp, last, lengths), scores
+
+
+# ---------------------------------------------------------------------------
+# log semiring: the training criterion
+# ---------------------------------------------------------------------------
+
+def _clamp_row(labels_t, Lp: int, clamp_ns: int):
+    """(B,) labels -> (B, L') additive clamp penalty (state-major)."""
+    lane = torch.arange(Lp, device=labels_t.device)
+    return torch.where(lane[None, :] // clamp_ns == labels_t[:, None].long(),
+                       0.0, NEG_INF)
+
+
+def _lse(x, dim: int):
+    """Log-sum-exp with the reference's guards: the max is clamped at
+    NEG_INF and the sum floored at 1e-35, so an all-dead slice gives a
+    finite NEG_INF-sized value and no nan."""
+    m = torch.clamp(x.amax(dim=dim, keepdim=True), min=NEG_INF)
+    out = m + torch.log(torch.clamp(torch.exp(x - m).sum(dim=dim,
+                                                          keepdim=True),
+                                    min=1e-35))
+    return out.squeeze(dim)
+
+
+def _factored_update(alpha, f_t, a_t, c_t, ns: int):
+    """One factored semiring matvec: alpha (B, L') -> (B, L') candidates
+    (before adding the state plane)."""
+    if ns == 1:
+        return _lse(alpha[:, :, None] + c_t, dim=1)
+    Lp = alpha.shape[-1]
+    st = torch.arange(Lp, device=alpha.device) % ns
+    self_c = alpha + f_t
+    adv_c = torch.roll(alpha + a_t, 1, dims=-1)
+    adv_c = torch.where(st > 0, adv_c, NEG_INF)
+    crossed = _lse(alpha[:, ns - 1::ns, None] + c_t, dim=1)     # (B, P)
+    cross_c = torch.where(st == 0, torch.repeat_interleave(crossed, ns, -1),
+                          NEG_INF)
+    return torch.logaddexp(self_c, torch.logaddexp(adv_c, cross_c))
+
+
+def _dead_guard(z):
+    """Zero the gradient of sequences whose lattice has no legal path
+    (z == NEG_INF, e.g. a clamp made inconsistent by a mid-phone length
+    cut): the 'gradient' there is a softmax over garbage.  The K2 kernel
+    applies the same rule (its ``live`` gate)."""
+    return torch.where(z > NEG_INF * 0.5, z, z.detach())
+
+
+def fdt_logZ_pair(state, selfp, advp, crossp, labels, lengths, ns: int,
+                  clamp_ns: int, boundaries: bool = True):
+    """Free + clamped log-partitions over the factored lattice.
+
+    All planes batched (B, T, ...), state-major expanded labels; ``labels``
+    (B, T) int32 at ``clamp_ns`` granularity (ns = phone labels, 1 = state
+    labels).  Returns (zf, zc): (B,) each, differentiable by autograd.
+    """
+    B, T, Lp = state.shape
+    lengths = lengths.to(state.device)
+    state = _boundary_state(state, lengths, ns, boundaries)
+    af = state[:, 0]
+    ac = state[:, 0] + _clamp_row(labels[:, 0], Lp, clamp_ns)
+    for t in range(1, T):
+        f_t = selfp[:, t] if ns > 1 else None
+        a_t = advp[:, t] if ns > 1 else None
+        c_t = crossp[:, t]
+        s_t = state[:, t]
+        cand_f = _factored_update(af, f_t, a_t, c_t, ns) + s_t
+        cand_c = (_factored_update(ac, f_t, a_t, c_t, ns) + s_t
+                  + _clamp_row(labels[:, t], Lp, clamp_ns))
+        valid = (t < lengths)[:, None]
+        af = torch.where(valid, cand_f, af)
+        ac = torch.where(valid, cand_c, ac)
+    return _dead_guard(_lse(af, -1)), _dead_guard(_lse(ac, -1))
+
+
+def fdt_nll_dual(fmap_cfg, ns: int, params, feats, labels, lengths,
+                 clamp_ns: Optional[int] = None, boundaries: bool = True,
+                 grad_feats: bool = False):
+    """Fused dual-lattice objective for frame-dependent transitions:
+    per-sequence ``(nll, logZ, numerator)``.
+
+    Dispatch by :func:`asr_craft_tpu_torch.kernels.use_kernel`: the K1/K2
+    autograd Function (``kernels/fdt_train.fdt_nll_dual_wall``, which
+    raises for what the kernels do not take, P > 128 among them) or, for a
+    CPU tensor under ``auto`` and under ``torch``, :func:`fdt_logZ_pair`
+    on the planes, differentiated by autograd.
+
+    ``grad_feats``: when False, ``feats`` is detached on both backends, so
+    no feature cotangent is formed; set it to differentiate through
+    ``feats``.
+    """
+    if not grad_feats:
+        feats = feats.detach()
+    Lp = fmap_cfg.num_expanded
+    clamp_ns = ns if clamp_ns is None else clamp_ns
+    if kernels.use_kernel(feats):
+        # imported here: kernels.fdt_train imports this module
+        from asr_craft_tpu_torch.kernels.fdt_train import fdt_nll_dual_wall
+        from asr_craft_tpu_torch.kernels.wall import build_wall
+        Wall, u0, u1, dims = build_wall(params, fmap_cfg, ns)
+        zf, zc = fdt_nll_dual_wall(
+            Wall, feats, labels, lengths, u0=u0, u1=u1, ns=ns, P=dims["P"],
+            clamp_ns=clamp_ns, boundaries=boundaries, grad_feats=grad_feats)
+    else:
+        planes = factored_planes(params, feats, Lp, ns,
+                                 fmap_cfg.state_range, fmap_cfg.trans_range,
+                                 fmap_cfg.use_state_bias)
+        zf, zc = fdt_logZ_pair(*planes, labels, lengths, ns, clamp_ns,
+                               boundaries)
+    return zf - zc, zf, zc
+
+
+def fdt_posteriors(state, selfp, advp, crossp, lengths, ns: int,
+                   boundaries: bool = True):
+    """(B, T, L') frame posteriors over the factored frame-dependent
+    lattice: forward and backward factored loops, gamma = alpha + beta -
+    logZ, zero at frames past each length."""
+    B, T, Lp = state.shape
+    lengths = lengths.to(state.device)
+    state = _boundary_state(state, lengths, ns, boundaries)
+    st = torch.arange(Lp, device=state.device) % ns
+    alphas = [state[:, 0]]
+    for t in range(1, T):
+        f_t = selfp[:, t] if ns > 1 else None
+        a_t = advp[:, t] if ns > 1 else None
+        cand = _factored_update(alphas[-1], f_t, a_t, crossp[:, t], ns) \
+            + state[:, t]
+        alphas.append(torch.where((t < lengths)[:, None], cand, alphas[-1]))
+    logZ = _lse(alphas[-1], -1)
+    betas = [torch.zeros((B, Lp), dtype=state.dtype, device=state.device)]
+    for t in range(T - 2, -1, -1):
+        x = betas[0] + state[:, t + 1]                 # planes of frame t+1
+        c_n = crossp[:, t + 1]
+        if ns == 1:
+            nb = _lse(x[:, None, :] + c_n, dim=2)
+        else:
+            self_c = x + selfp[:, t + 1]
+            adv_c = torch.where(st < ns - 1,
+                                torch.roll(x, -1, dims=-1) + advp[:, t + 1],
+                                NEG_INF)
+            crossed = _lse(x[:, None, 0::ns] + c_n, dim=2)      # (B, P)
+            cross_c = torch.where(st == ns - 1,
+                                  torch.repeat_interleave(crossed, ns, -1),
+                                  NEG_INF)
+            nb = torch.logaddexp(self_c, torch.logaddexp(adv_c, cross_c))
+        # frames at/after length-1 keep beta = 0 (the init)
+        betas.insert(0, torch.where((t + 1 < lengths)[:, None], nb,
+                                    betas[0]))
+    gamma = (torch.stack(alphas, 1) + torch.stack(betas, 1)
+             - logZ[:, None, None])
+    post = torch.exp(torch.clamp(gamma, max=0.0))
+    valid = torch.arange(T, device=state.device)[None, :] < lengths[:, None]
+    return torch.where(valid[..., None], post, 0.0)

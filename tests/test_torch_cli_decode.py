@@ -61,6 +61,24 @@ def test_cli_matches_jax_cli(tmp_path, weight_file, beam):
             == (tmp_path / "jax.mlf").read_bytes())
 
 
+@pytest.mark.parametrize("topk", ["0", "5"], ids=["exact", "top5"])
+def test_sparse_cli_matches_jax_cli(tmp_path, weight_file, topk):
+    """--crf_featuremap sparse: frames sparsified by the shared loader,
+    densified exactly on the fdt path; same PER and MLF as JAX's."""
+    common = CORPUS + ["--weight_file", str(weight_file),
+                       "--crf_featuremap", "sparse", "--sparse_topk", topk]
+    try:
+        port = _run(port_cli.main, common + [
+            "--device", "cpu", "--out_mlf", str(tmp_path / "port.mlf")])
+    finally:
+        kernels.set_backend("auto")
+    ref = _run(jax_cli.main, common + [
+        "--platform", "cpu", "--out_mlf", str(tmp_path / "jax.mlf")])
+    assert port["per"] == ref["per"]
+    assert ((tmp_path / "port.mlf").read_bytes()
+            == (tmp_path / "jax.mlf").read_bytes())
+
+
 def test_cli_backends_agree_on_cpu(tmp_path, weight_file):
     common = CORPUS + ["--weight_file", str(weight_file), "--device", "cpu"]
     recs = {}

@@ -86,15 +86,22 @@ def test_frame_accuracy_matches_jax():
 
 
 def test_unported_branches_raise():
+    """The shared-transition branches still raise; a sparse feature map is
+    ported now and, as in JAX, wants its (indices, values) pairs."""
     tcfg = crf.CrfConfig(num_labels=P, feat_dim=D, num_states=NS)
     params = tcfg.init_params()
     feats = torch.zeros((1, 4, D))
     lengths = torch.tensor([4])
+    labels = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         crf.decode(tcfg, params, feats, lengths)           # shared trans
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        crf.crf_loss(tcfg, params, feats, labels, lengths)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        crf.frame_posteriors(tcfg, params, feats, lengths)
     sparse = crf.CrfConfig(num_labels=P, feat_dim=D, num_states=NS,
                            trans_range=(0, D), featuremap="sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="sparse=\\(indices, values\\)"):
         crf.decode(sparse, sparse.init_params(), feats, lengths)
 
 

@@ -18,9 +18,8 @@ from asr_craft_tpu.kernels.fdt_pallas import build_wall as jax_build_wall
 from asr_craft_tpu.kernels.fdt_pallas import fdt_viterbi_pallas
 from asr_craft_tpu.models.feature_map import FeatureMapConfig as JaxFmap
 from asr_craft_tpu.ops import fdt as jfdt
-from asr_craft_tpu_torch.kernels.fdt_viterbi import (build_wall,
-                                                     fdt_viterbi_wall_torch,
-                                                     wall_planes)
+from asr_craft_tpu_torch.kernels.fdt_viterbi import fdt_viterbi_wall_torch
+from asr_craft_tpu_torch.kernels.wall import build_wall, wall_planes
 from asr_craft_tpu_torch.models.feature_map import FeatureMapConfig
 from asr_craft_tpu_torch.ops import fdt
 from asr_craft_tpu_torch.ops.semiring import NEG_INF

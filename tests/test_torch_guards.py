@@ -1,6 +1,7 @@
 """Guards of the port: no JAX import, no silent fallback from the device or
 the kernel, and a build command that targets Hopper from csrc/ only."""
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -11,12 +12,13 @@ import torch
 import asr_craft_tpu_torch
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.cli import decode as port_cli
-from asr_craft_tpu_torch.kernels import _build
-from asr_craft_tpu_torch.kernels.fdt_viterbi import (build_wall,
-                                                     fdt_viterbi_cuda,
+from asr_craft_tpu_torch.cli import train as port_train_cli
+from asr_craft_tpu_torch.kernels import _build, fdt_train
+from asr_craft_tpu_torch.kernels.fdt_viterbi import (fdt_viterbi_cuda,
                                                      fdt_viterbi_wall,
                                                      launches)
-from asr_craft_tpu_torch.models.crf import CrfConfig, decode
+from asr_craft_tpu_torch.kernels.wall import build_wall
+from asr_craft_tpu_torch.models.crf import CrfConfig, crf_loss, decode
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -27,7 +29,10 @@ names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 12, names
+for n in ('kernels.wall', 'kernels.fdt_train', 'train.trainer',
+          'train.checkpoint', 'cli.train'):
+    assert 'asr_craft_tpu_torch.' + n in names, n
+assert len(names) >= 20, names
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
@@ -60,6 +65,53 @@ def test_device_cuda_without_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli.main(["--synthetic_utts", "2", "--crf_label_size", "3",
                        "--weight_file", str(tmp_path / "missing.dat")])
+
+
+def test_train_device_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard is for hosts "
+                    "without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_train_cli.main(["--synthetic_utts", "4", "--crf_label_size",
+                             "3", "--crf_transftr_end", "3",
+                             "--out_dir", str(tmp_path)])
+
+
+def test_cuda_backend_on_cpu_tensor_raises_in_fdt_nll_dual():
+    """Under the 'cuda' backend the training Function launches K1 or
+    raises: a CPU tensor never reaches the plain version."""
+    cfg = CrfConfig(num_labels=3, feat_dim=4, num_states=2,
+                    trans_range=(0, 4))
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1)
+    Wall, u0, u1, dims = build_wall(params, cfg.fmap, 2)
+    feats = torch.zeros((2, 5, 4))
+    labels = torch.zeros((2, 5), dtype=torch.int32)
+    lengths = torch.tensor([5, 3], dtype=torch.int32)
+    before = dict(fdt_train.launches)
+    kernels.set_backend("cuda")
+    try:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fdt_train.FdtNllDual.apply(Wall, feats, labels, lengths, u0, u1,
+                                       2, 3, 2, True, False)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            crf_loss(cfg, params, feats, labels, lengths)
+    finally:
+        kernels.set_backend("auto")
+    assert fdt_train.launches == before
+
+
+def test_library_hash_covers_headers(tmp_path):
+    """An edited header must not load a stale library: the library name
+    hashes csrc/*.cuh as well as csrc/*.cu."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert [h.name for h in _build.headers(csrc)] == ["fdt_common.cuh"]
+    before = _build.library_path(csrc)
+    assert before == _build.library_path()
+    with open(csrc / "fdt_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path(csrc) != before
+    assert _build.sources(csrc) == sorted(csrc.glob("*.cu"))
 
 
 def _tiny_wall():

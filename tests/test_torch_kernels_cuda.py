@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from asr_craft_tpu_torch.kernels.fdt_viterbi import (build_wall,
-                                                     fdt_viterbi_cuda,
+from asr_craft_tpu_torch.kernels.fdt_viterbi import (fdt_viterbi_cuda,
                                                      fdt_viterbi_wall_torch,
-                                                     launches, wall_planes)
+                                                     launches)
+from asr_craft_tpu_torch.kernels.wall import build_wall, wall_planes
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.ops import fdt
 
