@@ -1,9 +1,13 @@
-"""``crf-decode`` twin: phone decode of a trained CRF on a GPU (or the CPU).
+"""``crf-decode`` twin: phone and word decode of a trained CRF on a GPU (or
+the CPU).
 
-Counterpart of :mod:`asr_craft_tpu.cli.decode` for the phone-decode path:
-flags -> corpus -> model (weight file) -> batched Viterbi (exact / beam) ->
-MLF -> PER.  Corpus assembly, the loader, MLF writing, scoring and logging
-are the JAX package's framework-neutral host modules, used as they are.
+Counterpart of :mod:`asr_craft_tpu.cli.decode`: flags -> corpus -> model
+(weight file) -> batched Viterbi (exact / beam) -> MLF -> PER, or with
+``--lexicon`` the FST word decode: potentials on the device, then lattice
+o collapser o lexicon [o LM] on the host -> words -> WER.  Corpus assembly,
+the loader, MLF writing, scoring, logging and the FST / on-the-fly word
+decoders are the JAX package's framework-neutral host modules, used as they
+are.
 
     python -m asr_craft_tpu_torch.cli.decode --synthetic_utts 8 \\
         --crf_label_size 4 --crf_states 3 --window_extent 1 \\
@@ -28,7 +32,8 @@ from asr_craft_tpu.decode.scorer import (ErrorRateScorer, collapse_frames,
 from asr_craft_tpu.utils.logging import MetricsLogger
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.models import weights as weights_mod
-from asr_craft_tpu_torch.models.crf import CrfConfig, decode
+from asr_craft_tpu_torch.models.crf import (CrfConfig, apply_boundaries,
+                                            decode, potentials)
 from asr_craft_tpu_torch.train.trainer import to_device
 
 
@@ -68,7 +73,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="score-margin pruning")
     p.add_argument("--time_shard", type=int, default=0,
                    help="time-sharded decode (not ported yet)")
-    p.add_argument("--lexicon", help="word decode (not ported yet)")
+    # --- FST word decode (the reference CRFFstDecode mode) ---
+    p.add_argument("--lexicon", help="pronunciation lexicon: one "
+                   "'word ph1 ph2 ...' per line (phone names resolved via "
+                   "--phone_names, else integer ids); enables word decode")
+    p.add_argument("--lm", help="word LM as an FST text file "
+                   "(1-based word ids in lexicon order)")
+    p.add_argument("--lm_weight", type=float, default=1.0)
+    p.add_argument("--prune_margin", type=float, default=None,
+                   help="lattice beam: drop arcs more than this margin "
+                   "below the frame-best path score")
+    p.add_argument("--nbest", type=int, default=1,
+                   help="emit the n best word sequences (--out_nbest)")
+    p.add_argument("--out_words", help="write 'key w1 w2 ...' hypotheses")
+    p.add_argument("--out_nbest", help="write 'key score w1 w2 ...' n-best")
+    p.add_argument("--ref_words", help="reference transcripts "
+                   "('key w1 w2 ...' lines) for WER scoring")
+    p.add_argument("--out_lattice_dir",
+                   help="write per-utterance lattices as FST text files")
+    p.add_argument("--otf", action="store_true",
+                   help="on-the-fly FST-composed beam Viterbi (no lattice); "
+                   "prune with --beam_threshold / --max_active")
+    p.add_argument("--otf_dynamic", action="store_true",
+                   help="fully dynamic lexicon/LM composition (no search "
+                   "graph built)")
+    p.add_argument("--no_lm_lookahead", action="store_true",
+                   help="disable the LM lookahead pruning potentials in "
+                   "--otf_dynamic")
+    p.add_argument("--max_active", type=int, default=None,
+                   help="max live (label, grammar-state) tokens per frame "
+                   "in --otf decoding")
+    p.add_argument("--fst_backend", choices=["auto", "py", "native"],
+                   default="auto")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--bucket_sizes", default="128,256,512,1024,2048")
     p.add_argument("--timit_fold", action="store_true",
@@ -88,9 +124,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_supported(args) -> None:
-    if args.lexicon:
-        raise NotImplementedError("--lexicon word decode is not ported yet "
-                                  "(ROADMAP.md Queue 1, slice 3)")
     if args.time_shard and args.time_shard > 1:
         raise NotImplementedError("--time_shard is not ported yet "
                                   "(ROADMAP.md Queue 1, slice 5)")
@@ -137,6 +170,9 @@ def main(argv=None) -> int:
         with open(args.phone_names) as f:
             names = [ln.strip() for ln in f if ln.strip()]
 
+    if args.lexicon:
+        return _word_decode(args, cfg, params, loader, names, logger, device)
+
     fold = timit_fold_indices() if args.timit_fold else None
     scorer = ErrorRateScorer()
     hyp_mlf = {}
@@ -173,6 +209,124 @@ def main(argv=None) -> int:
         logger.log("decode_done", per=scorer.error_rate, **scorer.summary())
     else:
         logger.log("decode_done", utts=len(hyp_mlf))
+    return 0
+
+
+def _word_decode(args, cfg, params, loader, names, logger, device) -> int:
+    """FST word decode: potentials and boundaries on the device, copied to
+    numpy, then the shared host decoders (:mod:`asr_craft_tpu.decode.fst`,
+    :mod:`asr_craft_tpu.decode.otf`) as the JAX CLI calls them.  Serves
+    shared-transition models ((L', L') trans) and fdt models ((B, T, L',
+    L') trans) alike."""
+    from asr_craft_tpu.decode import fst as F
+    from asr_craft_tpu.decode import otf
+
+    # the shared decoders assume it (decode/otf.py expand_arcs)
+    assert cfg.topology.num_expanded % cfg.num_states == 0
+    phone_index = {n: i for i, n in enumerate(names)} if names else None
+    lexicon, words = F.read_lexicon(args.lexicon, phone_index)
+    lm = F.read_fst_text(args.lm) if args.lm else None
+
+    otf_graph = lex_fst = None
+    if (args.otf or args.otf_dynamic) and args.nbest > 1:
+        raise SystemExit("--otf does not support --nbest; use the offline "
+                         "lattice path for n-best")
+    if args.otf_dynamic:
+        lex_fst = F.lexicon_fst(lexicon, words)
+    lookahead_arg = not args.no_lm_lookahead
+    if (args.otf_dynamic and lm is not None and lookahead_arg
+            and args.fst_backend == "py"):
+        # python backend: one lookahead object for the whole corpus, so
+        # per-history tables are paid once, not once per utterance
+        lookahead_arg = otf.make_exact_lookahead(lex_fst, lm, args.lm_weight)
+    elif args.otf:
+        otf_graph = otf.build_search_graph(lexicon, words, lm=lm,
+                                           lm_weight=args.lm_weight,
+                                           backend=args.fst_backend)
+
+    refs = None
+    if args.ref_words:
+        refs = {}
+        with open(args.ref_words) as f:
+            for line in f:
+                parts = line.split()
+                if parts:
+                    refs[parts[0]] = parts[1:]
+
+    scorer = ErrorRateScorer()
+    hyps, nbest_out = {}, {}
+    for batch in loader.epoch_batches(0):
+        tb = to_device(batch, device)
+        sparse = (None if "sparse_idx" not in tb else
+                  (tb["sparse_idx"], tb["sparse_val"]))
+        with torch.no_grad():
+            state, trans = potentials(cfg, params, tb.get("feats"), sparse)
+            state = apply_boundaries(cfg, state, tb["lengths"])
+        state, trans = state.cpu().numpy(), trans.cpu().numpy()
+        for r, uid in enumerate(batch["uids"]):
+            if uid < 0:
+                continue
+            n = int(batch["lengths"][r])
+            tr = trans if trans.ndim == 2 else trans[r, :n]
+            key = f"utt{int(uid):06d}"
+            if args.out_lattice_dir:
+                os.makedirs(args.out_lattice_dir, exist_ok=True)
+                lat = F.lattice_fst(state[r], tr, n, args.prune_margin,
+                                    num_states=cfg.num_states)
+                F.write_fst_text(
+                    lat, os.path.join(args.out_lattice_dir, f"{key}.fst.txt"))
+            try:
+                if lex_fst is not None:
+                    wseq, _, _ = otf.otf_decode_words_dynamic(
+                        state[r], tr, n, lex_fst, words, lm=lm,
+                        lm_weight=args.lm_weight, num_states=cfg.num_states,
+                        beam_threshold=args.beam_threshold,
+                        max_active=args.max_active, backend=args.fst_backend,
+                        lookahead=lookahead_arg)
+                elif otf_graph is not None:
+                    wseq, _, _ = otf.otf_decode_words(
+                        state[r], tr, n, otf_graph, words,
+                        num_states=cfg.num_states,
+                        beam_threshold=args.beam_threshold,
+                        max_active=args.max_active, backend=args.fst_backend)
+                else:
+                    kw = dict(lm=lm, lm_weight=args.lm_weight,
+                              prune_margin=args.prune_margin,
+                              num_states=cfg.num_states,
+                              backend=args.fst_backend)
+                    if args.nbest > 1:
+                        nb = F.decode_words_nbest(state[r], tr, n, lexicon,
+                                                  words, args.nbest, **kw)
+                        nbest_out[key] = [(w, wseq) for wseq, _, w in nb]
+                        wseq = nb[0][0] if nb else []
+                    else:
+                        wseq, _, _ = F.decode_words(state[r], tr, n, lexicon,
+                                                    words, **kw)
+            except ValueError:
+                # no accepting path (over-pruned lattice, or the lexicon
+                # cannot cover the utterance): an empty hypothesis, as in
+                # the reference
+                logger.log("decode_fail", utt=key)
+                wseq = []
+            hyps[key] = wseq
+            if refs is not None and key in refs:
+                scorer.add(refs[key], wseq)
+
+    if args.out_words:
+        os.makedirs(os.path.dirname(args.out_words) or ".", exist_ok=True)
+        with open(args.out_words, "w") as f:
+            for key in sorted(hyps):
+                f.write(f"{key} {' '.join(hyps[key])}\n")
+    if args.out_nbest:
+        os.makedirs(os.path.dirname(args.out_nbest) or ".", exist_ok=True)
+        with open(args.out_nbest, "w") as f:
+            for key in sorted(nbest_out):
+                for w, wseq in nbest_out[key]:
+                    f.write(f"{key} {w:.4f} {' '.join(wseq)}\n")
+    if refs is not None:
+        logger.log("decode_done", wer=scorer.error_rate, **scorer.summary())
+    else:
+        logger.log("decode_done", utts=len(hyps))
     return 0
 
 

@@ -1,6 +1,7 @@
-// Pieces shared by the fdt kernels (fdt_viterbi.cu: K3; fdt_train.cu: K1,
-// K2): the semiring zero, the in-block plane formation, and the guarded
-// three-way log-sum-exp of the reference.
+// Pieces shared by the port's kernels (fdt_viterbi.cu: K3; fdt_train.cu:
+// K1, K2; viterbi.cu: K7, K8): the semiring zero, the block-wide first
+// argmax of the max-plus decodes, the in-block plane formation, and the
+// guarded three-way log-sum-exp of the reference.
 //
 // Plane formation.  Wall is the packed parameter matrix of
 // asr_craft_tpu_torch/kernels/wall.py build_wall, passed TRANSPOSED and
@@ -12,13 +13,57 @@
 // last.  x_t is broadcast from shared memory and the plane stays there.
 #pragma once
 
+#include <climits>
+#include <cmath>
 #include <cuda_runtime.h>
 
 namespace fdtk {
 
 constexpr float kNegInf = -1e30f;   // ops/semiring.py NEG_INF: finite
+constexpr int kRedSlots = 33;       // one per warp + one for the result
 
 __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
+
+// (v, i) := the better of (v, i) and (v2, i2): larger value, then lower
+// index.  A total order, so every reduction tree gives the first argmax.
+__device__ __forceinline__ void take_better(float& v, int& i, float v2,
+                                            int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+// Block-wide (max, lowest index of the max); every thread gets the result.
+// red_v / red_i hold kRedSlots entries.  Two barriers, so consecutive
+// calls may reuse them.
+__device__ inline void block_argmax(float& v, int& i, float* red_v,
+                                    int* red_i) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1)
+    take_better(v, i, __shfl_xor_sync(0xffffffffu, v, o),
+                __shfl_xor_sync(0xffffffffu, i, o));
+  if (lane == 0) {
+    red_v[warp] = v;
+    red_i[warp] = i;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    v = lane < nw ? red_v[lane] : -INFINITY;
+    i = lane < nw ? red_i[lane] : INT_MAX;
+    for (int o = 16; o > 0; o >>= 1)
+      take_better(v, i, __shfl_xor_sync(0xffffffffu, v, o),
+                  __shfl_xor_sync(0xffffffffu, i, o));
+    if (lane == 0) {
+      red_v[kRedSlots - 1] = v;
+      red_i[kRedSlots - 1] = i;
+    }
+  }
+  __syncthreads();
+  v = red_v[kRedSlots - 1];
+  i = red_i[kRedSlots - 1];
+}
 
 // x[0:Du] = xrow[0:Du] (one frame's input dims), x[Du] = 1 (the bias).
 // The caller synchronises before the plane reads x.

@@ -55,51 +55,14 @@
 
 namespace {
 
+using fdtk::block_argmax;
 using fdtk::kNegInf;
+using fdtk::kRedSlots;
 using fdtk::round_up4;
+using fdtk::take_better;
 
 constexpr int kFwdThreads = 768;    // one pass over 684 flagship row groups
 constexpr int kTbThreads = 128;
-constexpr int kRedSlots = 33;       // one per warp + one for the result
-
-// (v, i) := the better of (v, i) and (v2, i2): larger value, then lower
-// index.  A total order, so every reduction tree gives the first argmax.
-__device__ __forceinline__ void take_better(float& v, int& i, float v2,
-                                            int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-// Block-wide (max, lowest index of the max); every thread gets the result.
-// Two barriers, so consecutive calls may reuse red_v / red_i.
-__device__ void block_argmax(float& v, int& i, float* red_v, int* red_i) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1)
-    take_better(v, i, __shfl_xor_sync(0xffffffffu, v, o),
-                __shfl_xor_sync(0xffffffffu, i, o));
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    v = lane < nw ? red_v[lane] : -INFINITY;
-    i = lane < nw ? red_i[lane] : INT_MAX;
-    for (int o = 16; o > 0; o >>= 1)
-      take_better(v, i, __shfl_xor_sync(0xffffffffu, v, o),
-                  __shfl_xor_sync(0xffffffffu, i, o));
-    if (lane == 0) {
-      red_v[kRedSlots - 1] = v;
-      red_i[kRedSlots - 1] = i;
-    }
-  }
-  __syncthreads();
-  v = red_v[kRedSlots - 1];
-  i = red_i[kRedSlots - 1];
-}
 
 size_t fwd_smem_floats(int Du, int ns, int P) {
   const size_t Lp = (size_t)ns * P;

@@ -104,9 +104,11 @@ def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
     return bp, last, scores
 
 
-def viterbi_traceback_cuda(bp, last, lengths):
-    """Traceback kernel: (B, T) int32 paths, as
-    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback` returns."""
+def launch_traceback(bp, last, lengths, counts: dict, key: str):
+    """Launch the traceback kernel: (B, T) int32 paths, as
+    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback` returns.
+    Each decode counts its launches in its own ``counts[key]`` (here and in
+    ``kernels/viterbi.py``)."""
     dev = bp.device
     _build.check_tensor("bp", bp, torch.int32, 3, dev)
     _build.check_tensor("last", last, torch.int32, 1, dev)
@@ -124,8 +126,16 @@ def viterbi_traceback_cuda(bp, last, lengths):
             paths.data_ptr(), B, T, Lp,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(code, "fdt_viterbi_traceback launch")
-    launches["fdt_viterbi_traceback"] += 1
+    counts[key] += 1
     return paths
+
+
+def viterbi_traceback_cuda(bp, last, lengths):
+    """Traceback kernel on the fdt decode's backpointers: (B, T) int32
+    paths, as :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback`
+    returns."""
+    return launch_traceback(bp, last, lengths, launches,
+                            "fdt_viterbi_traceback")
 
 
 def fdt_viterbi_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,

@@ -1,27 +1,37 @@
-"""The CRF model: config, parameters, training criterion and decode.
+"""The CRF model: config, parameters, potentials, training criterion and
+decode.
 
-Counterpart of :mod:`asr_craft_tpu.models.crf`.  Ported so far: the
-frame-dependent-transition (fdt) path — ``crf_loss`` (the dual-lattice
-objective of :func:`asr_craft_tpu_torch.ops.fdt.fdt_nll_dual`: the K1/K2
-kernels or the plain autograd loop), ``decode`` (the factored Viterbi,
-:mod:`asr_craft_tpu_torch.kernels.fdt_viterbi`), ``frame_posteriors`` —
-for dense and sparse inputs (sparse frames are densified exactly), plus
-``apply_boundaries`` and ``frame_accuracy``.  The shared-transition
-branches raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
+Counterpart of :mod:`asr_craft_tpu.models.crf`.  Ported so far:
+
+- the frame-dependent-transition (fdt) path — ``crf_loss`` (the
+  dual-lattice objective of :func:`asr_craft_tpu_torch.ops.fdt.fdt_nll_dual`:
+  the K1/K2 kernels or the plain autograd loop), ``decode`` (the factored
+  Viterbi, :mod:`asr_craft_tpu_torch.kernels.fdt_viterbi`),
+  ``frame_posteriors`` — for dense and sparse inputs (sparse frames are
+  densified exactly);
+- the shared-transition ``decode`` (``potentials``, then the K7/K8 kernels
+  of :mod:`asr_craft_tpu_torch.kernels.viterbi`), dense and sparse;
+- ``potentials``, ``apply_boundaries`` and ``frame_accuracy``.
+
+The shared-transition ``crf_loss`` and ``frame_posteriors`` raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels.fdt_viterbi import fdt_viterbi_wall
+from asr_craft_tpu_torch.kernels.viterbi import viterbi_shared
 from asr_craft_tpu_torch.kernels.wall import build_wall
 from asr_craft_tpu_torch.models.feature_map import (FeatureMapConfig,
-                                                    densify_sparse)
+                                                    dense_potentials,
+                                                    densify_sparse,
+                                                    sparse_potentials)
 from asr_craft_tpu_torch.models.topology import Topology
 from asr_craft_tpu_torch.ops import fdt
 
@@ -62,27 +72,62 @@ class CrfConfig:
         return self.fmap.init_params(generator, scale, device)
 
 
+def _check_precision(cfg: CrfConfig, tensor) -> None:
+    """Raise for a precision other than ``highest`` where a kernel would
+    serve ``tensor``: the kernels are IEEE fp32 only."""
+    if kernels.use_kernel(tensor) and cfg.precision != "highest":
+        raise NotImplementedError(
+            f"precision {cfg.precision!r} on the CUDA kernels (only "
+            "'highest', IEEE fp32, is ported; ROADMAP.md Queue 2)")
+
+
 def _fdt_feats(cfg: CrfConfig, feats, sparse, what: str,
                on_kernel: bool = True):
     """The dense frames of the fdt path: ``feats``, or ``sparse =
     (indices, values)`` densified exactly with a sparse feature map.
-    Raises for the shared-transition path and, where a kernel would run
+    Raises for the shared-transition path (whose training criterion and
+    posteriors are still to port) and, where a kernel would run
     (``on_kernel``), for a precision other than ``highest``."""
     if not cfg.fmap.frame_dependent_trans:
         raise NotImplementedError(
             f"shared-transition {what} (trans_range of zero width) is not "
-            "ported yet (ROADMAP.md Queue 1, slice 3)")
+            "ported yet (ROADMAP.md Queue 1, slice 3b)")
     if cfg.featuremap == "sparse":
         if sparse is None:
             raise ValueError(
                 "sparse feature map needs sparse=(indices, values)")
         feats = densify_sparse(sparse[0], sparse[1], cfg.feat_dim)
     feats = feats.contiguous()
-    if on_kernel and kernels.use_kernel(feats) and cfg.precision != "highest":
-        raise NotImplementedError(
-            f"precision {cfg.precision!r} on the CUDA kernels (only "
-            "'highest', IEEE fp32, is ported; ROADMAP.md Queue 2)")
+    if on_kernel:
+        _check_precision(cfg, feats)
     return feats
+
+
+@functools.lru_cache(maxsize=None)
+def _penalties(topo: Topology, device: torch.device):
+    """The topology's (transition (L', L'), start (L',), end (L',))
+    penalties on ``device``, copied there once: a copy from pageable host
+    memory in every call would wait for the device's queue to drain."""
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        topo.transition_penalty(), topo.start_penalty(), topo.end_penalty()))
+
+
+def potentials(cfg: CrfConfig, params: dict, feats, sparse=None):
+    """Feature frames -> (state (B, T, L'), trans (L', L') or (B, T, L',
+    L')), the n-state structural mask folded into ``trans`` as an additive
+    NEG_INF penalty.  ``feats (B, T, D)``, or ``sparse = (indices, values)``
+    (B, T, K) each with a sparse feature map (``feats`` ignored).  fp32
+    matmuls (IEEE: TF32 stays off, the PyTorch default)."""
+    if cfg.featuremap == "sparse":
+        if sparse is None:
+            raise ValueError(
+                "sparse feature map needs sparse=(indices, values)")
+        state, trans = sparse_potentials(cfg.fmap, params, *sparse)
+    else:
+        state, trans = dense_potentials(cfg.fmap, params, feats)
+    if cfg.num_states > 1:
+        trans = trans + _penalties(cfg.topology, trans.device)[0]
+    return state, trans
 
 
 def apply_boundaries(cfg: CrfConfig, state, lengths):
@@ -92,10 +137,8 @@ def apply_boundaries(cfg: CrfConfig, state, lengths):
     ``enforce_boundaries=False``."""
     if cfg.num_states == 1 or not cfg.enforce_boundaries:
         return state
-    topo = cfg.topology
     T = state.shape[-2]
-    start = torch.from_numpy(topo.start_penalty()).to(state.device)
-    end = torch.from_numpy(topo.end_penalty()).to(state.device)
+    _, start, end = _penalties(cfg.topology, state.device)
     state = state.clone()
     state[..., 0, :] += start
     at_end = (torch.arange(T, device=state.device)[None, :]
@@ -138,7 +181,12 @@ def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
     sparse feature map) and ``lengths (B,)`` on one device; beam options as
     in the JAX package (both None = exact).  Returns
     (phone_frames (B, T), state_paths (B, T), scores (B,)), on that device.
+    Frame-dependent transitions run the factored K3 decode; shared ones the
+    K8 n-state kernel (n states, P <= 128) or the dense K7 kernel.
     """
+    if not cfg.fmap.frame_dependent_trans:
+        return _decode_shared(cfg, params, feats, lengths, sparse,
+                              beam_width, beam_threshold)
     feats = _fdt_feats(cfg, feats, sparse, "decode")
     Wall, u0, u1, dims = build_wall(params, cfg.fmap, cfg.num_states)
     paths, scores = fdt_viterbi_wall(
@@ -146,6 +194,20 @@ def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
         u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
         boundaries=cfg.enforce_boundaries, beam_threshold=beam_threshold,
         beam_width=beam_width)
+    return cfg.topology.path_to_phones(paths), paths, scores
+
+
+def _decode_shared(cfg: CrfConfig, params: dict, feats, lengths, sparse,
+                   beam_width, beam_threshold):
+    """The shared-transition decode: potentials, boundaries, then K8 (the
+    topology-factored kernel, for n states and P <= 128) or K7 (dense)."""
+    state, trans = potentials(cfg, params, feats, sparse)
+    lengths = lengths.to(device=state.device, dtype=torch.int32)
+    state = apply_boundaries(cfg, state, lengths).contiguous()
+    trans = trans.contiguous()
+    _check_precision(cfg, state)
+    paths, scores = viterbi_shared(state, trans, lengths, cfg.num_states,
+                                   beam_threshold, beam_width)
     return cfg.topology.path_to_phones(paths), paths, scores
 
 

@@ -1,10 +1,11 @@
 """Dense feature map: (acoustic frame, label) -> log potential, as matmuls.
 
-Counterpart of :mod:`asr_craft_tpu.models.feature_map`: the dense map and
-``densify_sparse``, the exact bridge that lets sparse inputs ride the
-frame-dependent-transition path (``sparse_potentials``, which the
-shared-transition path needs, is ROADMAP.md Queue 1, slice 3).  Parameters
-are a plain dict of tensors with the JAX package's keys and shapes:
+Counterpart of :mod:`asr_craft_tpu.models.feature_map`: the dense map,
+the sparse map (``sparse_potentials``: a gather and a weighted sum, which
+the shared-transition path uses) and ``densify_sparse``, the exact bridge
+that lets sparse inputs ride the frame-dependent-transition path.
+Parameters are a plain dict of tensors with the JAX package's keys and
+shapes:
 
     w_state (Ds, L')   b_state (L',)   w_trans (Dt, L', L')   b_trans (L', L')
 
@@ -114,3 +115,30 @@ def densify_sparse(indices, values, D: int):
     B, T, K = indices.shape
     out = torch.zeros((B, T, D), dtype=values.dtype, device=values.device)
     return out.scatter_add(2, indices.long(), values)
+
+
+def sparse_potentials(cfg: FeatureMapConfig, params: dict, indices, values):
+    """Sparse frames ``indices (..., T, K)`` int, ``values (..., T, K)`` ->
+    the outputs of :func:`dense_potentials`.
+
+    Pair k scores ``values[k] * w[indices[k], label]``; padding slots are
+    index 0 with value 0.  Range routing: only indices inside a function's
+    dim range feed it, out-of-range pairs add nothing (the JAX version's
+    semantics)."""
+    def seg(w, lo, hi, n_out_dims):
+        in_rng = (indices >= lo) & (indices < hi)
+        idx = torch.clamp(indices.long() - lo, 0, w.shape[0] - 1)
+        val = torch.where(in_rng, values, 0.0)
+        val = val.reshape(val.shape + (1,) * n_out_dims)
+        return (val * w[idx]).sum(dim=indices.dim() - 1)
+
+    state = seg(params["w_state"], *cfg.state_range, 1)
+    if cfg.use_state_bias:
+        state = state + params["b_state"]
+    if cfg.frame_dependent_trans:
+        trans = seg(params["w_trans"], *cfg.trans_range, 2)
+        if cfg.use_trans_bias:
+            trans = trans + params["b_trans"]
+    else:
+        trans = params["b_trans"]
+    return state, trans

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's config-2 decode and training once on one NVIDIA GPU.
+"""Drive the port's decode (configs 1, 2, 3, 5) and config-2 training once
+on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -31,7 +32,21 @@ in phases:
     weights decode to the same PER and MLF under both backends;
 (f) training timing — K1, K2 (recursion, contraction, both) and a full
     train step (loss, backward, SGD update), kernels against the plain
-    version at B=128, T=512, all rows full.
+    version at B=128, T=512, all rows full;
+(g) shared-transition parity — the K7 kernel (``viterbi_dense_fwd``, configs
+    1 and 3), the K8 kernel (``viterbi_nstate_fwd``, config 5) and the
+    traceback kernel (``viterbi_traceback``) against their plain version
+    (``ops/viterbi``) on the potentials of random models at B=64, T=512
+    (ragged lengths, an empty row), exact, ``beam_threshold=8`` and
+    ``beam_width=16``, and K7 at P=130, ns=3 (L'=390) at small B, T;
+(h) shared-transition end to end — ``cli.decode.main`` for configs 1, 3
+    (``--normalize utt --beam_threshold 8``) and 5 on a synthetic corpus
+    with the hand-set posterior model, through the kernels and with
+    ``--kernel_backend torch`` (same PER, same MLF, the JAX CPU counts),
+    and the ``--lexicon`` word decode of the word fixture (the JAX CLI's
+    words and WER);
+(i) shared-transition timing — K7, K8, the traceback and ``decode()``
+    against the plain version at B=64, T=512 for configs 1, 3 and 5.
 
 Prints the card (``nvidia-smi``), the build time, one line per check, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": ...}``.
@@ -91,6 +106,39 @@ TRAIN_FLAGS = ["--synthetic_utts", "256", "--crf_label_size", "48",
 # and corpus (asr_craft_tpu.cli.decode --platform cpu, same flags): PER
 # 568/2420 = 0.2347, byte-identical MLF to the port's.
 JAX_REFERENCE = (568, 2420)
+SHARED_CU = "asr_craft_tpu_torch/csrc/viterbi.cu"
+SHARED_SRC = {                      # the TPU kernels they replace
+    "viterbi_dense_fwd": "asr_craft_tpu/kernels/viterbi_pallas.py:74",
+    "viterbi_nstate_fwd": "asr_craft_tpu/kernels/viterbi_pallas.py:235",
+    "viterbi_traceback": "asr_craft_tpu/kernels/viterbi_pallas.py:108",
+}
+# The shared-transition configs: (window, recipe decode flags) and the
+# (errors, tokens) of the JAX package's CPU decode (asr_craft_tpu.cli.decode
+# --platform cpu) of 128 synthetic utterances, batch 64, with
+# flagship.posterior_model(cfg, window) (transitions 0.01 * N(0, 1): a model
+# that switches phones almost every frame, hence PER > 1 for the monophone
+# configs; a parity check, not a quality figure).  MLFs byte-identical to
+# the port's CPU decode.
+SHARED = {
+    "config1": (1, [], (9235, 2402)),
+    "config3": (2, ["--normalize", "utt", "--beam_threshold", "8"],
+                (10561, 2445)),
+    "config5": (2, ["--normalize", "global"], (562, 2374)),
+}
+# The JAX CLI's --lexicon word decode (--fst_backend py) of
+# flagship.word_corpus's 10 test utterances with posterior_model at window
+# 0: WER 0/33 and these words.
+JAX_WORDS = ("utt000000 w02 w05 w02\n"
+             "utt000001 w03 w01 w04 w02 w04 w01\n"
+             "utt000002 w02 w03 w05\n"
+             "utt000003 w04 w01 w00\n"
+             "utt000004 w05 w02\n"
+             "utt000005 w04 w02 w02\n"
+             "utt000006 w05 w01\n"
+             "utt000007 w00 w02 w01 w00 w05 w04\n"
+             "utt000008 w02 w03 w02\n"
+             "utt000009 w04 w03\n")
+JAX_WORD_ERRORS = (0, 33)
 
 
 def log(msg: str) -> None:
@@ -113,7 +161,9 @@ class Smoke:
                     "fdt_train_contract": 0.0}
         self.counts = {}
         self.train_counts = {}
+        self.shared_counts = {}
         self.times = {}
+        self.err.update({k: 0.0 for k in SHARED_SRC})
 
     # -- (a) parity ---------------------------------------------------------
     def problem(self, cfg, B, T, seed):
@@ -288,7 +338,7 @@ class Smoke:
                 lambda: fdt.fdt_viterbi_traceback(bp, last, lengths), 20, 3),
             "decode": (
                 lambda: decode(cfg, params, feats, lengths),
-                lambda: self._plain_decode(decode, params, feats, lengths),
+                lambda: self._plain_decode(cfg, params, feats, lengths),
                 10, 3),
         }
         audio_s = B * T * FRAME_S
@@ -305,11 +355,12 @@ class Smoke:
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                 f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
 
-    def _plain_decode(self, decode, params, feats, lengths):
+    def _plain_decode(self, cfg, params, feats, lengths):
         from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.models.crf import decode
         kernels.set_backend("torch")
         try:
-            return decode(self.cfg, params, feats, lengths)
+            return decode(cfg, params, feats, lengths)
         finally:
             kernels.set_backend("auto")
 
@@ -596,6 +647,219 @@ class Smoke:
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                 f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
 
+    # -- (g) shared-transition parity ----------------------------------------
+    def shared_configs(self):
+        from asr_craft_tpu_torch import flagship
+        return {"config1": flagship.timit_mono(),
+                "config3": flagship.wsj_crandem(),
+                "config5": flagship.swbd()}
+
+    def shared_problem(self, cfg, B, T, seed, ragged=True):
+        """A random model (scale 0.1), N(0, 1) frames, lengths (ragged with
+        an empty last row, or all T) and the decode's own kernel inputs:
+        the potentials with the boundaries folded in."""
+        from asr_craft_tpu_torch.flagship import ragged_lengths, tiny_batch
+        from asr_craft_tpu_torch.models.crf import apply_boundaries, potentials
+        torch = self.torch
+        params = cfg.init_params(torch.Generator().manual_seed(seed), 0.1,
+                                 self.dev)
+        feats = tiny_batch(cfg, B, T, seed, self.dev)["feats"]
+        lengths = (torch.from_numpy(ragged_lengths(B, T, seed)).to(self.dev)
+                   if ragged else torch.full((B,), T, dtype=torch.int32,
+                                             device=self.dev))
+        state, trans = potentials(cfg, params, feats)
+        return (apply_boundaries(cfg, state, lengths).contiguous(),
+                trans.contiguous(), lengths, params, feats)
+
+    def check_shared(self, label, name, state, trans, lengths, ns, beams):
+        from asr_craft_tpu_torch.kernels import viterbi as KV
+        from asr_craft_tpu_torch.ops import fdt
+        from asr_craft_tpu_torch.ops import viterbi as V
+        torch = self.torch
+        thr, bw = beams.get("beam_threshold"), beams.get("beam_width")
+        rbp, rlast, rscores = V.viterbi_forward(state, trans, lengths, bw,
+                                                thr)
+        ref_paths = fdt.fdt_viterbi_traceback(rbp, rlast, lengths)
+        if name == "viterbi_nstate_fwd":
+            bp, last, scores = KV.viterbi_nstate_fwd(state, trans, lengths,
+                                                     ns, thr, bw)
+        else:
+            bp, last, scores = KV.viterbi_dense_fwd(state, trans, lengths,
+                                                    thr, bw)
+        paths = KV.viterbi_traceback(bp, last, lengths)
+        tb_paths = KV.viterbi_traceback(rbp, rlast, lengths)
+        torch.cuda.synchronize()
+        L = state.shape[-1]
+        if not (torch.isfinite(scores).all() and paths.min() >= 0
+                and paths.max() < L):
+            raise AssertionError(f"{label}: non-finite scores or bad labels")
+        err = float((scores - rscores).abs().max())
+        if not torch.allclose(scores, rscores, **SCORE_TOL):
+            raise AssertionError(f"{label}: scores differ, max abs {err}")
+        diff = (paths != ref_paths).any(dim=1)
+        n_diff = int(diff.sum())
+        if n_diff:
+            # near-tie rule: a differing path must rescore to the plain
+            # optimum within the tolerance
+            rescored = V.path_score(state, trans, paths, lengths)
+            if bool((diff & (lengths == 0)).any()) or not torch.allclose(
+                    rescored[diff], rscores[diff], **SCORE_TOL):
+                raise AssertionError(f"{label}: {n_diff} paths differ and "
+                                     "are not near-ties")
+        tb_err = int((tb_paths - ref_paths).abs().max())
+        if tb_err:
+            raise AssertionError(f"{label}: traceback kernel differs on the "
+                                 "plain backpointers")
+        bp_same = bool(torch.equal(bp, rbp))
+        self.err[name] = max(self.err[name], err)
+        self.err["viterbi_traceback"] = max(self.err["viterbi_traceback"],
+                                            tb_err)
+        log(f"shared parity {label}: {name} max |score - plain| {err:.3e}, "
+            f"paths differing {n_diff}/{len(paths)} (near-ties), "
+            f"backpointers {'equal' if bp_same else 'differ'}; traceback "
+            "exact")
+
+    def phase_shared_parity(self):
+        from asr_craft_tpu_torch.models.crf import CrfConfig
+        for key, cfg in self.shared_configs().items():
+            name = ("viterbi_nstate_fwd" if cfg.num_states > 1
+                    else "viterbi_dense_fwd")
+            state, trans, lengths, _, _ = self.shared_problem(
+                cfg, self.B, self.T, seed=0)
+            for mode, beams in (("exact", {}),
+                                ("beam_threshold=8", {"beam_threshold": 8.0}),
+                                ("beam_width=16", {"beam_width": 16})):
+                self.check_shared(f"{key} {mode}", name, state, trans,
+                                  lengths, cfg.num_states, beams)
+        big = CrfConfig(num_labels=130, feat_dim=16, num_states=3)
+        state, trans, lengths, _, _ = self.shared_problem(big, 4, 40, seed=1)
+        for mode, beams in (("exact", {}), ("beam_width=40",
+                                            {"beam_width": 40})):
+            self.check_shared(f"P=130 ns=3 {mode}", "viterbi_dense_fwd",
+                              state, trans, lengths, 3, beams)
+
+    # -- (h) shared-transition end to end -------------------------------------
+    def phase_shared_decode(self):
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.flagship import posterior_model, word_corpus
+        from asr_craft_tpu_torch.kernels import viterbi as KV
+        from asr_craft_tpu_torch.models.crf import CrfConfig
+        from asr_craft_tpu_torch.models.weights import (params_from_numpy,
+                                                        save_raw)
+        OUT.mkdir(parents=True, exist_ok=True)
+        runs = {}
+        for key, cfg in self.shared_configs().items():
+            window, flags, _ = SHARED[key]
+            wfile = OUT / f"{key}.dat"
+            save_raw(wfile, cfg.fmap,
+                     params_from_numpy(posterior_model(cfg, window)))
+            argv = ["--synthetic_utts", "128", "--crf_label_size",
+                    str(cfg.num_labels), "--crf_states",
+                    str(cfg.num_states), "--window_extent", str(window),
+                    "--batch_size", "64", "--weight_file", str(wfile),
+                    "--device", "cuda"] + flags
+            runs[key] = argv
+        # the main path: every count 0 before it, read after it
+        KV.reset_launches()
+        recs = {key: self.run_cli(argv + ["--kernel_backend", "auto",
+                                          "--out_mlf",
+                                          str(OUT / f"{key}_auto.mlf")])
+                for key, argv in runs.items()}
+        self.shared_counts = dict(KV.launches)
+        KV.reset_launches()
+        for key, argv in runs.items():
+            rec, secs = recs[key]
+            rec_t, secs_t = self.run_cli(argv + [
+                "--kernel_backend", "torch", "--out_mlf",
+                str(OUT / f"{key}_torch.mlf")])
+            kernels.set_backend("auto")
+            log(f"shared decode CLI {key}: per {rec['per']} (kernels, "
+                f"{secs:.3f} s wall); per {rec_t['per']} (plain, "
+                f"{secs_t:.3f} s wall)")
+            if (rec["errors"], rec["tokens"]) != SHARED[key][2]:
+                raise AssertionError(f"{key}: errors/tokens {rec['errors']}/"
+                                     f"{rec['tokens']}, JAX reference "
+                                     f"{SHARED[key][2]}")
+            if rec["per"] != rec_t["per"] or (
+                    (OUT / f"{key}_auto.mlf").read_bytes()
+                    != (OUT / f"{key}_torch.mlf").read_bytes()):
+                raise AssertionError(f"{key}: kernel and plain PER or MLF "
+                                     "differ")
+        plain_counts = dict(KV.launches)
+        log(f"shared decode CLI launches {self.shared_counts} (kernels), "
+            f"{plain_counts} (plain)")
+        if min(self.shared_counts.values()) < 1:
+            raise AssertionError(f"a kernel never launched: "
+                                 f"{self.shared_counts}")
+        if max(plain_counts.values()) != 0:
+            raise AssertionError(f"plain backend launched {plain_counts}")
+        log("shared decode CLI: kernel and plain backends give the same PER "
+            "and MLF; errors/tokens equal the JAX reference")
+
+        words_dir = OUT / "words"
+        P = word_corpus(words_dir)
+        cfg = CrfConfig(num_labels=P, feat_dim=P)
+        save_raw(words_dir / "w.dat", cfg.fmap,
+                 params_from_numpy(posterior_model(cfg, 0)))
+        rec, secs = self.run_cli([
+            "--ftr1_file", str(words_dir / "test.pf"), "--crf_label_size",
+            str(P), "--weight_file", str(words_dir / "w.dat"),
+            "--batch_size", "8", "--bucket_sizes", "256",
+            "--lexicon", str(words_dir / "lex.txt"),
+            "--ref_words", str(words_dir / "refs.txt"), "--fst_backend",
+            "py", "--device", "cuda",
+            "--out_words", str(words_dir / "hyp.txt")])
+        words = (words_dir / "hyp.txt").read_text()
+        if (rec["errors"], rec["tokens"]) != JAX_WORD_ERRORS or \
+                words != JAX_WORDS:
+            raise AssertionError(f"word decode: {rec}, words {words!r}")
+        log(f"word decode CLI: wer {rec['wer']} ({rec['errors']}/"
+            f"{rec['tokens']}, {secs:.3f} s wall), words equal the JAX CLI's")
+
+    # -- (i) shared-transition timing -----------------------------------------
+    def phase_shared_timing(self):
+        from asr_craft_tpu_torch.kernels import viterbi as KV
+        from asr_craft_tpu_torch.models.crf import decode
+        from asr_craft_tpu_torch.ops import fdt
+        from asr_craft_tpu_torch.ops import viterbi as V
+        B, T = self.B, self.T
+        audio_s = B * T * FRAME_S
+        for key, cfg in self.shared_configs().items():
+            state, trans, lengths, params, feats = self.shared_problem(
+                cfg, B, T, seed=0, ragged=False)
+            ns = cfg.num_states
+            name = ("viterbi_nstate_fwd" if ns > 1 else "viterbi_dense_fwd")
+            fwd = {"viterbi_nstate_fwd": lambda: KV.viterbi_nstate_fwd(
+                       state, trans, lengths, ns),
+                   "viterbi_dense_fwd": lambda: KV.viterbi_dense_fwd(
+                       state, trans, lengths)}
+            bp, last, _ = V.viterbi_forward(state, trans, lengths)
+            fns = {name: (fwd[name],
+                          lambda: V.viterbi_forward(state, trans, lengths)),
+                   "viterbi_traceback": (
+                       lambda: KV.viterbi_traceback(bp, last, lengths),
+                       lambda: fdt.fdt_viterbi_traceback(bp, last, lengths)),
+                   "decode": (
+                       lambda: decode(cfg, params, feats, lengths),
+                       lambda: self._plain_decode(cfg, params, feats,
+                                                  lengths))}
+            if ns > 1:     # K7 on the same n-state problem, for comparison
+                fns["viterbi_dense_fwd"] = (
+                    fwd["viterbi_dense_fwd"],
+                    lambda: V.viterbi_forward(state, trans, lengths))
+            for fn_name, (kern, plain) in fns.items():
+                p1 = self.cuda_ms(plain, 2)
+                k1 = self.cuda_ms(kern, 10)
+                k2 = self.cuda_ms(kern, 10)
+                p2 = self.cuda_ms(plain, 2)
+                ms, plain_ms = min(k1, k2), min(p1, p2)
+                self.times[f"{key} {fn_name}"] = (ms, plain_ms)
+                log(f"timing {key} {fn_name} B={B} T={T}: kernel "
+                    f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                    f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
+                    f"{audio_s / ms * 1e3:.1f} vs "
+                    f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
+
     def kernels_line(self):
         out = []
         for name, replaces in (("fdt_viterbi_fwd", FWD_SRC),
@@ -611,6 +875,16 @@ class Smoke:
             out.append({"name": name, "route": "cuda", "source": TRAIN_CU,
                         "replaces": replaces,
                         "launches": self.train_counts[name],
+                        "max_abs_err": self.err[name],
+                        "ms": ms, "plain_ms": plain_ms})
+        # times at config 1 (K7), config 5 (K8) and config 1 (traceback)
+        for name, key, src in (("viterbi_dense_fwd", "config1", SHARED_CU),
+                               ("viterbi_nstate_fwd", "config5", SHARED_CU),
+                               ("viterbi_traceback", "config1", CU_SRC)):
+            ms, plain_ms = self.times[f"{key} {name}"]
+            out.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": SHARED_SRC[name],
+                        "launches": self.shared_counts[name],
                         "max_abs_err": self.err[name],
                         "ms": ms, "plain_ms": plain_ms})
         return {"kernels": out}
@@ -648,7 +922,10 @@ def main() -> int:
                         ("timing", smoke.phase_timing),
                         ("train parity", smoke.phase_train_parity),
                         ("train", smoke.phase_train_cli),
-                        ("train timing", smoke.phase_train_timing)):
+                        ("train timing", smoke.phase_train_timing),
+                        ("shared parity", smoke.phase_shared_parity),
+                        ("shared decode", smoke.phase_shared_decode),
+                        ("shared timing", smoke.phase_shared_timing)):
         try:
             phase()
         except Exception:       # report every phase, then fail as a whole

@@ -94,8 +94,7 @@ def test_cli_backends_agree_on_cpu(tmp_path, weight_file):
             == (tmp_path / "torch.mlf").read_bytes())
 
 
-@pytest.mark.parametrize("flag", [["--lexicon", "lex.txt"],
-                                  ["--time_shard", "2"]])
+@pytest.mark.parametrize("flag", [["--time_shard", "2"]])
 def test_cli_unported_flags_raise(weight_file, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(CORPUS + ["--weight_file", str(weight_file),

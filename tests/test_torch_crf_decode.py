@@ -86,18 +86,20 @@ def test_frame_accuracy_matches_jax():
 
 
 def test_unported_branches_raise():
-    """The shared-transition branches still raise; a sparse feature map is
-    ported now and, as in JAX, wants its (indices, values) pairs."""
+    """The shared-transition training criterion and posteriors still raise
+    (slice 3b); its decode is ported; a sparse feature map is ported and,
+    as in JAX, wants its (indices, values) pairs."""
     tcfg = crf.CrfConfig(num_labels=P, feat_dim=D, num_states=NS)
     params = tcfg.init_params()
     feats = torch.zeros((1, 4, D))
     lengths = torch.tensor([4])
     labels = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crf.decode(tcfg, params, feats, lengths)           # shared trans
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    phones, paths, scores = crf.decode(tcfg, params, feats, lengths)
+    assert paths.tolist() == [[0, 0, 1, 2]] and phones.tolist() == [[0] * 4]
+    assert float(scores[0]) == 0.0
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 3b"):
         crf.crf_loss(tcfg, params, feats, labels, lengths)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 3b"):
         crf.frame_posteriors(tcfg, params, feats, lengths)
     sparse = crf.CrfConfig(num_labels=P, feat_dim=D, num_states=NS,
                            trans_range=(0, D), featuremap="sparse")

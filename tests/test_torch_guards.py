@@ -30,7 +30,8 @@ names = [m.name for m in
 for n in names:
     importlib.import_module(n)
 for n in ('kernels.wall', 'kernels.fdt_train', 'train.trainer',
-          'train.checkpoint', 'cli.train'):
+          'train.checkpoint', 'cli.train', 'kernels.viterbi',
+          'ops.viterbi'):
     assert 'asr_craft_tpu_torch.' + n in names, n
 assert len(names) >= 20, names
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))

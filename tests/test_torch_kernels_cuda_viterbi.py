@@ -1,0 +1,162 @@
+"""The K7 and K8 CUDA kernels (shared-transition Viterbi) against their
+plain PyTorch version, on the card.
+
+Marked ``cuda``: the kernels have no CPU mode, so these tests skip on a
+host without an NVIDIA GPU.  On one, from the repository root:
+
+    python -m pytest --noconftest -m cuda \\
+        tests/test_torch_kernels_cuda_viterbi.py -q
+
+The kernels do the plain version's fp32 adds and maxes in its order and
+break ties as it does, so backpointers, final labels, scores and paths
+must be EQUAL, also on tied (all-zero, integer) inputs, on rows that end
+dead and on rows of length 0.
+"""
+import numpy as np
+import pytest
+import torch
+
+from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.kernels import viterbi as KV
+from asr_craft_tpu_torch.models import crf
+from asr_craft_tpu_torch.models.topology import Topology
+from asr_craft_tpu_torch.ops import fdt
+from asr_craft_tpu_torch.ops import viterbi as V
+
+pytestmark = pytest.mark.cuda
+MODES = {"exact": (None, None), "threshold": (2.0, None),
+         "topk": (None, 4), "both": (1.0, 3), "top1": (None, 1)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _problem(dev, P, ns, B=6, T=29, seed=0, kind="normal"):
+    rng = np.random.default_rng(seed)
+    L = P * ns
+    state = rng.normal(size=(B, T, L)).astype(np.float32)
+    trans = rng.normal(size=(L, L), scale=0.5).astype(np.float32)
+    if kind == "zero":
+        state, trans = np.zeros_like(state), np.zeros_like(trans)
+    elif kind == "integer":
+        state = rng.integers(0, 2, size=state.shape).astype(np.float32)
+        trans = rng.integers(0, 2, size=trans.shape).astype(np.float32)
+    lengths = rng.integers(1, T + 1, size=B).astype(np.int32)
+    if B >= 3:
+        lengths[0], lengths[1], lengths[-1] = T, 2, 0
+    if ns > 1:
+        topo = Topology(P, ns)
+        trans = trans + topo.transition_penalty()
+        state[:, 0] += topo.start_penalty()
+        for b in range(B):
+            if lengths[b] > 0:
+                state[b, lengths[b] - 1] += topo.end_penalty()
+    return (torch.from_numpy(state).to(dev), torch.from_numpy(trans).to(dev),
+            torch.from_numpy(lengths).to(dev))
+
+
+def _compare(fwd, state, trans, lengths, thr, bw, name):
+    before = KV.launches[name]
+    bp, last, scores = fwd(thr, bw)
+    rbp, rlast, rscores = V.viterbi_forward(state, trans, lengths, bw, thr)
+    torch.cuda.synchronize()
+    assert KV.launches[name] == before + (state.shape[0] > 0)
+    assert torch.equal(scores, rscores)
+    assert torch.equal(last, rlast)
+    assert torch.equal(bp, rbp)
+    paths = KV.viterbi_traceback(bp, last, lengths)
+    assert torch.equal(paths, fdt.fdt_viterbi_traceback(rbp, rlast, lengths))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("kind", ["normal", "zero", "integer"])
+@pytest.mark.parametrize("P,ns", [(5, 1), (48, 1), (4, 3), (46, 3)])
+def test_dense_kernel_matches_plain(dev, P, ns, kind, mode):
+    thr, bw = MODES[mode]
+    state, trans, lengths = _problem(dev, P, ns, seed=P + ns, kind=kind)
+    _compare(lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w),
+             state, trans, lengths, thr, bw, "viterbi_dense_fwd")
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("kind", ["normal", "zero", "integer"])
+@pytest.mark.parametrize("P,ns", [(4, 2), (5, 3), (46, 3), (128, 3)])
+def test_nstate_kernel_matches_plain(dev, P, ns, kind, mode):
+    thr, bw = MODES[mode]
+    state, trans, lengths = _problem(dev, P, ns, seed=P * ns, kind=kind)
+    _compare(lambda t, w: KV.viterbi_nstate_fwd(state, trans, lengths, ns, t,
+                                                w),
+             state, trans, lengths, thr, bw, "viterbi_nstate_fwd")
+
+
+@pytest.mark.parametrize("mode", ["exact", "threshold", "topk"])
+def test_dense_kernel_above_shared_memory(dev, mode):
+    """L' = 390 (P = 130, ns = 3): trans (608 KB) is read from global
+    memory."""
+    thr, bw = MODES[mode]
+    state, trans, lengths = _problem(dev, 130, 3, B=3, T=12, seed=7)
+    _compare(lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w),
+             state, trans, lengths, thr, bw, "viterbi_dense_fwd")
+
+
+def test_empty_batch_launches_nothing(dev):
+    state, trans, lengths = _problem(dev, 4, 3, B=0, T=5)
+    before = dict(KV.launches)
+    bp, last, scores = KV.viterbi_nstate_fwd(state, trans, lengths, 3)
+    assert bp.shape == (0, 5, 12) and last.shape == scores.shape == (0,)
+    assert KV.viterbi_traceback(bp, last, lengths).shape == (0, 5)
+    assert KV.launches == before
+
+
+@pytest.mark.parametrize("P,ns", [(6, 1), (5, 3), (130, 3)])
+def test_decode_runs_the_kernels_and_matches_plain(dev, P, ns):
+    cfg = crf.CrfConfig(num_labels=P, feat_dim=9, num_states=ns)
+    rng = np.random.default_rng(P)
+    params = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              .to(dev) for k, s in cfg.fmap.param_shapes().items()}
+    feats = torch.from_numpy(rng.normal(size=(5, 21, 9)).astype(
+        np.float32)).to(dev)
+    lengths = torch.tensor([21, 3, 17, 9, 0], dtype=torch.int32, device=dev)
+    KV.reset_launches()
+    got = crf.decode(cfg, params, feats, lengths, beam_width=5)
+    kind = ("viterbi_nstate_fwd" if ns > 1 and P <= 128
+            else "viterbi_dense_fwd")
+    assert KV.launches[kind] == 1 and KV.launches["viterbi_traceback"] == 1
+    assert sum(KV.launches.values()) == 2
+    kernels.set_backend("torch")
+    try:
+        want = crf.decode(cfg, params, feats, lengths, beam_width=5)
+    finally:
+        kernels.set_backend("auto")
+    assert sum(KV.launches.values()) == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    state, trans, lengths = _problem(dev, 5, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        KV.viterbi_dense_fwd(state.cpu(), trans, lengths)
+    with pytest.raises(ValueError, match="int32"):
+        KV.viterbi_dense_fwd(state, trans, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        KV.viterbi_dense_fwd(state.transpose(0, 1).contiguous()
+                             .transpose(0, 1), trans, lengths)
+    with pytest.raises(ValueError, match="shared transition"):
+        KV.viterbi_dense_fwd(state, trans[:-1], lengths)
+    with pytest.raises(ValueError, match="ns >= 2"):
+        KV.viterbi_nstate_fwd(state, trans, lengths, 1)
+    big, btrans, blen = _problem(dev, 130, 3, B=2, T=4)
+    with pytest.raises(ValueError, match="P <= 128"):
+        KV.viterbi_nstate_fwd(big, btrans, blen, 3)
+    kernels.set_backend("cuda")
+    try:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            KV.viterbi_shared(state.cpu(), trans.cpu(), lengths.cpu(), 3)
+    finally:
+        kernels.set_backend("auto")
