@@ -4,15 +4,17 @@ The JAX package stays the reference; this package mirrors its module names
 (``ops``, ``models``, ``kernels``, ``cli``) so each piece has an obvious
 counterpart, and is held to it on identical inputs by ``tests/test_torch_*``.
 
-It imports ``torch`` and never ``jax``.  Framework-neutral host code
-(``asr_craft_tpu.data``, ``asr_craft_tpu.decode.scorer``,
-``asr_craft_tpu.cli.common``, ``asr_craft_tpu.utils.logging``) imports no
-JAX either and is used from the JAX package as it is, not copied.
+It imports ``torch`` and never ``jax``, and nothing of ``asr_craft_tpu``:
+the host code both packages need (``data``, ``decode``, ``cli.common``,
+``utils.logging``: numpy and the C++ sources under ``native/``) lives here
+as the port's own copy, held equal to the original by
+``tests/test_torch_host_copies.py``.
 
-Ported so far: the frame-dependent-transition CRF path, decode and
-training.  ``models.crf.decode`` -> ``kernels.fdt_viterbi`` -> the
-hand-written CUDA kernels in ``csrc/fdt_viterbi.cu``; ``models.crf.crf_loss``
--> ``kernels.fdt_train.FdtNllDual`` -> ``csrc/fdt_train.cu``; the trainer
+Ported so far, decode and training alike: the frame-dependent-transition
+CRF path (``models.crf`` -> ``kernels.fdt_viterbi`` / ``kernels.fdt_train``
+-> ``csrc/fdt_viterbi.cu`` / ``csrc/fdt_train.cu``) and the
+shared-transition path (``ops.mxu`` -> ``kernels.fwdbwd`` ->
+``csrc/fwdbwd.cu``; ``kernels.viterbi`` -> ``csrc/viterbi.cu``), the trainer
 (``train``) and the ``crf-train`` / ``crf-decode`` CLI twins.  ROADMAP.md
 lists what is still to come.
 """

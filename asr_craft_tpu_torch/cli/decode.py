@@ -6,8 +6,8 @@ Counterpart of :mod:`asr_craft_tpu.cli.decode`: flags -> corpus -> model
 ``--lexicon`` the FST word decode: potentials on the device, then lattice
 o collapser o lexicon [o LM] on the host -> words -> WER.  Corpus assembly,
 the loader, MLF writing, scoring, logging and the FST / on-the-fly word
-decoders are the JAX package's framework-neutral host modules, used as they
-are.
+decoders are the port's host modules (``data``, ``decode``, ``cli.common``,
+``utils.logging``: numpy, no torch).
 
     python -m asr_craft_tpu_torch.cli.decode --synthetic_utts 8 \\
         --crf_label_size 4 --crf_states 3 --window_extent 1 \\
@@ -25,16 +25,17 @@ import os
 import numpy as np
 import torch
 
-from asr_craft_tpu.cli.common import build_corpus, make_transform
-from asr_craft_tpu.data import LoaderConfig, UtteranceLoader, write_mlf
-from asr_craft_tpu.decode.scorer import (ErrorRateScorer, collapse_frames,
-                                         score_batch, timit_fold_indices)
-from asr_craft_tpu.utils.logging import MetricsLogger
 from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.cli.common import build_corpus, make_transform
+from asr_craft_tpu_torch.data import LoaderConfig, UtteranceLoader, write_mlf
+from asr_craft_tpu_torch.decode.scorer import (ErrorRateScorer,
+                                               collapse_frames, score_batch,
+                                               timit_fold_indices)
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import (CrfConfig, apply_boundaries,
                                             decode, potentials)
 from asr_craft_tpu_torch.train.trainer import to_device
+from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -214,14 +215,14 @@ def main(argv=None) -> int:
 
 def _word_decode(args, cfg, params, loader, names, logger, device) -> int:
     """FST word decode: potentials and boundaries on the device, copied to
-    numpy, then the shared host decoders (:mod:`asr_craft_tpu.decode.fst`,
-    :mod:`asr_craft_tpu.decode.otf`) as the JAX CLI calls them.  Serves
-    shared-transition models ((L', L') trans) and fdt models ((B, T, L',
-    L') trans) alike."""
-    from asr_craft_tpu.decode import fst as F
-    from asr_craft_tpu.decode import otf
+    numpy, then the host decoders (:mod:`asr_craft_tpu_torch.decode.fst`,
+    :mod:`asr_craft_tpu_torch.decode.otf`) as the JAX CLI calls its own.
+    Serves shared-transition models ((L', L') trans) and fdt models ((B, T,
+    L', L') trans) alike."""
+    from asr_craft_tpu_torch.decode import fst as F
+    from asr_craft_tpu_torch.decode import otf
 
-    # the shared decoders assume it (decode/otf.py expand_arcs)
+    # the host decoders assume it (decode/otf.py expand_arcs)
     assert cfg.topology.num_expanded % cfg.num_states == 0
     phone_index = {n: i for i, n in enumerate(names)} if names else None
     lexicon, words = F.read_lexicon(args.lexicon, phone_index)

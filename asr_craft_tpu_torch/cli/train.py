@@ -1,5 +1,5 @@
-"""``crf-train`` twin: train a frame-dependent-transition CRF on a GPU (or
-the CPU).
+"""``crf-train`` twin: train a CRF (frame-dependent or shared transitions) on
+a GPU (or the CPU).
 
 Counterpart of :mod:`asr_craft_tpu.cli.train` for the single-device path:
 flags -> corpus + transforms -> loaders -> model init (zeros, or a weight
@@ -7,7 +7,7 @@ file) -> SGD epochs with per-epoch weight files ``weights.i*.dat``, CV
 evaluation (frame accuracy and PER), ``metrics.jsonl``, a full-state
 checkpoint ``ckpt/`` after every epoch (``--resume`` continues from it),
 and ``weights.final.dat``.  Corpus assembly, the loader and logging are the
-JAX package's framework-neutral host modules, used as they are.
+port's host modules (``cli.common``, ``data``, ``utils.logging``).
 
     python -m asr_craft_tpu_torch.cli.train --synthetic_utts 24 \\
         --crf_label_size 4 --crf_states 3 --window_extent 1 \\
@@ -24,15 +24,16 @@ import os
 
 import torch
 
-from asr_craft_tpu.cli.common import build_corpus, make_transform
-from asr_craft_tpu.data import LoaderConfig, UtteranceLoader, train_cv_split
-from asr_craft_tpu.decode.scorer import collapse_frames
-from asr_craft_tpu.utils.logging import MetricsLogger
 from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.cli.common import build_corpus, make_transform
+from asr_craft_tpu_torch.data import (LoaderConfig, UtteranceLoader,
+                                      train_cv_split)
+from asr_craft_tpu_torch.decode.scorer import collapse_frames
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.train import (TrainConfig, Trainer, load_checkpoint,
                                        save_checkpoint)
+from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -116,12 +116,11 @@ def word_corpus(out_dir) -> int:
     disjoint phones).  Writes ``train.pf`` (70 utterances), ``test.pf``
     (10), ``lex.txt`` and ``refs.txt`` (the test transcripts, keys
     ``utt000000`` ...) under ``out_dir``; returns the number of phones.
-    The generator and the pfile writer are the JAX package's
-    framework-neutral host code."""
+    The generator and the pfile writer are the port's ``data`` modules."""
     from pathlib import Path
 
-    from asr_craft_tpu.data import PFile, WordCorpusConfig, write_pfile
-    from asr_craft_tpu.data.synthetic import generate_word_corpus
+    from asr_craft_tpu_torch.data import PFile, WordCorpusConfig, write_pfile
+    from asr_craft_tpu_torch.data.synthetic import generate_word_corpus
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     cfg = WordCorpusConfig(num_words=6, noise=0.2, seed=7)

@@ -2,7 +2,9 @@
 
 The sources are ``asr_craft_tpu_torch/csrc/*.cu`` with a plain C interface
 (no PyTorch headers, so a build takes seconds), and the headers they share,
-``csrc/*.cuh``.  The shared library goes to ``asr_craft_tpu_torch/_build/``
+``csrc/*.cuh``.  Each source is compiled by its own nvcc process, all
+started together, and the objects are linked into one shared library, which
+goes to ``asr_craft_tpu_torch/_build/``
 (listed in .gitignore) under a name that hashes the sources, the headers
 and the flags, so an edited source or header is rebuilt and an unchanged
 tree is loaded as it is.  Nothing here runs at import time.
@@ -24,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lib = None
 build_info = {}      # {"seconds": ..., "log": ...} of the build, if one ran
@@ -54,9 +56,15 @@ def find_nvcc() -> str:
     return found
 
 
-def nvcc_command(srcs, out, nvcc: str = "nvcc") -> list:
-    """The nvcc command line that builds ``srcs`` into the library ``out``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(s) for s in srcs)]
+def nvcc_command(src, obj, nvcc: str = "nvcc") -> list:
+    """The nvcc command line that compiles one source into the object
+    ``obj``."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs, out, nvcc: str = "nvcc") -> list:
+    """The nvcc command line that links ``objs`` into the library ``out``."""
+    return [nvcc, "-shared", "-o", str(out), *(str(o) for o in objs)]
 
 
 def library_path(csrc: Path = CSRC_DIR) -> Path:
@@ -70,16 +78,39 @@ def library_path(csrc: Path = CSRC_DIR) -> Path:
 def _build(path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = nvcc_command(sources(), tmp, find_nvcc())
+    nvcc = find_nvcc()
+    objs = {src: tmp.with_name(f"{tmp.stem}.{src.stem}.o")
+            for src in sources()}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    # atomic publish: concurrent builds each write their own tmp file
-    os.replace(tmp, path)
-    build_info.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
+    # one nvcc per source, all started together; then one link
+    cmds = [nvcc_command(src, obj, nvcc) for src, obj in objs.items()]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    cmds.append(link_command(objs.values(), tmp, nvcc))
+    log = ""
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({link.returncode}):\n"
+                               f"{' '.join(cmds[-1])}\n"
+                               f"{link.stdout}{link.stderr}")
+        # atomic publish: concurrent builds each write their own tmp file
+        os.replace(tmp, path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
+    build_info.update(seconds=time.perf_counter() - t0, log=log)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,7 +1,7 @@
 """The CRF model: config, parameters, potentials, training criterion and
 decode.
 
-Counterpart of :mod:`asr_craft_tpu.models.crf`.  Ported so far:
+Counterpart of :mod:`asr_craft_tpu.models.crf`:
 
 - the frame-dependent-transition (fdt) path — ``crf_loss`` (the
   dual-lattice objective of :func:`asr_craft_tpu_torch.ops.fdt.fdt_nll_dual`:
@@ -9,12 +9,12 @@ Counterpart of :mod:`asr_craft_tpu.models.crf`.  Ported so far:
   Viterbi, :mod:`asr_craft_tpu_torch.kernels.fdt_viterbi`),
   ``frame_posteriors`` — for dense and sparse inputs (sparse frames are
   densified exactly);
-- the shared-transition ``decode`` (``potentials``, then the K7/K8 kernels
-  of :mod:`asr_craft_tpu_torch.kernels.viterbi`), dense and sparse;
-- ``potentials``, ``apply_boundaries`` and ``frame_accuracy``.
-
-The shared-transition ``crf_loss`` and ``frame_posteriors`` raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+- the shared-transition path — ``potentials`` and ``apply_boundaries``,
+  then ``crf_loss`` (:func:`asr_craft_tpu_torch.ops.mxu.nll_dual`: the K4/K5
+  kernels), ``frame_posteriors`` (``posteriors_mxu``: K6a/K6b) and
+  ``decode`` (the K7/K8 kernels of
+  :mod:`asr_craft_tpu_torch.kernels.viterbi`), dense and sparse;
+- ``frame_accuracy``.
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ from asr_craft_tpu_torch.models.feature_map import (FeatureMapConfig,
                                                     densify_sparse,
                                                     sparse_potentials)
 from asr_craft_tpu_torch.models.topology import Topology
-from asr_craft_tpu_torch.ops import fdt
+from asr_craft_tpu_torch.ops import fdt, fwdbwd, mxu
+from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,17 +82,11 @@ def _check_precision(cfg: CrfConfig, tensor) -> None:
             "'highest', IEEE fp32, is ported; ROADMAP.md Queue 2)")
 
 
-def _fdt_feats(cfg: CrfConfig, feats, sparse, what: str,
-               on_kernel: bool = True):
+def _fdt_feats(cfg: CrfConfig, feats, sparse, on_kernel: bool = True):
     """The dense frames of the fdt path: ``feats``, or ``sparse =
     (indices, values)`` densified exactly with a sparse feature map.
-    Raises for the shared-transition path (whose training criterion and
-    posteriors are still to port) and, where a kernel would run
-    (``on_kernel``), for a precision other than ``highest``."""
-    if not cfg.fmap.frame_dependent_trans:
-        raise NotImplementedError(
-            f"shared-transition {what} (trans_range of zero width) is not "
-            "ported yet (ROADMAP.md Queue 1, slice 3b)")
+    Raises, where a kernel would run (``on_kernel``), for a precision other
+    than ``highest``."""
     if cfg.featuremap == "sparse":
         if sparse is None:
             raise ValueError(
@@ -157,19 +152,58 @@ def crf_loss(cfg: CrfConfig, params: dict, feats, labels, lengths,
     ``max(sum(lengths), 1)``.  Returns (loss, aux) with per-utterance
     ``logZ``, ``numerator`` and ``nll`` and the ``frames`` count.
 
-    ``grad_feats``: when False (the default) ``feats`` is detached, so no
-    gradient reaches it; set True to differentiate through the features.
+    ``grad_feats`` (fdt path): when False (the default) ``feats`` is
+    detached, so no gradient reaches it; set True to differentiate through
+    the features.  On the shared-transition path, as in the JAX package,
+    the flag is not read: autograd carries the state gradient through the
+    potentials matmul to whatever requires it.
     """
-    feats = _fdt_feats(cfg, feats, sparse, "training criterion")
-    lengths = lengths.to(feats.device)
     clamp_ns = 1 if label_kind == "state" else cfg.num_states
-    raw_nll, logZ, num = fdt.fdt_nll_dual(
-        cfg.fmap, cfg.num_states, params, feats, labels.to(feats.device),
-        lengths, clamp_ns, cfg.enforce_boundaries, grad_feats=grad_feats)
+    if cfg.fmap.frame_dependent_trans:
+        feats = _fdt_feats(cfg, feats, sparse)
+        lengths = lengths.to(feats.device)
+        raw_nll, logZ, num = fdt.fdt_nll_dual(
+            cfg.fmap, cfg.num_states, params, feats, labels.to(feats.device),
+            lengths, clamp_ns, cfg.enforce_boundaries, grad_feats=grad_feats)
+    else:
+        raw_nll, logZ, num, lengths = _shared_nll(
+            cfg, params, feats, labels, lengths, sparse, clamp_ns)
+    # empty rows (length 0: loader batch padding) are inert
     nll = torch.where(lengths > 0, raw_nll, 0.0)
     total_frames = torch.clamp(lengths.sum(), min=1)
     return nll.sum() / total_frames, {
         "logZ": logZ, "numerator": num, "nll": nll, "frames": total_frames}
+
+
+def _shared_potentials(cfg: CrfConfig, params: dict, feats, lengths, sparse):
+    """The shared-transition path's DP inputs: ``(state (B, T, L') with the
+    boundaries folded in, trans, lengths)`` on the potentials' device.
+    Raises for a precision other than ``highest`` where a kernel would
+    run."""
+    state, trans = potentials(cfg, params, feats, sparse)
+    lengths = lengths.to(device=state.device, dtype=torch.int32)
+    _check_precision(cfg, state)
+    return apply_boundaries(cfg, state, lengths), trans, lengths
+
+
+def _shared_nll(cfg: CrfConfig, params: dict, feats, labels, lengths, sparse,
+                clamp_ns: int):
+    """``(nll, logZ, numerator, lengths)`` of the shared-transition
+    criterion: the fused dual-lattice objective for one ``(L', L')``
+    transition matrix (:func:`asr_craft_tpu_torch.ops.mxu.nll_dual`), the
+    generic scan otherwise."""
+    state, trans, lengths = _shared_potentials(cfg, params, feats, lengths,
+                                               sparse)
+    labels = labels.to(state.device)
+    if trans.dim() == 2:
+        return (*mxu.nll_dual(state, trans, labels, lengths, clamp_ns),
+                lengths)
+    logZ = fwdbwd.log_partition_batch(state, trans, lengths)
+    lane = torch.arange(state.shape[-1], device=state.device)
+    clamp = torch.where(lane // clamp_ns == labels[..., None].long(), 0.0,
+                        NEG_INF)
+    num = fwdbwd.log_partition_batch(state + clamp, trans, lengths)
+    return logZ - num, logZ, num, lengths
 
 
 def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
@@ -187,7 +221,7 @@ def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
     if not cfg.fmap.frame_dependent_trans:
         return _decode_shared(cfg, params, feats, lengths, sparse,
                               beam_width, beam_threshold)
-    feats = _fdt_feats(cfg, feats, sparse, "decode")
+    feats = _fdt_feats(cfg, feats, sparse)
     Wall, u0, u1, dims = build_wall(params, cfg.fmap, cfg.num_states)
     paths, scores = fdt_viterbi_wall(
         Wall, feats, lengths.to(device=feats.device, dtype=torch.int32),
@@ -201,22 +235,28 @@ def _decode_shared(cfg: CrfConfig, params: dict, feats, lengths, sparse,
                    beam_width, beam_threshold):
     """The shared-transition decode: potentials, boundaries, then K8 (the
     topology-factored kernel, for n states and P <= 128) or K7 (dense)."""
-    state, trans = potentials(cfg, params, feats, sparse)
-    lengths = lengths.to(device=state.device, dtype=torch.int32)
-    state = apply_boundaries(cfg, state, lengths).contiguous()
-    trans = trans.contiguous()
-    _check_precision(cfg, state)
-    paths, scores = viterbi_shared(state, trans, lengths, cfg.num_states,
-                                   beam_threshold, beam_width)
+    state, trans, lengths = _shared_potentials(cfg, params, feats, lengths,
+                                               sparse)
+    paths, scores = viterbi_shared(state.contiguous(), trans.contiguous(),
+                                   lengths, cfg.num_states, beam_threshold,
+                                   beam_width)
     return cfg.topology.path_to_phones(paths), paths, scores
 
 
 def frame_posteriors(cfg: CrfConfig, params: dict, feats, lengths,
                      sparse=None):
-    """(B, T, L') label posteriors over the factored frame-dependent
-    lattice (:func:`asr_craft_tpu_torch.ops.fdt.fdt_posteriors`); zero at
-    frames past each length."""
-    feats = _fdt_feats(cfg, feats, sparse, "posteriors", on_kernel=False)
+    """(B, T, L') label posteriors, zero at frames past each length: over
+    the factored frame-dependent lattice
+    (:func:`asr_craft_tpu_torch.ops.fdt.fdt_posteriors`), or for shared
+    transitions :func:`asr_craft_tpu_torch.ops.mxu.posteriors_mxu` (the
+    K6a/K6b kernels)."""
+    if not cfg.fmap.frame_dependent_trans:
+        state, trans, lengths = _shared_potentials(cfg, params, feats,
+                                                   lengths, sparse)
+        if trans.dim() == 2:
+            return mxu.posteriors_mxu(state, trans, lengths)
+        return fwdbwd.posteriors_batch(state, trans, lengths)
+    feats = _fdt_feats(cfg, feats, sparse, on_kernel=False)
     planes = fdt.factored_planes(params, feats, cfg.fmap.num_expanded,
                                  cfg.num_states, cfg.fmap.state_range,
                                  cfg.fmap.trans_range,

@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`asr_craft_tpu.train.trainer`, with the same numbers:
 one step computes loss + gradient over a padded utterance batch
-(``crf_loss`` -> the K1/K2 kernels on the card) and applies the optimizer;
+(``crf_loss`` -> the K1/K2 or K4/K5 kernels on the card) and applies the
+optimizer;
 the optimizer is built at lr 1 and its update scaled by the epoch's
 schedule value; optional Polyak averaging; ``grad_norm`` is the global L2
 norm of the gradient; per-epoch weight files and CV evaluation (frame
@@ -23,11 +24,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from asr_craft_tpu.decode.scorer import ErrorRateScorer, score_batch
-from asr_craft_tpu.utils.logging import MetricsLogger
+from asr_craft_tpu_torch.decode.scorer import ErrorRateScorer, score_batch
 from asr_craft_tpu_torch.models import crf as crf_mod
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 
 @dataclasses.dataclass(frozen=True)

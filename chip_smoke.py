@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's decode (configs 1, 2, 3, 5) and config-2 training once
-on one NVIDIA GPU.
+"""Drive the port's decode and training (configs 1, 2, 3, 5) once on one
+NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -46,7 +46,32 @@ in phases:
     and the ``--lexicon`` word decode of the word fixture (the JAX CLI's
     words and WER);
 (i) shared-transition timing — K7, K8, the traceback and ``decode()``
-    against the plain version at B=64, T=512 for configs 1, 3 and 5.
+    against the plain version at B=64, T=512 for configs 1, 3 and 5;
+(j) shared-transition training parity — the K6a / K6b kernels (``forward``,
+    ``backward``), K4 / K14 (``forward_dual``, ``backward_dual``) and K5
+    (``backward_dual_grad``) against their plain versions on the potentials
+    of random models of configs 1, 3 and 5 at B=128, T=512 (ragged lengths,
+    an empty row, a row whose labels no state admits: zero gradient), with
+    phone labels and, for config 5, state labels; UV and g_state bit-equal
+    on two runs; the parameter gradients of the shared ``crf_loss``;
+(k) shared-transition training end to end — ``cli.train.main`` for configs
+    1, 3 and 5 with their recipes' model flags (256 synthetic utterances, 3
+    epochs), held to the JAX CPU losses and PER: K4, K5, K7, K8 and the
+    traceback must launch; then, each with its own launch counts, the
+    trained models' ``frame_posteriors`` (K6a, K6b must launch) and
+    ``kernels.fwdbwd.backward_dual`` (K14: no higher entry point calls it,
+    here or in the JAX package); the train CLI again with
+    ``--kernel_backend torch`` (same losses); the trained weights decode to
+    the same PER and MLF under both backends;
+(l) shared-transition training timing — the five kernels and a full train
+    step (loss, backward, SGD update) against the plain version at B=128,
+    T=512, all rows full, for configs 1, 3 and 5, and cuBLAS on the
+    ``U^T V`` contraction alone.
+
+Every kernel's time stands beside its bound on this card: the larger of the
+bytes it must move (each input read once, each output written once) over
+the memory rate and its operations over the fp32 rate, from this run's
+shapes.
 
 Prints the card (``nvidia-smi``), the build time, one line per check, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": ...}``.
@@ -139,6 +164,60 @@ JAX_WORDS = ("utt000000 w02 w05 w02\n"
              "utt000008 w02 w03 w02\n"
              "utt000009 w04 w03\n")
 JAX_WORD_ERRORS = (0, 33)
+FB_CU = "asr_craft_tpu_torch/csrc/fwdbwd.cu"
+FB_SRC = {                          # the TPU kernel bodies they replace
+    "forward": "asr_craft_tpu/kernels/fwdbwd_pallas.py:65",
+    "backward": "asr_craft_tpu/kernels/fwdbwd_pallas.py:136",
+    "forward_dual": "asr_craft_tpu/kernels/dual_pallas.py:39",
+    "backward_dual": "asr_craft_tpu/kernels/dual_pallas.py:134",
+    "backward_dual_grad": "asr_craft_tpu/kernels/dual_pallas.py:172",
+}
+# Alphas, betas and logZ: sums over up to 512 frames, ~1e3 in magnitude
+# (fp32 ulp 6e-5 there); the kernel splits each sum over four lanes and
+# takes expf / logf where the plain version takes a cuBLAS product and
+# torch.exp / torch.log.
+FB_Z_TOL = dict(rtol=1e-5, atol=2e-3)
+# g_state holds posteriors times |w| = 1, each the exp of a difference of
+# such sums: ~1e-4 relative at worst, on values <= 1.  The free lattice's
+# posteriors are ~7e-3 at L' = 138, so the bar must sit well under that:
+# twice the largest difference seen on this card (2.6e-4).
+FB_G_ATOL = 5e-4
+# The JAX package's crf-train on the CPU (asr_craft_tpu.cli.train --platform
+# cpu) with each recipe's model and optimizer flags, 256 synthetic
+# utterances, 3 epochs, seed 0: per-epoch mean_loss and the final CV PER.
+SHARED_TRAIN = {                    # (model flags, optimizer flags, ...)
+    "config1": (["--crf_label_size", "48", "--crf_states", "1",
+                 "--window_extent", "1"],
+                ["--crf_lr", "0.5", "--crf_lr_decay", "0.9", "--batch_size",
+                 "32"],
+                (3.7838029861450195, 3.5888805389404297, 3.416109561920166),
+                0.3306613226452906),
+    "config3": (["--crf_label_size", "42", "--crf_states", "1",
+                 "--window_extent", "2", "--normalize", "utt"],
+                ["--crf_lr", "0.05", "--crf_lr_decay", "0.85",
+                 "--batch_size", "48"],
+                (3.7067105770111084, 3.633991003036499, 3.572345018386841),
+                0.515748031496063),
+    "config5": (["--crf_label_size", "46", "--crf_states", "3",
+                 "--window_extent", "2", "--normalize", "global"],
+                ["--crf_lr", "0.03", "--crf_lr_decay", "0.9", "--batch_size",
+                 "64", "--bucket_sizes", "256,512,1024,2048"],
+                (1.1079281568527222, 1.0945173501968384, 1.0828857421875),
+                0.09285714285714286),
+}
+SHARED_TRAIN_CORPUS = ["--synthetic_utts", "256", "--crf_epochs", "3",
+                       "--seed", "0"]
+# Published peaks of one H100 SXM: device memory bytes/s and fp32 FLOP/s
+# outside the tensor cores (every kernel here is fp32 on the CUDA cores).
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take for this
+    many bytes and fp32 operations."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
 
 
 def log(msg: str) -> None:
@@ -162,8 +241,12 @@ class Smoke:
         self.counts = {}
         self.train_counts = {}
         self.shared_counts = {}
+        self.fb_counts = {}
         self.times = {}
+        self.bounds = {}
+        self.library_ms = {}
         self.err.update({k: 0.0 for k in SHARED_SRC})
+        self.err.update({k: 0.0 for k in FB_SRC})
 
     # -- (a) parity ---------------------------------------------------------
     def problem(self, cfg, B, T, seed):
@@ -342,6 +425,12 @@ class Smoke:
                 10, 3),
         }
         audio_s = B * T * FRAME_S
+        frames, Lp = int(lengths.sum()), ns * kw["P"]
+        plane_flops = 2 * Wall.shape[0] * Wall.shape[1]   # Wall @ [x; 1]
+        self.bounds["fdt_viterbi_fwd"] = bound(
+            4 * (Wall.numel() + feats.numel() + bp.numel() + 3 * B),
+            frames * (plane_flops + 2 * (2 * Lp + kw["P"] ** 2)))
+        self.bounds["fdt_viterbi_traceback"] = self.traceback_bound(B, T)
         for name, (kern, plain, nk, npl) in fns.items():
             # plain, kernel, kernel, plain: compare within one call only
             p1 = self.cuda_ms(plain, npl)
@@ -354,6 +443,13 @@ class Smoke:
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                 f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
+
+    @staticmethod
+    def traceback_bound(B, T):
+        """The traceback follows one backpointer per frame: B * T entries
+        read (what this walk needs, not the whole (B, T, L') array) and
+        B * T labels written."""
+        return bound(4 * (2 * B * T + 2 * B), B * T)
 
     def _plain_decode(self, cfg, params, feats, lengths):
         from asr_craft_tpu_torch import kernels
@@ -634,6 +730,18 @@ class Smoke:
                                                  lambda: step("torch")),
         }
         audio_s = B * T * FRAME_S
+        frames, Lp = B * T, cfg.num_states * dims["P"]
+        plane_flops = 2 * Wall.shape[0] * Wall.shape[1]   # Wall @ [x; 1]
+        dp_flops = 2 * (2 * Lp + dims["P"] ** 2)          # one lattice's DP
+        io = 4 * (Wall.numel() + feats.numel() + labels.numel()
+                  + alphas.numel() + 4 * B)
+        self.bounds["fdt_train_fwd"] = bound(
+            io, frames * (plane_flops + 2 * dp_flops))
+        self.bounds["fdt_train_bwd"] = bound(
+            io + 4 * dplane.numel(), frames * (plane_flops + 6 * dp_flops))
+        self.bounds["fdt_train_contract"] = bound(
+            4 * (dplane.numel() + feats.numel() + dW.numel()),
+            frames * plane_flops)
         for name, (kern, plain) in fns.items():
             # plain, kernel, kernel, plain: compare within one call only
             p1 = self.cuda_ms(plain, 1)
@@ -642,6 +750,9 @@ class Smoke:
             p2 = self.cuda_ms(plain, 1)
             ms, plain_ms = min(k1, k2), min(p1, p2)
             self.times[name] = (ms, plain_ms)
+            if name == "fdt_train_contract":
+                # its plain version is one cuBLAS product, dplane^T @ [x; 1]
+                self.library_ms[name] = plain_ms
             log(f"timing {name} B={B} T={T}: kernel {ms:.4f} ms "
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
@@ -847,6 +958,14 @@ class Smoke:
                 fns["viterbi_dense_fwd"] = (
                     fwd["viterbi_dense_fwd"],
                     lambda: V.viterbi_forward(state, trans, lengths))
+            L, frames = state.shape[-1], int(lengths.sum())
+            io = 4 * (state.numel() + trans.numel() + bp.numel() + 3 * B)
+            self.bounds[f"{key} viterbi_dense_fwd"] = bound(
+                io, frames * 2 * L * L)
+            self.bounds[f"{key} viterbi_nstate_fwd"] = bound(
+                io, frames * 2 * (2 * L + cfg.num_labels ** 2))
+            self.bounds[f"{key} viterbi_traceback"] = self.traceback_bound(
+                B, T)
             for fn_name, (kern, plain) in fns.items():
                 p1 = self.cuda_ms(plain, 2)
                 k1 = self.cuda_ms(kern, 10)
@@ -860,33 +979,436 @@ class Smoke:
                     f"{audio_s / ms * 1e3:.1f} vs "
                     f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
 
+    # -- (j) shared-transition training parity ---------------------------------
+    def fb_problem(self, cfg, B, T, seed, state_labels=False, ragged=True):
+        """A random model (scale 0.1), N(0, 1) frames, topology-legal labels
+        (phone runs of 4 frames, or their state walks [0, 0, 1, 2]) and the
+        kernels' own inputs: the potentials with the boundaries folded in.
+        ``ragged``: lengths on run ends with row 0 full, the last row empty
+        and row 1 labelled with a phone no state admits (a dead clamped
+        lattice); else all rows full and legal."""
+        from asr_craft_tpu_torch.flagship import ragged_lengths, tiny_batch
+        from asr_craft_tpu_torch.models.crf import apply_boundaries, potentials
+        torch = self.torch
+        params = cfg.init_params(torch.Generator().manual_seed(seed), 0.1,
+                                 self.dev)
+        batch = tiny_batch(cfg, B, T, seed, self.dev)
+        labels = batch["labels"]
+        if state_labels:
+            walk = torch.tensor([0, 0, 1, 2], dtype=torch.int32,
+                                device=self.dev).repeat(T // 4)
+            labels = labels * cfg.num_states + walk
+        if ragged:
+            lengths = ragged_lengths(B, T, seed)
+            lengths = (lengths + 3) // 4 * 4          # whole runs
+            lengths[-1] = 0
+            lengths = torch.from_numpy(lengths).to(self.dev)
+            labels = labels.clone()
+            labels[1] = cfg.fmap.num_expanded + 3
+        else:
+            lengths = batch["lengths"]
+        with torch.no_grad():
+            state, trans = potentials(cfg, params, batch["feats"])
+            state = apply_boundaries(cfg, state, lengths)
+        return (state.contiguous(), trans.contiguous(), labels.contiguous(),
+                lengths, params, batch["feats"])
+
+    def check_fb(self, label, cfg, seed, state_labels=False):
+        from asr_craft_tpu_torch.kernels import fwdbwd as K
+        torch = self.torch
+        state, trans, labels, lengths, _, _ = self.fb_problem(
+            cfg, 128, 512, seed, state_labels)
+        cns = 1 if state_labels else cfg.num_states
+        errs = {}
+
+        def close(name, what, got, want, **tol):
+            e = self.close(f"{label} {what}", got, want, **tol)
+            errs[name] = max(errs.get(name, 0.0), e)
+
+        single = (state, trans, lengths)
+        dual = (state, trans, labels, lengths)
+        alphas, z = K.forward_cuda(*single)
+        ra, rz = K.forward_plain(*single)
+        close("forward", "alphas", alphas, ra, **FB_Z_TOL)
+        close("forward", "logZ", z, rz, **FB_Z_TOL)
+        close("backward", "betas", K.backward_cuda(*single),
+              K.backward_plain(*single), **FB_Z_TOL)
+        af, ac, zf, zc = K.forward_dual_cuda(*dual, cns)
+        raf, rac, rzf, rzc = (x.contiguous()
+                              for x in K.forward_dual_plain(*dual, cns))
+        for what, got, want in (("af", af, raf), ("ac", ac, rac),
+                                ("zf", zf, rzf), ("zc", zc, rzc)):
+            close("forward_dual", what, got, want, **FB_Z_TOL)
+        if not (float(zc[1]) < -1e29 < float(zf[1])):
+            raise AssertionError(f"{label}: row 1's clamped lattice is not "
+                                 f"dead (zf {float(zf[1])}, zc "
+                                 f"{float(zc[1])})")
+        bf, bc = K.backward_dual_cuda(*dual, cns)
+        rbf, rbc = K.backward_dual_plain(*dual, cns)
+        close("backward_dual", "bf", bf, rbf, **FB_Z_TOL)
+        close("backward_dual", "bc", bc, rbc, **FB_Z_TOL)
+        wf, wc = torch.ones_like(zf), -torch.ones_like(zf)   # d(zf - zc)
+        grad_in = (raf, rac, rzf, rzc, wf, wc)
+        rg, rUV = K.backward_dual_grad_plain(*dual, *grad_in, cns)
+        g, UV = K.backward_dual_grad_cuda(*dual, *grad_in, cns)
+        g2, UV2 = K.backward_dual_grad_cuda(*dual, *grad_in, cns)
+        close("backward_dual_grad", "g_state", g, rg, rtol=0.0,
+              atol=FB_G_ATOL)
+        uv_err = self.close(f"{label} UV", UV, rUV, RTOL,
+                            REL_MAX * float(rUV.abs().max()))
+        if not (torch.equal(UV, UV2) and torch.equal(g, g2)):
+            raise AssertionError(f"{label}: K5 differs between two runs")
+        # the dead lattice alone: zero gradient, exactly
+        one = lambda x: x[1:2].contiguous()
+        dg, dUV = K.backward_dual_grad_cuda(
+            one(state), trans, one(labels), one(lengths), one(af), one(ac),
+            one(zf), one(zc), torch.zeros_like(one(zf)),
+            torch.ones_like(one(zf)), cns)
+        torch.cuda.synchronize()
+        if float(dg.abs().max()) != 0.0 or float(dUV.abs().max()) != 0.0:
+            raise AssertionError(f"{label}: dead lattice gradient "
+                                 f"{float(dg.abs().max())}, "
+                                 f"{float(dUV.abs().max())}")
+        for name, e in errs.items():
+            self.err[name] = max(self.err[name], e)
+        log(f"fb parity {label}: max |kernel - plain| {errs}, |UV - plain| "
+            f"{uv_err:.3e} (largest |UV| {float(rUV.abs().max()):.3e}); K5 "
+            "bit-equal on two runs; dead lattice gradient 0")
+
+    def check_shared_loss_grads(self, key, cfg):
+        """The shared crf_loss + backward(): the K4/K5 path against the
+        plain path (backend 'torch') on every parameter gradient."""
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.models.crf import crf_loss
+        torch = self.torch
+        _, _, labels, lengths, params, feats = self.fb_problem(
+            cfg, 128, 512, 0)
+        labels[1] = labels[2]               # every lattice lives
+        grads = {}
+        for backend in ("auto", "torch"):
+            kernels.set_backend(backend)
+            try:
+                p = {k: v.clone().requires_grad_(True)
+                     for k, v in params.items()}
+                loss, _ = crf_loss(cfg, p, feats, labels, lengths)
+                loss.backward()
+                grads[backend] = (loss.item(), {k: v.grad
+                                                for k, v in p.items()})
+            finally:
+                kernels.set_backend("auto")
+        (lk, gk), (lp, gp) = grads["auto"], grads["torch"]
+        if not abs(lk) < 1e3:
+            raise AssertionError(f"{key} crf_loss {lk}: a lattice is dead")
+        if abs(lk - lp) > 1e-5 * abs(lp):
+            raise AssertionError(f"{key} crf_loss {lk} vs plain {lp}")
+        errs = {k: self.close(f"{key} grad {k}", gk[k], gp[k], RTOL,
+                              REL_MAX * float(gp[k].abs().max()))
+                for k in gk}
+        log(f"fb parity {key} crf_loss B=128 T=512: loss {lk:.7f} (plain "
+            f"{lp:.7f}); max |grad - plain| {errs}")
+
+    def phase_fb_parity(self):
+        for seed, (key, cfg) in enumerate(self.shared_configs().items()):
+            self.check_fb(f"{key} phone labels", cfg, seed)
+            self.check_shared_loss_grads(key, cfg)
+        self.check_fb("config5 state labels", self.shared_configs()["config5"],
+                      3, state_labels=True)
+
+    # -- (k) shared-transition training end to end ------------------------------
+    def run_shared_train_cli(self, key, backend):
+        from asr_craft_tpu_torch.cli.train import main
+        model, optim = SHARED_TRAIN[key][:2]
+        flags = model + optim + SHARED_TRAIN_CORPUS
+        out = OUT / f"train_{key}_{backend}"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(flags + ["--device", "cuda", "--kernel_backend",
+                               backend, "--out_dir", str(out)])
+        self.torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        for r in recs:
+            if r["kind"] in ("train_epoch", "eval"):
+                log(f"  cli ({key}, {backend}): {json.dumps(r)}")
+        if rc != 0:
+            raise AssertionError(f"{key}: train CLI rc={rc}")
+        losses = [r["mean_loss"] for r in recs if r["kind"] == "train_epoch"]
+        evals = [r for r in recs if r["kind"] == "eval"]
+        return losses, evals, out / "weights.final.dat", secs
+
+    def trained_problem(self, cfg, wfile):
+        """A trained model and one batch (B=16, T=128, rows full) for it."""
+        from asr_craft_tpu_torch.flagship import tiny_batch
+        from asr_craft_tpu_torch.models.weights import load_raw
+        B, T = 16, 128
+        batch = tiny_batch(cfg, B, T, 0, self.dev)
+        lengths = self.torch.full((B,), T, dtype=self.torch.int32,
+                                  device=self.dev)
+        return (load_raw(wfile, cfg.fmap, self.dev), batch["feats"],
+                batch["labels"], lengths)
+
+    def check_trained_posteriors(self, key, cfg, problem, post, betas):
+        """What the two calls on a trained model gave: the frame posteriors
+        equal the plain version's and sum to 1 on every frame; so do the
+        clamped lattice's, formed from K4's alphas and K14's betas."""
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.kernels import fwdbwd as K
+        from asr_craft_tpu_torch.models.crf import (apply_boundaries,
+                                                    frame_posteriors,
+                                                    potentials)
+        torch = self.torch
+        params, feats, labels, lengths = problem
+        with torch.no_grad():
+            state, trans = potentials(cfg, params, feats)
+            state = apply_boundaries(cfg, state, lengths).contiguous()
+            _, ac, _, zc = K.forward_dual(state, trans.contiguous(), labels,
+                                          lengths, cfg.num_states)
+            aligned = torch.exp(ac + betas[1] - zc[:, None, None])
+            kernels.set_backend("torch")
+            try:
+                ref = frame_posteriors(cfg, params, feats, lengths)
+            finally:
+                kernels.set_backend("auto")
+        self.close(f"{key} trained posteriors", post, ref, 0.0, 1e-3)
+        for what, x in (("posteriors", post), ("clamped posteriors",
+                                               aligned)):
+            sums = x.sum(-1)
+            if not torch.allclose(sums, torch.ones_like(sums), atol=1e-3):
+                raise AssertionError(f"{key}: {what} sum to "
+                                     f"{float(sums.min())}.."
+                                     f"{float(sums.max())}")
+        log(f"shared train {key}: the trained model's posteriors "
+            f"{tuple(post.shape)} equal the plain version's and sum to 1; "
+            "clamped posteriors sum to 1")
+
+    def phase_shared_train_cli(self):
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.kernels import fwdbwd, viterbi
+        from asr_craft_tpu_torch.models.crf import (apply_boundaries,
+                                                    frame_posteriors,
+                                                    potentials)
+        torch = self.torch
+        configs = self.shared_configs()
+        mods = (fwdbwd, viterbi)
+
+        def reset():
+            for K in mods:
+                K.reset_launches()
+
+        def require(path, counts, names):
+            log(f"{path} launches {counts}")
+            missing = [n for n in names if counts[n] < 1]
+            if missing:
+                raise AssertionError(f"{path} never launched {missing}")
+
+        # Three paths, each with every count 0 before it and read after it.
+        # The train CLI: K4, K5 and the CV decode's K7 / K8 + traceback.
+        reset()
+        runs = {key: self.run_shared_train_cli(key, "auto")
+                for key in configs}
+        train_counts = {**fwdbwd.launches, **viterbi.launches}
+        require("shared train CLI", train_counts,
+                ("forward_dual", "backward_dual_grad", "viterbi_dense_fwd",
+                 "viterbi_nstate_fwd", "viterbi_traceback"))
+        # frame_posteriors of the trained models: K6a, K6b.
+        problems = {key: self.trained_problem(cfg, runs[key][2])
+                    for key, cfg in configs.items()}
+        reset()
+        with torch.no_grad():
+            posts = {key: frame_posteriors(cfg, *problems[key][:2],
+                                           problems[key][3])
+                     for key, cfg in configs.items()}
+        post_counts = dict(fwdbwd.launches)
+        require("frame_posteriors", post_counts, ("forward", "backward"))
+        # kernels.fwdbwd.backward_dual on the same potentials: K14.  It is
+        # a public function that no higher entry point calls (the training
+        # path takes the fused K5), so its count comes from calling it.
+        duals = {}
+        with torch.no_grad():
+            for key, cfg in configs.items():
+                params, feats, labels, lengths = problems[key]
+                state, trans = potentials(cfg, params, feats)
+                state = apply_boundaries(cfg, state, lengths)
+                duals[key] = (state, trans, labels, lengths, cfg.num_states)
+        reset()
+        betas = {key: fwdbwd.backward_dual(*duals[key]) for key in configs}
+        dual_counts = dict(fwdbwd.launches)
+        require("kernels.fwdbwd.backward_dual", dual_counts,
+                ("backward_dual",))
+        self.fb_counts = {
+            "forward": post_counts["forward"],
+            "backward": post_counts["backward"],
+            "forward_dual": train_counts["forward_dual"],
+            "backward_dual": dual_counts["backward_dual"],
+            "backward_dual_grad": train_counts["backward_dual_grad"]}
+        for key, cfg in configs.items():
+            self.check_trained_posteriors(key, cfg, problems[key],
+                                          posts[key], betas[key])
+        reset()
+        for key, cfg in configs.items():
+            jax_losses, jax_per = SHARED_TRAIN[key][2:]
+            losses, evals, wfile, secs = runs[key]
+            plosses, pevals, _, psecs = self.run_shared_train_cli(key,
+                                                                  "torch")
+            kernels.set_backend("auto")
+            log(f"shared train CLI {key}: losses {losses}, final PER "
+                f"{evals[-1]['per']} (kernels, {secs:.3f} s wall); losses "
+                f"{plosses}, final PER {pevals[-1]['per']} (plain, "
+                f"{psecs:.3f} s wall); JAX CPU {jax_losses}, {jax_per}")
+            if len(losses) != len(jax_losses):
+                raise AssertionError(f"{key}: {len(losses)} epochs")
+            for got, want in zip(losses, jax_losses):
+                if abs(got - want) > 1e-3 * want:
+                    raise AssertionError(f"{key}: epoch losses {losses}, "
+                                         f"JAX reference {jax_losses} "
+                                         "(rtol 1e-3)")
+            for ev in (evals, pevals):
+                if abs(ev[-1]["per"] - jax_per) > 0.02:
+                    raise AssertionError(f"{key}: final PER "
+                                         f"{ev[-1]['per']}, JAX reference "
+                                         f"{jax_per} (+-0.02)")
+            for a, b in zip(losses, plosses):
+                if abs(a - b) > 1e-4 * abs(b):
+                    raise AssertionError(f"{key}: kernel losses {losses} vs "
+                                         f"plain {plosses} (rtol 1e-4)")
+        plain_counts = {**fwdbwd.launches, **viterbi.launches}
+        log(f"shared train CLI launches {plain_counts} (plain)")
+        if max(plain_counts.values()) != 0:
+            raise AssertionError(f"plain backend launched {plain_counts}")
+        for key in configs:
+            decode = (["--synthetic_utts", "128", "--batch_size", "64",
+                       "--seed", "0", "--weight_file", str(runs[key][2]),
+                       "--device", "cuda"] + SHARED_TRAIN[key][0])
+            mlfs = [OUT / f"train_{key}_{b}.mlf" for b in ("auto", "torch")]
+            rec, _ = self.run_cli(decode + ["--kernel_backend", "auto",
+                                            "--out_mlf", str(mlfs[0])])
+            rec_t, _ = self.run_cli(decode + ["--kernel_backend", "torch",
+                                              "--out_mlf", str(mlfs[1])])
+            kernels.set_backend("auto")
+            if rec["per"] != rec_t["per"] or (mlfs[0].read_bytes()
+                                              != mlfs[1].read_bytes()):
+                raise AssertionError(f"{key}: the trained weights decode "
+                                     "differently under the kernels and "
+                                     "the plain version")
+            log(f"shared train CLI {key}: within rtol 1e-3 of the JAX "
+                f"losses, PER within 0.02; weights.final.dat decodes to "
+                f"PER {rec['per']} and the same MLF under both backends")
+
+    # -- (l) shared-transition training timing ----------------------------------
+    def phase_fb_timing(self):
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.kernels import fwdbwd as K
+        from asr_craft_tpu_torch.train import TrainConfig, Trainer
+        torch = self.torch
+        B, T = 128, 512
+        audio_s = B * T * FRAME_S
+        for key, cfg in self.shared_configs().items():
+            state, trans, labels, lengths, params, feats = self.fb_problem(
+                cfg, B, T, 0, ragged=False)
+            cns, L = cfg.num_states, state.shape[-1]
+            single = (state, trans, lengths)
+            dual = (state, trans, labels, lengths)
+            af, ac, zf, zc = K.forward_dual_cuda(*dual, cns)
+            ones = torch.ones_like(zf)
+            grad_in = (af, ac, zf, zc, ones, -ones)
+            batch = {"feats": feats, "labels": labels, "lengths": lengths}
+            trainer = Trainer(cfg, TrainConfig(lr=0.03), params=params)
+
+            def step(backend):
+                kernels.set_backend(backend)
+                try:
+                    trainer.train_step(batch, 0.03)
+                finally:
+                    kernels.set_backend("auto")
+
+            # the xi contraction alone, as one cuBLAS product over both
+            # lattices' frames: what K5's U^T V would cost a library
+            U = torch.rand((2 * B * (T - 1), L), device=self.dev)
+            V = torch.rand((2 * B * (T - 1), L), device=self.dev)
+            cublas = min(self.cuda_ms(lambda: U.T @ V, 20) for _ in range(2))
+            frames, n, mat = B * T, state.numel(), L * L
+            small = 4 * (mat + L + 2 * B)
+            bounds = {
+                "forward": bound(4 * 2 * n + small, frames * 2 * mat),
+                "backward": bound(4 * 2 * n + small, frames * 2 * mat),
+                "forward_dual": bound(4 * (3 * n + labels.numel()) + small,
+                                      frames * 4 * mat),
+                "backward_dual": bound(4 * (3 * n + labels.numel()) + small,
+                                       frames * 4 * mat),
+                "backward_dual_grad": bound(
+                    4 * (4 * n + labels.numel() + mat) + small,
+                    frames * 8 * mat),
+            }
+            fns = {
+                "forward": (lambda: K.forward_cuda(*single),
+                            lambda: K.forward_plain(*single)),
+                "backward": (lambda: K.backward_cuda(*single),
+                             lambda: K.backward_plain(*single)),
+                "forward_dual": (lambda: K.forward_dual_cuda(*dual, cns),
+                                 lambda: K.forward_dual_plain(*dual, cns)),
+                "backward_dual": (lambda: K.backward_dual_cuda(*dual, cns),
+                                  lambda: K.backward_dual_plain(*dual, cns)),
+                "backward_dual_grad": (
+                    lambda: K.backward_dual_grad_cuda(*dual, *grad_in, cns),
+                    lambda: K.backward_dual_grad_plain(*dual, *grad_in,
+                                                       cns)),
+                "train step (loss, backward, SGD)": (lambda: step("auto"),
+                                                     lambda: step("torch")),
+            }
+            log(f"timing {key} cuBLAS U^T V alone ({2 * B * (T - 1)} x {L})^T "
+                f"({2 * B * (T - 1)} x {L}): {cublas:.4f} ms")
+            for name, (kern, plain) in fns.items():
+                # plain, kernel, kernel, plain: compare within one call only
+                p1 = self.cuda_ms(plain, 1)
+                k1 = self.cuda_ms(kern, 10)
+                k2 = self.cuda_ms(kern, 10)
+                p2 = self.cuda_ms(plain, 1)
+                ms, plain_ms = min(k1, k2), min(p1, p2)
+                self.times[f"{key} {name}"] = (ms, plain_ms)
+                tail = ""
+                if name in bounds:
+                    self.bounds[f"{key} {name}"] = bounds[name]
+                    b_ms, b_by = bounds[name]
+                    tail = f"; bound {b_ms:.4f} ms by {b_by}"
+                log(f"timing {key} {name} B={B} T={T}: kernel {ms:.4f} ms "
+                    f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
+                    f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
+                    f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
+            self.library_ms[f"{key} backward_dual_grad"] = cublas
+
     def kernels_line(self):
         out = []
+
+        def add(name, source, replaces, launches, key=None):
+            """``key``: the times / bounds entry (the kernel's name, or
+            'config name' for a kernel timed per config)."""
+            key = key or name
+            ms, plain_ms = self.times[key]
+            bound_ms, bound_by = self.bounds[key]
+            out.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": self.err[name], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": self.library_ms.get(key)})
+
         for name, replaces in (("fdt_viterbi_fwd", FWD_SRC),
                                ("fdt_viterbi_traceback", TB_SRC)):
-            ms, plain_ms = self.times[name]
-            out.append({"name": name, "route": "cuda", "source": CU_SRC,
-                        "replaces": replaces,
-                        "launches": self.counts[name],
-                        "max_abs_err": self.err[name],
-                        "ms": ms, "plain_ms": plain_ms})
+            add(name, CU_SRC, replaces, self.counts[name])
         for name, replaces in TRAIN_SRC.items():
-            ms, plain_ms = self.times[name]
-            out.append({"name": name, "route": "cuda", "source": TRAIN_CU,
-                        "replaces": replaces,
-                        "launches": self.train_counts[name],
-                        "max_abs_err": self.err[name],
-                        "ms": ms, "plain_ms": plain_ms})
+            add(name, TRAIN_CU, replaces, self.train_counts[name])
         # times at config 1 (K7), config 5 (K8) and config 1 (traceback)
         for name, key, src in (("viterbi_dense_fwd", "config1", SHARED_CU),
                                ("viterbi_nstate_fwd", "config5", SHARED_CU),
                                ("viterbi_traceback", "config1", CU_SRC)):
-            ms, plain_ms = self.times[f"{key} {name}"]
-            out.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": SHARED_SRC[name],
-                        "launches": self.shared_counts[name],
-                        "max_abs_err": self.err[name],
-                        "ms": ms, "plain_ms": plain_ms})
+            add(name, src, SHARED_SRC[name], self.shared_counts[name],
+                f"{key} {name}")
+        # times at config 5, the widest lattice
+        for name, replaces in FB_SRC.items():
+            add(name, FB_CU, replaces, self.fb_counts[name],
+                f"config5 {name}")
         return {"kernels": out}
 
 
@@ -925,14 +1447,17 @@ def main() -> int:
                         ("train timing", smoke.phase_train_timing),
                         ("shared parity", smoke.phase_shared_parity),
                         ("shared decode", smoke.phase_shared_decode),
-                        ("shared timing", smoke.phase_shared_timing)):
+                        ("shared timing", smoke.phase_shared_timing),
+                        ("fb parity", smoke.phase_fb_parity),
+                        ("shared train", smoke.phase_shared_train_cli),
+                        ("fb timing", smoke.phase_fb_timing)):
         try:
             phase()
         except Exception:       # report every phase, then fail as a whole
             traceback.print_exc()
             failed.append(name)
-    if "jax" in sys.modules:
-        log("chip_smoke: jax was imported")
+    if any(m.split(".")[0] in ("jax", "asr_craft_tpu") for m in sys.modules):
+        log("chip_smoke: jax or the JAX package was imported")
         failed.append("no-jax")
     if failed:
         print(f"chip_smoke: FAILED {failed}", file=sys.stderr)

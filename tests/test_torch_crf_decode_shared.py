@@ -136,19 +136,12 @@ def test_potentials_match_jax(ns):
 
 
 def test_shared_guards():
-    """Training criterion and posteriors of shared transitions still raise
-    (slice 3b); the decode raises, where a kernel would run, for a
-    non-highest precision, and for a CPU tensor under the 'cuda'
-    backend."""
+    """The decode raises, where a kernel would run, for a non-highest
+    precision, and for a CPU tensor under the 'cuda' backend."""
     tcfg = crf.CrfConfig(num_labels=3, feat_dim=D, num_states=2)
     params = tcfg.init_params()
     feats = torch.zeros((1, 4, D))
     lengths = torch.tensor([4])
-    labels = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        crf.crf_loss(tcfg, params, feats, labels, lengths)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        crf.frame_posteriors(tcfg, params, feats, lengths)
     low = crf.CrfConfig(num_labels=3, feat_dim=D, num_states=2,
                         precision="bf16x3")
     crf.decode(low, params, feats, lengths)            # plain: fp32 on CPU

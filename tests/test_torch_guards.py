@@ -1,5 +1,6 @@
-"""Guards of the port: no JAX import, no silent fallback from the device or
-the kernel, and a build command that targets Hopper from csrc/ only."""
+"""Guards of the port: no import of JAX or of the JAX package, no silent
+fallback from the device or the kernel, and build commands that target
+Hopper from csrc/ only."""
 import os
 import shutil
 import subprocess
@@ -31,16 +32,22 @@ for n in names:
     importlib.import_module(n)
 for n in ('kernels.wall', 'kernels.fdt_train', 'train.trainer',
           'train.checkpoint', 'cli.train', 'kernels.viterbi',
-          'ops.viterbi'):
+          'ops.viterbi', 'kernels.fwdbwd', 'ops.mxu', 'ops.fwdbwd',
+          'cli.common', 'utils.logging', 'data.loader', 'data.synthetic',
+          'data.pfile_native', 'decode.scorer', 'decode.fst',
+          'decode.fst_native', 'decode.otf'):
     assert 'asr_craft_tpu_torch.' + n in names, n
-assert len(names) >= 20, names
-bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))
+assert len(names) >= 40, names
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'asr_craft_tpu'))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter, loads
+    neither jax nor any module of the JAX package ``asr_craft_tpu``."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           env=env, capture_output=True, text=True,
@@ -48,15 +55,30 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py names only the port (and torch/numpy)."""
-    src = (REPO / "chip_smoke.py").read_text()
-    for line in src.splitlines():
+def _assert_imports_only_the_port(path):
+    for line in path.read_text().splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
-            assert "jax" not in words[1], line
-            assert not words[1].startswith("asr_craft_tpu.")
-            assert words[1] != "asr_craft_tpu", line
+            assert "jax" not in words[1], (path, line)
+            assert not words[1].startswith("asr_craft_tpu."), (path, line)
+            assert words[1] != "asr_craft_tpu", (path, line)
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names only the port (and torch/numpy)."""
+    _assert_imports_only_the_port(REPO / "chip_smoke.py")
+
+
+def test_port_sources_name_no_jax_package_import():
+    """No import line of any module of the port names jax or the JAX
+    package, not even inside a function (where the fresh-interpreter test
+    would not see it)."""
+    pkg = REPO / "asr_craft_tpu_torch"
+    files = sorted(f for f in pkg.rglob("*.py")
+                   if "_build" not in f.relative_to(pkg).parts)  # outputs
+    assert len(files) >= 40
+    for path in files:
+        _assert_imports_only_the_port(path)
 
 
 def test_device_cuda_without_gpu_raises(tmp_path):
@@ -161,15 +183,27 @@ def test_auto_backend_takes_plain_only_for_cpu_tensors():
 
 
 def test_nvcc_command_targets_sm90a_from_csrc_only():
+    """One compile command per source (they run side by side), then one
+    link of their objects into the shared library."""
     srcs = _build.sources()
     assert srcs and all(s.suffix == ".cu" for s in srcs)
-    cmd = _build.nvcc_command(srcs, _build.BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    inputs = [Path(a) for a in cmd if a.endswith((".cu", ".cuh", ".cpp"))]
+    assert "fwdbwd.cu" in [s.name for s in srcs]
+    objs = [_build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
+    inputs = []
+    for src, obj in zip(srcs, objs):
+        cmd = _build.nvcc_command(src, obj)
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == \
+            "-gencode"
+        for flag in ("-std=c++17", "-O3", "-c", "-fPIC"):
+            assert flag in cmd
+        assert cmd[cmd.index("-o") + 1] == str(obj)
+        inputs += [Path(a) for a in cmd
+                   if a.endswith((".cu", ".cuh", ".cpp"))]
     assert inputs == srcs
+    link = _build.link_command(objs, _build.BUILD_DIR / "lib.so")
+    assert "-shared" in link and link[-len(objs):] == [str(o) for o in objs]
+    assert link[link.index("-o") + 1] == str(_build.BUILD_DIR / "lib.so")
     csrc = Path(asr_craft_tpu_torch.__file__).parent / "csrc"
     assert all(p.resolve().parent == csrc.resolve() for p in inputs)
     lib = _build.library_path()
