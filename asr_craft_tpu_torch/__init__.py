@@ -15,8 +15,11 @@ CRF path (``models.crf`` -> ``kernels.fdt_viterbi`` / ``kernels.fdt_train``
 -> ``csrc/fdt_viterbi.cu`` / ``csrc/fdt_train.cu``) and the
 shared-transition path (``ops.mxu`` -> ``kernels.fwdbwd`` ->
 ``csrc/fwdbwd.cu``; ``kernels.viterbi`` -> ``csrc/viterbi.cu``), the trainer
-(``train``) and the ``crf-train`` / ``crf-decode`` CLI twins.  ROADMAP.md
-lists what is still to come.
+(``train``) and the ``crf-train`` / ``crf-decode`` CLI twins; and the
+segmental CRF (``models.segmental`` -> ``ops.segmental_stream`` ->
+``kernels.segmental`` -> ``csrc/segmental.cu``, with the dense oracle
+``ops.segmental`` and the recipe twin ``recipes.scrf``).  ROADMAP.md lists
+what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 // Pieces shared by the port's kernels (fdt_viterbi.cu: K3; fdt_train.cu:
-// K1, K2; viterbi.cu: K7, K8): the semiring zero, the block-wide first
-// argmax of the max-plus decodes, the in-block plane formation, and the
-// guarded three-way log-sum-exp of the reference.
+// K1, K2; viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu: K9-K13):
+// the semiring zero, the block-wide first argmax of the max-plus decodes,
+// the in-block plane formation, the guarded three-way log-sum-exp of the
+// reference and, at the end, the pieces of the recursions over one (L, L)
+// transition factor held in shared memory.
 //
 // Plane formation.  Wall is the packed parameter matrix of
 // asr_craft_tpu_torch/kernels/wall.py build_wall, passed TRANSPOSED and
@@ -15,6 +17,7 @@
 
 #include <climits>
 #include <cmath>
+#include <cstddef>
 #include <cuda_runtime.h>
 
 namespace fdtk {
@@ -98,6 +101,104 @@ __device__ __forceinline__ void form_plane(const float* __restrict__ wall_t,
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(fmaxf(a, b), c), kNegInf);
   return m + logf(fmaxf(expf(a - m) + expf(b - m) + expf(c - m), 1e-35f));
+}
+
+// ---------------------------------------------------------------------------
+// Pieces shared by the log-semiring recursions over one (L, L) transition
+// factor (fwdbwd.cu: K4, K5, K6a, K6b, K14; segmental.cu: K9-K13).
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxThreads = 1024;
+constexpr int kGroup = 4;               // lanes per destination's sum
+constexpr int kTile = 6;                // a thread's tile of an (L, L) partial
+constexpr int kTileThreads = 640;       // ... leaves it ~100 registers
+constexpr float kProdFloor = 1e-38f;    // the reference's log floor
+constexpr size_t kSmemLimit = 232448;   // bytes a Hopper block may opt into
+
+// kGroup lanes per label, in whole warps; at least two warps (logZ takes
+// one warp per lattice)
+inline int threads_for(int L) {
+  const long n = ((long)L * kGroup + 31) / 32 * 32;
+  return n < 64 ? 64 : (n > kMaxThreads ? kMaxThreads : (int)n);
+}
+
+// The row stride of an (L, L) factor in shared memory, padded to 8 mod 32 so
+// the kGroup lanes of a destination hit different banks.
+inline int padded_stride(int L) { return L + ((8 - L % 32) + 32) % 32; }
+
+// m[i] = max(max_l v[i * L + l], NEG_INF), computed by every warp for
+// itself, so no barrier is needed before its use.
+template <int NLAT>
+__device__ __forceinline__ void row_max(const float* v, int L,
+                                        float (&m)[NLAT]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < NLAT; ++i) {
+    float x = kNegInf;
+    for (int l = lane; l < L; l += 32) x = fmaxf(x, v[i * L + l]);
+    for (int o = 16; o > 0; o >>= 1)
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    m[i] = x;
+  }
+}
+
+// acc[i] = sum_p e[i * L + p] * Pm[p * stride + l], the p split over the
+// kGroup lanes of a destination (lane g takes p = g, g + kGroup, ...) and
+// merged with shuffles: every lane of the group gets the sum.  All lanes of
+// the warp must call it; lanes with ok false add nothing.
+template <int NLAT>
+__device__ __forceinline__ void group_dot(const float* e, const float* Pm,
+                                          int stride, int L, int l, int g,
+                                          bool ok, float (&acc)[NLAT]) {
+#pragma unroll
+  for (int i = 0; i < NLAT; ++i) acc[i] = 0.0f;
+  if (ok) {
+    const float* col = Pm + l;
+#pragma unroll 4
+    for (int p = g; p < L; p += kGroup) {
+      const float w = col[(size_t)p * stride];
+#pragma unroll
+      for (int i = 0; i < NLAT; ++i) acc[i] = fmaf(e[i * L + p], w, acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NLAT; ++i)
+    for (int o = 1; o < kGroup; o <<= 1)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+}
+
+// Copies the (L, L) factor to shared memory with row stride ps.
+__device__ __forceinline__ void stage_matrix(const float* __restrict__ Pg,
+                                             float* smem, int L, int ps) {
+  int r = threadIdx.x / L, c = threadIdx.x % L;
+  const int dr = blockDim.x / L, dc = blockDim.x % L;
+  for (int i = threadIdx.x; i < L * L; i += blockDim.x) {
+    smem[(size_t)r * ps + c] = Pg[i];
+    c += dc;
+    r += dr;
+    if (c >= L) {
+      c -= L;
+      ++r;
+    }
+  }
+}
+
+// out[i] = sum_b part[b, i], b in order: a fixed summation order
+static __global__ void sum_partials_kernel(const float* __restrict__ part,
+                                           float* __restrict__ out, int B,
+                                           int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = 0.0f;
+  for (int b = 0; b < B; ++b) acc += part[(size_t)b * n + i];
+  out[i] = acc;
+}
+
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
 }
 
 }  // namespace fdtk

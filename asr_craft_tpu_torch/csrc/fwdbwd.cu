@@ -18,7 +18,8 @@
 //                                   backward_dual_grad_pallas): the beta
 //                                   recursion fused with the classical
 //                                   gradient; betas are never stored
-// and fb_sum_partials_kernel, which finishes K5's transition gradient.
+// and sum_partials_kernel (fdt_common.cuh), which finishes K5's transition
+// gradient.
 //
 // Layouts (batch-major, as models.crf.potentials returns them).  state
 // (B, T, L) f32 with the boundary masks folded in; P (L, L) = exp(trans -
@@ -62,7 +63,7 @@
 // K5's UV cannot be one carried accumulator: blocks run in parallel and
 // atomics would make gradients differ from run to run.  Each block sums its
 // own utterance's U^T V over its frames in a fixed order, and
-// fb_sum_partials_kernel adds the B partials in batch order: the same bits
+// sum_partials_kernel adds the B partials in batch order: the same bits
 // on every run.  Each thread keeps a kTile x kTile tile of the partial in
 // registers: a frame costs it 4 kTile shared-memory loads of U and V, not a
 // read-modify-write per element.
@@ -83,19 +84,18 @@ namespace {
 
 using fdtk::kNegInf;
 
-constexpr int kMaxThreads = 1024;
-constexpr int kGroup = 4;               // lanes per destination's sum
-constexpr int kTile = 6;                // K5: a thread's tile of the partial
-constexpr int kTileThreads = 640;       // ... leaves it ~100 registers
-constexpr float kProdFloor = 1e-38f;    // the reference's log floor
-constexpr size_t kSmemLimit = 232448;   // bytes a Hopper block may opt into
-
-// kGroup lanes per label, in whole warps; at least two warps (logZ takes
-// one warp per lattice)
-int threads_for(int L) {
-  const long n = ((long)L * kGroup + 31) / 32 * 32;
-  return n < 64 ? 64 : (n > kMaxThreads ? kMaxThreads : (int)n);
-}
+using fdtk::kGroup;
+using fdtk::kMaxThreads;
+using fdtk::kProdFloor;
+using fdtk::kSmemLimit;
+using fdtk::kTile;
+using fdtk::kTileThreads;
+using fdtk::group_dot;
+using fdtk::opt_in;
+using fdtk::padded_stride;
+using fdtk::row_max;
+using fdtk::stage_matrix;
+using fdtk::threads_for;
 
 // K5's register tiles cover the (L, L) partial when the block has
 // ceil(L / kTile)^2 threads and is small enough for their registers.
@@ -113,8 +113,6 @@ struct Plan {
   bool ok;
 };
 
-int padded_stride(int L) { return L + ((8 - L % 32) + 32) % 32; }
-
 // vectors: forward alpha, e; backward beta, x, v (+ a2, u with grad); tmax
 size_t vector_floats(int L, int nlat, int grad, int forward) {
   const size_t per = forward ? 2 : (grad ? 5 : 3);
@@ -131,63 +129,6 @@ Plan make_plan(int L, int nlat, int grad, int forward) {
 __device__ __forceinline__ float clamp_penalty(int l, int label,
                                                int clamp_ns) {
   return l / clamp_ns == label ? 0.0f : kNegInf;
-}
-
-// m[i] = max(max_l v[i * L + l], NEG_INF), computed by every warp for
-// itself, so no barrier is needed before its use.
-template <int NLAT>
-__device__ __forceinline__ void row_max(const float* v, int L,
-                                        float (&m)[NLAT]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < NLAT; ++i) {
-    float x = kNegInf;
-    for (int l = lane; l < L; l += 32) x = fmaxf(x, v[i * L + l]);
-    for (int o = 16; o > 0; o >>= 1)
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-    m[i] = x;
-  }
-}
-
-// acc[i] = sum_p e[i * L + p] * Pm[p * stride + l], the p split over the
-// kGroup lanes of a destination (lane g takes p = g, g + kGroup, ...) and
-// merged with shuffles: every lane of the group gets the sum.  All lanes of
-// the warp must call it; lanes with ok false add nothing.
-template <int NLAT>
-__device__ __forceinline__ void group_dot(const float* e, const float* Pm,
-                                          int stride, int L, int l, int g,
-                                          bool ok, float (&acc)[NLAT]) {
-#pragma unroll
-  for (int i = 0; i < NLAT; ++i) acc[i] = 0.0f;
-  if (ok) {
-    const float* col = Pm + l;
-#pragma unroll 4
-    for (int p = g; p < L; p += kGroup) {
-      const float w = col[(size_t)p * stride];
-#pragma unroll
-      for (int i = 0; i < NLAT; ++i) acc[i] = fmaf(e[i * L + p], w, acc[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NLAT; ++i)
-    for (int o = 1; o < kGroup; o <<= 1)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-}
-
-// Copies the (L, L) factor to shared memory with row stride ps.
-__device__ __forceinline__ void stage_matrix(const float* __restrict__ Pg,
-                                             float* smem, int L, int ps) {
-  int r = threadIdx.x / L, c = threadIdx.x % L;
-  const int dr = blockDim.x / L, dc = blockDim.x % L;
-  for (int i = threadIdx.x; i < L * L; i += blockDim.x) {
-    smem[(size_t)r * ps + c] = Pg[i];
-    c += dc;
-    r += dr;
-    if (c >= L) {
-      c -= L;
-      ++r;
-    }
-  }
 }
 
 template <int NLAT>
@@ -429,24 +370,6 @@ fb_backward_kernel(const float* __restrict__ state,
   }
 }
 
-// out[i] = sum_b part[b, i], b in order: a fixed summation order
-__global__ void fb_sum_partials_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int B,
-                                       int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = 0.0f;
-  for (int b = 0; b < B; ++b) acc += part[(size_t)b * n + i];
-  out[i] = acc;
-}
-
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-}
-
 }  // namespace
 
 extern "C" {
@@ -511,7 +434,7 @@ int fwdbwd_backward_grad(const float* state, const float* Pt,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = L * L;
-  fb_sum_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, UV, B, n);
+  fdtk::sum_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, UV, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,8 +9,9 @@ frame-dependent transition features over all dims.  Beside it, the
 shared-transition (bias-only) configs 1, 3 and 5 at their recipes' widths
 (:func:`timit_mono`, :func:`wsj_crandem`, :func:`swbd`), with the feature
 width of the synthetic posterior corpus: P posteriors x (2 * window + 1)
-frames.  Inputs come from ``numpy.random.default_rng`` so both packages
-can be fed the same numbers.
+frames, and the segmental CRF of config 4 (:func:`scrf`) at the width the
+JAX package benches it at.  Inputs come from ``numpy.random.default_rng`` so
+both packages can be fed the same numbers.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from asr_craft_tpu_torch.models.crf import CrfConfig, crf_loss
+from asr_craft_tpu_torch.models.segmental import SegCrfConfig
 
 
 def flagship() -> CrfConfig:
@@ -45,7 +47,27 @@ def swbd() -> CrfConfig:
     return CrfConfig(num_labels=46, feat_dim=46 * 5, num_states=3)
 
 
-def tiny_batch(cfg: CrfConfig, B: int = 8, T: int = 64, seed: int = 0,
+def scrf() -> SegCrfConfig:
+    """BASELINE config 4 (``recipes/scrf.py``) at the width of the JAX
+    package's segmental bench (``bench.py``, B=128, T=512): 48 labels, 144
+    dims, segments of up to 16 frames."""
+    return SegCrfConfig(num_labels=48, feat_dim=144, max_dur=16)
+
+
+def scrf_batch(cfg: SegCrfConfig, B: int = 128, T: int = 512, seed: int = 0,
+               device="cpu", ragged: bool = False) -> dict:
+    """The segmental bench's batch: N(0, 1) frames and labels in runs of 4
+    frames, all rows full; ``ragged``: lengths on run ends from
+    :func:`ragged_lengths` (row 0 full, the last row empty)."""
+    batch = tiny_batch(cfg, B, T, seed, device)
+    if ragged:
+        lengths = (ragged_lengths(B, T, seed) + 3) // 4 * 4
+        lengths[-1] = 0
+        batch["lengths"] = torch.from_numpy(lengths).to(device)
+    return batch
+
+
+def tiny_batch(cfg, B: int = 8, T: int = 64, seed: int = 0,
                device="cpu") -> dict:
     """The JAX ``_tiny_batch``: N(0, 1) frames, phone runs of 4 frames,
     full lengths; tensors on ``device``."""

@@ -9,7 +9,10 @@ Counterpart of :mod:`asr_craft_tpu.kernels`.  The backend is one of
 - ``"torch"``: always the plain PyTorch version, on either device.
 
 The sources live in ``asr_craft_tpu_torch/csrc`` and are built with nvcc at
-first use (:mod:`asr_craft_tpu_torch.kernels._build`).
+first use (:mod:`asr_craft_tpu_torch.kernels._build`).  One module per
+family, each with its kernels' wrappers, plain versions and launch counts:
+``fdt_viterbi`` (K3), ``fdt_train`` (K1, K2), ``viterbi`` (K7, K8),
+``fwdbwd`` (K4, K5, K6a, K6b, K14) and ``segmental`` (K9-K13).
 """
 from __future__ import annotations
 

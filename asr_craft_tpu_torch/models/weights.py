@@ -3,7 +3,8 @@
 Counterpart of :mod:`asr_craft_tpu.models.weights`: the canonical flat
 ordering is the parameter names sorted alphabetically, row-major within
 each array, stored as raw little-endian float64 — the reference's on-disk
-format.  A file written by either package loads in the other.
+format.  A file written by either package loads in the other.  So does the
+``.npz`` of named arrays that the segmental recipe writes.
 """
 from __future__ import annotations
 
@@ -58,3 +59,17 @@ def save_raw(path, cfg: FeatureMapConfig, params: dict) -> None:
 
 def load_raw(path, cfg: FeatureMapConfig, device="cpu") -> dict:
     return unflatten_params(cfg, np.fromfile(path, dtype="<f8"), device)
+
+
+def save_npz(path, params: dict) -> None:
+    """One named array per parameter, in the parameters' own types: the
+    JAX package's ``save_npz`` format."""
+    np.savez(path, **{k: torch.as_tensor(v).detach().cpu().numpy()
+                      for k, v in params.items()})
+
+
+def load_npz(path, device="cpu") -> dict:
+    """A ``save_npz`` file of either package -> dict of float32 tensors on
+    ``device``."""
+    with np.load(path) as z:
+        return params_from_numpy({k: z[k] for k in z.files}, device)

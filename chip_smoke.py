@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's decode and training (configs 1, 2, 3, 5) once on one
-NVIDIA GPU.
+"""Drive the port's decode and training (configs 1-5) once on one NVIDIA
+GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -66,7 +66,24 @@ in phases:
 (l) shared-transition training timing — the five kernels and a full train
     step (loss, backward, SGD update) against the plain version at B=128,
     T=512, all rows full, for configs 1, 3 and 5, and cuBLAS on the
-    ``U^T V`` contraction alone.
+    ``U^T V`` contraction alone;
+(m) segmental parity — the K9-K13 kernels (``segmental_forward``,
+    ``segmental_backward``, ``segmental_grad``, ``segmental_viterbi``,
+    ``segmental_viterbi_traceback``) against their plain versions on the
+    frame scores of a random config-4 model at B=128, T=512, L=48, Dmax=16
+    (ragged lengths, an empty row), mean and sum pooling: alphas, betas,
+    logZ and the gradient pieces within tolerance, gd and gt bit-equal on
+    two runs; deltas, duration argmaxes, segment markers and packed
+    segments equal, exact and with ``beam_threshold=8``; the parameter
+    gradients of ``scrf_loss_fused`` under both backends;
+(n) segmental end to end — ``asr_craft_tpu_torch.recipes.scrf.main`` (60
+    training and 600 held-out utterances, 300 epochs), held to the JAX CPU
+    run's losses and PER: K9-K13 must launch; ``--decode_only`` on the
+    weights it wrote under both backends (the same counts); 30 epochs again
+    under both backends (the same losses);
+(o) segmental timing — the five kernels, one train step
+    (``scrf_loss_fused``, backward, SGD) and one ``scrf_decode`` against the
+    plain version at B=128, T=512, L=48, D=144, Dmax=16, all rows full.
 
 Every kernel's time stands beside its bound on this card: the larger of the
 bytes it must move (each input read once, each output written once) over
@@ -76,8 +93,11 @@ shapes.
 Prints the card (``nvidia-smi``), the build time, one line per check, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if there is no CUDA device, if the
-package is missing, or if any phase fails.  Writes its weight file and MLFs
-under ``asr_craft_tpu_torch/_build/chip_smoke/`` (git-ignored).
+package is missing, or if any phase fails.  ``--only WORD`` (for work on one
+family of kernels) runs the phases whose names hold WORD and exits 2 after
+them, with their lines but no result line: only the whole run is a result.
+Writes its weight files and MLFs under
+``asr_craft_tpu_torch/_build/chip_smoke/`` (git-ignored).
 """
 from __future__ import annotations
 
@@ -207,6 +227,31 @@ SHARED_TRAIN = {                    # (model flags, optimizer flags, ...)
 }
 SHARED_TRAIN_CORPUS = ["--synthetic_utts", "256", "--crf_epochs", "3",
                        "--seed", "0"]
+SEG_CU = "asr_craft_tpu_torch/csrc/segmental.cu"
+SEG_SRC = {                         # the TPU kernel bodies they replace
+    "segmental_forward": "asr_craft_tpu/kernels/segmental_pallas.py:71",
+    "segmental_backward": "asr_craft_tpu/kernels/segmental_pallas.py:257",
+    "segmental_grad": "asr_craft_tpu/kernels/segmental_pallas.py:382",
+    "segmental_viterbi": "asr_craft_tpu/kernels/segmental_pallas.py:616",
+    "segmental_viterbi_traceback":
+        "asr_craft_tpu/kernels/segmental_pallas.py:748",
+}
+# A and S hold pooled segment posteriors times |g| = 1, each the exp of a
+# difference of sums ~1e3 in magnitude at T = 512: ~1e-4 relative.  Four
+# times the largest difference seen on this card (1.3e-4).
+SEG_G_ATOL = 5e-4
+# The JAX package's recipe on the CPU (recipes/scrf.py --utts 60 --eval_utts
+# 600 --epochs 300 --platform cpu): the logged losses by epoch and the
+# held-out eval (453 errors in 6392 tokens: sub 80, ins 110, del 263).
+SCRF_FLAGS = ["--utts", "60", "--eval_utts", "600"]
+JAX_SCRF_LOSSES = {
+    0: 2.5630927085876465, 25: 0.7011288404464722, 50: 0.46663135290145874,
+    75: 0.3654933273792267, 100: 0.30418962240219116,
+    125: 0.2624880373477936, 150: 0.2322712391614914,
+    175: 0.2093581110239029, 200: 0.19136327505111694,
+    225: 0.17683425545692444, 250: 0.1648397594690323,
+    275: 0.15475565195083618, 299: 0.14646832644939423}
+JAX_SCRF_PER, JAX_SCRF_TOKENS = 0.07086983729662077, 6392
 # Published peaks of one H100 SXM: device memory bytes/s and fp32 FLOP/s
 # outside the tensor cores (every kernel here is fp32 on the CUDA cores).
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
@@ -242,11 +287,13 @@ class Smoke:
         self.train_counts = {}
         self.shared_counts = {}
         self.fb_counts = {}
+        self.seg_counts = {}
         self.times = {}
         self.bounds = {}
         self.library_ms = {}
         self.err.update({k: 0.0 for k in SHARED_SRC})
         self.err.update({k: 0.0 for k in FB_SRC})
+        self.err.update({k: 0.0 for k in SEG_SRC})
 
     # -- (a) parity ---------------------------------------------------------
     def problem(self, cfg, B, T, seed):
@@ -395,6 +442,41 @@ class Smoke:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def device_share(self, label, fn, reps=5):
+        """Trace ``reps`` calls of ``fn`` with torch.profiler and log the
+        wall time per call, the time the device was busy in it and the
+        kernels that took most of that.  A measurement aid: where the
+        profiler gives no device times it says so and nothing fails."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / reps * 1e3
+            rows = [(e.key, e.device_time_total / reps / 1e3, e.count // reps)
+                    for e in prof.key_averages()
+                    if e.device_time_total > 0
+                    and e.device_type == torch.autograd.DeviceType.CUDA]
+        except Exception as exc:        # the tracer, not the program
+            log(f"device share {label}: not measured ({exc!r})")
+            return
+        if not rows:
+            log(f"device share {label}: not measured (the trace holds no "
+                "device time)")
+            return
+        busy = sum(ms for _, ms, _ in rows)
+        top = sorted(rows, key=lambda r: -r[1])[:6]
+        log(f"device share {label}: {wall:.4f} ms wall per call (traced), "
+            f"device busy {busy:.4f} ms in {sum(n for _, _, n in rows)} "
+            f"kernels ({100 * busy / wall:.1f}%); most of it: "
+            + "; ".join(f"{k[:48]} {ms:.4f} ms x{n}" for k, ms, n in top))
 
     def phase_timing(self):
         from asr_craft_tpu_torch.models.crf import decode
@@ -1378,6 +1460,361 @@ class Smoke:
                     f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
             self.library_ms[f"{key} backward_dual_grad"] = cublas
 
+    # -- (m) segmental parity ---------------------------------------------------
+    def seg_problem(self, B, T, seed, ragged=True, pooling="mean"):
+        """A config-4 model that finds the batch's runs, and the kernels' own
+        inputs (the frame scores and the combined bias).  The segmental
+        bench's batch (N(0, 1) frames, labels in runs of 4; ``ragged``:
+        lengths on run ends, row 0 full, the last row empty) with each
+        frame's label marked in the first L dims (+3); parameters N(0, 1)
+        at scale 0.1, with those dims feeding their labels (+2), every
+        segment boundary costing 2 and, under mean pooling (where a
+        segment's score does not grow with its length), each further frame
+        of a segment earning 5.  Without these the best path of a random
+        model is one segment a frame, and the duration argmaxes all 0."""
+        import dataclasses
+
+        from asr_craft_tpu_torch import flagship
+        from asr_craft_tpu_torch.models.segmental import _frame_scores_and_bias
+        torch = self.torch
+        cfg = dataclasses.replace(flagship.scrf(), pooling=pooling)
+        L = cfg.num_labels
+        params = cfg.init_params(torch.Generator().manual_seed(seed), 0.1,
+                                 self.dev)
+        params["w_frame"][:L] += 2.0 * torch.eye(L, device=self.dev)
+        params["b_trans"] -= 2.0
+        if pooling == "mean":
+            params["b_dur"] += 5.0 * torch.arange(
+                cfg.max_dur, device=self.dev, dtype=torch.float32)[:, None]
+        batch = flagship.scrf_batch(cfg, B, T, seed, self.dev, ragged)
+        batch["feats"][..., :L] += 3.0 * torch.nn.functional.one_hot(
+            batch["labels"].long(), L)
+        with torch.no_grad():
+            frame, bias = _frame_scores_and_bias(cfg, params, batch["feats"])
+        return (cfg, params, batch, frame.contiguous(),
+                params["b_trans"].contiguous(), bias.contiguous())
+
+    def check_segmental(self, pooling, seed):
+        from asr_craft_tpu_torch.kernels import segmental as K
+        from asr_craft_tpu_torch.ops.segmental_stream import (
+            _pack_segment_markers)
+        torch = self.torch
+        cfg, _, batch, frame, trans, bias = self.seg_problem(
+            128, 512, seed, pooling=pooling)
+        lengths, mean_pool = batch["lengths"], pooling == "mean"
+        args = (frame, trans, bias, lengths)
+        errs = {}
+
+        def close(name, what, got, want, **tol):
+            e = self.close(f"segmental {pooling} {what}", got, want, **tol)
+            errs[name] = max(errs.get(name, 0.0), e)
+
+        alphas, logZ = K.segmental_forward_cuda(*args, mean_pool)
+        ra, rz = K.segmental_forward_plain(*args, mean_pool)
+        close("segmental_forward", "alphas", alphas, ra, **FB_Z_TOL)
+        close("segmental_forward", "logZ", logZ, rz, **FB_Z_TOL)
+        rb = K.segmental_backward_plain(*args, mean_pool)
+        close("segmental_backward", "betas",
+              K.segmental_backward_cuda(*args, mean_pool), rb, **FB_Z_TOL)
+        g = torch.ones_like(rz)
+        grad_in = (ra.contiguous(), rb.contiguous(), rz.contiguous(), g)
+        A, S, gd, gt = K.segmental_grad_cuda(*args, *grad_in, mean_pool)
+        again = K.segmental_grad_cuda(*args, *grad_in, mean_pool)
+        rA, rS, rgd, rgt = K.segmental_grad_plain(*args, *grad_in, mean_pool)
+        close("segmental_grad", "A", A, rA, rtol=0.0, atol=SEG_G_ATOL)
+        close("segmental_grad", "S", S, rS, rtol=0.0, atol=SEG_G_ATOL)
+        gd_err = self.close(f"segmental {pooling} gd", gd, rgd, RTOL,
+                            REL_MAX * float(rgd.abs().max()))
+        gt_err = self.close(f"segmental {pooling} gt", gt, rgt, RTOL,
+                            REL_MAX * float(rgt.abs().max()))
+        if not all(torch.equal(x, y) for x, y in zip((A, S, gd, gt), again)):
+            raise AssertionError(f"segmental {pooling}: K11 differs between "
+                                 "two runs")
+        if float(A[-1].abs().max()) != 0.0 or float(S[-1].abs().max()) != 0.0:
+            raise AssertionError(f"segmental {pooling}: the empty row has a "
+                                 "gradient")
+        n_segs = {}
+        for mode, thr in (("exact", None), ("beam_threshold=8", 8.0)):
+            got = K.segmental_viterbi_cuda(*args, mean_pool, thr)
+            want = K.segmental_viterbi_plain(*args, mean_pool, thr)
+            names = ("deltas", "arg_d", "lab0", "scores")
+            bad = [n for n, x, y in zip(names, got, want)
+                   if not torch.equal(x, y)]
+            tb = K.segmental_viterbi_traceback_cuda(got[0], got[1], trans,
+                                                    got[2], lengths)
+            rtb = K.segmental_viterbi_traceback_plain(want[0], want[1],
+                                                      trans, want[2], lengths)
+            bad += [n for n, x, y in zip(("end_lab", "end_start"), tb, rtb)
+                    if not torch.equal(x, y)]
+            packed = _pack_segment_markers(*tb)
+            bad += [n for n, x, y in zip(("starts", "labels", "n_segs"),
+                                         packed, _pack_segment_markers(*rtb))
+                    if not torch.equal(x, y)]
+            torch.cuda.synchronize()
+            if bad:
+                raise AssertionError(f"segmental {pooling} {mode}: {bad} "
+                                     "differ from the plain version")
+            if not torch.isfinite(got[3][:-1]).all() or int(packed[2][-1]):
+                raise AssertionError(f"segmental {pooling} {mode}: bad "
+                                     "scores or a segment in the empty row")
+            errs["segmental_viterbi"] = max(
+                errs.get("segmental_viterbi", 0.0),
+                float((got[0] - want[0]).abs().max()))
+            errs["segmental_viterbi_traceback"] = max(
+                errs.get("segmental_viterbi_traceback", 0),
+                int((tb[0] - rtb[0]).abs().max()))
+            n_segs[mode] = int(packed[2].sum())
+            if not int(lengths.sum()) // 8 < n_segs[mode] < \
+                    int(lengths.sum()) * 3 // 4:
+                raise AssertionError(f"segmental {pooling} {mode}: "
+                                     f"{n_segs[mode]} segments in "
+                                     f"{int(lengths.sum())} frames: the "
+                                     "best paths do not follow the runs")
+        for name, e in errs.items():
+            self.err[name] = max(self.err[name], e)
+        log(f"segmental parity {pooling} pooling: max |kernel - plain| "
+            f"{errs}; |gd - plain| {gd_err:.3e} (largest "
+            f"{float(rgd.abs().max()):.3e}), |gt - plain| {gt_err:.3e} "
+            f"(largest {float(rgt.abs().max()):.3e}); K11 bit-equal on two "
+            f"runs; deltas, arg_d, markers and packed segments equal "
+            f"(segments {n_segs})")
+
+    def check_scrf_loss_grads(self, pooling):
+        """scrf_loss_fused + backward(): the K9-K11 path against the plain
+        path (backend 'torch') on every parameter gradient."""
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.models.segmental import scrf_loss_fused
+        cfg, params, batch, _, _, _ = self.seg_problem(128, 512, 1,
+                                                       pooling=pooling)
+        grads = {}
+        for backend in ("auto", "torch"):
+            kernels.set_backend(backend)
+            try:
+                p = {k: v.clone().requires_grad_(True)
+                     for k, v in params.items()}
+                loss, _ = scrf_loss_fused(cfg, p, batch["feats"],
+                                          batch["labels"], batch["lengths"])
+                loss.backward()
+                grads[backend] = (loss.item(), {k: v.grad
+                                                for k, v in p.items()})
+            finally:
+                kernels.set_backend("auto")
+        (lk, gk), (lp, gp) = grads["auto"], grads["torch"]
+        if not 0.0 < lk < 1e3:
+            raise AssertionError(f"scrf_loss_fused {lk}: a gold run is "
+                                 "inexpressible")
+        if abs(lk - lp) > 1e-5 * abs(lp):
+            raise AssertionError(f"scrf_loss_fused {lk} vs plain {lp}")
+        errs = {k: self.close(f"scrf grad {k}", gk[k], gp[k], RTOL,
+                              REL_MAX * float(gp[k].abs().max()))
+                for k in gk}
+        log(f"segmental parity scrf_loss_fused {pooling} pooling B=128 "
+            f"T=512: loss {lk:.7f} (plain {lp:.7f}); max |grad - plain| "
+            f"{errs}")
+
+    def phase_seg_parity(self):
+        for seed, pooling in enumerate(("mean", "sum")):
+            self.check_segmental(pooling, seed)
+            self.check_scrf_loss_grads(pooling)
+
+    # -- (n) segmental end to end -----------------------------------------------
+    def run_scrf(self, tag, backend, extra):
+        from asr_craft_tpu_torch.recipes.scrf import main
+        out = OUT / f"scrf_{tag}"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(SCRF_FLAGS + extra + [
+                "--device", "cuda", "--kernel_backend", backend, "--out_dir",
+                str(out)])
+        self.torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        if rc != 0:
+            raise AssertionError(f"scrf recipe ({tag}) rc={rc}")
+        losses = {r["epoch"]: r["loss"] for r in recs
+                  if r["kind"] == "train_epoch"}
+        evals = [r for r in recs if r["kind"] == "eval"]
+        if len(evals) != 1:
+            raise AssertionError(f"scrf recipe ({tag}): {len(evals)} evals")
+        log(f"  scrf ({tag}, {backend}): {secs:.3f} s wall, losses "
+            f"{json.dumps(losses)}, eval {json.dumps(evals[0])}")
+        return losses, evals[0], out / "scrf_weights.npz"
+
+    def phase_seg_recipe(self):
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.kernels import segmental as K
+        # the main path: every count 0 before it, read after it
+        K.reset_launches()
+        losses, ev, wfile = self.run_scrf("train", "auto",
+                                          ["--epochs", "300"])
+        self.seg_counts = dict(K.launches)
+        log(f"scrf recipe launches {self.seg_counts}")
+        if min(self.seg_counts.values()) < 1:
+            raise AssertionError(f"a kernel never launched: "
+                                 f"{self.seg_counts}")
+        if sorted(losses) != sorted(JAX_SCRF_LOSSES):
+            raise AssertionError(f"logged epochs {sorted(losses)}")
+        for epoch, want in JAX_SCRF_LOSSES.items():
+            if abs(losses[epoch] - want) > 1e-3 * want:
+                raise AssertionError(f"epoch {epoch}: loss {losses[epoch]}, "
+                                     f"JAX reference {want} (rtol 1e-3)")
+        if ev["tokens"] != JAX_SCRF_TOKENS or \
+                abs(ev["per"] - JAX_SCRF_PER) > 0.003:
+            raise AssertionError(f"eval {ev}, JAX reference PER "
+                                 f"{JAX_SCRF_PER} (+-0.003) on "
+                                 f"{JAX_SCRF_TOKENS} tokens")
+        K.reset_launches()
+        _, dec, _ = self.run_scrf("decode_auto", "auto",
+                                  ["--decode_only", str(wfile)])
+        dec_counts = dict(K.launches)
+        K.reset_launches()
+        _, dec_t, _ = self.run_scrf("decode_torch", "torch",
+                                    ["--decode_only", str(wfile)])
+        l30, _, _ = self.run_scrf("train30_torch", "torch",
+                                  ["--epochs", "30"])
+        plain_counts = dict(K.launches)
+        kernels.set_backend("auto")
+        k30, _, _ = self.run_scrf("train30", "auto", ["--epochs", "30"])
+        if (dec_counts["segmental_viterbi"],
+                dec_counts["segmental_viterbi_traceback"]) != (1, 1):
+            raise AssertionError(f"--decode_only launched {dec_counts}")
+        if max(plain_counts.values()) != 0:
+            raise AssertionError(f"plain backend launched {plain_counts}")
+        for a, b in ((dec, ev), (dec_t, ev)):
+            if (a["errors"], a["tokens"]) != (b["errors"], b["tokens"]):
+                raise AssertionError(f"the same weights decode to {a} and "
+                                     f"{b}")
+        for epoch, want in l30.items():
+            if abs(k30[epoch] - want) > 1e-4 * abs(want):
+                raise AssertionError(f"kernel losses {k30} vs plain {l30} "
+                                     "(rtol 1e-4)")
+        log(f"scrf recipe: within rtol 1e-3 of the JAX losses, PER "
+            f"{ev['per']} ({ev['errors']}/{ev['tokens']}; JAX "
+            f"{JAX_SCRF_PER}); scrf_weights.npz decodes to the same counts "
+            "under both backends; kernel and plain losses within rtol 1e-4 "
+            "over 30 epochs")
+
+    # -- (o) segmental timing ---------------------------------------------------
+    def phase_seg_timing(self):
+        from asr_craft_tpu_torch import kernels
+        from asr_craft_tpu_torch.kernels import segmental as K
+        from asr_craft_tpu_torch.models.segmental import (scrf_decode,
+                                                          scrf_loss_fused)
+        torch = self.torch
+        B, T = 128, 512
+        audio_s = B * T * FRAME_S
+        cfg, params, batch, frame, trans, bias = self.seg_problem(
+            B, T, 0, ragged=False)
+        lengths = batch["lengths"]
+        args = (frame, trans, bias, lengths)
+        alphas, logZ = K.segmental_forward_cuda(*args)
+        betas = K.segmental_backward_cuda(*args)
+        grad_in = (alphas, betas, logZ, torch.ones_like(logZ))
+        deltas, arg_d, lab0, _ = K.segmental_viterbi_cuda(*args)
+        end_lab, _ = K.segmental_viterbi_traceback_cuda(deltas, arg_d, trans,
+                                                        lab0, lengths)
+        segments = int((end_lab >= 0).sum())
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        opt = torch.optim.SGD(p.values(), lr=0.05)
+
+        def step(backend):
+            kernels.set_backend(backend)
+            try:
+                opt.zero_grad(set_to_none=True)
+                loss, _ = scrf_loss_fused(cfg, p, batch["feats"],
+                                          batch["labels"], lengths)
+                loss.backward()
+                opt.step()
+            finally:
+                kernels.set_backend("auto")
+
+        def decode(backend):
+            kernels.set_backend(backend)
+            try:
+                return scrf_decode(cfg, p, batch["feats"], lengths)
+            finally:
+                kernels.set_backend("auto")
+
+        L, Dmax = cfg.num_labels, cfg.max_dur
+        frames, n = int(lengths.sum()), frame.numel()
+        small = 4 * (L * L + Dmax * L + Dmax + 2 * B)
+        # per frame: one (L) x (L, L) product (2 L^2) and Dmax * L window
+        # terms (sub, mul, two adds, the max and the exp-sum: 6 each; K12
+        # compares where K9 sums; K11 also scatters A, S, gd and F: 12 each,
+        # and adds the outer product of the retiring frame, 2 L^2)
+        bounds = {
+            "segmental_forward": bound(4 * 2 * n + small, frames * (
+                2 * L * L + 6 * Dmax * L)),
+            "segmental_backward": bound(4 * 2 * n + small, frames * (
+                2 * L * L + 6 * Dmax * L)),
+            "segmental_grad": bound(4 * 5 * n + small + 4 * (L * L + Dmax * L),
+                                    frames * (4 * L * L + 12 * Dmax * L)),
+            "segmental_viterbi": bound(4 * 3 * n + small, frames * (
+                2 * L * L + 5 * Dmax * L)),
+            # the walk reads, per segment of this run, one duration, one
+            # delta row and one transition column, and writes two (B, T)
+            # marker arrays
+            "segmental_viterbi_traceback": bound(
+                4 * (segments * (1 + L) + L * L + 2 * B + 2 * B * T),
+                segments * 2 * L),
+        }
+        fns = {
+            "segmental_forward": (
+                lambda: K.segmental_forward_cuda(*args),
+                lambda: K.segmental_forward_plain(*args)),
+            "segmental_backward": (
+                lambda: K.segmental_backward_cuda(*args),
+                lambda: K.segmental_backward_plain(*args)),
+            "segmental_grad": (
+                lambda: K.segmental_grad_cuda(*args, *grad_in),
+                lambda: K.segmental_grad_plain(*args, *grad_in)),
+            "segmental_viterbi": (
+                lambda: K.segmental_viterbi_cuda(*args),
+                lambda: K.segmental_viterbi_plain(*args)),
+            "segmental_viterbi_traceback": (
+                lambda: K.segmental_viterbi_traceback_cuda(
+                    deltas, arg_d, trans, lab0, lengths),
+                lambda: K.segmental_viterbi_traceback_plain(
+                    deltas, arg_d, trans, lab0, lengths)),
+            "scrf train step (loss, backward, SGD)": (
+                lambda: step("auto"), lambda: step("torch")),
+            "scrf_decode": (lambda: decode("auto"),
+                            lambda: decode("torch")),
+        }
+        log(f"timing segmental: {frames} frames, {segments} segments on the "
+            "best paths")
+        for name, (kern, plain) in fns.items():
+            # plain, kernel, kernel, plain: compare within one call only
+            p1 = self.cuda_ms(plain, 1)
+            k1 = self.cuda_ms(kern, 10)
+            k2 = self.cuda_ms(kern, 10)
+            p2 = self.cuda_ms(plain, 1)
+            ms, plain_ms = min(k1, k2), min(p1, p2)
+            self.times[name] = (ms, plain_ms)
+            tail = ""
+            if name in bounds:
+                self.bounds[name] = bounds[name]
+                b_ms, b_by = bounds[name]
+                tail = f"; bound {b_ms:.4f} ms by {b_by}"
+            log(f"timing {name} B={B} T={T}: kernel {ms:.4f} ms "
+                f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
+                f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
+                f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
+        t = {k: v[0] for k, v in self.times.items()}
+        rest_step = (t["scrf train step (loss, backward, SGD)"]
+                     - t["segmental_forward"] - t["segmental_backward"]
+                     - t["segmental_grad"])
+        rest_dec = (t["scrf_decode"] - t["segmental_viterbi"]
+                    - t["segmental_viterbi_traceback"])
+        self.device_share("scrf train step", lambda: step("auto"))
+        self.device_share("scrf_decode", lambda: decode("auto"))
+        log(f"timing segmental: the step minus K9, K10, K11 (frame scores, "
+            f"gold numerator, gradient assembly, SGD) {rest_step:.4f} ms; "
+            f"scrf_decode minus K12, K13 (frame scores, marker packing) "
+            f"{rest_dec:.4f} ms")
+
     def kernels_line(self):
         out = []
 
@@ -1409,6 +1846,8 @@ class Smoke:
         for name, replaces in FB_SRC.items():
             add(name, FB_CU, replaces, self.fb_counts[name],
                 f"config5 {name}")
+        for name, replaces in SEG_SRC.items():
+            add(name, SEG_CU, replaces, self.seg_counts[name])
         return {"kernels": out}
 
 
@@ -1439,6 +1878,7 @@ def main() -> int:
 
     smoke = Smoke(torch)
     failed = []
+    only = sys.argv[2] if sys.argv[1:2] == ["--only"] else None
     for name, phase in (("parity", smoke.phase_parity),
                         ("decode", smoke.phase_decode),
                         ("timing", smoke.phase_timing),
@@ -1450,7 +1890,12 @@ def main() -> int:
                         ("shared timing", smoke.phase_shared_timing),
                         ("fb parity", smoke.phase_fb_parity),
                         ("shared train", smoke.phase_shared_train_cli),
-                        ("fb timing", smoke.phase_fb_timing)):
+                        ("fb timing", smoke.phase_fb_timing),
+                        ("segmental parity", smoke.phase_seg_parity),
+                        ("segmental recipe", smoke.phase_seg_recipe),
+                        ("segmental timing", smoke.phase_seg_timing)):
+        if only is not None and only not in name:
+            continue
         try:
             phase()
         except Exception:       # report every phase, then fail as a whole
@@ -1462,6 +1907,10 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: FAILED {failed}", file=sys.stderr)
         return 1
+    if only is not None:
+        log(f"chip_smoke: the phases named '{only}' passed; a partial run "
+            "prints no result")
+        return 2
     log(json.dumps(smoke.kernels_line()))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,9 @@ for n in ('kernels.wall', 'kernels.fdt_train', 'train.trainer',
           'ops.viterbi', 'kernels.fwdbwd', 'ops.mxu', 'ops.fwdbwd',
           'cli.common', 'utils.logging', 'data.loader', 'data.synthetic',
           'data.pfile_native', 'decode.scorer', 'decode.fst',
-          'decode.fst_native', 'decode.otf'):
+          'decode.fst_native', 'decode.otf', 'ops.segmental',
+          'ops.segmental_stream', 'kernels.segmental', 'models.segmental',
+          'recipes.scrf'):
     assert 'asr_craft_tpu_torch.' + n in names, n
 assert len(names) >= 40, names
 bad = sorted(m for m in sys.modules
@@ -187,7 +189,7 @@ def test_nvcc_command_targets_sm90a_from_csrc_only():
     link of their objects into the shared library."""
     srcs = _build.sources()
     assert srcs and all(s.suffix == ".cu" for s in srcs)
-    assert "fwdbwd.cu" in [s.name for s in srcs]
+    assert {"fwdbwd.cu", "segmental.cu"} <= {s.name for s in srcs}
     objs = [_build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
     inputs = []
     for src, obj in zip(srcs, objs):
@@ -209,3 +211,29 @@ def test_nvcc_command_targets_sm90a_from_csrc_only():
     lib = _build.library_path()
     assert lib.parent == _build.BUILD_DIR
     assert lib.name.startswith("libasr_craft_kernels_")
+
+
+def test_cuda_backend_on_cpu_tensor_raises_in_the_segmental_path():
+    """Under the 'cuda' backend the segmental loss and decode launch K9 /
+    K12 or raise: a CPU tensor never reaches the plain version."""
+    from asr_craft_tpu_torch.kernels import segmental
+    from asr_craft_tpu_torch.models.segmental import (SegCrfConfig,
+                                                      scrf_decode,
+                                                      scrf_loss_fused)
+    cfg = SegCrfConfig(num_labels=3, feat_dim=4, max_dur=3)
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1)
+    feats = torch.zeros((2, 6, 4))
+    labels = torch.zeros((2, 6), dtype=torch.int32)
+    lengths = torch.tensor([6, 2], dtype=torch.int32)
+    before = dict(segmental.launches)
+    kernels.set_backend("cuda")
+    try:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            scrf_loss_fused(cfg, params, feats, labels, lengths)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            scrf_decode(cfg, params, feats, lengths)
+    finally:
+        kernels.set_backend("auto")
+    assert segmental.launches == before
+    loss, _ = scrf_loss_fused(cfg, params, feats, labels, lengths)
+    assert torch.isfinite(loss) and segmental.launches == before

@@ -78,6 +78,31 @@ def test_params_from_numpy_and_size_check():
         tweights.flatten_params(cfg, {"w_state": got["w_state"]})
 
 
+@pytest.mark.parametrize("ns", [1, 3])
+def test_scrf_params_from_numpy_and_npz_round_trip(tmp_path, ns):
+    """SCRF parameters (a 2-D ``w_frame``, or 3-D for n-state segments)
+    cross with ``params_from_numpy`` and come back unchanged through
+    ``save_npz`` / ``load_npz``, the JAX package's reader included."""
+    from asr_craft_tpu.models.segmental import SegCrfConfig
+    cfg = SegCrfConfig(num_labels=5, feat_dim=7, max_dur=4, num_states=ns)
+    rng = np.random.default_rng(7)
+    params = {k: rng.normal(size=s).astype(np.float32)
+              for k, s in cfg.param_shapes().items()}
+    assert params["w_frame"].ndim == (2 if ns == 1 else 3)
+    got = tweights.params_from_numpy(params)
+    assert set(got) == {"w_frame", "b_trans", "b_dur", "b_seg"}
+    for k, v in params.items():
+        assert got[k].dtype == torch.float32 and got[k].shape == v.shape
+        np.testing.assert_array_equal(got[k].numpy(), v)
+    tweights.save_npz(tmp_path / "w.npz", got)
+    back, jback = (tweights.load_npz(tmp_path / "w.npz"),
+                   jweights.load_npz(tmp_path / "w.npz"))
+    for k, v in params.items():
+        np.testing.assert_array_equal(back[k].numpy(), v)
+        np.testing.assert_array_equal(jback[k], v)
+        assert jback[k].dtype == np.float32
+
+
 def test_init_params_seeded_and_zero():
     cfg = tfm.FeatureMapConfig(**CONFIGS[0])
     a = cfg.init_params(torch.Generator().manual_seed(4), 0.1)
