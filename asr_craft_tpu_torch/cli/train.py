@@ -15,7 +15,12 @@ port's host modules (``cli.common``, ``data``, ``utils.logging``).
 
 ``--device`` defaults to ``cuda`` and raises if no GPU is present;
 ``--kernel_backend`` picks the CUDA kernels or the plain PyTorch version
-(``auto``: kernels for CUDA tensors).
+(``auto``: kernels for CUDA tensors).  ``--profile_dir DIR`` writes
+``DIR/trace.json``, a ``torch.profiler`` trace of the epochs (the JAX CLI
+hands the flag to ``TrainConfig`` but opens its profiler only in
+``Trainer.fit``, which the CLI does not call; here the CLI opens the session
+around its own epoch loop, as the flag's help says); ``--debug_nans`` and
+``--check_sync_every`` are :mod:`asr_craft_tpu_torch.utils.diagnostics`.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.train import (TrainConfig, Trainer, load_checkpoint,
                                        save_checkpoint)
+from asr_craft_tpu_torch.utils import diagnostics
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -110,21 +116,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch version (auto: kernels on CUDA tensors)")
     # observability / sanitizers
     p.add_argument("--profile_dir", default=None,
-                   help="profiler trace of training (not ported yet)")
+                   help="write a torch.profiler trace of training "
+                        "(trace.json, Chrome trace format) here")
     p.add_argument("--debug_nans", action="store_true",
-                   help="nan checks (not ported yet)")
+                   help="raise FloatingPointError at the first step whose "
+                        "loss, gradient or parameters are not finite "
+                        "(autograd anomaly detection; a sync a step)")
     p.add_argument("--check_sync_every", type=int, default=0,
-                   help="replica sync assertion (not ported yet)")
+                   help="assert the replicas identical every N steps "
+                        "(compares nothing on one device)")
     return p
 
 
 def _check_supported(args) -> None:
-    for flag, on in (("--profile_dir", args.profile_dir),
-                     ("--debug_nans", args.debug_nans),
-                     ("--check_sync_every", args.check_sync_every)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet "
-                                      "(ROADMAP.md Queue 1, slice 6)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training on more than one device is not "
                                   "ported yet (ROADMAP.md Queue 1, slice 5)")
@@ -138,6 +142,8 @@ def main(argv=None) -> int:
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "available (pass --device cpu to train on CPU)")
     kernels.set_backend(args.kernel_backend)
+    # always set, so that one process can run with the flag and then without
+    diagnostics.enable_debug_nans(args.debug_nans)
 
     feats, labels, _ = build_corpus(args)
     transform, feat_dim = make_transform(args, feats)
@@ -181,7 +187,8 @@ def main(argv=None) -> int:
         momentum=args.momentum, optimizer=args.optimizer, l2=args.l2,
         weight_avg=bool(args.weight_avg), log_every=args.log_every,
         accum_steps=args.accum_steps, steps_per_call=args.steps_per_call,
-        out_dir=args.out_dir)
+        out_dir=args.out_dir, profile_dir=args.profile_dir,
+        check_sync_every=args.check_sync_every)
     logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
     trainer = Trainer(cfg, tc, params=params, label_kind=args.label_kind,
                       logger=logger, device=device)
@@ -199,11 +206,12 @@ def main(argv=None) -> int:
                                       len(labels[cv_idx[i]]))
                    for i in range(len(cv_idx))}
 
-    for _ in range(trainer.epoch, tc.epochs):
-        trainer.train_epoch(train_loader)
-        if len(cv_loader):
-            trainer.evaluate(cv_loader, ref_phone_seqs=cv_refs)
-        save_checkpoint(ckpt_dir, trainer, train_loader.state())
+    with diagnostics.profiler_session(args.profile_dir):
+        for _ in range(trainer.epoch, tc.epochs):
+            trainer.train_epoch(train_loader)
+            if len(cv_loader):
+                trainer.evaluate(cv_loader, ref_phone_seqs=cv_refs)
+            save_checkpoint(ckpt_dir, trainer, train_loader.state())
 
     weights_mod.save_raw(os.path.join(args.out_dir, "weights.final.dat"),
                          cfg.fmap, trainer.inference_params)

@@ -1,5 +1,6 @@
 // Pieces shared by the port's kernels (fdt_viterbi.cu: K3; fdt_train.cu:
-// K1, K2; viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu: K9-K13):
+// K1, K2; viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu: K9-K13;
+// calibrate.cu: K15):
 // the semiring zero, the block-wide first argmax of the max-plus decodes,
 // the in-block plane formation, the guarded three-way log-sum-exp of the
 // reference and, at the end, the pieces of the recursions over one (L, L)

@@ -208,11 +208,14 @@ __global__ void fdt_vit_tb_kernel(const int* __restrict__ bp,
   if (b >= B) return;
   const int* bpb = bp + (size_t)b * T * Lp;
   int* pb = paths + (size_t)b * T;
-  const int lst = last[b];
+  // A lattice of NaN scores wins no comparison, so its argmaxes may hold any
+  // value: every label is clamped into range before it indexes bp.
+  const int lst = min(max(last[b], 0), Lp - 1);
   const int end = min(lengths[b], T) - 1;
   int cur = lst;
   for (int t = T - 1; t >= 0; --t) {
-    cur = t >= end ? lst : bpb[(size_t)(t + 1) * Lp + cur];
+    cur = t >= end ? lst
+                   : min(max(bpb[(size_t)(t + 1) * Lp + cur], 0), Lp - 1);
     pb[t] = cur;
   }
 }

@@ -115,13 +115,16 @@ def first_argmax(x, dim: int):
     """(max, first index of the max) along ``dim``; int32 indices.
 
     Spelled out because the tie order is part of the public contract:
-    among equal maxima the lowest index wins."""
+    among equal maxima the lowest index wins.  A slice whose maximum is NaN
+    equals it nowhere: it takes the last index, so that a path through a
+    lattice of NaN scores still holds labels (``jnp.argmax`` likewise
+    returns an index in range)."""
     m = x.amax(dim=dim, keepdim=True)
     n = x.shape[dim]
     shape = [1] * x.dim()
     shape[dim] = n
     idx = torch.arange(n, device=x.device, dtype=torch.int32).reshape(shape)
-    a = torch.where(x == m, idx, n).amin(dim=dim)
+    a = torch.where(x == m, idx, n - 1).amin(dim=dim)
     return m.squeeze(dim), a
 
 

@@ -28,6 +28,7 @@ from asr_craft_tpu_torch.decode.scorer import ErrorRateScorer, score_batch
 from asr_craft_tpu_torch.models import crf as crf_mod
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.utils import diagnostics
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -49,8 +50,8 @@ class TrainConfig:
     log_every: int = 50
     frame_shift_s: float = 0.01     # 10ms frames: audio-seconds metric
     out_dir: Optional[str] = None   # per-epoch weight files + metrics.jsonl
-    profile_dir: Optional[str] = None   # ROADMAP.md Queue 1, slice 6
-    check_sync_every: int = 0           # ROADMAP.md Queue 1, slices 5-6
+    profile_dir: Optional[str] = None   # torch.profiler trace of fit()
+    check_sync_every: int = 0       # assert_replicated every N steps
     prefetch: int = 2               # background batch-assembly depth
 
 
@@ -240,7 +241,18 @@ class Trainer:
     def grad_step(self, batch: dict) -> dict:
         """Add one micro-batch's gradient into the params' ``.grad``."""
         loss, aux = self.loss(batch)
-        loss.backward()
+        if diagnostics.debug_nans_enabled():
+            diagnostics.check_finite("train step", self.step, loss=loss)
+            try:
+                loss.backward()
+            except RuntimeError as e:      # autograd's anomaly detection
+                if "nan" not in str(e).lower():
+                    raise
+                raise FloatingPointError(
+                    f"train step: {e} at step {self.step} "
+                    "(--debug_nans)") from e
+        else:
+            loss.backward()
         return {"loss": loss.detach(), "frames": aux["frames"],
                 "mean_logZ": aux["logZ"].detach().mean()}
 
@@ -267,6 +279,11 @@ class Trainer:
         grads = [p.grad for p in self.params.values()]
         m["grad_norm"] = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if diagnostics.debug_nans_enabled():
+            diagnostics.check_finite(
+                "train step", self.step, grad_norm=m["grad_norm"],
+                params=torch.stack([torch.linalg.vector_norm(p.detach())
+                                    for p in self.params.values()]))
         self.apply_step(lr)
         return m
 
@@ -282,17 +299,21 @@ class Trainer:
         convert = put or (lambda b: to_device(b, self.device))
         for batch in _prefetch(loader.epoch_batches(self.epoch), convert,
                                self.tc.prefetch):
-            if accum == 1:
-                m = self.train_step(batch, lr)
-            else:
-                m = self.grad_step(batch)
-                n_acc += 1
-                if n_acc == accum:
-                    self.apply_step(lr / accum)
-                    n_acc = 0
+            with diagnostics.step_annotation("train", self.step):
+                if accum == 1:
+                    m = self.train_step(batch, lr)
+                else:
+                    m = self.grad_step(batch)
+                    n_acc += 1
+                    if n_acc == accum:
+                        self.apply_step(lr / accum)
+                        n_acc = 0
             self.step += 1
             losses.append(m["loss"].reshape(1))
             frame_counts.append(m["frames"].reshape(1))
+            if (self.tc.check_sync_every
+                    and self.step % self.tc.check_sync_every == 0):
+                diagnostics.assert_replicated(self.params)
             if self.step % self.tc.log_every == 0:
                 self.logger.log("train_step", step=self.step,
                                 epoch=self.epoch, loss=float(m["loss"]),
@@ -350,15 +371,13 @@ class Trainer:
 
     def fit(self, train_loader, cv_loader=None, ref_phone_seqs=None,
             fold=None, put=None) -> Dict:
-        if self.tc.profile_dir:
-            raise NotImplementedError("profile_dir: the profiler trace is "
-                                      "not ported yet (ROADMAP.md Queue 1, "
-                                      "slice 6)")
         last = {}
-        for _ in range(self.tc.epochs):
-            last = self.train_epoch(train_loader, put=put)
-            if cv_loader is not None:
-                last.update(self.evaluate(cv_loader, ref_phone_seqs, fold))
+        with diagnostics.profiler_session(self.tc.profile_dir):
+            for _ in range(self.tc.epochs):
+                last = self.train_epoch(train_loader, put=put)
+                if cv_loader is not None:
+                    last.update(self.evaluate(cv_loader, ref_phone_seqs,
+                                              fold))
         return last
 
     @property

@@ -1,0 +1,722 @@
+"""Roofline model of the port's hot paths on one NVIDIA H100: how far from
+the card's limits does a step run, and what floor can a redesign be held to?
+
+Counterpart of :mod:`asr_craft_tpu.utils.roofline`.  The arithmetic
+(:class:`ChipSpec`, :class:`Phase`, :meth:`Phase.sol_s`, :func:`summarize`)
+is the JAX module's, so the same phases and the same spec give the same
+record in both packages.  What the phases count is the port's own.
+
+Model
+-----
+Every phase of a train or decode step is characterised by the bytes it must
+move between device memory and the SMs (each input read once, each output
+written once), its fp32 operations, and its element operations on the
+recursion's critical path.  Its speed-of-light time is
+
+    sol = max(bytes / memory rate, flops / fp32 peak,
+              element operations / measured elementwise rate)
+
+(the third term only when a measured rate is given), and phases run one after
+another, so a step's SOL is the sum.  The counts follow the port's code, read
+off ``csrc/*.cu`` and the wrappers: batch-major unpadded tensors, the packed
+parameter matrix (``kernels/wall.py``), K2 as a recursion plus a contraction,
+the per-utterance partials of K5 and K11, and K13's walk of one segment at a
+time.  None of the TPU's tile padding exists here.
+
+One definition of a kernel's bound.  :func:`kernel_phase` counts one kernel's
+bytes and operations from its shapes; :func:`bound` turns a phase into the
+least time the card could take.  ``chip_smoke.py``'s ``bound_ms`` and the
+phase functions below both call them, so the kernel table of ``PERF.md`` and
+the ``sol_ms`` of ``asr_craft_tpu_torch.bench`` cannot drift apart.
+
+What the byte and operation counts do not see: every recursion is a chain of
+up to 512 dependent frames in one block per utterance, so its time is
+latency, 1-7% of the bound above.  Three pieces stand in for that, as in the
+JAX module: the element-operation term held to a *measured* in-kernel rate
+(:func:`measure_vpu_geps_pallas`, the K15 kernel), the per-kernel inventory
+of element operations a frame (``_SCRF_PASSES``, :func:`scrf_tile_floor`,
+:func:`fdt_tile_floor`), and the T-sweep fits of ``bench``.
+
+Peaks: one H100 SXM, 3350 GB/s of device memory and 67 TFLOP/s fp32 on the
+CUDA cores (NVIDIA's data sheet, at the 700 W limit).  Every kernel of the
+port is fp32 on the CUDA cores, so ``mode`` takes ``"fp32"`` alone.
+
+Names, and their counterparts in the JAX module
+-----------------------------------------------
+=============================  =============================================
+here                           ``asr_craft_tpu.utils.roofline``
+=============================  =============================================
+``ChipSpec``, ``Phase``,       the same (``ChipSpec`` gains the SM count,
+``Phase.sol_s``, ``summarize`` clock and special-function width, which only
+                               :func:`calibrate_phase` reads)
+``H100``                       ``V5E`` (no TPU spec is carried over)
+``train_step_phases``,         the same names, signatures and phase names;
+``fdt_train_phases``,          the counts are the port's (``frames`` and
+``fdt_decode_phases``,         ``segments`` are optional extras for ragged
+``scrf_train_phases``,         batches and K13's data-dependent walk)
+``scrf_decode_phases``,
+``decode_phases``
+``fdt_tile_floor``             the same name; ``fma_ms`` replaces
+                               ``mxu_passes`` / ``mxu_ms`` (see its doc)
+``_SCRF_PASSES``,              the same names; the inventory is recounted
+``scrf_tile_floor``            from ``csrc/segmental.cu``
+``vpu_elems``, ``vpu_geps``    kept: element operations on the CUDA cores
+                               and their measured rate in 1e9 a second
+``measure_stream_bw``          the same
+``measure_vpu_geps_pallas``    the same name; runs K15
+                               (``kernels/calibrate.py``, whose ``measure``
+                               returns the whole record)
+``measure_vpu_geps``           not carried over: it relies on XLA fusing a
+                               24-stage chain into one pass; eager PyTorch
+                               fuses nothing, so every stage would be a pass
+                               over memory and the figure the memory rate
+                               under another name.  K15 is the one
+                               calibration, for the flagship's floor too.
+``kernel_phase``, ``bound``,   new: the one definition of a kernel's bound
+``calibrate_phase``            (``chip_smoke.py`` held its own before)
+=============================  =============================================
+"""
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["ChipSpec", "Phase", "H100", "KERNELS", "kernel_phase", "bound",
+           "calibrate_phase", "train_step_phases", "fdt_train_phases",
+           "decode_phases", "fdt_decode_phases", "scrf_train_phases",
+           "scrf_decode_phases", "fdt_tile_floor", "scrf_tile_floor",
+           "summarize", "measure_stream_bw", "measure_vpu_geps_pallas"]
+
+_F32 = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipSpec:
+    name: str
+    hbm_gbps: float        # device memory bandwidth, GB/s
+    fp32_tflops: float     # fp32 TFLOP/s outside the tensor cores
+    bf16_tflops: float     # tensor cores, dense (no kernel here uses them)
+    sm_count: int = 0      # streaming multiprocessors
+    sm_clock_ghz: float = 0.0      # boost clock
+    sfu_per_sm_clk: int = 0        # special-function results / SM / clock
+
+
+H100 = ChipSpec(name="NVIDIA H100 SXM", hbm_gbps=3350.0, fp32_tflops=67.0,
+                bf16_tflops=989.0, sm_count=132, sm_clock_ghz=1.98,
+                sfu_per_sm_clk=16)
+
+
+def _peak_flops(spec: ChipSpec, mode: str) -> float:
+    if mode != "fp32":
+        raise NotImplementedError(
+            f"roofline mode {mode!r}: every kernel of the port is fp32 on "
+            "the CUDA cores; the 'bf16x3' and 'default' precisions are not "
+            "ported yet (ROADMAP.md Queue 1, the open precision item)")
+    return spec.fp32_tflops * 1e12
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase:
+    name: str
+    bytes: float
+    flops: float
+    # Element operations on the critical path (adds, maxes, exps of the
+    # recursions: the work that is not a matrix product).  0 for phases
+    # whose cost is bytes and FLOPs only.  Held to a MEASURED in-kernel
+    # rate (measure_vpu_geps_pallas), so a latency-bound phase gets a
+    # quantitative third roofline term.
+    vpu_elems: float = 0.0
+
+    def sol_s(self, spec: ChipSpec = H100, bw_gbps: float | None = None,
+              fp32: bool = True, mode: str | None = None,
+              vpu_geps: float | None = None) -> float:
+        bw = (bw_gbps or spec.hbm_gbps) * 1e9
+        mode = mode or ("fp32" if fp32 else "bf16")
+        peak = _peak_flops(spec, mode)
+        sol = max(self.bytes / bw, self.flops / peak)
+        if vpu_geps and self.vpu_elems:
+            sol = max(sol, self.vpu_elems / (vpu_geps * 1e9))
+        return sol
+
+
+def bound(phase: Phase, spec: ChipSpec = H100):
+    """``(bound_ms, bound_by)``: the least time the card could take for the
+    phase's bytes and fp32 operations, and which of the two binds."""
+    by_bytes = phase.bytes / (spec.hbm_gbps * 1e9) * 1e3
+    by_ops = phase.flops / (spec.fp32_tflops * 1e12) * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+# ---------------------------------------------------------------------------
+# one kernel's bytes and operations
+# ---------------------------------------------------------------------------
+
+def _fdt_dims(L: int, D: int, ns: int, Du: int | None):
+    """(P, L', R, Dw) of the packed parameter matrix: rows [state L' | self
+    L' | adv L' | cross P * P], columns the Du transition dims and the bias
+    (``kernels/wall.build_wall``)."""
+    P = L // ns
+    Du = D if Du is None else Du
+    return P, L, 3 * L + P * P, Du + 1
+
+
+# Element operations a frame, counted off the kernel bodies to the order of
+# magnitude (csrc/fdt_train.cu, csrc/fdt_viterbi.cu): a cross-phone term is
+# an add and a max, then a subtract, an expf and an add (5; K3 an add and a
+# compare, 2); the backward also emits its xi (a subtract, a min, an expf and
+# a multiply: 9).  A row of the lattice takes lse3 and its masks (18), the
+# backward its gamma and gates besides (26), K3 three adds, two compares and
+# the beam (8).  Training runs the free and the clamped lattice.
+_FDT_OPS = {"fwd": (5.0, 18.0), "bwd": (9.0, 26.0), "vit": (2.0, 8.0)}
+
+
+def _fdt_elems(kind: str, frames: float, L: int, P: int) -> float:
+    cross, row = _FDT_OPS[kind]
+    lattices = 1 if kind == "vit" else 2
+    return frames * lattices * (cross * P * P + row * L)
+
+
+def _k_fdt_viterbi_fwd(B, T, L, D, ns, Du=None, frames=None):
+    """K3 forward: Wall, feats and lengths in; backpointers (B, T, L') i32,
+    last states and scores out.  Per frame the plane ``Wall @ [x; 1]`` and
+    the max-plus step (an add and a compare per self, advance and cross
+    term)."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
+    frames = B * T if frames is None else frames
+    return Phase("fdt_viterbi_fwd",
+                 _F32 * (R * Dw + B * T * D + B * T * Lp + 3 * B),
+                 frames * (2.0 * R * Dw + 2 * (2 * Lp + P * P)),
+                 _fdt_elems("vit", frames, Lp, P))
+
+
+def _k_traceback(B, T, **_):
+    """The traceback follows one backpointer a frame: B * T entries read
+    (what this walk needs, not the whole (B, T, L') array), the last states
+    and lengths, and B * T labels written."""
+    return Phase("viterbi_traceback", _F32 * (2 * B * T + 2 * B),
+                 float(B * T), float(B * T))
+
+
+def _fdt_train_io(B, T, L, D, ns, Du):
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
+    # Wall, feats, labels, alphas (B, T, 2, L'), lengths, zf, zc, one weight
+    return P, Lp, R, Dw, _F32 * (R * Dw + B * T * D + B * T
+                                 + 2 * B * T * Lp + 4 * B)
+
+
+def _k_fdt_train_fwd(B, T, L, D, ns, Du=None, frames=None):
+    """K1: the plane and two lattices' log-semiring step a frame."""
+    P, Lp, R, Dw, io = _fdt_train_io(B, T, L, D, ns, Du)
+    frames = B * T if frames is None else frames
+    dp = 2 * (2 * Lp + P * P)                       # one lattice's DP
+    return Phase("fdt_train_fwd", io, frames * (2.0 * R * Dw + 2 * dp),
+                 _fdt_elems("fwd", frames, Lp, P))
+
+
+def _k_fdt_train_bwd(B, T, L, D, ns, Du=None, frames=None):
+    """K2's recursion: K1's traffic and dplane (B, T, R) out; beta, xi and
+    gamma for both lattices."""
+    P, Lp, R, Dw, io = _fdt_train_io(B, T, L, D, ns, Du)
+    frames = B * T if frames is None else frames
+    dp = 2 * (2 * Lp + P * P)
+    return Phase("fdt_train_bwd", io + _F32 * B * T * R,
+                 frames * (2.0 * R * Dw + 6 * dp),
+                 _fdt_elems("bwd", frames, Lp, P))
+
+
+def _k_fdt_train_contract(B, T, L, D, ns, Du=None, frames=None):
+    """K2's contraction ``dWall = dplane^T @ [x; 1]``: dplane and feats in,
+    dWall out."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
+    frames = B * T if frames is None else frames
+    return Phase("fdt_train_contract",
+                 _F32 * (B * T * R + B * T * D + R * Dw),
+                 frames * 2.0 * R * Dw)
+
+
+def _shared_io(B, T, L):
+    # state (B, T, L), trans, backpointers (B, T, L) i32, lengths, last, score
+    return _F32 * (2 * B * T * L + L * L + 3 * B)
+
+
+def _k_viterbi_dense_fwd(B, T, L, frames=None, **_):
+    """K7: an add and a compare per (predecessor, destination) a frame."""
+    frames = B * T if frames is None else frames
+    return Phase("viterbi_dense_fwd", _shared_io(B, T, L),
+                 frames * 2.0 * L * L, frames * 2.0 * L * L)
+
+
+def _k_viterbi_nstate_fwd(B, T, L, ns, frames=None, **_):
+    """K8: self and advance terms per state, cross terms per phone pair."""
+    frames = B * T if frames is None else frames
+    P = L // ns
+    ops = frames * 2.0 * (2 * L + P * P)
+    return Phase("viterbi_nstate_fwd", _shared_io(B, T, L), ops, ops)
+
+
+# Element operations a frame and label beside the (L, L) product, counted
+# off csrc/fwdbwd.cu: the row max, a subtract and an expf, the floor, a logf
+# and two adds (8 a lattice); K5 also loads alpha[t], takes a second row max
+# and two more expf passes for the posterior and the outer product's
+# operands (20 a lattice).
+_FB_ROW_OPS = {"forward": 8.0, "backward": 8.0, "forward_dual": 16.0,
+               "backward_dual": 16.0, "backward_dual_grad": 40.0}
+
+
+def _k_fb(name, tensors, products):
+    """K4, K5, K6a, K6b, K14: ``tensors`` (B, T, L) arrays moved,
+    ``products`` (L) x (L, L) products a frame."""
+    def count(B, T, L, frames=None, **_):
+        frames = B * T if frames is None else frames
+        dual = name != "forward" and name != "backward"
+        small = _F32 * (L * L + L + 2 * B)
+        extra = _F32 * B * T if dual else 0               # the labels
+        if name == "backward_dual_grad":
+            extra += _F32 * L * L                         # UV out
+        return Phase(name, _F32 * tensors * B * T * L + extra + small,
+                     frames * 2.0 * products * L * L,
+                     frames * (_FB_ROW_OPS[name] * L + products * L * L))
+    count.__doc__ = (f"{name}: {tensors} (B, T, L) tensors moved, "
+                     f"{products} (L) x (L, L) products a frame.")
+    return count
+
+
+# Element operations of the segmental kernels, counted off csrc/segmental.cu.
+# kernel: (operations per window term, per label of a frame's row, (L) x
+# (L, L) products a frame).  A window term is one (duration, label) pair of
+# the Dmax * L a frame holds.
+_SCRF_PASSES = {
+    # K9, seg_forward_kernel<false>.  The window is walked twice: the term
+    # itself (a subtract, a multiply-add, an add: 3) and a max; then the
+    # term again, a subtract, an expf and an add (3 + 1 + 3 + 3 = 10).  A
+    # label: the running sum, two group merges (4), logf + floor + add (3),
+    # the row max (2), a subtract and an expf (2), and the message m + tmax
+    # + log(max(dot, floor)) with its two merges (6): 18.
+    "fwd": (10.0, 18.0, 1),
+    # K10, seg_backward_kernel: the same two walks over the frames above
+    # and the same row work, mirrored.
+    "bwd": (10.0, 18.0, 1),
+    # K11, seg_grad_kernel.  The window is walked once: the term and beta -
+    # logZ (4), exp(q + xv) and g (3), y = invd * xi and its sum (2), three
+    # shared-memory read-modify-writes (S, gd: 2; F with its second expf, an
+    # add and a multiply: 4), 14 in all with two expf.  A label: the running
+    # sum and beta - logZ (2), the group merge (2), the row max, a subtract
+    # and an expf (4), the message (6), the emit and the slot's reset (3):
+    # 17.  Two products: the message's, and the retiring frame's outer
+    # product into the gt tile.
+    "grad": (14.0, 17.0, 2),
+    # K12, seg_forward_kernel<true>.  The window is walked once: four single
+    # IEEE operations for the term, a compare and a select (6).  A label:
+    # the running sum, the group's argmax merges (4), the row max (2), the
+    # beam (2), the group max of the predecessor pass (2), the stores (1):
+    # 12.  Its product is the max-plus predecessor pass, an add and a max
+    # per (p, l).
+    "vit": (6.0, 12.0, 1),
+}
+# K13, seg_traceback_kernel, works per SEGMENT of the best path, not per
+# frame: one add and one compare per predecessor label (2 L), five shuffle
+# rounds and the marker stores (12).
+_SCRF_TB_OPS_PER_SEGMENT = (2.0, 12.0)      # (per label, per segment)
+
+
+def _scrf_elems(name: str, frames: float, L: int, Dmax: int) -> float:
+    """The kernel's element operations: the window terms, the row work and
+    the (L, L) product's terms, for ``frames`` frames."""
+    w, s, prod = _SCRF_PASSES[name]
+    return frames * (w * Dmax * L + s * L + prod * L * L)
+
+
+def _scrf_small(B, L, Dmax):
+    # the transition factor, the (Dmax, L) bias, invd, lengths and logZ
+    return _F32 * (L * L + Dmax * L + Dmax + 2 * B)
+
+
+def _k_seg(name, kind, tensors, term_flops, products):
+    """K9-K12: ``tensors`` (B, T, L) arrays moved; per frame ``products``
+    (L) x (L, L) products and ``term_flops`` fp32 operations per window
+    term (a subtract, a multiply, two adds, the max and the exp-sum: 6; K12
+    compares where K9 sums: 5; K11 also scatters A, S, gd and F: 12)."""
+    def count(B, T, L, Dmax, frames=None, **_):
+        frames = B * T if frames is None else frames
+        extra = _F32 * (L * L + Dmax * L) if kind == "grad" else 0   # gt, gd
+        return Phase(name,
+                     _F32 * tensors * B * T * L + _scrf_small(B, L, Dmax)
+                     + extra,
+                     frames * (2.0 * products * L * L
+                               + term_flops * Dmax * L),
+                     _scrf_elems(kind, frames, L, Dmax))
+    count.__doc__ = (f"{name}: {tensors} (B, T, L) tensors moved, "
+                     f"{products} products and {term_flops} operations per "
+                     "window term a frame.")
+    return count
+
+
+def _k_seg_traceback(B, T, L, segments=None, **_):
+    """K13: per segment of the best paths one duration, one delta row and
+    one transition column read; two (B, T) marker arrays written.
+    ``segments`` is this batch's count (default: one a frame, the most a
+    batch can hold)."""
+    segments = B * T if segments is None else segments
+    per_label, per_seg = _SCRF_TB_OPS_PER_SEGMENT
+    return Phase("segmental_viterbi_traceback",
+                 _F32 * (segments * (1 + L) + L * L + 2 * B + 2 * B * T),
+                 segments * 2.0 * L,
+                 segments * (per_label * L + per_seg))
+
+
+# name (the wrappers' launch-count keys) -> its count
+KERNELS = {
+    "fdt_viterbi_fwd": _k_fdt_viterbi_fwd,
+    "fdt_viterbi_traceback": _k_traceback,
+    "fdt_train_fwd": _k_fdt_train_fwd,
+    "fdt_train_bwd": _k_fdt_train_bwd,
+    "fdt_train_contract": _k_fdt_train_contract,
+    "viterbi_dense_fwd": _k_viterbi_dense_fwd,
+    "viterbi_nstate_fwd": _k_viterbi_nstate_fwd,
+    "viterbi_traceback": _k_traceback,
+    "forward": _k_fb("forward", 2, 1),
+    "backward": _k_fb("backward", 2, 1),
+    "forward_dual": _k_fb("forward_dual", 3, 2),
+    "backward_dual": _k_fb("backward_dual", 3, 2),
+    "backward_dual_grad": _k_fb("backward_dual_grad", 4, 4),
+    "segmental_forward": _k_seg("segmental_forward", "fwd", 2, 6, 1),
+    "segmental_backward": _k_seg("segmental_backward", "bwd", 2, 6, 1),
+    "segmental_grad": _k_seg("segmental_grad", "grad", 5, 12, 2),
+    "segmental_viterbi": _k_seg("segmental_viterbi", "vit", 3, 5, 1),
+    "segmental_viterbi_traceback": _k_seg_traceback,
+}
+
+
+def kernel_phase(name: str, **shape) -> Phase:
+    """One kernel's bytes (each input read once, each output written once),
+    fp32 operations and element operations at ``shape`` (``B``, ``T``,
+    ``L`` and what the family needs of ``D``, ``ns``, ``Du``, ``Dmax``;
+    ``frames``: the frames that exist, default ``B * T``; ``segments``:
+    K13's walk).  ``name`` is a key of the wrappers' launch counts."""
+    return KERNELS[name](**shape)
+
+
+def calibrate_phase(Dmax: int, Ls: int, Bk: int, passes: int, frames: int,
+                    grid_n: int, spec: ChipSpec = H100):
+    """K15's work and ``(bound_ms, bound_by)`` for one launch: ``steps =
+    grid_n * frames`` steps of ``passes`` dependent operations on each of
+    ``Dmax * Ls * Bk`` elements; every eighth is ``expf(z * -0.5)`` (a
+    multiply and one special-function result), the rest one multiply-add.
+    It moves next to nothing (one (Ls, Bk) plane in, the window out), so
+    operations bind: the multiply-adds over the fp32 rate plus the
+    exponentials over the special-function rate (``sm_count *
+    sfu_per_sm_clk * sm_clock_ghz``)."""
+    elems = float(Dmax) * Ls * Bk
+    n_exp = sum(1 for p in range(passes) if p % 8 == 7)
+    steps = float(grid_n) * frames
+    fma, exps = steps * (passes - n_exp) * elems, steps * n_exp * elems
+    phase = Phase("calibrate", _F32 * (Ls * Bk + elems),
+                  2.0 * fma + exps, steps * passes * elems)
+    sfu = spec.sm_count * spec.sfu_per_sm_clk * spec.sm_clock_ghz * 1e9
+    by_ops = ((2.0 * fma + exps) / (spec.fp32_tflops * 1e12)
+              + exps / sfu) * 1e3
+    by_bytes = phase.bytes / (spec.hbm_gbps * 1e9) * 1e3
+    return phase, ((by_bytes, "bytes") if by_bytes >= by_ops
+                   else (by_ops, "operations"))
+
+
+def _renamed(phase: Phase, name: str, more_bytes: float = 0.0) -> Phase:
+    return dataclasses.replace(phase, name=name,
+                               bytes=phase.bytes + more_bytes)
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+def train_step_phases(B: int, T: int, L: int, D: int,
+                      n_lambda: int | None = None) -> list[Phase]:
+    """One shared-transition train step (configs 1, 3, 5: loss, gradient,
+    update): the potentials (``models/crf.potentials``: one fp32 matmul and
+    the boundary pass), K4, K5 with its per-utterance ``U^T V`` partials
+    and their ordered sum, the feature map's backward matmul, the
+    optimizer."""
+    tbl = T * B * L * _F32
+    btd = B * T * D * _F32
+    n_lambda = n_lambda or (D * L + L * L + 2 * L)
+    return [
+        # feats @ W + b written once; apply_boundaries reads and writes it
+        Phase("featuremap", btd + D * L * _F32 + 3 * tbl,
+              2.0 * B * T * D * L),
+        _renamed(kernel_phase("forward_dual", B=B, T=T, L=L),
+                 "dual_forward"),
+        # K5 writes one (L, L) partial per utterance; a second kernel reads
+        # them back and sums them in batch order
+        _renamed(kernel_phase("backward_dual_grad", B=B, T=T, L=L),
+                 "dual_backward_grad", 2.0 * B * L * L * _F32),
+        # dW = feats^T @ g_state (the boundary pass's backward reads and
+        # writes g_state once more)
+        Phase("featuremap_bwd", btd + 3 * tbl + D * L * _F32,
+              2.0 * B * T * D * L),
+        # grad norm (read g), SGD (read p and g, write p)
+        Phase("optimizer", 4 * n_lambda * _F32, 4.0 * n_lambda),
+    ]
+
+
+def fdt_train_phases(B: int, T: int, L: int, D: int, ns: int,
+                     n_lambda: int | None = None) -> list[Phase]:
+    """One frame-dependent-transition train step (config 2): packing
+    (``build_wall``, the transposed copy each launch takes, the scatter of
+    dWall back to the parameters), K1, K2 (the recursion, which writes
+    dplane, then the contraction, which reads it back), the optimizer.
+    Plane formation runs inside the kernels on the CUDA cores, so the step
+    is bound by fp32 operations, not by bytes."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, None)
+    wall = R * Dw * _F32
+    n_lambda = n_lambda or R * Dw
+    bwd = kernel_phase("fdt_train_bwd", B=B, T=T, L=L, D=D, ns=ns)
+    con = kernel_phase("fdt_train_contract", B=B, T=T, L=L, D=D, ns=ns)
+    return [
+        # gather into Wall, two transposed copies (K1's and K2's launch),
+        # dWall scattered back through autograd
+        Phase("fdt_prep", 2 * (n_lambda * _F32 + wall) + 4 * wall, 0.0),
+        _renamed(kernel_phase("fdt_train_fwd", B=B, T=T, L=L, D=D, ns=ns),
+                 "fdt_forward"),
+        Phase("fdt_backward_grad", bwd.bytes + con.bytes,
+              bwd.flops + con.flops, bwd.vpu_elems),
+        Phase("optimizer", 4 * n_lambda * _F32, 4.0 * n_lambda),
+    ]
+
+
+def fdt_decode_phases(B: int, T: int, L: int, D: int,
+                      ns: int) -> list[Phase]:
+    """The config-2 decode (``models/crf.decode``): packing, K3's forward
+    (in-kernel plane formation, int32 backpointers) and its traceback.  The
+    chain of dependent frames is NOT in this model: ``bench``'s measured
+    decode floor (the T-sweep) is the companion latency bound."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, None)
+    wall = R * Dw * _F32
+    return [
+        Phase("fdt_prep", 2 * wall + 2 * wall, 0.0),
+        _renamed(kernel_phase("fdt_viterbi_fwd", B=B, T=T, L=L, D=D, ns=ns),
+                 "fdt_viterbi_forward"),
+        _renamed(kernel_phase("fdt_viterbi_traceback", B=B, T=T),
+                 "fdt_traceback"),
+    ]
+
+
+def fdt_tile_floor(B: int, T: int, L: int, D: int, ns: int,
+                   mode: str = "fp32", vpu_geps: float | None = None,
+                   spec: ChipSpec = H100) -> dict:
+    """A defended floor for the config-2 train step.  The JAX function
+    counts the 128-wide passes of the TPU's matrix unit (``mxu_passes``,
+    ``mxu_ms``); the CUDA cores have no such pass, and nothing is padded
+    here.  Its place is taken by ``fma_ms``: the multiply-adds of plane
+    formation (K1 and K2's recursion each form ``Wall @ [x; 1]`` once a
+    frame) and of the ``dWall`` contraction, exact from the shapes, over
+    the fp32 rate.  ``vpu_ms`` is, as there, the element operations of the
+    two recursions over the measured in-kernel rate (K15), serial with the
+    products inside a frame.  A step within ~1.2x of ``floor_ms`` is at
+    the practical speed of light for this shape."""
+    phases = fdt_train_phases(B, T, L, D, ns)
+    fma_s = sum(p.flops for p in phases
+                if p.name in ("fdt_forward", "fdt_backward_grad")) \
+        / _peak_flops(spec, mode)
+    vpu_el = sum(p.vpu_elems for p in phases)
+    vpu_s = vpu_el / ((vpu_geps or 3000.0) * 1e9)
+    return {"fma_ms": round(fma_s * 1e3, 3),
+            "vpu_ms": round(vpu_s * 1e3, 3),
+            "floor_ms": round((fma_s + vpu_s) * 1e3, 3)}
+
+
+def scrf_train_phases(B: int, T: int, L: int, D: int,
+                      Dmax: int) -> list[Phase]:
+    """One streaming SCRF train step (config 4): the frame scores, K9, K10,
+    K11 (with its per-utterance gd and gt partials), the gold numerator and
+    the gradient assembly.  Element operations are the kernel-body
+    inventories (``_SCRF_PASSES``).  The chain of dependent frames is NOT
+    modeled: ``bench``'s measured decode floor is the latency companion."""
+    btd = B * T * D * _F32
+    tbl = T * B * L * _F32
+    shape = dict(B=B, T=T, L=L, Dmax=Dmax)
+    return [
+        # frame scores: one fp32 einsum, feats in, (B, T, L) out
+        Phase("scrf_prep", btd + D * L * _F32 + tbl, 2.0 * B * T * D * L),
+        _renamed(kernel_phase("segmental_forward", **shape), "scrf_forward"),
+        _renamed(kernel_phase("segmental_backward", **shape),
+                 "scrf_backward"),
+        # K11 writes gd and gt partials per utterance; sum_partials_kernel
+        # reads them back and sums them in batch order
+        _renamed(kernel_phase("segmental_grad", **shape), "scrf_grad",
+                 2.0 * B * (Dmax * L + L * L) * _F32),
+        # scatter-free gold numerator, value and gradient: run analysis, a
+        # gather and two one-hot count einsums
+        Phase("scrf_numerator", 4 * tbl,
+              2.0 * 2 * B * T * L * (L + Dmax), 12.0 * B * T * L),
+        # kernels.segmental.frame_grad (a copy, a subtract, a transposed
+        # copy, a flipped cumulative sum: 13 passes) and the frame scores'
+        # backward dW = feats^T @ dframe
+        Phase("scrf_grad_finish", 13 * tbl + btd + D * L * _F32,
+              2.0 * B * T * D * L, 8.0 * B * T * L),
+    ]
+
+
+def scrf_decode_phases(B: int, T: int, L: int, D: int, Dmax: int,
+                       segments: int | None = None) -> list[Phase]:
+    """The streaming segmental Viterbi (``scrf_decode``): the frame scores,
+    K12 and K13.  ``segments``: the segments on this batch's best paths
+    (K13 works per segment; default one a frame)."""
+    btd = B * T * D * _F32
+    tbl = T * B * L * _F32
+    return [
+        Phase("scrf_prep", btd + D * L * _F32 + tbl, 2.0 * B * T * D * L),
+        _renamed(kernel_phase("segmental_viterbi", B=B, T=T, L=L,
+                              Dmax=Dmax), "scrf_viterbi_forward"),
+        # the marker packing after it: a cumulative sum and two scatters
+        # over the (B, T) markers
+        _renamed(kernel_phase("segmental_viterbi_traceback", B=B, T=T, L=L,
+                              segments=segments), "scrf_traceback",
+                 6.0 * B * T * _F32),
+    ]
+
+
+def scrf_tile_floor(B: int, T: int, L: int, Dmax: int,
+                    vpu_geps: float | None = None,
+                    spec: ChipSpec = H100,
+                    segments: int | None = None) -> dict:
+    """A defended floor for the segmental kernels: the per-frame inventory
+    of element operations of each kernel body (``_SCRF_PASSES``: every one
+    an operation the recursion's data dependencies require in this design),
+    the (L, L) products' terms among them, held to the MEASURED in-kernel
+    elementwise rate (K15 runs the same regime: a window in shared memory,
+    one block per batch column, a barrier a step).  The JAX function adds
+    its matrix-unit passes at their own rate; here the products run on the
+    same CUDA cores as everything else, so they are element operations
+    like the rest.  A step within ~1.2x of this floor is at the practical
+    speed of light for this design; what remains is to change the
+    inventory itself, or the number of blocks a frame keeps busy."""
+    geps = (vpu_geps or 3000.0) * 1e9
+    frames = float(B) * T
+    parts = {name: _scrf_elems(name, frames, L, Dmax) / geps
+             for name in ("fwd", "bwd", "grad", "vit")}
+    parts["tb"] = kernel_phase("segmental_viterbi_traceback", B=B, T=T, L=L,
+                               segments=segments).vpu_elems / geps
+    train = parts["fwd"] + parts["bwd"] + parts["grad"]
+    return {"train_floor_ms": round(train * 1e3, 3),
+            "decode_floor_ms": round((parts["vit"] + parts["tb"]) * 1e3, 3),
+            "kernels_ms": {k: round(v * 1e3, 3) for k, v in parts.items()},
+            "vpu_geps_used": round((vpu_geps or 3000.0), 1)}
+
+
+def decode_phases(B: int, T: int, L: int, D: int,
+                  num_states: int = 1) -> list[Phase]:
+    """One exact shared-transition Viterbi decode: the potentials, K8 (n
+    states) or K7 (one), the traceback kernel."""
+    tbl = T * B * L * _F32
+    btd = B * T * D * _F32
+    ns = max(num_states, 1)
+    fwd = (kernel_phase("viterbi_nstate_fwd", B=B, T=T, L=L, ns=ns)
+           if ns > 1 else kernel_phase("viterbi_dense_fwd", B=B, T=T, L=L))
+    return [
+        Phase("featuremap", btd + D * L * _F32 + 3 * tbl,
+              2.0 * B * T * D * L),
+        _renamed(fwd, "viterbi_forward"),
+        kernel_phase("viterbi_traceback", B=B, T=T),
+    ]
+
+
+def summarize(phases: list[Phase], measured_s: float,
+              spec: ChipSpec = H100,
+              measured_bw_gbps: float | None = None,
+              mode: str = "fp32",
+              vpu_geps: float | None = None) -> dict:
+    """Roll phases up into the bench's roofline record.  ``mode`` selects
+    the peak the FLOPs are held to (``"fp32"`` alone here); ``vpu_geps``
+    (measured, :func:`measure_vpu_geps_pallas`) activates the element
+    term."""
+    total_bytes = sum(p.bytes for p in phases)
+    total_flops = sum(p.flops for p in phases)
+    sol = sum(p.sol_s(spec, mode=mode, vpu_geps=vpu_geps) for p in phases)
+    out = {
+        "chip": spec.name,
+        "hbm_gbps_peak": spec.hbm_gbps,
+        "gbytes_streamed": round(total_bytes / 1e9, 4),
+        "gflops": round(total_flops / 1e9, 2),
+        "sol_ms": round(sol * 1e3, 3),
+        "measured_ms": round(measured_s * 1e3, 3),
+        "pct_of_sol": round(100.0 * sol / measured_s, 1),
+        "achieved_gbps": round(total_bytes / measured_s / 1e9, 1),
+        "phases": {p.name: {"mb": round(p.bytes / 1e6, 1),
+                            "gflop": round(p.flops / 1e9, 2),
+                            "vpu_gelems": round(p.vpu_elems / 1e9, 2),
+                            "sol_ms": round(
+                                p.sol_s(spec, mode=mode,
+                                        vpu_geps=vpu_geps) * 1e3, 3)}
+                   for p in phases},
+    }
+    if vpu_geps:
+        out["vpu_geps_measured"] = round(vpu_geps, 1)
+    if measured_bw_gbps:
+        sol_ach = sum(p.sol_s(spec, bw_gbps=measured_bw_gbps, mode=mode,
+                              vpu_geps=vpu_geps)
+                      for p in phases)
+        out["hbm_gbps_achievable"] = round(measured_bw_gbps, 1)
+        out["pct_of_achievable_sol"] = round(100.0 * sol_ach / measured_s, 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# measurements
+# ---------------------------------------------------------------------------
+
+def measure_vpu_geps_pallas(Dmax: int = 16, Ls: int = 48, Bk: int = 128,
+                            passes: int = 16, frames: int = 32,
+                            grid_n: int = 256, reps: int = 5,
+                            device="cuda") -> float:
+    """In-kernel elementwise throughput in giga-element-operations a
+    second, measured by K15: ``grid_n * frames`` steps of ``passes``
+    dependent operations (one expf in eight, like the recursions' bodies)
+    over a ``(Dmax, Ls)`` window in each of ``Bk`` blocks' shared memory.
+    The denominator of :func:`scrf_tile_floor` and :func:`fdt_tile_floor`.
+    The median over ``reps`` slope measurements
+    (``kernels.calibrate.measure``, whose whole record ``bench`` prints).
+    Unlike the JAX function it never returns None: on a CUDA device the
+    kernel runs or the call raises; on the CPU the plain version is timed
+    at a short chain, a host figure and never a device one."""
+    from asr_craft_tpu_torch.kernels import calibrate
+    return calibrate.measure(Dmax=Dmax, Ls=Ls, Bk=Bk, passes=passes,
+                             frames=frames, grid_n=grid_n, reps=reps,
+                             device=device)["geps"]
+
+
+def measure_stream_bw(n_mb: int = 256, iters: int = 48,
+                      spec: ChipSpec = H100, device="cuda") -> float:
+    """Empirical streaming bandwidth (GB/s) of ``device``: an out-of-place
+    add of a scalar over ``n_mb`` MB (reads N and writes N bytes a call, far
+    beyond the L2 cache), ``iters`` calls between two CUDA events, the
+    better of two runs, clamped to ``spec.hbm_gbps``.  On the CPU the same
+    loop on the host's clock: a host figure."""
+    import time
+
+    import torch
+    device = torch.device(device)
+    n = n_mb * 1024 * 1024 // _F32
+    x = torch.ones((n,), dtype=torch.float32, device=device)
+    y = torch.empty_like(x)
+
+    def run():
+        for _ in range(iters):
+            torch.add(x, 1e-9, out=y)
+
+    def timed():
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize(device)
+            return start.elapsed_time(end) / 1e3
+        t0 = time.perf_counter()
+        run()
+        return time.perf_counter() - t0
+
+    timed()                                        # warm
+    dt = min(timed(), timed())
+    bw = 2.0 * n * _F32 * iters / dt / 1e9
+    return min(bw, spec.hbm_gbps)

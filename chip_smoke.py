@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's decode and training (configs 1-5) once on one NVIDIA
-GPU.
+"""Drive the port's decode, training (configs 1-5) and measurement path once
+on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card visible:
 
@@ -83,19 +83,44 @@ in phases:
     under both backends (the same losses);
 (o) segmental timing — the five kernels, one train step
     (``scrf_loss_fused``, backward, SGD) and one ``scrf_decode`` against the
-    plain version at B=128, T=512, L=48, D=144, Dmax=16, all rows full.
+    plain version at B=128, T=512, L=48, D=144, Dmax=16, all rows full;
+(p) calibration parity — the K15 kernel (``calibrate``) against its plain
+    version at a short chain (2 steps, where nothing has settled) and at 64
+    steps over the whole (16, 48, 128) window; its launch count rises; its
+    rates at Dmax = 8 and 16 agree within 25% (all the slots are worked on);
+    its time at the default chain (the plain version timed at 8 steps and
+    scaled);
+(q) bench end to end — ``asr_craft_tpu_torch.bench.main`` at full width: K1,
+    K2, K3, K9-K13 and K15 must launch; its records are held to what no
+    card can break (every share of a roofline or floor in (0, 100], the
+    stream bandwidth in (1000, 3350] GB/s, the elementwise rate under the
+    multiply-add peak, both T-sweep fits with r2 >= 0.98 and a per-frame
+    cost within 30% of PERF.md's, its step and decode times within 1.5x of
+    phases (c), (f), (o) of this run: for the two segmental paths, which
+    follow the host's launch rate, the device-busy time within 1.5x and the
+    wall time within 3x); then the recipe twins 1, 2, 3 and 5
+    at their own sizes, held to the JAX CPU runs of the same recipes
+    (losses rtol 1e-3, PERs within 0.02);
+(r) diagnostics — the train CLI for one epoch on 64 utterances with
+    ``--profile_dir`` (the trace exists, names ``fdt_train_fwd_kernel``,
+    and gives the device-busy share of the traced epoch); with
+    ``--debug_nans`` and a weight file holding one NaN it raises
+    ``FloatingPointError``, and without the flag the same run ends.
 
 Every kernel's time stands beside its bound on this card: the larger of the
 bytes it must move (each input read once, each output written once) over
 the memory rate and its operations over the fp32 rate, from this run's
-shapes.
+shapes (``asr_craft_tpu_torch.utils.roofline``: ``kernel_phase``, ``bound``;
+K15: ``calibrate_phase``, multiply-adds over the fp32 rate plus
+exponentials over the special-function rate).
 
 Prints the card (``nvidia-smi``), the build time, one line per check, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, without the last line, if there is no CUDA device, if the
 package is missing, or if any phase fails.  ``--only WORD`` (for work on one
 family of kernels) runs the phases whose names hold WORD and exits 2 after
-them, with their lines but no result line: only the whole run is a result.
+them, with their lines but no result line: only the whole run is a result
+(``--only bench`` runs (p), (q) and (r)).
 Writes its weight files and MLFs under
 ``asr_craft_tpu_torch/_build/chip_smoke/`` (git-ignored).
 """
@@ -252,17 +277,48 @@ JAX_SCRF_LOSSES = {
     225: 0.17683425545692444, 250: 0.1648397594690323,
     275: 0.15475565195083618, 299: 0.14646832644939423}
 JAX_SCRF_PER, JAX_SCRF_TOKENS = 0.07086983729662077, 6392
-# Published peaks of one H100 SXM: device memory bytes/s and fp32 FLOP/s
-# outside the tensor cores (every kernel here is fp32 on the CUDA cores).
-HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
-
-
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the least time the card could take for this
-    many bytes and fp32 operations."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
+CAL_CU = "asr_craft_tpu_torch/csrc/calibrate.cu"
+CAL_SRC = "asr_craft_tpu/utils/roofline.py:519"   # the inner `kernel`
+# K15 against its plain version: nvcc fuses z * 0.999 + 1e-4 into one
+# multiply-add where PyTorch rounds twice, and the chain is a contraction,
+# so the gap stays at a few 1e-8 relative on values in (0, 1].
+CAL_ATOL = 2e-6
+# Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: K3's
+# forward is 17.5 us a frame at B=64; the segmental decode at one segment a
+# frame (the bench's zero model) is K12 at 1.5 us and K13 at 0.9.
+FDT_FRAME_US, SCRF_FRAME_US = 17.5, 2.4
+# The JAX package's recipes on the CPU at their own sizes (python
+# recipes/<name>.py --platform cpu): per-epoch mean_loss, the final CV PER
+# and the decode's (errors, tokens); swbd_multihost does not decode.
+JAX_RECIPES = {
+    "timit_mono": (
+        (3.7217633724212646, 3.4133148193359375, 3.148581027984619,
+         2.917658805847168, 2.724485158920288, 2.546931743621826,
+         2.4048452377319336, 2.2803666591644287, 2.1560726165771484,
+         2.0665929317474365, 1.984771490097046, 1.9073097705841064,
+         1.8321545124053955, 1.7853820323944092, 1.7311973571777344,
+         1.6906898021697998, 1.6430723667144775, 1.6141828298568726,
+         1.582660436630249, 1.5576300621032715),
+        0.1492361927144536, (151, 967)),
+    "timit_triphone": (
+        (1.1215606927871704, 1.1149563789367676, 1.107577919960022,
+         1.1037689447402954, 1.09769606590271, 1.092675805091858,
+         1.0895310640335083, 1.0872814655303955, 1.082550287246704,
+         1.0800095796585083, 1.078734278678894, 1.0738489627838135),
+        0.17026378896882494, (93, 929)),
+    "wsj_crandem": (
+        (3.7008109092712402, 3.6158447265625, 3.546869993209839,
+         3.4888088703155518, 3.4375131130218506, 3.395601749420166,
+         3.3651163578033447, 3.332920551300049, 3.3059747219085693,
+         3.2846665382385254, 3.267786741256714, 3.2526094913482666,
+         3.2379727363586426, 3.2325003147125244, 3.2282912731170654),
+        0.6394422310756972, (459, 996)),
+    "swbd_multihost": (
+        (1.0995190143585205, 1.0728946924209595, 1.0527453422546387,
+         1.0345604419708252, 1.0154149532318115, 0.9970547556877136,
+         0.9781779050827026, 0.9706317186355591),
+        0.07533414337788578, None),
+}
 
 
 def log(msg: str) -> None:
@@ -277,7 +333,9 @@ class Smoke:
         from asr_craft_tpu_torch.kernels import fdt_viterbi as K
         from asr_craft_tpu_torch.kernels import wall
         from asr_craft_tpu_torch.ops import fdt
+        from asr_craft_tpu_torch.utils import roofline
         self.torch, self.K, self.fdt, self.wall = torch, K, fdt, wall
+        self.rl = roofline          # the one definition of a kernel's bound
         self.dev = torch.device("cuda")
         self.cfg = flagship()
         self.err = {"fdt_viterbi_fwd": 0.0, "fdt_viterbi_traceback": 0,
@@ -288,12 +346,19 @@ class Smoke:
         self.shared_counts = {}
         self.fb_counts = {}
         self.seg_counts = {}
+        self.bench_counts = {}
+        self.busy = {}              # device-busy ms a call, by device_share
         self.times = {}
         self.bounds = {}
         self.library_ms = {}
         self.err.update({k: 0.0 for k in SHARED_SRC})
         self.err.update({k: 0.0 for k in FB_SRC})
         self.err.update({k: 0.0 for k in SEG_SRC})
+        self.err["calibrate"] = 0.0
+
+    def bound(self, name, **shape):
+        """(bound_ms, bound_by) of kernel ``name`` at ``shape``."""
+        return self.rl.bound(self.rl.kernel_phase(name, **shape))
 
     # -- (a) parity ---------------------------------------------------------
     def problem(self, cfg, B, T, seed):
@@ -444,39 +509,20 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
     def device_share(self, label, fn, reps=5):
-        """Trace ``reps`` calls of ``fn`` with torch.profiler and log the
-        wall time per call, the time the device was busy in it and the
-        kernels that took most of that.  A measurement aid: where the
-        profiler gives no device times it says so and nothing fails."""
-        torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) / reps * 1e3
-            rows = [(e.key, e.device_time_total / reps / 1e3, e.count // reps)
-                    for e in prof.key_averages()
-                    if e.device_time_total > 0
-                    and e.device_type == torch.autograd.DeviceType.CUDA]
-        except Exception as exc:        # the tracer, not the program
-            log(f"device share {label}: not measured ({exc!r})")
-            return
-        if not rows:
+        """Trace ``reps`` calls of ``fn`` with torch.profiler
+        (``bench.device_busy``) and log the wall time per call, the time
+        the device was busy in it and the kernels that took most of that."""
+        from asr_craft_tpu_torch.bench import device_busy
+        rec = device_busy(fn, self.dev, reps)
+        if rec is None:
             log(f"device share {label}: not measured (the trace holds no "
                 "device time)")
             return
-        busy = sum(ms for _, ms, _ in rows)
-        top = sorted(rows, key=lambda r: -r[1])[:6]
-        log(f"device share {label}: {wall:.4f} ms wall per call (traced), "
-            f"device busy {busy:.4f} ms in {sum(n for _, _, n in rows)} "
-            f"kernels ({100 * busy / wall:.1f}%); most of it: "
-            + "; ".join(f"{k[:48]} {ms:.4f} ms x{n}" for k, ms, n in top))
+        self.busy[label] = rec["busy_ms"]
+        log(f"device share {label}: {rec['wall_ms']:.4f} ms wall per call "
+            f"(traced), device busy {rec['busy_ms']:.4f} ms in "
+            f"{rec['kernels']} kernels ({rec['pct']:.1f}%); most of it: "
+            + "; ".join(f"{k} {ms:.4f} ms x{n}" for k, ms, n in rec["top"]))
 
     def phase_timing(self):
         from asr_craft_tpu_torch.models.crf import decode
@@ -507,12 +553,11 @@ class Smoke:
                 10, 3),
         }
         audio_s = B * T * FRAME_S
-        frames, Lp = int(lengths.sum()), ns * kw["P"]
-        plane_flops = 2 * Wall.shape[0] * Wall.shape[1]   # Wall @ [x; 1]
-        self.bounds["fdt_viterbi_fwd"] = bound(
-            4 * (Wall.numel() + feats.numel() + bp.numel() + 3 * B),
-            frames * (plane_flops + 2 * (2 * Lp + kw["P"] ** 2)))
-        self.bounds["fdt_viterbi_traceback"] = self.traceback_bound(B, T)
+        self.bounds["fdt_viterbi_fwd"] = self.bound(
+            "fdt_viterbi_fwd", B=B, T=T, L=ns * kw["P"], D=feats.shape[2],
+            ns=ns, Du=kw["u1"] - kw["u0"], frames=int(lengths.sum()))
+        self.bounds["fdt_viterbi_traceback"] = self.bound(
+            "fdt_viterbi_traceback", B=B, T=T)
         for name, (kern, plain, nk, npl) in fns.items():
             # plain, kernel, kernel, plain: compare within one call only
             p1 = self.cuda_ms(plain, npl)
@@ -525,13 +570,6 @@ class Smoke:
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                 f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
-
-    @staticmethod
-    def traceback_bound(B, T):
-        """The traceback follows one backpointer per frame: B * T entries
-        read (what this walk needs, not the whole (B, T, L') array) and
-        B * T labels written."""
-        return bound(4 * (2 * B * T + 2 * B), B * T)
 
     def _plain_decode(self, cfg, params, feats, lengths):
         from asr_craft_tpu_torch import kernels
@@ -812,18 +850,10 @@ class Smoke:
                                                  lambda: step("torch")),
         }
         audio_s = B * T * FRAME_S
-        frames, Lp = B * T, cfg.num_states * dims["P"]
-        plane_flops = 2 * Wall.shape[0] * Wall.shape[1]   # Wall @ [x; 1]
-        dp_flops = 2 * (2 * Lp + dims["P"] ** 2)          # one lattice's DP
-        io = 4 * (Wall.numel() + feats.numel() + labels.numel()
-                  + alphas.numel() + 4 * B)
-        self.bounds["fdt_train_fwd"] = bound(
-            io, frames * (plane_flops + 2 * dp_flops))
-        self.bounds["fdt_train_bwd"] = bound(
-            io + 4 * dplane.numel(), frames * (plane_flops + 6 * dp_flops))
-        self.bounds["fdt_train_contract"] = bound(
-            4 * (dplane.numel() + feats.numel() + dW.numel()),
-            frames * plane_flops)
+        shape = dict(B=B, T=T, L=cfg.num_states * dims["P"],
+                     D=feats.shape[2], ns=cfg.num_states, Du=u1 - u0)
+        for name in ("fdt_train_fwd", "fdt_train_bwd", "fdt_train_contract"):
+            self.bounds[name] = self.bound(name, **shape)
         for name, (kern, plain) in fns.items():
             # plain, kernel, kernel, plain: compare within one call only
             p1 = self.cuda_ms(plain, 1)
@@ -1040,14 +1070,11 @@ class Smoke:
                 fns["viterbi_dense_fwd"] = (
                     fwd["viterbi_dense_fwd"],
                     lambda: V.viterbi_forward(state, trans, lengths))
-            L, frames = state.shape[-1], int(lengths.sum())
-            io = 4 * (state.numel() + trans.numel() + bp.numel() + 3 * B)
-            self.bounds[f"{key} viterbi_dense_fwd"] = bound(
-                io, frames * 2 * L * L)
-            self.bounds[f"{key} viterbi_nstate_fwd"] = bound(
-                io, frames * 2 * (2 * L + cfg.num_labels ** 2))
-            self.bounds[f"{key} viterbi_traceback"] = self.traceback_bound(
-                B, T)
+            shape = dict(B=B, T=T, L=state.shape[-1], ns=ns,
+                         frames=int(lengths.sum()))
+            for kname in ("viterbi_dense_fwd", "viterbi_nstate_fwd",
+                          "viterbi_traceback"):
+                self.bounds[f"{key} {kname}"] = self.bound(kname, **shape)
             for fn_name, (kern, plain) in fns.items():
                 p1 = self.cuda_ms(plain, 2)
                 k1 = self.cuda_ms(kern, 10)
@@ -1410,19 +1437,8 @@ class Smoke:
             U = torch.rand((2 * B * (T - 1), L), device=self.dev)
             V = torch.rand((2 * B * (T - 1), L), device=self.dev)
             cublas = min(self.cuda_ms(lambda: U.T @ V, 20) for _ in range(2))
-            frames, n, mat = B * T, state.numel(), L * L
-            small = 4 * (mat + L + 2 * B)
-            bounds = {
-                "forward": bound(4 * 2 * n + small, frames * 2 * mat),
-                "backward": bound(4 * 2 * n + small, frames * 2 * mat),
-                "forward_dual": bound(4 * (3 * n + labels.numel()) + small,
-                                      frames * 4 * mat),
-                "backward_dual": bound(4 * (3 * n + labels.numel()) + small,
-                                       frames * 4 * mat),
-                "backward_dual_grad": bound(
-                    4 * (4 * n + labels.numel() + mat) + small,
-                    frames * 8 * mat),
-            }
+            bounds = {name: self.bound(name, B=B, T=T, L=L)
+                      for name in FB_SRC}
             fns = {
                 "forward": (lambda: K.forward_cuda(*single),
                             lambda: K.forward_plain(*single)),
@@ -1737,29 +1753,11 @@ class Smoke:
             finally:
                 kernels.set_backend("auto")
 
-        L, Dmax = cfg.num_labels, cfg.max_dur
-        frames, n = int(lengths.sum()), frame.numel()
-        small = 4 * (L * L + Dmax * L + Dmax + 2 * B)
-        # per frame: one (L) x (L, L) product (2 L^2) and Dmax * L window
-        # terms (sub, mul, two adds, the max and the exp-sum: 6 each; K12
-        # compares where K9 sums; K11 also scatters A, S, gd and F: 12 each,
-        # and adds the outer product of the retiring frame, 2 L^2)
-        bounds = {
-            "segmental_forward": bound(4 * 2 * n + small, frames * (
-                2 * L * L + 6 * Dmax * L)),
-            "segmental_backward": bound(4 * 2 * n + small, frames * (
-                2 * L * L + 6 * Dmax * L)),
-            "segmental_grad": bound(4 * 5 * n + small + 4 * (L * L + Dmax * L),
-                                    frames * (4 * L * L + 12 * Dmax * L)),
-            "segmental_viterbi": bound(4 * 3 * n + small, frames * (
-                2 * L * L + 5 * Dmax * L)),
-            # the walk reads, per segment of this run, one duration, one
-            # delta row and one transition column, and writes two (B, T)
-            # marker arrays
-            "segmental_viterbi_traceback": bound(
-                4 * (segments * (1 + L) + L * L + 2 * B + 2 * B * T),
-                segments * 2 * L),
-        }
+        frames = int(lengths.sum())
+        bounds = {name: self.bound(name, B=B, T=T, L=cfg.num_labels,
+                                   Dmax=cfg.max_dur, frames=frames,
+                                   segments=segments)
+                  for name in SEG_SRC}
         fns = {
             "segmental_forward": (
                 lambda: K.segmental_forward_cuda(*args),
@@ -1815,6 +1813,289 @@ class Smoke:
             f"scrf_decode minus K12, K13 (frame scores, marker packing) "
             f"{rest_dec:.4f} ms")
 
+    # -- (p) calibration parity ---------------------------------------------------
+    def phase_bench_calibrate(self):
+        import numpy as np
+
+        from asr_craft_tpu_torch.kernels import calibrate as K
+        torch = self.torch
+        Dmax, Ls, Bk, passes = 16, 48, 128, 16
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            0.0, 1.0, size=(Ls, Bk)).astype(np.float32)).to(self.dev)
+        before = K.launches["calibrate"]
+        for label, steps in (("a short chain (grid_n=1, frames=2)", 2),
+                             ("grid_n=2, frames=32", 64)):
+            got = K.calibrate_chain_cuda(x, Dmax, passes, steps)
+            want = K.calibrate_chain_plain(x, Dmax, passes, steps)
+            torch.cuda.synchronize()
+            err = self.close(f"calibrate {label}", got, want, 0.0, CAL_ATOL)
+            if not torch.equal(got, got[:1].expand_as(got)):
+                raise AssertionError(f"calibrate {label}: the window's "
+                                     "slots differ")
+            self.err["calibrate"] = max(self.err["calibrate"], err)
+            log(f"calibrate parity {label}: max |kernel - plain| {err:.3e} "
+                f"over the whole ({Dmax}, {Ls}, {Bk}) window (atol "
+                f"{CAL_ATOL})")
+        if K.launches["calibrate"] != before + 2:
+            raise AssertionError(f"calibrate launch count "
+                                 f"{K.launches['calibrate']} after 2 "
+                                 f"launches from {before}")
+        # dead work: half the slots must take half the time
+        recs = {d: K.measure(Dmax=d, Ls=Ls, Bk=Bk, passes=passes,
+                             device=self.dev) for d in (8, 16)}
+        r8, r16 = recs[8]["geps"], recs[16]["geps"]
+        log(f"calibrate Dmax=16: {recs[16]['ms_per_launch']:.4f} ms a "
+            f"launch, {r16:.1f} giga-element-operations/s; Dmax=8: "
+            f"{recs[8]['ms_per_launch']:.4f} ms, {r8:.1f}")
+        if not abs(r8 - r16) <= 0.25 * max(r8, r16):
+            raise AssertionError(f"calibrate: rates {r8} (Dmax=8) and {r16} "
+                                 "(Dmax=16) differ by more than 25%: some "
+                                 "slots' work was not done")
+        # the plain version at the full 8192 steps would take minutes: it is
+        # timed at 8 steps and scaled by 8192 / 8
+        steps = recs[16]["steps"]
+        plain = min(self.cuda_ms(
+            lambda: K.calibrate_chain_plain(x, Dmax, passes, 8), 2)
+            for _ in range(2)) * steps / 8
+        self.times["calibrate"] = (recs[16]["ms_per_launch"], plain)
+        self.bounds["calibrate"] = self.rl.calibrate_phase(
+            Dmax, Ls, Bk, passes, 32, steps // 32)[1]
+        b_ms, b_by = self.bounds["calibrate"]
+        log(f"timing calibrate Dmax={Dmax} Ls={Ls} Bk={Bk} steps={steps}: "
+            f"kernel {recs[16]['ms_per_launch']:.4f} ms, plain "
+            f"{plain:.4f} ms (8 steps timed, scaled); bound {b_ms:.4f} ms "
+            f"by {b_by}")
+
+    # -- (q) bench end to end -----------------------------------------------------
+    def run_recipe(self, name):
+        """One recipe twin at its own size, from a scratch directory (its
+        ``--out_dir`` is relative): (losses, final CV PER, decode record)."""
+        import importlib
+        mod = importlib.import_module(f"asr_craft_tpu_torch.recipes.{name}")
+        cwd = OUT / "recipes"
+        cwd.mkdir(parents=True, exist_ok=True)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(cwd), contextlib.redirect_stdout(buf):
+            mod.main(["--device", "cuda"])
+        self.torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        losses = [r["mean_loss"] for r in recs if r["kind"] == "train_epoch"]
+        evals = [r for r in recs if r["kind"] == "eval"]
+        done = [r for r in recs if r["kind"] == "decode_done"]
+        return losses, evals[-1]["per"], (done[0] if done else None), secs
+
+    def check_bench_lines(self, lines):
+        """Hold the bench's records to what no card can break."""
+        recs = {}
+        for ln in lines:
+            if ln.startswith("{"):
+                recs.update(json.loads(ln))
+        missing = [k for k in ("calibration", "device_busy", "decode_floor",
+                               "roofline_train", "roofline_decode", "scrf",
+                               "aux", "metric") if k not in recs]
+        if missing:
+            raise AssertionError(f"bench printed no {missing}")
+        scrf = recs["scrf"]
+        shares = {}
+        for label, rec in (("train", recs["roofline_train"]),
+                           ("decode", recs["roofline_decode"]),
+                           ("scrf train", scrf["roofline_train"]),
+                           ("scrf decode", scrf["roofline_decode"])):
+            for key in ("pct_of_sol", "pct_of_achievable_sol"):
+                shares[f"{label} {key}"] = rec[key]
+        shares["train pct_of_tile_floor"] = \
+            recs["roofline_train"]["pct_of_tile_floor"]
+        for key in ("train_pct_of_floor", "decode_pct_of_floor"):
+            shares[f"scrf {key}"] = scrf["tile_floor"][key]
+        bad = {k: v for k, v in shares.items() if not 0.0 < v <= 100.0}
+        if bad:
+            raise AssertionError(f"bench: shares outside (0, 100]: {bad}")
+        cal = recs["calibration"]
+        bw, el = cal["stream_gbps"], cal["elementwise"]
+        if not 1000.0 < bw <= self.rl.H100.hbm_gbps:
+            raise AssertionError(f"bench: stream bandwidth {bw} GB/s")
+        fma_peak = self.rl.H100.fp32_tflops * 1e3 / 2       # 1e9 FMA a second
+        if el["calibration"] != "kernel" or not 0.0 < el["geps"] < fma_peak:
+            raise AssertionError(f"bench: elementwise record {el}")
+        for label, fit, want in (("decode_floor", recs["decode_floor"],
+                                  FDT_FRAME_US),
+                                 ("scrf decode_floor", scrf["decode_floor"],
+                                  SCRF_FRAME_US)):
+            if fit["r2"] < 0.98 or \
+                    abs(fit["per_frame_us"] - want) > 0.3 * want:
+                raise AssertionError(f"bench {label}: {fit}, expected "
+                                     f"{want} us a frame (+-30%), r2 >= "
+                                     "0.98")
+        if recs["vs_baseline"] is not None or not recs["value"] > 0 \
+                or recs["metric"] != "train_audio_s_per_s_per_chip":
+            raise AssertionError("bench: the metric line is not the last "
+                                 "record")
+        # Against this run's own timing phases, where they ran: within
+        # 1.5x.  The two segmental paths follow the host's launch rate
+        # (PERF.md section 5: one call reads the step at 3.7 ms and the next
+        # at 8 for the same 3.5 ms of device work), so there the time the
+        # DEVICE worked is held to 1.5x and the wall time to 3x.
+        busy = recs["device_busy"]
+        pairs = (("train step", recs["roofline_train"]["measured_ms"],
+                  "train step (loss, backward, SGD)", None),
+                 ("decode", recs["roofline_decode"]["measured_ms"],
+                  "decode", None),
+                 ("scrf train step", scrf["train_ms"],
+                  "scrf train step (loss, backward, SGD)", "scrf_train"),
+                 ("scrf_decode", scrf["decode_ms"], "scrf_decode",
+                  "scrf_decode"))
+        for label, ms, key, busy_key in pairs:
+            if key not in self.times:
+                log(f"bench {label}: {ms:.4f} ms (its timing phase did not "
+                    "run: not compared)")
+                continue
+            ref, factor, tail = self.times[key][0], 1.5, ""
+            if busy_key and busy[busy_key] and label in self.busy:
+                factor = 3.0
+                got_busy, ref_busy = (busy[busy_key]["busy_ms"],
+                                      self.busy[label])
+                if not ref_busy / 1.5 <= got_busy <= ref_busy * 1.5:
+                    raise AssertionError(
+                        f"bench {label}: device busy {got_busy} ms, the "
+                        f"timing phase read {ref_busy} ms (1.5x)")
+                tail = (f"; device busy {got_busy:.4f} ms against "
+                        f"{ref_busy:.4f} ms")
+            if not ref / factor <= ms <= ref * factor:
+                raise AssertionError(f"bench {label} {ms} ms, the timing "
+                                     f"phase read {ref} ms ({factor}x)")
+            log(f"bench {label}: {ms:.4f} ms, the timing phase read "
+                f"{ref:.4f} ms{tail}")
+        log(f"bench: shares of the rooflines and floors {shares}; stream "
+            f"{bw:.1f} GB/s, elementwise {el['geps']:.1f} Geps "
+            f"({el['ms_per_launch']:.4f} ms a launch); decode floor "
+            f"{recs['decode_floor']['per_frame_us']} us a frame (r2 "
+            f"{recs['decode_floor']['r2']}), scrf decode floor "
+            f"{scrf['decode_floor']['per_frame_us']} us a frame (r2 "
+            f"{scrf['decode_floor']['r2']}); device busy "
+            + json.dumps({k: v and v["pct"]
+                          for k, v in recs["device_busy"].items()}))
+
+    def phase_bench(self):
+        from asr_craft_tpu_torch import bench
+        from asr_craft_tpu_torch.kernels import (calibrate, fdt_train,
+                                                 fdt_viterbi, segmental)
+        mods = (calibrate, fdt_train, fdt_viterbi, segmental)
+        # the main path: every count 0 before it, read after it
+        for K in mods:
+            K.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--device", "cuda"])
+        self.torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        self.bench_counts = {k: v for K in mods for k, v in K.launches.items()}
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            log(f"  bench: {ln}")
+        log(f"bench main: {secs:.3f} s wall, launches {self.bench_counts}")
+        if rc != 0:
+            raise AssertionError(f"bench main rc={rc}")
+        missing = [k for k, v in self.bench_counts.items() if v < 1]
+        if missing:
+            raise AssertionError(f"bench main never launched {missing}")
+        if not lines or "vs_baseline" not in lines[-1]:
+            raise AssertionError("bench: the metric line is not last")
+        self.check_bench_lines(lines)
+        for name, (jax_losses, jax_per, jax_dec) in JAX_RECIPES.items():
+            losses, per, dec, secs = self.run_recipe(name)
+            log(f"recipe {name}: {secs:.3f} s wall, losses {losses}, final "
+                f"CV PER {per}, decode "
+                f"{dec and (dec['errors'], dec['tokens'])}; JAX CPU "
+                f"{jax_losses[-1]}, {jax_per}, {jax_dec}")
+            if len(losses) != len(jax_losses):
+                raise AssertionError(f"recipe {name}: {len(losses)} epochs")
+            for got, want in zip(losses, jax_losses):
+                if abs(got - want) > 1e-3 * want:
+                    raise AssertionError(f"recipe {name}: losses {losses}, "
+                                         f"JAX reference {jax_losses} "
+                                         "(rtol 1e-3)")
+            if abs(per - jax_per) > 0.02:
+                raise AssertionError(f"recipe {name}: final CV PER {per}, "
+                                     f"JAX reference {jax_per} (+-0.02)")
+            if jax_dec is not None:
+                if dec is None or dec["tokens"] != jax_dec[1] or \
+                        abs(dec["per"] - jax_dec[0] / jax_dec[1]) > 0.02:
+                    raise AssertionError(f"recipe {name}: decode {dec}, "
+                                         f"JAX reference {jax_dec} (PER "
+                                         "+-0.02)")
+        log("recipes: the four twins are within rtol 1e-3 of the JAX CPU "
+            "losses and within 0.02 of its PERs")
+
+    # -- (r) diagnostics ----------------------------------------------------------
+    def phase_bench_diagnostics(self):
+        from asr_craft_tpu_torch.cli.train import main
+        from asr_craft_tpu_torch.models.weights import save_raw
+        from asr_craft_tpu_torch.utils import diagnostics
+        flags = ["--synthetic_utts", "64", "--crf_label_size", "48",
+                 "--crf_states", "3", "--window_extent", "1",
+                 "--crf_transftr_end", "144", "--batch_size", "64",
+                 "--crf_epochs", "1", "--crf_lr", "0.5", "--seed", "0",
+                 "--device", "cuda"]
+
+        def run(tag, extra):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main(flags + ["--out_dir", str(OUT / f"diag_{tag}")]
+                          + extra)
+            self.torch.cuda.synchronize()
+            return rc, [json.loads(ln) for ln in buf.getvalue().splitlines()
+                        if ln.startswith("{")]
+
+        prof = OUT / "diag_profile"
+        rc, recs = run("trace", ["--profile_dir", str(prof)])
+        trace = prof / "trace.json"
+        if rc != 0 or not trace.is_file() or trace.stat().st_size == 0:
+            raise AssertionError(f"--profile_dir: rc {rc}, no trace at "
+                                 f"{trace}")
+        text = trace.read_text()
+        if "fdt_train_fwd_kernel" not in text:
+            raise AssertionError("--profile_dir: the trace does not name "
+                                 "fdt_train_fwd_kernel")
+        events = json.loads(text)["traceEvents"]
+        kernel_us = sum(e.get("dur", 0) for e in events
+                        if e.get("cat") == "kernel")
+        spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("ph") == "X" and "ts" in e]
+        traced_us = max(b for _, b in spans) - min(a for a, _ in spans)
+        epoch = [r for r in recs if r["kind"] == "train_epoch"][0]
+        log(f"diagnostics --profile_dir: {trace.stat().st_size} bytes, "
+            f"names fdt_train_fwd_kernel; the traced epoch loop (one epoch "
+            f"on 64 utterances, its CV pass and checkpoint) spans "
+            f"{traced_us / 1e3:.3f} ms, the device was busy "
+            f"{kernel_us / 1e3:.3f} ms of it "
+            f"({100 * kernel_us / traced_us:.1f}%); the CLI's own epoch "
+            f"wall {epoch['wall_s'] * 1e3:.3f} ms")
+        # one NaN in the initial weights
+        params = self.cfg.init_params(device="cpu")
+        params["w_state"][0, 0] = float("nan")
+        bad = OUT / "diag_nan.dat"
+        save_raw(bad, self.cfg.fmap, params)
+        try:
+            try:
+                run("nan_flag", ["--init_weight_file", str(bad),
+                                 "--debug_nans"])
+            finally:
+                diagnostics.enable_debug_nans(False)
+        except FloatingPointError as exc:
+            log(f"diagnostics --debug_nans: FloatingPointError ({exc})")
+        else:
+            raise AssertionError("--debug_nans: a NaN weight raised nothing")
+        rc, recs = run("nan_plain", ["--init_weight_file", str(bad)])
+        if rc != 0 or not any(r["kind"] == "done" for r in recs):
+            raise AssertionError(f"without --debug_nans the run did not end "
+                                 f"(rc {rc})")
+        log("diagnostics: without --debug_nans the same run ends (mean "
+            f"loss {[r['mean_loss'] for r in recs if r['kind'] == 'train_epoch']})")
+
     def kernels_line(self):
         out = []
 
@@ -1848,6 +2129,7 @@ class Smoke:
                 f"config5 {name}")
         for name, replaces in SEG_SRC.items():
             add(name, SEG_CU, replaces, self.seg_counts[name])
+        add("calibrate", CAL_CU, CAL_SRC, self.bench_counts["calibrate"])
         return {"kernels": out}
 
 
@@ -1893,7 +2175,12 @@ def main() -> int:
                         ("fb timing", smoke.phase_fb_timing),
                         ("segmental parity", smoke.phase_seg_parity),
                         ("segmental recipe", smoke.phase_seg_recipe),
-                        ("segmental timing", smoke.phase_seg_timing)):
+                        ("segmental timing", smoke.phase_seg_timing),
+                        ("bench calibration parity",
+                         smoke.phase_bench_calibrate),
+                        ("bench end to end", smoke.phase_bench),
+                        ("bench diagnostics",
+                         smoke.phase_bench_diagnostics)):
         if only is not None and only not in name:
             continue
         try:

@@ -3,7 +3,8 @@
 flagship's topology and features (3 states, a +/-1 window, frame-dependent
 transitions over all dims): the same per-epoch mean loss (rtol=1e-4), the
 same CV PER, and weight files that load in both packages.  Also: --resume
-continues a run exactly, and the flags still to port raise.
+continues a run exactly, the diagnostics flags run, and the flag still to
+port raises.
 """
 import contextlib
 import io
@@ -110,9 +111,25 @@ def test_cli_resume_continues_exactly(tmp_path):
                                   ["--check_sync_every", "2"],
                                   ["--optimizer", "lbfgs"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(TRAIN + ["--device", "cpu", "--crf_epochs", "1",
-                               "--out_dir", str(tmp_path)] + flag)
+    """``lbfgs`` still raises; the diagnostics flags, which raised until the
+    utilities were ported, now run: the same epoch loss as a run without
+    them, and ``--profile_dir`` leaves a trace."""
+    argv = TRAIN + ["--device", "cpu", "--crf_epochs", "1"]
+    if flag[0] == "--optimizer":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_cli.main(argv + ["--out_dir", str(tmp_path)] + flag)
+        return
+    flag = [str(tmp_path / a) if a == "prof" else a for a in flag]
+    try:
+        got = _run(port_cli.main, argv + ["--out_dir", str(tmp_path / "a")]
+                   + flag)
+    finally:
+        port_cli.diagnostics.enable_debug_nans(False)
+    want = _run(port_cli.main, argv + ["--out_dir", str(tmp_path / "b")])
+    assert _kind(got, "train_epoch")[0]["mean_loss"] == \
+        _kind(want, "train_epoch")[0]["mean_loss"]
+    if flag[0] == "--profile_dir":
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
 def test_cli_more_than_one_device_raises(tmp_path, monkeypatch):

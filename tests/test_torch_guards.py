@@ -1,6 +1,7 @@
-"""Guards of the port: no import of JAX or of the JAX package, no silent
-fallback from the device or the kernel, and build commands that target
-Hopper from csrc/ only."""
+"""Guards of the port: no import of JAX, of the JAX package or of the root
+scripts beside it (``bench.py``, ``__graft_entry__.py``), no silent fallback
+from the device or the kernel, and build commands that target Hopper from
+csrc/ only."""
 import os
 import shutil
 import subprocess
@@ -37,11 +38,17 @@ for n in ('kernels.wall', 'kernels.fdt_train', 'train.trainer',
           'data.pfile_native', 'decode.scorer', 'decode.fst',
           'decode.fst_native', 'decode.otf', 'ops.segmental',
           'ops.segmental_stream', 'kernels.segmental', 'models.segmental',
-          'recipes.scrf'):
+          'recipes.scrf', 'bench', 'utils.roofline', 'utils.diagnostics',
+          'kernels.calibrate', 'ops.oracle', 'recipes.timit_mono',
+          'recipes.timit_triphone', 'recipes.wsj_crandem',
+          'recipes.swbd_multihost'):
     assert 'asr_craft_tpu_torch.' + n in names, n
-assert len(names) >= 40, names
+assert len(names) >= 49, names
+# the interpreter runs in the repository's root, where `import bench` would
+# find the JAX package's script
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'asr_craft_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'asr_craft_tpu',
+                                    'bench', '__graft_entry__'))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -63,7 +70,8 @@ def _assert_imports_only_the_port(path):
         if words[:1] in (["import"], ["from"]):
             assert "jax" not in words[1], (path, line)
             assert not words[1].startswith("asr_craft_tpu."), (path, line)
-            assert words[1] != "asr_craft_tpu", (path, line)
+            assert words[1] not in ("asr_craft_tpu", "bench",
+                                    "__graft_entry__"), (path, line)
 
 
 def test_chip_smoke_imports_no_jax():
@@ -78,7 +86,8 @@ def test_port_sources_name_no_jax_package_import():
     pkg = REPO / "asr_craft_tpu_torch"
     files = sorted(f for f in pkg.rglob("*.py")
                    if "_build" not in f.relative_to(pkg).parts)  # outputs
-    assert len(files) >= 40
+    assert len(files) >= 49
+    assert pkg / "bench.py" in files
     for path in files:
         _assert_imports_only_the_port(path)
 
@@ -189,7 +198,8 @@ def test_nvcc_command_targets_sm90a_from_csrc_only():
     link of their objects into the shared library."""
     srcs = _build.sources()
     assert srcs and all(s.suffix == ".cu" for s in srcs)
-    assert {"fwdbwd.cu", "segmental.cu"} <= {s.name for s in srcs}
+    assert {"fwdbwd.cu", "segmental.cu", "calibrate.cu"} <= \
+        {s.name for s in srcs}
     objs = [_build.BUILD_DIR / f"{s.stem}.o" for s in srcs]
     inputs = []
     for src, obj in zip(srcs, objs):
@@ -237,3 +247,48 @@ def test_cuda_backend_on_cpu_tensor_raises_in_the_segmental_path():
     assert segmental.launches == before
     loss, _ = scrf_loss_fused(cfg, params, feats, labels, lengths)
     assert torch.isfinite(loss) and segmental.launches == before
+
+
+def test_bench_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard is for hosts "
+                    "without one")
+    from asr_craft_tpu_torch import bench
+    from asr_craft_tpu_torch.utils import roofline
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.measure_calibration("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        roofline.measure_vpu_geps_pallas()      # device="cuda": no fallback
+
+
+@pytest.mark.parametrize("name", ["timit_mono", "timit_triphone",
+                                  "wsj_crandem", "swbd_multihost"])
+def test_recipe_twin_without_gpu_raises(name, tmp_path, monkeypatch):
+    """The twins run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard is for hosts "
+                    "without one")
+    import importlib
+    monkeypatch.chdir(tmp_path)
+    mod = importlib.import_module(f"asr_craft_tpu_torch.recipes.{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--synthetic_utts", "4"])
+
+
+def test_cuda_backend_on_cpu_tensor_raises_in_the_calibration():
+    """Under the 'cuda' backend the calibration launches K15 or raises."""
+    from asr_craft_tpu_torch.kernels import calibrate
+    from asr_craft_tpu_torch.utils import roofline
+    before = dict(calibrate.launches)
+    kernels.set_backend("cuda")
+    try:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            roofline.measure_vpu_geps_pallas(Dmax=2, Ls=3, Bk=2,
+                                             device="cpu")
+    finally:
+        kernels.set_backend("auto")
+    assert calibrate.launches == before
+    rec = calibrate.measure(Dmax=2, Ls=3, Bk=2, device="cpu")
+    assert rec["calibration"] == "plain" and calibrate.launches == before

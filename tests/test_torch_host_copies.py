@@ -1,5 +1,6 @@
 """The port's own copies of the host modules (``data``, ``decode``,
-``cli.common``, ``utils.logging``) against the originals in the JAX package
+``cli.common``, ``utils.logging``, the numpy oracle ``ops.oracle``) against
+the originals in the JAX package
 they were copied from, so that the copies cannot drift unseen: the same
 code once the package name is put back (docstrings and comments aside),
 and, for a seeded synthetic corpus, loader batches, scorer counts, word
@@ -18,7 +19,8 @@ REPO = Path(__file__).resolve().parent.parent
 COPIES = ["data/__init__", "data/htk", "data/loader", "data/mlf",
           "data/pfile", "data/pfile_native", "data/sparse", "data/synthetic",
           "data/window", "decode/__init__", "decode/scorer", "decode/fst",
-          "decode/fst_native", "decode/otf", "cli/common", "utils/logging"]
+          "decode/fst_native", "decode/otf", "cli/common", "utils/logging",
+          "ops/oracle"]
 
 
 def _both(module):
@@ -188,6 +190,19 @@ def test_word_decodes_are_equal(mode):
         results.append(out)
     assert results[0] == results[1]
     assert any(words for words, _, _ in results[0])
+
+
+def test_oracles_are_equal():
+    """The float64 numpy oracle's copy gives the original's numbers."""
+    rng = np.random.default_rng(8)
+    state = rng.normal(size=(7, 4))
+    trans = rng.normal(size=(4, 4))
+    ref, got = _both("ops.oracle")
+    _same_arrays(ref.forward_np(state, trans, 6),
+                 got.forward_np(state, trans, 6))
+    assert sorted(n for n in dir(ref) if n.endswith("_np")) == \
+        sorted(n for n in dir(got) if n.endswith("_np"))
+    assert ref.NEG_INF == got.NEG_INF
 
 
 def test_native_bridges_point_at_the_same_sources():

@@ -1,0 +1,245 @@
+"""The port's roofline model (``asr_craft_tpu_torch.utils.roofline``).
+
+Its arithmetic is the JAX module's: the same ``Phase`` list and a
+``ChipSpec`` built from the same numbers give EQUAL ``sol_s`` values and
+``summarize`` records in both packages, every key.  Its counts are the
+port's own: they scale with the batch and the length as
+``tests/unit/test_roofline.py`` asks of the JAX ones, carry none of the
+TPU's padding, and give the bounds of PERF.md's kernel table (to the digits
+printed there).
+"""
+import math
+
+import pytest
+
+from asr_craft_tpu.utils import roofline as jrl
+from asr_craft_tpu_torch.utils import roofline as rl
+
+NUMBERS = dict(name="a card", hbm_gbps=1234.5, fp32_tflops=21.0,
+               bf16_tflops=300.0)
+PHASES = [("prep", 3.0e7, 0.0, 0.0), ("forward", 2.5e7, 6.0e8, 7.1e8),
+          ("grad", 6.6e7, 1.2e9, 1.06e9), ("products", 1.0e6, 9.0e10, 0.0),
+          ("tiny", 12.0, 5.0, 3.0)]
+
+
+def _both(mod_phases=PHASES):
+    return ([jrl.Phase(*p) for p in mod_phases], jrl.ChipSpec(**NUMBERS),
+            [rl.Phase(*p) for p in mod_phases], rl.ChipSpec(**NUMBERS))
+
+
+@pytest.mark.parametrize("kw", [{}, {"bw_gbps": 900.0}, {"vpu_geps": 1700.0},
+                                {"bw_gbps": 77.0, "vpu_geps": 3.5},
+                                {"mode": "fp32"}, {"fp32": True}],
+                         ids=str)
+def test_sol_s_equals_the_jax_module(kw):
+    jp, jspec, tp, tspec = _both()
+    for a, b in zip(jp, tp):
+        assert a.sol_s(jspec, **kw) == b.sol_s(tspec, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"measured_bw_gbps": 1000.0}, {"vpu_geps": 1705.7},
+    {"measured_bw_gbps": 1100.0, "vpu_geps": 2500.0, "mode": "fp32"}],
+    ids=str)
+def test_summarize_equals_the_jax_module(kw):
+    jp, jspec, tp, tspec = _both()
+    want = jrl.summarize(jp, 4.7e-3, spec=jspec, **kw)
+    got = rl.summarize(tp, 4.7e-3, spec=tspec, **kw)
+    assert got == want and list(got) == list(want)
+    assert list(got["phases"]) == [p[0] for p in PHASES]
+
+
+def test_other_precisions_raise():
+    phase = rl.Phase("x", 1.0, 1.0)
+    for mode in ("bf16x3", "bf16"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            phase.sol_s(mode=mode)
+        with pytest.raises(NotImplementedError, match="precision"):
+            rl.summarize([phase], 1.0, mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        phase.sol_s(fp32=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rl.fdt_tile_floor(8, 16, 6, 4, 3, mode="bf16x3")
+    assert rl.H100.hbm_gbps == 3350.0 and rl.H100.fp32_tflops == 67.0
+    assert not hasattr(rl, "V5E") and not hasattr(rl, "measure_vpu_geps")
+
+
+PHASE_NAMES = {
+    "train_step_phases": ["featuremap", "dual_forward", "dual_backward_grad",
+                          "featuremap_bwd", "optimizer"],
+    "fdt_train_phases": ["fdt_prep", "fdt_forward", "fdt_backward_grad",
+                         "optimizer"],
+    "fdt_decode_phases": ["fdt_prep", "fdt_viterbi_forward",
+                          "fdt_traceback"],
+    "scrf_train_phases": ["scrf_prep", "scrf_forward", "scrf_backward",
+                          "scrf_grad", "scrf_numerator", "scrf_grad_finish"],
+    "scrf_decode_phases": ["scrf_prep", "scrf_viterbi_forward",
+                           "scrf_traceback"],
+    "decode_phases": ["featuremap", "viterbi_forward", "viterbi_traceback"],
+}
+ARGS = {"train_step_phases": (64, 512, 144, 144),
+        "fdt_train_phases": (64, 512, 144, 144, 3),
+        "fdt_decode_phases": (64, 512, 144, 144, 3),
+        "scrf_train_phases": (64, 512, 48, 144, 16),
+        "scrf_decode_phases": (64, 512, 48, 144, 16),
+        "decode_phases": (64, 512, 144, 144)}
+
+
+@pytest.mark.parametrize("fn", list(PHASE_NAMES))
+def test_phase_names_are_the_jax_modules_and_counts_positive(fn):
+    ours = getattr(rl, fn)(*ARGS[fn])
+    theirs = getattr(jrl, fn)(*ARGS[fn])
+    assert [p.name for p in ours] == [p.name for p in theirs] == \
+        PHASE_NAMES[fn]
+    for p in ours:
+        assert p.bytes > 0 and p.flops >= 0 and p.vpu_elems >= 0
+        assert p.sol_s() > 0
+
+
+@pytest.mark.parametrize("fn", list(PHASE_NAMES))
+def test_counts_scale_with_batch_and_length(fn):
+    """No padding: the kernels' traffic and work double with B and with T;
+    only the parameter-sized terms (the packed parameters, the transition
+    matrix) do not grow, so the totals grow by 1.8-2x."""
+    B, T, *rest = ARGS[fn]
+
+    def totals(B, T):
+        ph = getattr(rl, fn)(B, T, *rest)
+        return (sum(p.bytes for p in ph), sum(p.flops for p in ph),
+                sum(p.vpu_elems for p in ph))
+
+    base = totals(B, T)
+    for grown in (totals(2 * B, T), totals(B, 2 * T)):
+        for lo, hi in zip(base, grown):
+            if lo:
+                assert 1.8 <= hi / lo <= 2.0 + 1e-9, (lo, hi)
+    # B=64 costs half of B=128: no lane padding (the JAX counts are equal)
+    v = lambda B: sum(p.vpu_elems for p in rl.scrf_train_phases(
+        B, 512, 48, 144, 16) if p.name in ("scrf_forward", "scrf_backward",
+                                           "scrf_grad"))
+    assert math.isclose(v(128) / v(64), 2.0, rel_tol=1e-9)
+
+
+def test_no_tile_padding():
+    """L = 144 is counted as 144, not as 256 lanes."""
+    ph = {p.name: p for p in rl.train_step_phases(64, 512, 144, 144)}
+    tbl = 512 * 64 * 144 * 4
+    assert 3 * tbl < ph["dual_forward"].bytes < 3.1 * tbl
+    assert ph["dual_forward"].flops == 64 * 512 * 4.0 * 144 * 144
+
+
+# PERF.md's kernel table: (kernel, shape, bound ms as printed, what binds)
+FDT = dict(L=144, D=144, ns=3)
+SEG = dict(B=128, T=512, L=48, Dmax=16)
+TABLE = [
+    ("fdt_train_fwd", dict(B=128, T=512, **FDT), "0.78624", "operations"),
+    ("fdt_train_bwd", dict(B=128, T=512, **FDT), "0.80653", "operations"),
+    ("fdt_train_contract", dict(B=128, T=512, **FDT), "0.77610",
+     "operations"),
+    ("fdt_viterbi_fwd", dict(B=64, T=512, **FDT), "0.39059", "operations"),
+    ("fdt_viterbi_traceback", dict(B=64, T=512), "0.00008", "bytes"),
+    ("forward_dual", dict(B=128, T=512, L=138), "0.07451", "operations"),
+    ("forward_dual", dict(B=128, T=512, L=48), "0.0113", "bytes"),
+    ("backward_dual_grad", dict(B=128, T=512, L=138), "0.14902",
+     "operations"),
+    ("backward_dual_grad", dict(B=128, T=512, L=48), "0.0180", "operations"),
+    ("forward", dict(B=128, T=512, L=138), "0.03726", "operations"),
+    ("forward", dict(B=128, T=512, L=48), "0.0075", "bytes"),
+    ("backward", dict(B=128, T=512, L=138), "0.03726", "operations"),
+    ("backward_dual", dict(B=128, T=512, L=138), "0.07451", "operations"),
+    ("viterbi_dense_fwd", dict(B=64, T=512, L=48), "0.00376", "bytes"),
+    ("viterbi_nstate_fwd", dict(B=64, T=512, L=138, ns=3), "0.01082",
+     "bytes"),
+    ("viterbi_traceback", dict(B=64, T=512), "0.00008", "bytes"),
+    ("segmental_forward", SEG, "0.00901", "operations"),
+    ("segmental_backward", SEG, "0.00901", "operations"),
+    ("segmental_grad", SEG, "0.01879", "bytes"),
+    ("segmental_viterbi", SEG, "0.01127", "bytes"),
+    ("segmental_viterbi_traceback", dict(B=128, T=512, L=48,
+                                         segments=31020), "0.00197",
+     "bytes"),
+]
+
+
+@pytest.mark.parametrize("name,shape,printed,by", TABLE,
+                         ids=[f"{t[0]}-L{t[1].get('L', '')}" for t in TABLE])
+def test_kernel_bounds_are_perf_mds(name, shape, printed, by):
+    ms, bound_by = rl.bound(rl.kernel_phase(name, **shape))
+    digits = len(printed.split(".")[1])
+    assert f"{ms:.{digits}f}" == printed and bound_by == by
+
+
+def test_every_kernel_has_a_count_and_steps_reuse_it():
+    """One definition: the step models take their kernels' phases from
+    ``kernel_phase``, the counts ``chip_smoke.py`` prints as bounds."""
+    from asr_craft_tpu_torch.kernels import (fdt_train, fdt_viterbi, fwdbwd,
+                                             segmental, viterbi)
+    names = set()
+    for mod in (fdt_train, fdt_viterbi, fwdbwd, segmental, viterbi):
+        names |= set(mod.launches)
+    assert names == set(rl.KERNELS)
+    ph = {p.name: p for p in rl.scrf_train_phases(128, 512, 48, 144, 16)}
+    k9 = rl.kernel_phase("segmental_forward", **SEG)
+    assert (ph["scrf_forward"].bytes, ph["scrf_forward"].flops,
+            ph["scrf_forward"].vpu_elems) == (k9.bytes, k9.flops,
+                                              k9.vpu_elems)
+    ph = {p.name: p for p in rl.fdt_train_phases(128, 512, 144, 144, 3)}
+    k2 = [rl.kernel_phase(n, B=128, T=512, **FDT)
+          for n in ("fdt_train_bwd", "fdt_train_contract")]
+    assert ph["fdt_backward_grad"].flops == k2[0].flops + k2[1].flops
+    # ragged batches and K13's walk count what the data needs
+    full = rl.kernel_phase("segmental_forward", **SEG)
+    half = rl.kernel_phase("segmental_forward", **SEG, frames=128 * 256)
+    assert half.flops == full.flops / 2 and half.bytes == full.bytes
+    few = rl.kernel_phase("segmental_viterbi_traceback", B=128, T=512, L=48,
+                          segments=1000)
+    assert few.flops == 1000 * 2.0 * 48
+
+
+def test_tile_floors():
+    """scrf_tile_floor: positive per-kernel floors, train = fwd + bwd +
+    grad, decode = vit + tb, inversely proportional to the measured rate;
+    the gradient kernel does the most work a frame.  fdt_tile_floor keeps
+    vpu_ms and floor_ms; fma_ms stands where mxu_passes stood."""
+    tile = rl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=1500.0)
+    k = tile["kernels_ms"]
+    assert set(k) == {"fwd", "bwd", "grad", "vit", "tb"}
+    assert all(v > 0 for v in k.values())
+    assert math.isclose(tile["train_floor_ms"],
+                        k["fwd"] + k["bwd"] + k["grad"], abs_tol=2e-3)
+    assert math.isclose(tile["decode_floor_ms"], k["vit"] + k["tb"],
+                        abs_tol=2e-3)
+    assert k["grad"] > k["fwd"] >= k["bwd"] > k["vit"]
+    slow = rl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=750.0)
+    assert math.isclose(slow["train_floor_ms"], 2 * tile["train_floor_ms"],
+                        rel_tol=1e-2)
+    assert tile["vpu_geps_used"] == 1500.0
+    jax_keys = set(jrl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=1500.0))
+    assert set(tile) == jax_keys
+    floor = rl.fdt_tile_floor(128, 512, 144, 144, 3, vpu_geps=1500.0)
+    assert set(floor) == {"fma_ms", "vpu_ms", "floor_ms"}
+    assert math.isclose(floor["floor_ms"], floor["fma_ms"] + floor["vpu_ms"],
+                        abs_tol=2e-3)
+    # exact multiply-adds of K1, K2's recursion and the contraction
+    R, Dw, dp = 3 * 144 + 48 * 48, 145, 2 * (2 * 144 + 48 * 48)
+    flops = 128 * 512 * (3 * 2.0 * R * Dw + 8 * dp)
+    assert math.isclose(floor["fma_ms"], flops / 67e12 * 1e3, abs_tol=1e-3)
+
+
+def test_calibrate_phase_counts_the_chain():
+    phase, (ms, by) = rl.calibrate_phase(16, 48, 128, 16, 32, 256)
+    elems = 16 * 48 * 128
+    assert phase.vpu_elems == 8192 * 16 * elems == 12884901888
+    assert by == "operations" and phase.bytes == 4 * (48 * 128 + elems)
+    fma, exps = 8192 * 14 * elems, 8192 * 2 * elems
+    want = ((2 * fma + exps) / 67e12 + exps / (132 * 16 * 1.98e9)) * 1e3
+    assert math.isclose(ms, want, rel_tol=1e-12)
+    half, _ = rl.calibrate_phase(8, 48, 128, 16, 32, 256)
+    assert half.vpu_elems == phase.vpu_elems / 2
+
+
+def test_measure_stream_bw_on_the_cpu_is_clamped_to_the_spec():
+    slow = rl.ChipSpec("slow", 1e-3, 1.0, 1.0)
+    assert rl.measure_stream_bw(n_mb=1, iters=2, spec=slow,
+                                device="cpu") == 1e-3
+    assert rl.measure_stream_bw(n_mb=1, iters=2, device="cpu") > 0

@@ -1,7 +1,7 @@
 """The port's Trainer against the JAX package's Trainer for each training
 option (``l2`` with an lr decay, Polyak averaging, gradient accumulation,
 ``steps_per_call``), as test_torch_trainer.py does for the optimizers;
-exact checkpoint resume; and the options still to port.
+exact checkpoint resume; the option still to port, and ``profile_dir``.
 """
 import pytest
 import torch
@@ -46,11 +46,14 @@ def test_checkpoint_resume_is_exact(tmp_path, opts):
         assert torch.equal(t1.avg_params[k], t2.avg_params[k]), k
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """``lbfgs`` still raises; ``profile_dir``, which raised until the
+    utilities were ported, makes ``fit`` write a trace."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(CrfConfig(**CFG), TrainConfig(optimizer="lbfgs"),
                 logger=MetricsLogger(quiet=True))
-    t = Trainer(CrfConfig(**CFG), TrainConfig(profile_dir="prof"),
+    t = Trainer(CrfConfig(**CFG),
+                TrainConfig(profile_dir=str(tmp_path / "prof"), epochs=1),
                 logger=MetricsLogger(quiet=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.fit(_loaders()[0])
+    t.fit(_loaders()[0])
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
