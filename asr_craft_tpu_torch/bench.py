@@ -360,8 +360,9 @@ def bench_scrf(steps=6, Bs=128, Ts=512, L=48, D=144, Dmax=16,
 def bench_roofline(train_dt, decode_dt, B=B, T=T, decode_B=DECODE_B,
                    device="cuda", calib=None):
     """Quantified speed of light: modeled device-memory traffic, fp32
-    operations and element operations a step against the card's peaks, the
-    measured stream bandwidth and the measured elementwise rate."""
+    operations (the products at the tensor cores' 3xTF32 rate) and element
+    operations a step against the card's peaks, the measured stream
+    bandwidth and the measured elementwise rate."""
     cfg = flagship.flagship()
     L = cfg.num_labels * cfg.num_states
     D = cfg.feat_dim
@@ -372,8 +373,9 @@ def bench_roofline(train_dt, decode_dt, B=B, T=T, decode_B=DECODE_B,
     train = rl.summarize(train_ph, train_dt, measured_bw_gbps=bw,
                          vpu_geps=vpu)
     dec = rl.summarize(dec_ph, decode_dt, measured_bw_gbps=bw)
-    # the defended floor: exact multiply-adds at the fp32 rate plus the
-    # recursions' element operations at the measured rate
+    # the defended floor: exact products at the 3xTF32 rate, the DP's
+    # multiply-adds at the fp32 rate, plus the recursions' element
+    # operations at the measured rate
     floor = rl.fdt_tile_floor(B, T, L, D, cfg.num_states, vpu_geps=vpu)
     train["tile_floor"] = floor
     train["pct_of_tile_floor"] = round(

@@ -1,12 +1,14 @@
 // Pieces shared by the port's kernels (fdt_viterbi.cu: K3; fdt_train.cu:
-// K1, K2; viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu: K9-K13;
+// K1, K2's recursion; fdt_mma.cu: K2's plane and contraction kernels;
+// viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu: K9-K13;
 // calibrate.cu: K15):
 // the semiring zero, the block-wide first argmax of the max-plus decodes,
-// the in-block plane formation, the guarded three-way log-sum-exp of the
-// reference and, at the end, the pieces of the recursions over one (L, L)
-// transition factor held in shared memory.
+// the in-block plane formation, the asynchronous copies, the guarded
+// three-way log-sum-exp of the reference and, at the end, the pieces of the
+// recursions over one (L, L) transition factor held in shared memory.
 //
-// Plane formation.  Wall is the packed parameter matrix of
+// Plane formation (K1 and K3; K2 reads the planes of fdt_mma.cu's plane
+// kernel).  Wall is the packed parameter matrix of
 // asr_craft_tpu_torch/kernels/wall.py build_wall, passed TRANSPOSED and
 // zero-padded as wall_t (Dw, R4) with Dw = Du + 1 (bias last) and R4 = R
 // rounded up to a multiple of 4 (kernels/wall.py wall_t4).  One frame's
@@ -95,6 +97,89 @@ __device__ __forceinline__ void form_plane(const float* __restrict__ wall_t,
     }
     plane4[q] = acc;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies (fdt_train.cu: K2's recursion; fdt_mma.cu: the staged
+// tiles of the tensor-core products).  cp.async copies 4 or 16 bytes a
+// thread and is tracked by commit groups; cp.async.bulk copies a whole
+// contiguous row (16-byte aligned, a multiple of 16 bytes) issued by one
+// thread and completes on an mbarrier in shared memory.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// dst[0:4) = src[0:4) floats; only the first `bytes` are read, the rest of
+// the 16 are zero-filled (bytes = 0: no read, all zero)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// dst[0] = src[0] (bytes = 4) or 0 (bytes = 0)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one thread: expect `bytes` on `bar`, then copy them from global memory
+// into shared memory; the barrier's phase completes when they have landed.
+// The fence orders the block's earlier accesses of dst (behind a barrier)
+// before the copy's writes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// spin until the phase of parity `parity` of `bar` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
 }
 
 // log(e^a + e^b + e^c) with the reference's guards (fdt_pallas.py _lse3):

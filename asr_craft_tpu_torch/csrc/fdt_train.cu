@@ -8,50 +8,50 @@
 // Replaces the TPU kernels of asr_craft_tpu/kernels/fdt_pallas.py:
 //   fdt_train_fwd_kernel      <- fdt_forward_pallas, body _fwd_kernel
 //   fdt_train_bwd_kernel      <- fdt_backward_grad_pallas, body _bwd_kernel
-//                                (beta recursion and xi/gamma statistics)
-//   fdt_train_contract_kernel <- the same body's per-block contractions
-//                                dWall += dplane @ xu^T and dxu = Wall^T @
-//                                dplane, which the TPU runs in-kernel on
-//                                its matrix unit
+//                                (beta recursion and xi/gamma statistics);
+//                                the same body's plane formation and
+//                                contractions are the tensor-core kernels
+//                                of fdt_mma.cu
 //
 // Layouts.  Wall (R, Du+1) packed by kernels/wall.build_wall, rows
 // [state L' | self L' | adv L' | cross P*P (pi-major)], all state-major;
-// the recursions read it as wall_t (fdt_common.cuh).  feats (B, T, D) f32,
-// labels (B, T) i32 at clamp_ns granularity (clamp_ns = ns: phone labels,
-// 1: state labels), lengths (B,) i32.  alphas (B, T, 2, L') f32: frame t's
-// free then clamped alpha, every frame (frames t >= length keep the carry).
-// zf, zc (B,) the log-partitions; wf, wc (B,) their cotangents.  dplane
-// (B, T, R) f32: d(wf zf + wc zc) / d(plane row r at frame t) -- the state
-// rows hold the posteriors gamma_t, the transition rows of frame t the xi
-// of the transitions into frame t (zero at frame 0 and at t >= length).
+// K1 reads it as wall_t (fdt_common.cuh).  planes (B, T, R4) f32, every
+// frame's plane row (fdt_mma.cu fdt_train_plane_kernel; R4 = R rounded up
+// to 4).  feats (B, T, D) f32, labels (B, T) i32 at clamp_ns granularity
+// (clamp_ns = ns: phone labels, 1: state labels), lengths (B,) i32.  alphas
+// (B, T, 2, L') f32: frame t's free then clamped alpha, every frame (frames
+// t >= length keep the carry).  zf, zc (B,) the log-partitions; wf, wc (B,)
+// their cotangents.  dplane (B, T, R) f32: d(wf zf + wc zc) / d(plane row r
+// at frame t) -- the state rows hold the posteriors gamma_t, the transition
+// rows of frame t the xi of the transitions into frame t (zero at frame 0
+// and at t >= length).
 //
 // What bounds them on this card.  Time is a serial loop: one block owns
 // one utterance and walks its frames (forward up, backward down), so
-// B=128 fills 128 of the 132 SMs.  Each frame forms its plane (R x Dw
+// B=128 fills 128 of the 132 SMs.  K1 forms each frame's plane (R x Dw
 // FMAs, 2736 x 145 at the config-2 flagship) from a Wall (1.59 MB) that
 // does not fit one SM's shared memory and is re-read from L2 every frame:
-// the SM's L2 port bounds a frame.  The semiring work (2 lattices x (L'
-// elementwise + P x P cross lse)) is small beside it, and K2 adds 2 R
-// exponentials a frame for the xi.  K2's output dplane is 4 R bytes a
-// frame: 717 MB at B=128, T=512, written once and read by the contraction
-// (once per 64-column tile of dWall, three times).  The contraction is
-// 2 N R (Du+1) FLOPs (N = B T; 52 GFLOP at the flagship) in fp32 FMAs.
+// the SM's L2 port bounds a frame.  K2's recursion forms no plane: the
+// planes do not depend on beta, so fdt_mma.cu forms all of them first on
+// the tensor cores, and what is left on the chain is the semiring work (2
+// lattices x (L' elementwise + P x P cross lse)) and 2 R exponentials a
+// frame for the xi: latency, at one block an utterance.
 //
-// What this first design does about it.  The plane never leaves shared
-// memory in either recursion (K2 re-forms frame t+1's plane instead of
-// storing planes, as the TPU kernel does); frames past a row's length are
-// neither formed nor updated.  dWall is shared by every utterance, and
-// Hopper blocks run in parallel with no carry between them, so K2 writes
-// dplane to device memory and a second, separate kernel contracts it:
-// each block owns a 64 x 64 output tile and one chunk of the frames
-// (register-blocked 4 x 4 per thread, 16-deep shared-memory tiles); the
-// 43 x 3 tiles of the flagship's dWall alone would fill one block per SM,
-// so the frames are split into up to 16 chunks and a third kernel adds
-// the chunks' partial sums in a fixed order.  The gradient is the same
-// from run to run -- no atomics.  The feature cotangent (grad_feats) is
-// the same kernel with the other operand layout.  Not done yet: tensor
-// cores (3xTF32 for fp32 accuracy), and keeping Wall resident across a
-// cluster of blocks.
+// What the design does about it.  K1: the plane never leaves shared memory
+// and frames past a row's length are neither formed nor updated.  K2's
+// recursion reads frame t+1's plane row (10.9 KB at the flagship) and
+// alpha_t from device memory one frame ahead, into the other of two
+// shared buffers, while the current frame's work runs: the row by one
+// cp.async.bulk on an mbarrier, alpha by cp.async.  A frame takes three
+// barriers: the buffers in place (A), xs complete (B), the cross lse
+// complete (C); beta_t and gamma_t are formed by one thread a label for
+// both lattices, so no barrier separates them.  The P x P cross-phone terms
+// dominate a frame: each source phone's lse runs on a group of 16 lanes
+// merged by shuffles (the only chain of P terms), and one exponential a
+// term serves both the lse and the xi.  dWall is shared by every
+// utterance, and Hopper blocks run in parallel with no carry between them,
+// so K2 writes dplane to device memory and fdt_mma.cu contracts it in a
+// fixed order.
 //
 // Semantics held to the reference (ops/fdt.py, fdt_pallas.py):
 //   alpha_0 = state2_0 (+ start mask: frame 0 enters first states only);
@@ -77,9 +77,7 @@ using fdtk::lse3;
 using fdtk::round_up4;
 
 constexpr int kThreads = 768;       // one pass over 684 flagship row groups
-constexpr int kTile = 64;           // contraction output tile (rows, cols)
-constexpr int kTileK = 16;          // contraction depth per shared tile
-constexpr int kContractThreads = 256;
+constexpr int kCrossLanes = 16;     // K2's lanes per source phone
 
 size_t fwd_smem_floats(int Du, int ns, int P) {
   const size_t Lp = (size_t)ns * P;
@@ -88,11 +86,15 @@ size_t fwd_smem_floats(int Du, int ns, int P) {
          2 * (size_t)P;
 }
 
-size_t bwd_smem_floats(int Du, int ns, int P) {
-  const size_t Lp = (size_t)ns * P;
-  // plane | x | beta (2 L') | xs (2 L') | alpha_t (2 L') | crossb (2 P)
-  return round_up4(3 * ns * P + P * P) + (size_t)(Du + 1) + 6 * Lp +
-         2 * (size_t)P;
+// K2's recursion: planes (2 R4, 16-byte aligned first) | beta (2 L') | xs
+// (2 L') | alpha (2 x 2 L') | crossb (2 P), then two 8-byte mbarriers
+__host__ __device__ inline int bwd_barrier_offset(int ns, int P) {
+  const int Lp = ns * P;
+  return (2 * round_up4(3 * Lp + P * P) + 8 * Lp + 2 * P + 1) & ~1;
+}
+
+size_t bwd_smem_floats(int ns, int P) {
+  return (size_t)bwd_barrier_offset(ns, P) + 4;
 }
 
 // state2 minus the plane's state row: the end mask (both lattices) and the
@@ -205,9 +207,11 @@ fdt_train_fwd_kernel(const float* __restrict__ wall_t,
   }
 }
 
+// The plane row of frame n (R4 floats) and alpha_t (2 L') arrive in shared
+// memory one frame ahead, each in one of two buffers: the plane by one
+// cp.async.bulk on an mbarrier, alpha by cp.async from every thread.
 __global__ void __launch_bounds__(kThreads)
-fdt_train_bwd_kernel(const float* __restrict__ wall_t,
-                     const float* __restrict__ feats,
+fdt_train_bwd_kernel(const float* __restrict__ planes,
                      const int* __restrict__ labels,
                      const int* __restrict__ lengths,
                      const float* __restrict__ alphas,
@@ -215,22 +219,23 @@ fdt_train_bwd_kernel(const float* __restrict__ wall_t,
                      const float* __restrict__ zc,
                      const float* __restrict__ wf,
                      const float* __restrict__ wc,
-                     float* __restrict__ dplane, int T, int D, int u0,
-                     int Du, int ns, int P, int clamp_ns, int boundaries) {
+                     float* __restrict__ dplane, int T, int ns, int P,
+                     int clamp_ns, int boundaries) {
   extern __shared__ float4 smem4[];
-  const int Lp = ns * P, L2 = 2 * Lp, Dw = Du + 1, R = 3 * Lp + P * P;
-  const int R4 = round_up4(R), Q = R4 / 4;
-  float* plane = reinterpret_cast<float*>(smem4);        // (R4) frame t+1
-  float* x = plane + R4;                                 // (Dw)
-  float* beta = x + Dw;                                  // (2 L')
+  const int Lp = ns * P, L2 = 2 * Lp, R = 3 * Lp + P * P;
+  const int R4 = round_up4(R);
+  float* pbuf = reinterpret_cast<float*>(smem4);         // (2, R4) planes
+  float* beta = pbuf + 2 * R4;                           // (2 L')
   float* xs = beta + L2;                                 // (2 L') beta+state2
-  float* at = xs + L2;                                   // (2 L') alpha_t
-  float* crossb = at + L2;                               // (2 P)
+  float* abuf = xs + L2;                                 // (2, 2 L') alpha_t
+  float* crossb = abuf + 2 * L2;                         // (2 P)
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+      pbuf + bwd_barrier_offset(ns, P));                 // (2) one a buffer
 
   const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const int len_raw = lengths[b];
   const int len = min(max(len_raw, 0), T);
-  const float* xb = feats + (size_t)b * T * D + u0;
+  const float* pb = planes + (size_t)b * T * R4;
   const int* lab = labels + (size_t)b * T;
   const float* ab = alphas + (size_t)b * T * L2;
   float* dp = dplane + (size_t)b * T * R;
@@ -239,179 +244,157 @@ fdt_train_bwd_kernel(const float* __restrict__ wall_t,
   // (a dead lattice, with no legal path, contributes zero gradient)
   const float z0 = zf[b], z1 = zc[b], w0 = wf[b], w1 = wc[b];
   const bool live0 = z0 > kNegInf * 0.5f, live1 = z1 > kNegInf * 0.5f;
+  const unsigned row_bytes = sizeof(float) * R4;
 
+  if (tid == 0) {
+    fdtk::mbar_init(&bar[0], 1);
+    fdtk::mbar_init(&bar[1], 1);
+  }
+  if (len >= 1)
+    for (int i = tid; i < L2; i += nth)
+      fdtk::cp_async4(abuf + ((len - 1) & 1) * L2 + i,
+                      ab + (size_t)(len - 1) * L2 + i);
+  fdtk::cp_async_commit();
   for (size_t i = (size_t)len * R + tid; i < (size_t)T * R; i += nth)
     dp[i] = 0.0f;
   if (len >= 1)                         // frame 0 has no transition
     for (int r = Lp + tid; r < R; r += nth) dp[r] = 0.0f;
   for (int i = tid; i < L2; i += nth) beta[i] = 0.0f;
 
+  // `used` planes consumed, `issued` requested; plane j lives in buffer
+  // j & 1, whose barrier completes its (j >> 1)-th phase when it lands
+  int used = 0, issued = 0;
+  int y_next = 0;                       // label of frame t + 1
   for (int t = len - 1; t >= 0; --t) {
-    for (int i = tid; i < L2; i += nth) at[i] = ab[(size_t)t * L2 + i];
-    if (t + 1 < len) {                  // frame t+1 exists
+    const bool has_next = t + 1 < len;  // frame n = t + 1 exists
+    const int y = y_next;
+    y_next = lab[t];
+    const float* plane = pbuf + (used & 1) * R4;
+    const float* at = abuf + (t & 1) * L2;
+    fdtk::cp_async_wait<0>();           // this thread's share of alpha_t
+    if (has_next) fdtk::mbar_wait(&bar[used & 1], (used >> 1) & 1);
+    // (A) alpha_t and the plane of frame t+1 in place for every thread;
+    // the buffers of step t+1 are free again
+    __syncthreads();
+    if (t >= 1) {                       // step t-1 reads plane t, alpha_t-1
+      if (tid == 0)
+        fdtk::bulk_load(pbuf + (issued & 1) * R4, pb + (size_t)t * R4,
+                        row_bytes, &bar[issued & 1]);
+      ++issued;
+      for (int i = tid; i < L2; i += nth)
+        fdtk::cp_async4(abuf + ((t - 1) & 1) * L2 + i,
+                        ab + (size_t)(t - 1) * L2 + i);
+    }
+    fdtk::cp_async_commit();
+    if (has_next) {
       const int n = t + 1;
-      fdtk::load_x(xb + (size_t)n * D, x, Du);
-      __syncthreads();
-      fdtk::form_plane(wall_t, x, smem4, Q, Dw);
-      __syncthreads();
-      const int y = lab[n];
       const bool bnd_end = bnd && n == len_raw - 1;
       for (int i = tid; i < L2; i += nth) {
         const int h = i / Lp, l = i - h * Lp, st = l % ns;
         xs[i] = beta[i] + plane[l] +
                 state_mask(h, l, st, ns, bnd_end, clamp_ns, y);
       }
-      __syncthreads();
-      // xi of the transitions into frame n, summed over the two lattices
+      __syncthreads();                  // (B) xs complete
+      // The cross-phone terms, a group of kCrossLanes lanes a source phone
+      // pi (pj split over the group, merged with shuffles), both lattices:
+      //   m_h = max(max_pj(xs_h[first(pj)] + cross[pi, pj]), NEG_INF),
+      //   e_h = exp(xs_h[first(pj)] + cross[pi, pj] - m_h),
+      //   crossb[h, pi] = m_h + log(max(sum_pj e_h, 1e-35)),
+      //   xi[pi, pj] = sum_h e_h g_h,
+      //   g_h = exp(min(alpha_h[last(pi)] + m_h - z_h, 40)) w_h:
+      // one exponential a term serves the lse and the xi, as in the TPU
+      // kernel (which takes the max over all pi; here it is per pi)
       float* dpn = dp + (size_t)n * R;
-      for (int r = Lp + tid; r < R; r += nth) {
+      {
+        const int gl = tid & (kCrossLanes - 1);
+        const unsigned gmask = ((1u << kCrossLanes) - 1)
+                               << ((tid & 31) & ~(kCrossLanes - 1));
+        for (int pi = tid / kCrossLanes; pi < P; pi += nth / kCrossLanes) {
+          const float* cr = plane + 3 * Lp + pi * P;
+          float m[2], s[2] = {0.0f, 0.0f}, g[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float* xh = xs + h * Lp;
+            float v = -INFINITY;
+            for (int pj = gl; pj < P; pj += kCrossLanes)
+              v = fmaxf(v, xh[pj * ns] + cr[pj]);
+            for (int o = kCrossLanes / 2; o > 0; o >>= 1)
+              v = fmaxf(v, __shfl_xor_sync(gmask, v, o));
+            m[h] = fmaxf(v, kNegInf);
+            g[h] = (h ? live1 : live0)
+                       ? expf(fminf(at[h * Lp + pi * ns + ns - 1] + m[h] -
+                                        (h ? z1 : z0),
+                                    40.0f)) *
+                             (h ? w1 : w0)
+                       : 0.0f;
+          }
+          for (int pj = gl; pj < P; pj += kCrossLanes) {
+            const float c = cr[pj];
+            const float e0 = expf(xs[pj * ns] + c - m[0]);
+            const float e1 = expf(xs[Lp + pj * ns] + c - m[1]);
+            s[0] += e0;
+            s[1] += e1;
+            dpn[3 * Lp + pi * P + pj] = e0 * g[0] + e1 * g[1];
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            for (int o = kCrossLanes / 2; o > 0; o >>= 1)
+              s[h] += __shfl_xor_sync(gmask, s[h], o);
+            if (gl == 0) crossb[h * P + pi] = m[h] + logf(fmaxf(s[h], 1e-35f));
+          }
+        }
+      }
+      // xi of the self and advance transitions into frame n, summed over
+      // the two lattices (zero rows at ns == 1)
+      for (int r = Lp + tid; r < 3 * Lp; r += nth) {
         float v = 0.0f;
         for (int h = 0; h < 2; ++h) {
-          if (!(h ? live1 : live0)) continue;
+          if (ns == 1 || !(h ? live1 : live0)) continue;
           const float* a = at + h * Lp;
           const float* xh = xs + h * Lp;
           float s;
           if (r < 2 * Lp) {                              // self
-            if (ns == 1) continue;
             const int l = r - Lp;
             s = a[l] + plane[r] + xh[l];
-          } else if (r < 3 * Lp) {                       // advance
+          } else {                                       // advance
             const int l = r - 2 * Lp;
-            if (ns == 1 || l % ns == ns - 1) continue;
+            if (l % ns == ns - 1) continue;
             s = a[l] + plane[r] + xh[l + 1];
-          } else {                                       // cross
-            const int k = r - 3 * Lp, pi = k / P, pj = k - pi * P;
-            s = a[pi * ns + ns - 1] + plane[r] + xh[pj * ns];
           }
           v += expf(fminf(s - (h ? z1 : z0), 40.0f)) * (h ? w1 : w0);
         }
         dpn[r] = v;
       }
-      // crossb[h, pi] = lse_pj(xs_h[first(pj)] + cross[pi, pj])
-      for (int i = tid; i < 2 * P; i += nth) {
-        const int h = i / P, pi = i - h * P;
-        const float* xh = xs + h * Lp;
-        const float* cr = plane + 3 * Lp + pi * P;
-        float m = -INFINITY;
-        for (int pj = 0; pj < P; ++pj) m = fmaxf(m, xh[pj * ns] + cr[pj]);
-        m = fmaxf(m, kNegInf);
-        float s = 0.0f;
-        for (int pj = 0; pj < P; ++pj) s += expf(xh[pj * ns] + cr[pj] - m);
-        crossb[i] = m + logf(fmaxf(s, 1e-35f));
-      }
-      __syncthreads();
-      for (int i = tid; i < L2; i += nth) {
-        const int h = i / Lp, l = i - h * Lp, st = l % ns, p = l / ns;
-        if (ns == 1) {
-          beta[i] = crossb[h * P + p];
-        } else {
-          const float self_c = xs[i] + plane[Lp + l];
-          const float adv_c = st < ns - 1 ? xs[i + 1] + plane[2 * Lp + l]
-                                          : kNegInf;
-          const float cross_c = st == ns - 1 ? crossb[h * P + p] : kNegInf;
-          beta[i] = lse3(self_c, adv_c, cross_c);
-        }
-      }
-    } else {
-      for (int i = tid; i < L2; i += nth) beta[i] = 0.0f;
+      __syncthreads();                  // (C) crossb complete
     }
-    __syncthreads();
-    // gamma_t: the state rows of frame t
+    // beta_t (0 where frame t+1 does not exist) and gamma_t, the state rows
+    // of frame t: one thread a label, both lattices
     for (int l = tid; l < Lp; l += nth) {
+      const int st = l % ns, p = l / ns;
       float g = 0.0f;
-      if (live0) g += expf(fminf(at[l] + beta[l] - z0, 40.0f)) * w0;
-      if (live1)
-        g += expf(fminf(at[Lp + l] + beta[Lp + l] - z1, 40.0f)) * w1;
+      for (int h = 0; h < 2; ++h) {
+        float bt = 0.0f;
+        if (has_next) {
+          const float* xh = xs + h * Lp;
+          if (ns == 1) {
+            bt = crossb[h * P + p];
+          } else {
+            const float self_c = xh[l] + plane[Lp + l];
+            const float adv_c = st < ns - 1 ? xh[l + 1] + plane[2 * Lp + l]
+                                            : kNegInf;
+            const float cross_c = st == ns - 1 ? crossb[h * P + p]
+                                               : kNegInf;
+            bt = lse3(self_c, adv_c, cross_c);
+          }
+        }
+        beta[h * Lp + l] = bt;
+        if (h ? live1 : live0)
+          g += expf(fminf(at[h * Lp + l] + bt - (h ? z1 : z0), 40.0f)) *
+               (h ? w1 : w0);
+      }
       dp[(size_t)t * R + l] = g;
     }
-    __syncthreads();
-  }
-}
-
-// C = A B over a 64 x 64 output tile per block, summed over k in one fixed
-// order.  mode 0 (dWall): C (R, Du+1) = sum_n dplane[n, r] xu[n, d] with
-// xu[n] = [feats[n, u0:u0+Du]; 1]; M = R, Nc = Du+1, K = N frames.  The
-// frames are split into gridDim.z chunks of k_split: block z writes its
-// chunk's sum to out + z M Nc, and fdt_train_sum_kernel adds the chunks
-// in order (split-K without atomics, so still deterministic).
-// mode 1 (dfeats): out[n, u0 + d] = sum_r dplane[n, r] Wall[r, d];
-// M = N frames, Nc = Du, K = R, one chunk.
-__global__ void __launch_bounds__(kContractThreads)
-fdt_train_contract_kernel(const float* __restrict__ dplane,
-                          const float* __restrict__ src,
-                          float* __restrict__ out, int mode, int M, int Nc,
-                          int K, int k_split, int R, int D, int u0, int Du) {
-  __shared__ __align__(16) float As[kTileK][kTile];
-  __shared__ __align__(16) float Bs[kTileK][kTile];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
-  const int kb = blockIdx.z * k_split, ke = min(K, kb + k_split);
-  if (mode == 0) out += (size_t)blockIdx.z * M * Nc;
-  float acc[4][4] = {};
-  for (int k0 = kb; k0 < ke; k0 += kTileK) {
-    for (int e = tid; e < kTile * kTileK; e += kContractThreads) {
-      int i, k;
-      if (mode == 0) {                  // A[i=r, k=n]: coalesced along r
-        i = e % kTile;
-        k = e / kTile;
-      } else {                          // A[i=n, k=r]: coalesced along r
-        k = e % kTileK;
-        i = e / kTileK;
-      }
-      const int gi = i0 + i, gk = k0 + k;
-      float v = 0.0f;
-      if (gi < M && gk < ke)
-        v = mode == 0 ? dplane[(size_t)gk * R + gi]
-                      : dplane[(size_t)gi * R + gk];
-      As[k][i] = v;
-      const int j = e % kTile, kj = e / kTile;
-      const int gj = j0 + j, gkj = k0 + kj;
-      float u = 0.0f;
-      if (gj < Nc && gkj < ke) {
-        if (mode == 0)
-          u = gj < Du ? src[(size_t)gkj * D + u0 + gj] : 1.0f;
-        else
-          u = src[(size_t)gkj * (Du + 1) + gj];
-      }
-      Bs[kj][j] = u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-  for (int r = 0; r < 4; ++r) {
-    const int gi = i0 + ty * 4 + r;
-    if (gi >= M) continue;
-    for (int c = 0; c < 4; ++c) {
-      const int gj = j0 + tx * 4 + c;
-      if (gj >= Nc) continue;
-      if (mode == 0)
-        out[(size_t)gi * (Du + 1) + gj] = acc[r][c];
-      else
-        out[(size_t)gi * D + u0 + gj] = acc[r][c];
-    }
-  }
-}
-
-// out[e] = sum over chunks z = 0, 1, .. of part[z, e], in that order.
-__global__ void fdt_train_sum_kernel(const float* __restrict__ part,
-                                     float* __restrict__ out, size_t n,
-                                     int splits) {
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += part[(size_t)z * n + e];
-    out[e] = s;
+    if (has_next) ++used;
   }
 }
 
@@ -429,8 +412,8 @@ size_t fdt_train_fwd_smem_bytes(int Du, int ns, int P) {
   return sizeof(float) * fwd_smem_floats(Du, ns, P);
 }
 
-size_t fdt_train_bwd_smem_bytes(int Du, int ns, int P) {
-  return sizeof(float) * bwd_smem_floats(Du, ns, P);
+size_t fdt_train_bwd_smem_bytes(int ns, int P) {
+  return sizeof(float) * bwd_smem_floats(ns, P);
 }
 
 int fdt_train_fwd(const float* wall_t, const float* feats, const int* labels,
@@ -447,45 +430,19 @@ int fdt_train_fwd(const float* wall_t, const float* feats, const int* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
-int fdt_train_bwd(const float* wall_t, const float* feats, const int* labels,
-                  const int* lengths, const float* alphas, const float* zf,
-                  const float* zc, const float* wf, const float* wc,
-                  float* dplane, int B, int T, int D, int u0, int Du, int ns,
-                  int P, int clamp_ns, int boundaries, void* stream) {
-  const size_t smem = fdt_train_bwd_smem_bytes(Du, ns, P);
+// planes (B, T, R4) from fdt_train_plane (fdt_mma.cu)
+int fdt_train_bwd(const float* planes, const int* labels, const int* lengths,
+                  const float* alphas, const float* zf, const float* zc,
+                  const float* wf, const float* wc, float* dplane, int B,
+                  int T, int ns, int P, int clamp_ns, int boundaries,
+                  void* stream) {
+  const size_t smem = fdt_train_bwd_smem_bytes(ns, P);
   const int err = set_smem((const void*)fdt_train_bwd_kernel, smem);
   if (err != 0) return err;
   fdt_train_bwd_kernel<<<B, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      wall_t, feats, labels, lengths, alphas, zf, zc, wf, wc, dplane, T, D,
-      u0, Du, ns, P, clamp_ns, boundaries);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// splits > 1 (mode 0 only) sums the frames in up to `splits` chunks into
-// part (splits, R, Du+1), then adds the chunks into out.
-int fdt_train_contract(const float* dplane, const float* src, float* out,
-                       float* part, int mode, int N, int R, int D, int u0,
-                       int Du, int splits, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = mode == 0 ? R : N;
-  const int Nc = mode == 0 ? Du + 1 : Du;
-  const int K = mode == 0 ? N : R;
-  if (mode != 0 || splits < 1) splits = 1;
-  // chunks of whole kTileK steps; `used` <= splits of them cover K
-  const int k_split =
-      ((K + splits - 1) / splits + kTileK - 1) / kTileK * kTileK;
-  const int used = (K + k_split - 1) / k_split;
-  const dim3 grid((M + kTile - 1) / kTile, (Nc + kTile - 1) / kTile,
-                  used);
-  fdt_train_contract_kernel<<<grid, kContractThreads, 0, s>>>(
-      dplane, src, used > 1 ? part : out, mode, M, Nc, K, k_split, R, D, u0,
-      Du);
-  if (used > 1) {
-    const size_t n = (size_t)M * Nc;
-    const int blocks = (int)((n + 255) / 256);
-    fdt_train_sum_kernel<<<blocks, 256, 0, s>>>(part, out, n, used);
-  }
+      planes, labels, lengths, alphas, zf, zc, wf, wc, dplane, T, ns, P,
+      clamp_ns, boundaries);
   return static_cast<int>(cudaGetLastError());
 }
 

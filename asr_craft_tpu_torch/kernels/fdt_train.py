@@ -3,21 +3,23 @@ their plain twins, and the autograd Function that joins them.
 
 Counterpart of the training half of :mod:`asr_craft_tpu.kernels.fdt_pallas`
 (``fdt_forward_pallas``, ``fdt_backward_grad_pallas`` and the custom-VJP
-core ``_fdt_core``).  The kernels are in ``csrc/fdt_train.cu`` (the note
-there says what bounds them on the card); this module checks, launches and
+core ``_fdt_core``).  The kernels are in ``csrc/fdt_train.cu`` (K1, K2's
+recursion) and ``csrc/fdt_mma.cu`` (K2's tensor-core products); the notes
+there say what bounds them on the card.  This module checks, launches and
 holds the plain PyTorch versions the kernels are compared with:
 
 - :func:`fdt_forward_wall_torch` / :func:`fdt_forward_cuda` (K1):
   ``(Wall, feats, labels, lengths) -> (alphas (B, T, 2, L'), zf, zc)``.
 - :func:`fdt_backward_grad_wall_torch` / :func:`fdt_backward_grad_cuda`
   (K2): ``(..., alphas, zf, zc, wf, wc) -> dWall (R, Du+1)`` and, with
-  ``want_dfeats``, ``dfeats (B, T, D)``.  K2 is two kernels, each with its
-  plain twin: the recursion (:func:`fdt_dplane_wall_torch` /
-  :func:`fdt_dplane_cuda`), an explicit beta / xi / gamma recursion (not
-  autograd of the forward, so the CPU tests check its arithmetic) that
-  writes ``dplane (B, T, R)``; and the contraction
-  (:func:`contract_wall_torch` / :func:`contract_cuda`) that forms
-  ``dWall`` and ``dfeats`` from it.
+  ``want_dfeats``, ``dfeats (B, T, D)``.  K2 is three kernels, each with
+  its plain twin: the planes of every frame (:func:`fdt_planes_torch` /
+  :func:`fdt_planes_cuda`), ``[x; 1] @ Wall^T`` on the tensor cores; the
+  recursion (:func:`fdt_dplane_wall_torch` / :func:`fdt_dplane_cuda`), an
+  explicit beta / xi / gamma recursion (not autograd of the forward, so
+  the CPU tests check its arithmetic) that reads the planes and writes
+  ``dplane (B, T, R)``; and the contraction (:func:`contract_wall_torch` /
+  :func:`contract_cuda`) that forms ``dWall`` and ``dfeats`` from it.
 - :class:`FdtNllDual`: forward K1, backward K2 with ``(gzf, gzc)`` as the
   lattice weights; the kernels for CUDA tensors under ``auto``, the plain
   versions for CPU tensors.
@@ -37,12 +39,16 @@ import torch
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
 from asr_craft_tpu_torch.kernels.wall import (SMEM_LIMIT, check_inputs,
-                                              feats_xu, wall_planes, wall_t4)
+                                              feats_xu, wall_k4, wall_planes,
+                                              wall_t4)
 from asr_craft_tpu_torch.ops import fdt
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
-launches = {"fdt_train_fwd": 0, "fdt_train_bwd": 0, "fdt_train_contract": 0}
-CONTRACT_SPLITS, CONTRACT_CHUNK = 16, 4096  # dWall's split of the frames
+launches = {"fdt_train_fwd": 0, "fdt_train_plane": 0, "fdt_train_bwd": 0,
+            "fdt_train_contract": 0}
+# dWall's split of the frames: chunks of at least CONTRACT_CHUNK frames, at
+# most CONTRACT_SPLITS of them
+CONTRACT_SPLITS, CONTRACT_CHUNK = 16, 4096
 
 _lib = None
 
@@ -50,6 +56,24 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def contract_splits(N: int, R: int, *, tile_rows: int, blocks: int) -> int:
+    """The chunks dWall's contraction splits ``N`` frames into: enough
+    blocks of ``tile_rows`` rows of dWall to give about ``blocks`` (what the
+    card holds at once), each chunk at least ``CONTRACT_CHUNK`` frames, at
+    most ``CONTRACT_SPLITS`` chunks (1 for a small N).  The chunk sums are
+    added in chunk order, so the result does not depend on the split's
+    timing."""
+    tiles = -(-R // tile_rows)
+    return max(1, min(CONTRACT_SPLITS, -(-blocks // tiles),
+                      N // CONTRACT_CHUNK))
+
+
+def fdt_planes_torch(Wall, feats, *, u0: int, u1: int):
+    """The plain version of :func:`fdt_planes_cuda`: every frame's plane
+    ``[x; 1] @ Wall^T``, (B, T, R), as :func:`wall_planes` forms it."""
+    return feats_xu(feats, u0, u1) @ Wall.T
 
 
 def _state2(state, labels, t: int, clamp_ns: int):
@@ -104,7 +128,7 @@ def fdt_dplane_wall_torch(Wall, feats, labels, lengths, alphas, zf, zc,
     R = Wall.shape[0]
     dev = feats.device
     lengths = lengths.to(dev)
-    plane = feats_xu(feats, u0, u1) @ Wall.T
+    plane = fdt_planes_torch(Wall, feats, u0=u0, u1=u1)
     state = fdt._boundary_state(plane[..., :Lp], lengths, ns, boundaries)
     cross = plane[..., 3 * Lp:].reshape(B, T, P, P)
     st = torch.arange(Lp, device=dev) % ns
@@ -198,12 +222,17 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fdt_train_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
         lib.fdt_train_fwd.restype = i32
-        lib.fdt_train_bwd.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+        lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.fdt_train_plane.restype = i32
+        lib.fdt_train_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         lib.fdt_train_bwd.restype = i32
-        lib.fdt_train_contract.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.fdt_train_contract.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.fdt_train_contract.restype = i32
+        lib.fdt_mma_tile_rows.restype = i32
+        lib.fdt_mma_blocks_per_sm.restype = i32
+        lib.fdt_train_fwd_smem_bytes.argtypes = [i32] * 3
+        lib.fdt_train_bwd_smem_bytes.argtypes = [i32] * 2
         for name in ("fdt_train_fwd_smem_bytes", "fdt_train_bwd_smem_bytes"):
-            getattr(lib, name).argtypes = [i32] * 3
             getattr(lib, name).restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -221,8 +250,8 @@ def _check_train(Wall, feats, labels, lengths, *, u0, u1, ns, P, clamp_ns):
     return B, T, D
 
 
-def _smem(lib, which: str, Du: int, ns: int, P: int) -> int:
-    smem = getattr(lib, f"fdt_train_{which}_smem_bytes")(Du, ns, P)
+def _smem(lib, which: str, *dims: int) -> int:
+    smem = getattr(lib, f"fdt_train_{which}_smem_bytes")(*dims)
     if smem > SMEM_LIMIT:
         raise ValueError(f"fdt_train_{which} needs {smem} B of shared "
                          f"memory, over the {SMEM_LIMIT} B a block can use")
@@ -260,11 +289,41 @@ def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
     return alphas, zf, zc
 
 
+def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int):
+    """K2's plane kernel: every frame's plane ``[x; 1] @ Wall^T`` on the
+    tensor cores (3xTF32), as :func:`fdt_planes_torch` returns it, but in
+    rows of R4 = R rounded up to 4 floats, (B, T, R4), the pad zero: the
+    layout K2's recursion copies a frame's row from."""
+    dev = feats.device
+    _build.check_tensor("feats", feats, torch.float32, 3, dev)
+    _build.check_tensor("Wall", Wall, torch.float32, 2, dev)
+    B, T, D = feats.shape
+    R, Du = Wall.shape[0], u1 - u0
+    if not 0 <= u0 <= u1 <= D or Wall.shape[1] != Du + 1:
+        raise ValueError(f"Wall {tuple(Wall.shape)} and feature range "
+                         f"[{u0}, {u1}) do not match feats "
+                         f"{tuple(feats.shape)}")
+    R4 = (R + 3) // 4 * 4
+    planes = torch.empty((B, T, R4), dtype=torch.float32, device=dev)
+    if B * T == 0:
+        return planes
+    wall_k = wall_k4(Wall)          # referenced until the launch returns
+    with torch.cuda.device(dev):
+        code = _library().fdt_train_plane(
+            feats.data_ptr(), wall_k.data_ptr(), Wall.data_ptr(),
+            planes.data_ptr(), B * T, D, u0, Du, wall_k.shape[1], R, R4,
+            _stream(dev))
+    _build.raise_on_error(code, "fdt_train_plane launch")
+    launches["fdt_train_plane"] += 1
+    return planes
+
+
 def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int):
-    """The contraction kernel: ``mode`` 0 writes ``out (R, Du+1) =
-    dplane^T @ [x; 1]`` from ``src = feats`` (the frames summed in chunks,
-    then the chunks in order: the same result on every run); mode 1 writes
-    ``out[..., u0:u0+Du] = dplane @ Wall[:, :Du]`` from ``src = Wall``."""
+    """The contraction kernel, on the tensor cores (3xTF32): ``mode`` 0
+    writes ``out (R, Du+1) = dplane^T @ [x; 1]`` from ``src = feats`` (the
+    frames summed in :func:`contract_splits` chunks, then the chunks in
+    order: the same result on every run); mode 1 writes ``out[..., u0:u0+Du]
+    = dplane @ Wall[:, :Du]`` from ``src = Wall``."""
     dev = dplane.device
     _build.check_tensor("dplane", dplane, torch.float32, 3, dev)
     B, T, R = dplane.shape
@@ -273,17 +332,21 @@ def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int):
     if B * T == 0:
         out.zero_()
         return out
-    # dWall: split the frames into chunks of >= CONTRACT_CHUNK, at most
-    # CONTRACT_SPLITS of them, summed by the kernel in a fixed order
-    splits = (min(CONTRACT_SPLITS, max(1, B * T // CONTRACT_CHUNK))
-              if mode == 0 else 1)
+    lib, splits = _library(), 1
+    if mode == 0:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = contract_splits(B * T, R, tile_rows=lib.fdt_mma_tile_rows(),
+                                 blocks=sms * lib.fdt_mma_blocks_per_sm())
     part = (torch.empty((splits, R, Du + 1), dtype=torch.float32, device=dev)
             if splits > 1 else None)
+    # mode 1 reads Wall[:, :Du] in 16-byte aligned rows
+    src = wall_k4(src) if mode == 1 else src
+    Dk = src.shape[1] if mode == 1 else 0
     with torch.cuda.device(dev):
-        code = _library().fdt_train_contract(
+        code = lib.fdt_train_contract(
             dplane.data_ptr(), src.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), mode, B * T, R, D,
-            u0, Du, splits, _stream(dev))
+            u0, Du, Dk, splits, _stream(dev))
     _build.raise_on_error(code, "fdt_train_contract launch")
     launches["fdt_train_contract"] += 1
     return out
@@ -291,12 +354,14 @@ def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int):
 
 def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
                     *, u0: int, u1: int, ns: int, P: int, clamp_ns: int,
-                    boundaries: bool = True):
+                    boundaries: bool = True, planes=None):
     """K2's recursion kernel: ``dplane (B, T, R)``, as
-    :func:`fdt_dplane_wall_torch` returns."""
+    :func:`fdt_dplane_wall_torch` returns.  It reads every frame's plane
+    from ``planes`` (:func:`fdt_planes_cuda`'s (B, T, R4) layout), which
+    the plane kernel forms first when none is given."""
     B, T, D = _check_train(Wall, feats, labels, lengths, u0=u0, u1=u1,
                            ns=ns, P=P, clamp_ns=clamp_ns)
-    dev, Lp, Du = feats.device, ns * P, u1 - u0
+    dev, Lp = feats.device, ns * P
     _build.check_tensor("alphas", alphas, torch.float32, 4, dev)
     if tuple(alphas.shape) != (B, T, 2, Lp):
         raise ValueError(f"alphas {tuple(alphas.shape)}, expected "
@@ -306,18 +371,22 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
         if v.shape[0] != B:
             raise ValueError(f"{name} has {v.shape[0]} rows, expected {B}")
     lib = _library()
-    _smem(lib, "bwd", Du, ns, P)
+    _smem(lib, "bwd", ns, P)
     R = Wall.shape[0]
+    if planes is None:
+        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+    _build.check_tensor("planes", planes, torch.float32, 3, dev)
+    if tuple(planes.shape) != (B, T, (R + 3) // 4 * 4):
+        raise ValueError(f"planes {tuple(planes.shape)}, expected "
+                         f"{(B, T, (R + 3) // 4 * 4)}")
     dplane = torch.empty((B, T, R), dtype=torch.float32, device=dev)
     if B:
-        wall_t = wall_t4(Wall)      # referenced until the launch returns
         with torch.cuda.device(dev):
             code = lib.fdt_train_bwd(
-                wall_t.data_ptr(), feats.data_ptr(),
-                labels.data_ptr(), lengths.data_ptr(), alphas.data_ptr(),
-                zf.data_ptr(), zc.data_ptr(), wf.data_ptr(), wc.data_ptr(),
-                dplane.data_ptr(), B, T, D, u0, Du, ns, P, clamp_ns,
-                int(boundaries), _stream(dev))
+                planes.data_ptr(), labels.data_ptr(), lengths.data_ptr(),
+                alphas.data_ptr(), zf.data_ptr(), zc.data_ptr(),
+                wf.data_ptr(), wc.data_ptr(), dplane.data_ptr(), B, T, ns,
+                P, clamp_ns, int(boundaries), _stream(dev))
         _build.raise_on_error(code, "fdt_train_bwd launch")
         launches["fdt_train_bwd"] += 1
     return dplane
@@ -327,8 +396,9 @@ def fdt_backward_grad_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf,
                            wc, *, u0: int, u1: int, ns: int, P: int,
                            clamp_ns: int, boundaries: bool = True,
                            want_dfeats: bool = False):
-    """K2 on the card: the recursion kernel writes ``dplane (B, T, R)``,
-    then the contraction kernel forms ``dWall`` (and ``dfeats`` with
+    """K2 on the card: the plane kernel forms every frame's plane, the
+    recursion kernel reads them and writes ``dplane (B, T, R)``, then the
+    contraction kernel forms ``dWall`` (and ``dfeats`` with
     ``want_dfeats``), as :func:`fdt_backward_grad_wall_torch` returns."""
     dplane = fdt_dplane_cuda(
         Wall, feats, labels, lengths, alphas, zf, zc, wf, wc, u0=u0, u1=u1,

@@ -1,4 +1,6 @@
-"""The packed parameter matrix ``Wall`` shared by the fdt kernels (K1-K3).
+"""The packed parameter matrix ``Wall`` shared by the fdt kernels (K1-K3),
+and the copies of it that the kernels read (:func:`wall_t4`,
+:func:`wall_k4`).
 
 Counterpart of ``build_wall`` in :mod:`asr_craft_tpu.kernels.fdt_pallas`,
 without the TPU padding (no ``P8`` phone rows, no ``Du8`` columns).  Both
@@ -92,6 +94,19 @@ def wall_t4(Wall):
                          dtype=torch.float32, device=Wall.device)
     wall_t[:, :R] = Wall.T
     return wall_t
+
+
+def wall_k4(Wall):
+    """The tensor-core kernels' copy of Wall's weights (csrc/fdt_mma.cu):
+    ``Wall[:, :Du]`` in rows of Dk = Du rounded up to 4 floats, zero-padded,
+    so every row starts 16-byte aligned for 16-byte copies (Wall's own
+    rows, Du + 1 floats, are not).  The bias column is left out: the
+    kernels read it from Wall."""
+    R, Du = Wall.shape[0], Wall.shape[1] - 1
+    wall_k = torch.zeros((R, (Du + 3) // 4 * 4), dtype=torch.float32,
+                         device=Wall.device)
+    wall_k[:, :Du] = Wall[:, :Du]
+    return wall_k
 
 
 def check_inputs(name: str, Wall, feats, lengths, *, u0: int, u1: int,

@@ -11,12 +11,18 @@ Model
 Every phase of a train or decode step is characterised by the bytes it must
 move between device memory and the SMs (each input read once, each output
 written once), its fp32 operations, and its element operations on the
-recursion's critical path.  Its speed-of-light time is
+recursion's critical path.  Its fp32 operations come in two kinds: the
+matrix products with no dependence between frames (``mma_flops``: plane
+formation, K2's contraction), which the tensor cores run at fp32 accuracy
+by 3xTF32, three TF32 products for one, so at a third of the TF32 rate; and
+the rest (``flops``), held to the CUDA cores' fp32 rate.  Its
+speed-of-light time is
 
-    sol = max(bytes / memory rate, flops / fp32 peak,
+    sol = max(bytes / memory rate, mma_flops / (TF32 peak / 3),
+              flops / fp32 peak,
               element operations / measured elementwise rate)
 
-(the third term only when a measured rate is given), and phases run one after
+(the last term only when a measured rate is given), and phases run one after
 another, so a step's SOL is the sum.  The counts follow the port's code, read
 off ``csrc/*.cu`` and the wrappers: batch-major unpadded tensors, the packed
 parameter matrix (``kernels/wall.py``), K2 as a recursion plus a contraction,
@@ -37,9 +43,13 @@ JAX module: the element-operation term held to a *measured* in-kernel rate
 of element operations a frame (``_SCRF_PASSES``, :func:`scrf_tile_floor`,
 :func:`fdt_tile_floor`), and the T-sweep fits of ``bench``.
 
-Peaks: one H100 SXM, 3350 GB/s of device memory and 67 TFLOP/s fp32 on the
-CUDA cores (NVIDIA's data sheet, at the 700 W limit).  Every kernel of the
-port is fp32 on the CUDA cores, so ``mode`` takes ``"fp32"`` alone.
+Peaks: one H100 SXM, 3350 GB/s of device memory, 67 TFLOP/s fp32 on the
+CUDA cores and 495 TFLOP/s TF32 on the tensor cores (NVIDIA's data sheet,
+dense, at the 700 W limit).  Every kernel of the port computes in fp32 (the
+tensor-core products in 3xTF32, which keeps fp32 accuracy), so ``mode``
+takes ``"fp32"`` alone.  The same work is held to the same bound whatever
+implements it: K1 and K3 still form their planes on the CUDA cores, but the
+least time the card could take for those products is the 3xTF32 one.
 
 Names, and their counterparts in the JAX module
 -----------------------------------------------
@@ -48,7 +58,9 @@ here                           ``asr_craft_tpu.utils.roofline``
 =============================  =============================================
 ``ChipSpec``, ``Phase``,       the same (``ChipSpec`` gains the SM count,
 ``Phase.sol_s``, ``summarize`` clock and special-function width, which only
-                               :func:`calibrate_phase` reads)
+                               :func:`calibrate_phase` reads, and the TF32
+                               rate; ``Phase`` gains ``mma_flops``: with none
+                               the arithmetic is the JAX module's)
 ``H100``                       ``V5E`` (no TPU spec is carried over)
 ``train_step_phases``,         the same names, signatures and phase names;
 ``fdt_train_phases``,          the counts are the port's (``frames`` and
@@ -98,11 +110,20 @@ class ChipSpec:
     sm_count: int = 0      # streaming multiprocessors
     sm_clock_ghz: float = 0.0      # boost clock
     sfu_per_sm_clk: int = 0        # special-function results / SM / clock
+    tf32_tflops: float = 0.0       # tensor cores, dense TF32
 
 
 H100 = ChipSpec(name="NVIDIA H100 SXM", hbm_gbps=3350.0, fp32_tflops=67.0,
                 bf16_tflops=989.0, sm_count=132, sm_clock_ghz=1.98,
-                sfu_per_sm_clk=16)
+                sfu_per_sm_clk=16, tf32_tflops=495.0)
+
+
+def _mma_peak(spec: ChipSpec) -> float:
+    """FLOP/s of an fp32-accurate product on the tensor cores: 3xTF32 runs
+    three TF32 products for each (the CUDA cores' rate on a spec without
+    tensor cores)."""
+    return (spec.tf32_tflops / 3 if spec.tf32_tflops
+            else spec.fp32_tflops) * 1e12
 
 
 def _peak_flops(spec: ChipSpec, mode: str) -> float:
@@ -125,6 +146,10 @@ class Phase:
     # rate (measure_vpu_geps_pallas), so a latency-bound phase gets a
     # quantitative third roofline term.
     vpu_elems: float = 0.0
+    # fp32 operations of matrix products with no dependence between frames,
+    # held to the 3xTF32 rate of the tensor cores (_mma_peak); ``flops``
+    # holds the rest
+    mma_flops: float = 0.0
 
     def sol_s(self, spec: ChipSpec = H100, bw_gbps: float | None = None,
               fp32: bool = True, mode: str | None = None,
@@ -133,6 +158,8 @@ class Phase:
         mode = mode or ("fp32" if fp32 else "bf16")
         peak = _peak_flops(spec, mode)
         sol = max(self.bytes / bw, self.flops / peak)
+        if self.mma_flops:
+            sol = max(sol, self.mma_flops / _mma_peak(spec))
         if vpu_geps and self.vpu_elems:
             sol = max(sol, self.vpu_elems / (vpu_geps * 1e9))
         return sol
@@ -140,9 +167,11 @@ class Phase:
 
 def bound(phase: Phase, spec: ChipSpec = H100):
     """``(bound_ms, bound_by)``: the least time the card could take for the
-    phase's bytes and fp32 operations, and which of the two binds."""
+    phase's bytes and operations (its products at the 3xTF32 rate, the rest
+    at the fp32 rate), and which binds."""
     by_bytes = phase.bytes / (spec.hbm_gbps * 1e9) * 1e3
-    by_ops = phase.flops / (spec.fp32_tflops * 1e12) * 1e3
+    by_ops = max(phase.flops / (spec.fp32_tflops * 1e12),
+                 phase.mma_flops / _mma_peak(spec)) * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -160,14 +189,26 @@ def _fdt_dims(L: int, D: int, ns: int, Du: int | None):
     return P, L, 3 * L + P * P, Du + 1
 
 
-# Element operations a frame, counted off the kernel bodies to the order of
-# magnitude (csrc/fdt_train.cu, csrc/fdt_viterbi.cu): a cross-phone term is
-# an add and a max, then a subtract, an expf and an add (5; K3 an add and a
-# compare, 2); the backward also emits its xi (a subtract, a min, an expf and
-# a multiply: 9).  A row of the lattice takes lse3 and its masks (18), the
-# backward its gamma and gates besides (26), K3 three adds, two compares and
-# the beam (8).  Training runs the free and the clamped lattice.
-_FDT_OPS = {"fwd": (5.0, 18.0), "bwd": (9.0, 26.0), "vit": (2.0, 8.0)}
+# Element operations a frame: (per phone pair and lattice, per expanded
+# label and lattice).  K1 and K3 to the order of magnitude off their bodies
+# (csrc/fdt_train.cu fdt_train_fwd_kernel, csrc/fdt_viterbi.cu): a
+# cross-phone term is an add and a max, then a subtract, an expf and an add
+# (5; K3 an add and a compare, 2); a row of the lattice takes lse3 and its
+# masks (18), K3 three adds, two compares and the beam (8).
+# K2's recursion (fdt_train_bwd_kernel) line by line.  A phone pair and
+# lattice: the cross lse's max pass (an add, a max: 2), one exponential
+# shared by the lse and the xi (an add, a subtract, the expf, the sum: 4)
+# and the xi's multiply-add (1): 7.  A label and lattice: xs (two adds and
+# the mask's compare: 3), the self and the advance xi (two adds, a
+# subtract, a min, an expf, a multiply, the lattice sum: 7 each), beta_t's
+# lse3 (the self and advance candidates 2, the max of three and its clamp
+# 3, three subtracts, three expf, two adds, the floor, a logf and an add:
+# 16), gamma_t (an add, a subtract, a min, an expf, a multiply, an add: 6),
+# and its share of a source phone's work (two 16-lane shuffle merges of 4
+# rounds each with their maxes and adds: 16; the xi factor's add,
+# subtract, min, expf and multiply: 5; the floor, a logf and an add: 3;
+# 24 over the ns labels of a phone: 8 at ns = 3): 47.
+_FDT_OPS = {"fwd": (5.0, 18.0), "bwd": (7.0, 47.0), "vit": (2.0, 8.0)}
 
 
 def _fdt_elems(kind: str, frames: float, L: int, P: int) -> float:
@@ -176,17 +217,26 @@ def _fdt_elems(kind: str, frames: float, L: int, P: int) -> float:
     return frames * lattices * (cross * P * P + row * L)
 
 
+def _plane_ops(frames: float, R: int, Dw: int) -> tuple[float, float]:
+    """``(mma_flops, flops)`` of plane formation, ``Wall @ [x; 1]`` a frame,
+    or of the ``dWall = dplane^T @ [x; 1]`` contraction: a product of depth
+    Du = Dw - 1 and one add a row for the bias column (the contraction's
+    column sum of dplane)."""
+    return frames * 2.0 * R * (Dw - 1), frames * float(R)
+
+
 def _k_fdt_viterbi_fwd(B, T, L, D, ns, Du=None, frames=None):
     """K3 forward: Wall, feats and lengths in; backpointers (B, T, L') i32,
-    last states and scores out.  Per frame the plane ``Wall @ [x; 1]`` and
-    the max-plus step (an add and a compare per self, advance and cross
-    term)."""
+    last states and scores out.  Per frame the plane ``Wall @ [x; 1]`` (held
+    to the 3xTF32 rate) and the max-plus step (an add and a compare per
+    self, advance and cross term)."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
     frames = B * T if frames is None else frames
+    mma, bias = _plane_ops(frames, R, Dw)
     return Phase("fdt_viterbi_fwd",
                  _F32 * (R * Dw + B * T * D + B * T * Lp + 3 * B),
-                 frames * (2.0 * R * Dw + 2 * (2 * Lp + P * P)),
-                 _fdt_elems("vit", frames, Lp, P))
+                 frames * 2.0 * (2 * Lp + P * P) + bias,
+                 _fdt_elems("vit", frames, Lp, P), mma)
 
 
 def _k_traceback(B, T, **_):
@@ -197,41 +247,53 @@ def _k_traceback(B, T, **_):
                  float(B * T), float(B * T))
 
 
-def _fdt_train_io(B, T, L, D, ns, Du):
-    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
-    # Wall, feats, labels, alphas (B, T, 2, L'), lengths, zf, zc, one weight
-    return P, Lp, R, Dw, _F32 * (R * Dw + B * T * D + B * T
-                                 + 2 * B * T * Lp + 4 * B)
-
-
 def _k_fdt_train_fwd(B, T, L, D, ns, Du=None, frames=None):
-    """K1: the plane and two lattices' log-semiring step a frame."""
-    P, Lp, R, Dw, io = _fdt_train_io(B, T, L, D, ns, Du)
+    """K1: the plane (3xTF32 rate) and two lattices' log-semiring step a
+    frame.  Wall, feats, labels, lengths in; alphas (B, T, 2, L'), zf, zc
+    out."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
     frames = B * T if frames is None else frames
     dp = 2 * (2 * Lp + P * P)                       # one lattice's DP
-    return Phase("fdt_train_fwd", io, frames * (2.0 * R * Dw + 2 * dp),
-                 _fdt_elems("fwd", frames, Lp, P))
+    mma, bias = _plane_ops(frames, R, Dw)
+    return Phase("fdt_train_fwd",
+                 _F32 * (R * Dw + B * T * D + B * T + 2 * B * T * Lp
+                         + 3 * B),
+                 frames * 2 * dp + bias, _fdt_elems("fwd", frames, Lp, P),
+                 mma)
+
+
+def _k_fdt_train_plane(B, T, L, D, ns, Du=None, frames=None):
+    """K2's plane kernel: Wall and feats in, every frame's plane (B, T, R)
+    out; one product of depth Du, held to the 3xTF32 rate, and the bias
+    column's add."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
+    frames = B * T if frames is None else frames
+    mma, bias = _plane_ops(frames, R, Dw)
+    return Phase("fdt_train_plane", _F32 * (R * Dw + B * T * D + B * T * R),
+                 bias, 0.0, mma)
 
 
 def _k_fdt_train_bwd(B, T, L, D, ns, Du=None, frames=None):
-    """K2's recursion: K1's traffic and dplane (B, T, R) out; beta, xi and
-    gamma for both lattices."""
-    P, Lp, R, Dw, io = _fdt_train_io(B, T, L, D, ns, Du)
+    """K2's recursion: planes (B, T, R), labels, alphas, lengths, zf, zc,
+    wf, wc in, dplane (B, T, R) out; beta, xi and gamma for both
+    lattices."""
+    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
     frames = B * T if frames is None else frames
     dp = 2 * (2 * Lp + P * P)
-    return Phase("fdt_train_bwd", io + _F32 * B * T * R,
-                 frames * (2.0 * R * Dw + 6 * dp),
-                 _fdt_elems("bwd", frames, Lp, P))
+    return Phase("fdt_train_bwd",
+                 _F32 * (2 * B * T * R + B * T + 2 * B * T * Lp + 5 * B),
+                 frames * 6 * dp, _fdt_elems("bwd", frames, Lp, P))
 
 
 def _k_fdt_train_contract(B, T, L, D, ns, Du=None, frames=None):
     """K2's contraction ``dWall = dplane^T @ [x; 1]``: dplane and feats in,
-    dWall out."""
+    dWall out; one product of depth Du, held to the 3xTF32 rate, and the
+    column sum of dplane that xu's ones column gives."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
     frames = B * T if frames is None else frames
+    mma, colsum = _plane_ops(frames, R, Dw)
     return Phase("fdt_train_contract",
-                 _F32 * (B * T * R + B * T * D + R * Dw),
-                 frames * 2.0 * R * Dw)
+                 _F32 * (B * T * R + B * T * D + R * Dw), colsum, 0.0, mma)
 
 
 def _shared_io(B, T, L):
@@ -369,6 +431,7 @@ KERNELS = {
     "fdt_viterbi_fwd": _k_fdt_viterbi_fwd,
     "fdt_viterbi_traceback": _k_traceback,
     "fdt_train_fwd": _k_fdt_train_fwd,
+    "fdt_train_plane": _k_fdt_train_plane,
     "fdt_train_bwd": _k_fdt_train_bwd,
     "fdt_train_contract": _k_fdt_train_contract,
     "viterbi_dense_fwd": _k_viterbi_dense_fwd,
@@ -461,24 +524,26 @@ def train_step_phases(B: int, T: int, L: int, D: int,
 def fdt_train_phases(B: int, T: int, L: int, D: int, ns: int,
                      n_lambda: int | None = None) -> list[Phase]:
     """One frame-dependent-transition train step (config 2): packing
-    (``build_wall``, the transposed copy each launch takes, the scatter of
-    dWall back to the parameters), K1, K2 (the recursion, which writes
-    dplane, then the contraction, which reads it back), the optimizer.
-    Plane formation runs inside the kernels on the CUDA cores, so the step
-    is bound by fp32 operations, not by bytes."""
+    (``build_wall``, the copies of Wall the launches take, the scatter of
+    dWall back to the parameters), K1, K2 (the planes, the recursion, which
+    reads them and writes dplane, then the contraction, which reads it
+    back), the optimizer.  The products of plane formation (K1's and K2's)
+    and of the contraction bind the step's bound, at the 3xTF32 rate."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, None)
     wall = R * Dw * _F32
     n_lambda = n_lambda or R * Dw
-    bwd = kernel_phase("fdt_train_bwd", B=B, T=T, L=L, D=D, ns=ns)
-    con = kernel_phase("fdt_train_contract", B=B, T=T, L=L, D=D, ns=ns)
+    k2 = [kernel_phase(name, B=B, T=T, L=L, D=D, ns=ns)
+          for name in ("fdt_train_plane", "fdt_train_bwd",
+                       "fdt_train_contract")]
     return [
-        # gather into Wall, two transposed copies (K1's and K2's launch),
-        # dWall scattered back through autograd
+        # gather into Wall, its two copies (K1's transposed one, K2's
+        # padded one), dWall scattered back through autograd
         Phase("fdt_prep", 2 * (n_lambda * _F32 + wall) + 4 * wall, 0.0),
         _renamed(kernel_phase("fdt_train_fwd", B=B, T=T, L=L, D=D, ns=ns),
                  "fdt_forward"),
-        Phase("fdt_backward_grad", bwd.bytes + con.bytes,
-              bwd.flops + con.flops, bwd.vpu_elems),
+        Phase("fdt_backward_grad", sum(p.bytes for p in k2),
+              sum(p.flops for p in k2), sum(p.vpu_elems for p in k2),
+              sum(p.mma_flops for p in k2)),
         Phase("optimizer", 4 * n_lambda * _F32, 4.0 * n_lambda),
     ]
 
@@ -505,18 +570,19 @@ def fdt_tile_floor(B: int, T: int, L: int, D: int, ns: int,
                    spec: ChipSpec = H100) -> dict:
     """A defended floor for the config-2 train step.  The JAX function
     counts the 128-wide passes of the TPU's matrix unit (``mxu_passes``,
-    ``mxu_ms``); the CUDA cores have no such pass, and nothing is padded
-    here.  Its place is taken by ``fma_ms``: the multiply-adds of plane
-    formation (K1 and K2's recursion each form ``Wall @ [x; 1]`` once a
-    frame) and of the ``dWall`` contraction, exact from the shapes, over
-    the fp32 rate.  ``vpu_ms`` is, as there, the element operations of the
-    two recursions over the measured in-kernel rate (K15), serial with the
-    products inside a frame.  A step within ~1.2x of ``floor_ms`` is at
-    the practical speed of light for this shape."""
-    phases = fdt_train_phases(B, T, L, D, ns)
-    fma_s = sum(p.flops for p in phases
-                if p.name in ("fdt_forward", "fdt_backward_grad")) \
-        / _peak_flops(spec, mode)
+    ``mxu_ms``); nothing is padded here.  Its place is taken by
+    ``fma_ms``: the products of plane formation (K1 and K2 each form
+    ``Wall @ [x; 1]`` once a frame) and of the ``dWall`` contraction, exact
+    from the shapes, at the 3xTF32 rate of the tensor cores, and the
+    multiply-adds of the two recursions' DP at the fp32 rate.  ``vpu_ms``
+    is, as there, the element operations of the two recursions over the
+    measured in-kernel rate (K15), serial with the products.  A step within
+    ~1.2x of ``floor_ms`` is at the practical speed of light for this
+    shape."""
+    phases = [p for p in fdt_train_phases(B, T, L, D, ns)
+              if p.name in ("fdt_forward", "fdt_backward_grad")]
+    fma_s = (sum(p.flops for p in phases) / _peak_flops(spec, mode)
+             + sum(p.mma_flops for p in phases) / _mma_peak(spec))
     vpu_el = sum(p.vpu_elems for p in phases)
     vpu_s = vpu_el / ((vpu_geps or 3000.0) * 1e9)
     return {"fma_ms": round(fma_s * 1e3, 3),
@@ -630,7 +696,7 @@ def summarize(phases: list[Phase], measured_s: float,
     (measured, :func:`measure_vpu_geps_pallas`) activates the element
     term."""
     total_bytes = sum(p.bytes for p in phases)
-    total_flops = sum(p.flops for p in phases)
+    total_flops = sum(p.flops + p.mma_flops for p in phases)
     sol = sum(p.sol_s(spec, mode=mode, vpu_geps=vpu_geps) for p in phases)
     out = {
         "chip": spec.name,
@@ -642,7 +708,8 @@ def summarize(phases: list[Phase], measured_s: float,
         "pct_of_sol": round(100.0 * sol / measured_s, 1),
         "achieved_gbps": round(total_bytes / measured_s / 1e9, 1),
         "phases": {p.name: {"mb": round(p.bytes / 1e6, 1),
-                            "gflop": round(p.flops / 1e9, 2),
+                            "gflop": round((p.flops + p.mma_flops)
+                                           / 1e9, 2),
                             "vpu_gelems": round(p.vpu_elems / 1e9, 2),
                             "sol_ms": round(
                                 p.sol_s(spec, mode=mode,

@@ -18,21 +18,24 @@ in phases:
     kernels (launch counts must rise) and again with ``--kernel_backend
     torch`` (same PER, same MLF);
 (c) timing — kernels and plain version at B=64, T=512 (CUDA events);
-(d) training parity — the K1 kernel (``fdt_train_fwd``) and K2's two
-    kernels (``fdt_train_bwd``, the beta/xi/gamma recursion, and
-    ``fdt_train_contract``, the dWall / dfeats contraction) against their
-    plain PyTorch versions: the flagship (B=128, T=512, ragged lengths with
-    an empty row and a dead clamped lattice) with phone labels (clamp_ns =
-    ns, and once with ``grad_feats``) and state labels (clamp_ns = 1), P=128
-    at small B, T, and the parameter gradients of ``crf_loss`` end to end;
+(d) training parity — the K1 kernel (``fdt_train_fwd``) and K2's three
+    kernels (``fdt_train_plane``, every frame's plane on the tensor cores;
+    ``fdt_train_bwd``, the beta/xi/gamma recursion that reads them; and
+    ``fdt_train_contract``, the dWall / dfeats contraction on the tensor
+    cores, dWall bit-equal on two runs) against their plain PyTorch
+    versions: the flagship (B=128, T=512, ragged lengths with an empty row
+    and a dead clamped lattice) with phone labels (clamp_ns = ns, and once
+    with ``grad_feats``) and state labels (clamp_ns = 1), P=128 at small B,
+    T, and the parameter gradients of ``crf_loss`` end to end;
 (e) training end to end — ``asr_craft_tpu_torch.cli.train.main`` with the
     flags of the JAX reference run (256 synthetic utterances, 3 epochs),
     held to the JAX CPU losses and PER; K1, K2 and K3 launch counts must
     rise; again with ``--kernel_backend torch`` (same losses); the final
     weights decode to the same PER and MLF under both backends;
-(f) training timing — K1, K2 (recursion, contraction, both) and a full
-    train step (loss, backward, SGD update), kernels against the plain
-    version at B=128, T=512, all rows full;
+(f) training timing — K1, K2 (planes, recursion, contraction, all three)
+    and a full train step (loss, backward, SGD update), kernels against the
+    plain version at B=128, T=512, all rows full; cuBLAS in fp32 on the
+    planes' and the contraction's products alone; K2's peak device memory;
 (g) shared-transition parity — the K7 kernel (``viterbi_dense_fwd``, configs
     1 and 3), the K8 kernel (``viterbi_nstate_fwd``, config 5) and the
     traceback kernel (``viterbi_traceback``) against their plain version
@@ -107,11 +110,12 @@ in phases:
     ``--debug_nans`` and a weight file holding one NaN it raises
     ``FloatingPointError``, and without the flag the same run ends.
 
-Every kernel's time stands beside its bound on this card: the larger of the
+Every kernel's time stands beside its bound on this card: the largest of the
 bytes it must move (each input read once, each output written once) over
-the memory rate and its operations over the fp32 rate, from this run's
-shapes (``asr_craft_tpu_torch.utils.roofline``: ``kernel_phase``, ``bound``;
-K15: ``calibrate_phase``, multiply-adds over the fp32 rate plus
+the memory rate, its matrix products over the tensor cores' 3xTF32 rate
+(495 / 3 TFLOP/s) and its other operations over the fp32 rate, from this
+run's shapes (``asr_craft_tpu_torch.utils.roofline``: ``kernel_phase``,
+``bound``; K15: ``calibrate_phase``, multiply-adds over the fp32 rate plus
 exponentials over the special-function rate).
 
 Prints the card (``nvidia-smi``), the build time, one line per check, a
@@ -145,10 +149,13 @@ FWD_SRC = "asr_craft_tpu/kernels/fdt_pallas.py:919"     # _fdt_vit_fwd_kernel
 TB_SRC = "asr_craft_tpu/kernels/fdt_pallas.py:1003"     # _fdt_vit_bwd_kernel
 CU_SRC = "asr_craft_tpu_torch/csrc/fdt_viterbi.cu"
 TRAIN_CU = "asr_craft_tpu_torch/csrc/fdt_train.cu"
-TRAIN_SRC = {                       # the TPU kernel bodies they replace
-    "fdt_train_fwd": "asr_craft_tpu/kernels/fdt_pallas.py:263",
-    "fdt_train_bwd": "asr_craft_tpu/kernels/fdt_pallas.py:324",
-    "fdt_train_contract": "asr_craft_tpu/kernels/fdt_pallas.py:466",
+MMA_CU = "asr_craft_tpu_torch/csrc/fdt_mma.cu"
+TRAIN_SRC = {                       # (source, the TPU kernel code replaced)
+    "fdt_train_fwd": (TRAIN_CU, "asr_craft_tpu/kernels/fdt_pallas.py:263"),
+    "fdt_train_plane": (MMA_CU, "asr_craft_tpu/kernels/fdt_pallas.py:354"),
+    "fdt_train_bwd": (TRAIN_CU, "asr_craft_tpu/kernels/fdt_pallas.py:324"),
+    "fdt_train_contract": (MMA_CU,
+                           "asr_craft_tpu/kernels/fdt_pallas.py:466"),
 }
 # Log-partitions: sums over up to 512 frames of ~2.5e3 magnitude (fp32 ulp
 # 2.4e-4 there); the kernel forms planes by sequential FMAs and takes a
@@ -160,7 +167,8 @@ DPLANE_ATOL = 1e-3
 # dWall / dfeats / parameter gradients: sums over B*T = 65,536 frames in
 # another order; held to their largest entry (REL_MAX of it) and RTOL.
 REL_MAX, RTOL = 1e-4, 1e-3
-# The contraction alone, on one dplane: only the summation order differs.
+# The planes and the contraction alone, on the same inputs: 3xTF32 keeps
+# ~2^-21 of each term, and the sums run in another order.
 CONTRACT_REL_MAX = 1e-5
 # The JAX package's crf-train on the CPU with the same flags
 # (asr_craft_tpu.cli.train --platform cpu): per-epoch mean_loss and the
@@ -339,8 +347,8 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.cfg = flagship()
         self.err = {"fdt_viterbi_fwd": 0.0, "fdt_viterbi_traceback": 0,
-                    "fdt_train_fwd": 0.0, "fdt_train_bwd": 0.0,
-                    "fdt_train_contract": 0.0}
+                    "fdt_train_fwd": 0.0, "fdt_train_plane": 0.0,
+                    "fdt_train_bwd": 0.0, "fdt_train_contract": 0.0}
         self.counts = {}
         self.train_counts = {}
         self.shared_counts = {}
@@ -633,17 +641,30 @@ class Smoke:
             raise AssertionError(f"{label}: row 1's clamped lattice is not "
                                  f"dead (zf {float(zf[1])}, zc "
                                  f"{float(zc[1])})")
+        R = Wall.shape[0]
+        planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+        rplanes = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1)
+        p_err = self.close(f"{label} planes", planes[..., :R], rplanes, 0.0,
+                           CONTRACT_REL_MAX * float(rplanes.abs().max()))
+        if planes[..., R:].any():
+            raise AssertionError(f"{label}: the planes' pad is not zero")
         wf, wc = torch.ones_like(zf), -torch.ones_like(zf)   # d(zf - zc)
         grad_args = args + (ra, rzf, rzc, wf, wc)
-        dplane = K.fdt_dplane_cuda(*grad_args, **kw)
+        dplane = K.fdt_dplane_cuda(*grad_args, **kw, planes=planes)
+        del planes
         rdplane = K.fdt_dplane_wall_torch(*grad_args, **kw)
         dp_err = self.close(f"{label} dplane", dplane, rdplane, 0.0,
                             DPLANE_ATOL)
-        dW = torch.empty((Wall.shape[0], u1 - u0 + 1), device=self.dev)
-        K.contract_cuda(dplane, feats, dW, mode=0, D=feats.shape[2], u0=u0,
-                        Du=u1 - u0)
+        dWs = []
+        for _ in range(2):          # the same bits on every run
+            dWs.append(torch.full((R, u1 - u0 + 1), float("nan"),
+                                  device=self.dev))
+            K.contract_cuda(dplane, feats, dWs[-1], mode=0,
+                            D=feats.shape[2], u0=u0, Du=u1 - u0)
+        if not torch.equal(dWs[0], dWs[1]):
+            raise AssertionError(f"{label}: dWall differs between two runs")
         ref = K.contract_wall_torch(dplane, feats, mode=0, u0=u0, u1=u1)
-        c_err = self.close(f"{label} contraction", dW, ref, 0.0,
+        c_err = self.close(f"{label} contraction", dWs[0], ref, 0.0,
                            CONTRACT_REL_MAX * float(ref.abs().max()))
         out = K.fdt_backward_grad_cuda(*args, alphas, zf, zc, wf, wc, **kw,
                                        want_dfeats=grad_feats)
@@ -664,11 +685,13 @@ class Smoke:
             raise AssertionError(f"{label}: dead lattice gradient "
                                  f"{float(dead.abs().max())}")
         torch.cuda.synchronize()
-        for name, e in (("fdt_train_fwd", z_err), ("fdt_train_bwd", dp_err),
+        for name, e in (("fdt_train_fwd", z_err), ("fdt_train_plane", p_err),
+                        ("fdt_train_bwd", dp_err),
                         ("fdt_train_contract", c_err)):
             self.err[name] = max(self.err[name], e)
-        log(f"train parity {label}: max |z - plain| {z_err:.3e}, |dplane - "
-            f"plain| {dp_err:.3e}, |contraction - matmul| {c_err:.3e}; "
+        log(f"train parity {label}: max |z - plain| {z_err:.3e}, |planes - "
+            f"matmul| {p_err:.3e}, |dplane - plain| {dp_err:.3e}, "
+            f"|contraction - matmul| {c_err:.3e} (bit-equal on two runs); "
             f"dWall{' and dfeats' if grad_feats else ''} within tolerance; "
             "dead lattice gradient 0")
 
@@ -821,8 +844,29 @@ class Smoke:
         alphas, zf, zc = K.fdt_forward_cuda(*args, **kw)
         ones = torch.ones_like(zf)
         grad_args = args + (alphas, zf, zc, ones, -ones)
-        dplane = K.fdt_dplane_cuda(*grad_args, **kw)
+        planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+        dplane = K.fdt_dplane_cuda(*grad_args, **kw, planes=planes)
         dW = torch.empty((Wall.shape[0], u1 - u0 + 1), device=self.dev)
+        # the library's calls for the same products on the same inputs,
+        # [x; 1] made before the clock starts: planes = [x; 1] Wall^T,
+        # dWall = dplane^T [x; 1]
+        xu2 = self.wall.feats_xu(feats, u0, u1).reshape(B * T, u1 - u0 + 1)
+        dp2 = dplane.reshape(B * T, -1)
+        library = {
+            "fdt_train_plane": lambda: torch.mm(xu2, Wall.T),
+            "fdt_train_contract": lambda: torch.mm(dp2.T, xu2),
+        }
+        # K2's peak device memory beyond what is allocated before it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.fdt_backward_grad_cuda(*grad_args, **kw)
+        torch.cuda.synchronize()
+        k2_peak = torch.cuda.max_memory_allocated() - base
+        log(f"K2 B={B} T={T}: peak device memory {k2_peak / 2**20:.1f} MiB "
+            f"above the {base / 2**20:.1f} MiB held before it (planes "
+            f"{planes.numel() * 4 / 2**20:.1f} MiB, dplane "
+            f"{dplane.numel() * 4 / 2**20:.1f} MiB)")
         trainer = Trainer(cfg, TrainConfig(lr=0.5), params=params)
 
         def step(backend):
@@ -835,7 +879,11 @@ class Smoke:
         fns = {
             "fdt_train_fwd": (lambda: K.fdt_forward_cuda(*args, **kw),
                               lambda: K.fdt_forward_wall_torch(*args, **kw)),
-            "fdt_train_bwd": (lambda: K.fdt_dplane_cuda(*grad_args, **kw),
+            "fdt_train_plane": (
+                lambda: K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1),
+                lambda: K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1)),
+            "fdt_train_bwd": (lambda: K.fdt_dplane_cuda(*grad_args, **kw,
+                                                        planes=planes),
                               lambda: K.fdt_dplane_wall_torch(*grad_args,
                                                               **kw)),
             "fdt_train_contract": (
@@ -843,7 +891,7 @@ class Smoke:
                                         u0=u0, Du=u1 - u0),
                 lambda: K.contract_wall_torch(dplane, feats, mode=0, u0=u0,
                                               u1=u1)),
-            "K2 (recursion + contraction)": (
+            "K2 (planes + recursion + contraction)": (
                 lambda: K.fdt_backward_grad_cuda(*grad_args, **kw),
                 lambda: K.fdt_backward_grad_wall_torch(*grad_args, **kw)),
             "train step (loss, backward, SGD)": (lambda: step("auto"),
@@ -852,7 +900,7 @@ class Smoke:
         audio_s = B * T * FRAME_S
         shape = dict(B=B, T=T, L=cfg.num_states * dims["P"],
                      D=feats.shape[2], ns=cfg.num_states, Du=u1 - u0)
-        for name in ("fdt_train_fwd", "fdt_train_bwd", "fdt_train_contract"):
+        for name in TRAIN_SRC:
             self.bounds[name] = self.bound(name, **shape)
         for name, (kern, plain) in fns.items():
             # plain, kernel, kernel, plain: compare within one call only
@@ -862,13 +910,17 @@ class Smoke:
             p2 = self.cuda_ms(plain, 1)
             ms, plain_ms = min(k1, k2), min(p1, p2)
             self.times[name] = (ms, plain_ms)
-            if name == "fdt_train_contract":
-                # its plain version is one cuBLAS product, dplane^T @ [x; 1]
-                self.library_ms[name] = plain_ms
+            tail = ""
+            if name in library:
+                # cuBLAS in fp32 (allow_tf32 is off), timed twice
+                lib_ms = min(self.cuda_ms(library[name], 5),
+                             self.cuda_ms(library[name], 5))
+                self.library_ms[name] = lib_ms
+                tail = f"; cuBLAS fp32 {lib_ms:.4f} ms"
             log(f"timing {name} B={B} T={T}: kernel {ms:.4f} ms "
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
-                f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
+                f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
 
     # -- (g) shared-transition parity ----------------------------------------
     def shared_configs(self):
@@ -2115,8 +2167,8 @@ class Smoke:
         for name, replaces in (("fdt_viterbi_fwd", FWD_SRC),
                                ("fdt_viterbi_traceback", TB_SRC)):
             add(name, CU_SRC, replaces, self.counts[name])
-        for name, replaces in TRAIN_SRC.items():
-            add(name, TRAIN_CU, replaces, self.train_counts[name])
+        for name, (source, replaces) in TRAIN_SRC.items():
+            add(name, source, replaces, self.train_counts[name])
         # times at config 1 (K7), config 5 (K8) and config 1 (traceback)
         for name, key, src in (("viterbi_dense_fwd", "config1", SHARED_CU),
                                ("viterbi_nstate_fwd", "config5", SHARED_CU),

@@ -1,5 +1,5 @@
 """The K1/K2 training kernels against their plain PyTorch versions, on the
-card.
+card: K1, and K2's plane, recursion and contraction kernels.
 
 Marked ``cuda``: the kernels have no CPU mode, so these tests skip on a
 host without an NVIDIA GPU.  On one, from the repository root:
@@ -11,7 +11,10 @@ over up to 33 frames; the kernel forms planes with sequential fp32 FMAs
 and takes a three-way lse where the plain loop chains logaddexp).
 ``dWall``/``dfeats`` at rtol=1e-4, atol=1e-4 (sums of posteriors times
 features over B*T frames, accumulated in another order by the
-contraction kernel than by cuBLAS).
+contraction kernel than by cuBLAS).  The tensor-core products (planes,
+dWall, dfeats; 3xTF32) against the float64 product within 1e-5 of the sum
+of the terms' magnitudes: 3xTF32 keeps ~2^-21 of each term, and a lost
+or doubled tile or chunk exceeds the bar many times over.
 """
 import numpy as np
 import pytest
@@ -88,6 +91,7 @@ def test_kernels_match_plain(dev, P, ns, clamp):
     torch.testing.assert_close(dX, rdX, **G_TOL)
     assert float(dX[-1].abs().max()) == 0.0          # the empty row
     assert K.launches["fdt_train_fwd"] == before["fdt_train_fwd"] + 1
+    assert K.launches["fdt_train_plane"] == before["fdt_train_plane"] + 1
     assert K.launches["fdt_train_bwd"] == before["fdt_train_bwd"] + 1
     assert (K.launches["fdt_train_contract"]
             == before["fdt_train_contract"] + 2)
@@ -120,30 +124,65 @@ def test_autograd_function_matches_plain(dev):
     torch.testing.assert_close(grads[0][1], grads[1][1], **G_TOL)
 
 
+def _within(got, want, mag):
+    """|got - want| <= 1e-5 of the terms' magnitude, everywhere."""
+    return bool(((got.double() - want).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.parametrize("B,T,D,u0,u1,P,ns", [
+    (5, 33, 12, 2, 12, 5, 3),       # B T = 165: part tiles; 4-byte copies
+    (3, 50, 20, 4, 17, 8, 3),       # Du = 13 (a part depth step), u0 = 4
+    (2, 64, 144, 0, 144, 48, 3),    # the flagship's widths
+    (1, 24, 16, 0, 16, 128, 3),     # P = 128: R = 17,536
+    (4, 7, 9, 1, 8, 6, 1)])         # ns = 1, R = 54 (a padded row)
+def test_plane_kernel_matches_plain(dev, B, T, D, u0, u1, P, ns):
+    """Every frame's plane, in rows of R4 = R rounded up to 4 (pad 0)."""
+    g = torch.Generator().manual_seed(B * T + P)
+    R = 3 * ns * P + P * P
+    Wall = torch.randn((R, u1 - u0 + 1), generator=g).to(dev)
+    feats = torch.randn((B, T, D), generator=g).to(dev)
+    before = K.launches["fdt_train_plane"]
+    planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+    torch.cuda.synchronize()
+    assert K.launches["fdt_train_plane"] == before + 1
+    assert planes.shape == (B, T, -(-R // 4) * 4)
+    ref = K.fdt_planes_torch(Wall.double(), feats.double(), u0=u0, u1=u1)
+    mag = K.fdt_planes_torch(Wall.double().abs(), feats.double().abs(),
+                             u0=u0, u1=u1)
+    assert _within(planes[..., :R], ref, mag)
+    assert not planes[..., R:].any()
+
+
+@pytest.mark.parametrize("mode", [0, 1])
 @pytest.mark.parametrize("N", [4095, 3 * 4096 + 17, 20 * 4096])
-def test_contraction_chunks_sum_to_the_product(dev, N):
+def test_contraction_chunks_sum_to_the_product(dev, N, mode):
     """dWall's split of the frames (1, 3 and the cap of 16 chunks) gives
-    dplane^T [x; 1], the same on every run.  Held to the float64 product
-    within 1e-5 of the sum of the terms' magnitudes, which a lost or
-    doubled chunk exceeds many times over."""
+    dplane^T [x; 1], the same bits on every run (mode 0); dfeats =
+    dplane Wall[:, :Du] lands in columns u0..u0+Du alone (mode 1).  Held
+    to the float64 product within 1e-5 of the sum of the terms'
+    magnitudes, which a lost or doubled chunk exceeds many times over."""
     g = torch.Generator().manual_seed(N)
     R, D, u0, Du = 300, 20, 2, 15
     dplane = torch.randn((1, N, R), generator=g).to(dev)
     feats = torch.randn((1, N, D), generator=g).to(dev)
+    Wall = torch.randn((R, Du + 1), generator=g).to(dev)
+    src = feats if mode == 0 else Wall
     outs = []
     for _ in range(2):
         before = K.launches["fdt_train_contract"]
-        out = torch.full((R, Du + 1), float("nan"), device=dev)
-        outs.append(K.contract_cuda(dplane, feats, out, mode=0, D=D, u0=u0,
+        out = (torch.full((R, Du + 1), float("nan"), device=dev) if mode == 0
+               else torch.zeros_like(feats))
+        outs.append(K.contract_cuda(dplane, src, out, mode=mode, D=D, u0=u0,
                                     Du=Du))
         assert K.launches["fdt_train_contract"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
-    ref = K.contract_wall_torch(dplane.double(), feats.double(), mode=0,
-                                u0=u0, u1=u0 + Du)
-    mag = K.contract_wall_torch(dplane.double().abs(), feats.double().abs(),
-                                mode=0, u0=u0, u1=u0 + Du)
-    assert bool(((outs[0].double() - ref).abs() <= 1e-5 * mag).all())
+    d64 = lambda x: x.double()
+    a64 = lambda x: x.double().abs()
+    ref, mag = (K.contract_wall_torch(f(dplane), f(feats) if mode == 0
+                                      else (f(Wall), f(feats)), mode=mode,
+                                      u0=u0, u1=u0 + Du) for f in (d64, a64))
+    assert _within(outs[0], ref, mag)
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

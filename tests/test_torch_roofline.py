@@ -61,6 +61,7 @@ def test_other_precisions_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rl.fdt_tile_floor(8, 16, 6, 4, 3, mode="bf16x3")
     assert rl.H100.hbm_gbps == 3350.0 and rl.H100.fp32_tflops == 67.0
+    assert rl.H100.tf32_tflops == 495.0
     assert not hasattr(rl, "V5E") and not hasattr(rl, "measure_vpu_geps")
 
 
@@ -132,11 +133,12 @@ def test_no_tile_padding():
 FDT = dict(L=144, D=144, ns=3)
 SEG = dict(B=128, T=512, L=48, Dmax=16)
 TABLE = [
-    ("fdt_train_fwd", dict(B=128, T=512, **FDT), "0.78624", "operations"),
-    ("fdt_train_bwd", dict(B=128, T=512, **FDT), "0.80653", "operations"),
-    ("fdt_train_contract", dict(B=128, T=512, **FDT), "0.77610",
+    ("fdt_train_fwd", dict(B=128, T=512, **FDT), "0.31297", "operations"),
+    ("fdt_train_plane", dict(B=128, T=512, **FDT), "0.31297", "operations"),
+    ("fdt_train_bwd", dict(B=128, T=512, **FDT), "0.45081", "bytes"),
+    ("fdt_train_contract", dict(B=128, T=512, **FDT), "0.31297",
      "operations"),
-    ("fdt_viterbi_fwd", dict(B=64, T=512, **FDT), "0.39059", "operations"),
+    ("fdt_viterbi_fwd", dict(B=64, T=512, **FDT), "0.15649", "operations"),
     ("fdt_viterbi_traceback", dict(B=64, T=512), "0.00008", "bytes"),
     ("forward_dual", dict(B=128, T=512, L=138), "0.07451", "operations"),
     ("forward_dual", dict(B=128, T=512, L=48), "0.0113", "bytes"),
@@ -185,8 +187,11 @@ def test_every_kernel_has_a_count_and_steps_reuse_it():
                                               k9.vpu_elems)
     ph = {p.name: p for p in rl.fdt_train_phases(128, 512, 144, 144, 3)}
     k2 = [rl.kernel_phase(n, B=128, T=512, **FDT)
-          for n in ("fdt_train_bwd", "fdt_train_contract")]
-    assert ph["fdt_backward_grad"].flops == k2[0].flops + k2[1].flops
+          for n in ("fdt_train_plane", "fdt_train_bwd",
+                    "fdt_train_contract")]
+    assert ph["fdt_backward_grad"].flops == sum(k.flops for k in k2)
+    assert ph["fdt_backward_grad"].mma_flops == \
+        sum(k.mma_flops for k in k2) == 2 * k2[0].mma_flops
     # ragged batches and K13's walk count what the data needs
     full = rl.kernel_phase("segmental_forward", **SEG)
     half = rl.kernel_phase("segmental_forward", **SEG, frames=128 * 256)
@@ -220,10 +225,14 @@ def test_tile_floors():
     assert set(floor) == {"fma_ms", "vpu_ms", "floor_ms"}
     assert math.isclose(floor["floor_ms"], floor["fma_ms"] + floor["vpu_ms"],
                         abs_tol=2e-3)
-    # exact multiply-adds of K1, K2's recursion and the contraction
-    R, Dw, dp = 3 * 144 + 48 * 48, 145, 2 * (2 * 144 + 48 * 48)
-    flops = 128 * 512 * (3 * 2.0 * R * Dw + 8 * dp)
-    assert math.isclose(floor["fma_ms"], flops / 67e12 * 1e3, abs_tol=1e-3)
+    # the products of K1's and K2's planes and of the contraction (depth
+    # Du = 144) at the 3xTF32 rate; the multiply-adds of the two recursions
+    # and the three bias adds (the contraction's column sum) at the fp32 rate
+    R, Du, dp = 3 * 144 + 48 * 48, 144, 2 * (2 * 144 + 48 * 48)
+    mma = 128 * 512 * 3 * 2.0 * R * Du
+    flops = 128 * 512 * (8 * dp + 3 * R)
+    assert math.isclose(floor["fma_ms"],
+                        (mma / 165e12 + flops / 67e12) * 1e3, abs_tol=1e-3)
 
 
 def test_calibrate_phase_counts_the_chain():
@@ -243,3 +252,25 @@ def test_measure_stream_bw_on_the_cpu_is_clamped_to_the_spec():
     assert rl.measure_stream_bw(n_mb=1, iters=2, spec=slow,
                                 device="cpu") == 1e-3
     assert rl.measure_stream_bw(n_mb=1, iters=2, device="cpu") > 0
+
+
+def test_products_are_held_to_the_3xtf32_rate():
+    """A phase's ``mma_flops`` (products the tensor cores run at fp32
+    accuracy by 3xTF32) are held to a third of the TF32 rate, its other
+    FLOPs to the fp32 rate, its bytes to the memory rate; the bound is the
+    largest, and a phase without products keeps the JAX arithmetic."""
+    ph = rl.Phase("p", bytes=3.35e9, flops=6.7e10, mma_flops=3.3e11)
+    assert math.isclose(ph.sol_s(), 2e-3, rel_tol=1e-12)
+    ms, by = rl.bound(ph)
+    assert math.isclose(ms, 2.0, rel_tol=1e-12) and by == "operations"
+    ms, by = rl.bound(rl.Phase("p", 3.35e10, 6.7e10, 0.0, 3.3e11))
+    assert math.isclose(ms, 10.0, rel_tol=1e-12) and by == "bytes"
+    # a spec without tensor cores runs the products at its fp32 rate
+    slow = rl.ChipSpec("slow", 1.0, 1.0, 1.0)
+    assert rl.Phase("p", 0.0, 0.0, 0.0, 2e12).sol_s(slow) == 2.0
+    # K2's plane kernel and contraction: a product of depth Du = 144 and an
+    # add a row for the bias column (the contraction's column sum)
+    for name in ("fdt_train_plane", "fdt_train_contract"):
+        k = rl.kernel_phase(name, B=128, T=512, **FDT)
+        assert k.flops == 128 * 512 * 2736.0
+        assert k.mma_flops == 128 * 512 * 2.0 * 2736 * 144
