@@ -1,21 +1,16 @@
 // Pieces shared by the port's kernels (fdt_viterbi.cu: K3; fdt_train.cu:
-// K1, K2's recursion; fdt_mma.cu: K2's plane and contraction kernels;
-// viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu: K9-K13;
-// calibrate.cu: K15):
+// K1's and K2's recursions; fdt_mma.cu: the plane kernel and K2's
+// contraction; viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu:
+// K9-K13; calibrate.cu: K15):
 // the semiring zero, the block-wide first argmax of the max-plus decodes,
-// the in-block plane formation, the asynchronous copies, the guarded
-// three-way log-sum-exp of the reference and, at the end, the pieces of the
+// the asynchronous copies (the planes' rows reach the fdt recursions by
+// cp.async.bulk on an mbarrier, one frame ahead), the guarded three-way
+// log-sum-exp of the reference and, at the end, the pieces of the
 // recursions over one (L, L) transition factor held in shared memory.
 //
-// Plane formation (K1 and K3; K2 reads the planes of fdt_mma.cu's plane
-// kernel).  Wall is the packed parameter matrix of
-// asr_craft_tpu_torch/kernels/wall.py build_wall, passed TRANSPOSED and
-// zero-padded as wall_t (Dw, R4) with Dw = Du + 1 (bias last) and R4 = R
-// rounded up to a multiple of 4 (kernels/wall.py wall_t4).  One frame's
-// plane is Wall @ [x_t; 1]: each thread forms 4 adjacent rows from one
-// 16-byte load per input dim, consecutive threads reading consecutive row
-// groups (coalesced), with sequential fp32 FMAs over the input dims, bias
-// last.  x_t is broadcast from shared memory and the plane stays there.
+// No kernel forms a plane of the fdt lattice inside its recursion: the
+// planes Wall @ [x_t; 1] of every frame come from fdt_mma.cu's plane
+// kernel on the tensor cores, before the recursion that reads them.
 #pragma once
 
 #include <climits>
@@ -71,40 +66,13 @@ __device__ inline void block_argmax(float& v, int& i, float* red_v,
   i = red_i[kRedSlots - 1];
 }
 
-// x[0:Du] = xrow[0:Du] (one frame's input dims), x[Du] = 1 (the bias).
-// The caller synchronises before the plane reads x.
-__device__ __forceinline__ void load_x(const float* __restrict__ xrow,
-                                       float* x, int Du) {
-  for (int k = threadIdx.x; k < Du; k += blockDim.x) x[k] = xrow[k];
-  if (threadIdx.x == 0) x[Du] = 1.0f;
-}
-
-// plane4[q] = rows 4q..4q+3 of Wall @ [x; 1], q < Q = R4 / 4.
-__device__ __forceinline__ void form_plane(const float* __restrict__ wall_t,
-                                           const float* x, float4* plane4,
-                                           int Q, int Dw) {
-  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
-    const float4* w = reinterpret_cast<const float4*>(wall_t) + q;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-    for (int k = 0; k < Dw; ++k) {
-      const float4 v = __ldg(w + (size_t)k * Q);
-      const float xk = x[k];
-      acc.x = fmaf(v.x, xk, acc.x);
-      acc.y = fmaf(v.y, xk, acc.y);
-      acc.z = fmaf(v.z, xk, acc.z);
-      acc.w = fmaf(v.w, xk, acc.w);
-    }
-    plane4[q] = acc;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Asynchronous copies (fdt_train.cu: K2's recursion; fdt_mma.cu: the staged
-// tiles of the tensor-core products).  cp.async copies 4 or 16 bytes a
-// thread and is tracked by commit groups; cp.async.bulk copies a whole
-// contiguous row (16-byte aligned, a multiple of 16 bytes) issued by one
-// thread and completes on an mbarrier in shared memory.
+// Asynchronous copies (fdt_train.cu: K1's and K2's recursions;
+// fdt_viterbi.cu: K3's; fdt_mma.cu: the staged tiles of the tensor-core
+// products).  cp.async copies 4 or 16 bytes a thread and is tracked by
+// commit groups; cp.async.bulk copies a whole contiguous row (16-byte
+// aligned, a multiple of 16 bytes) issued by one thread and completes on an
+// mbarrier in shared memory.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

@@ -1,13 +1,19 @@
-// The matrix products of K2 (the frame-dependent-transition CRF's backward)
-// on Hopper's tensor cores (sm_90a), in fp32 accuracy by 3xTF32.  Plain C
-// interface, loaded with ctypes by asr_craft_tpu_torch/kernels/fdt_train.py,
-// whose fdt_planes_torch and contract_wall_torch are the plain versions.
+// The matrix products of the frame-dependent-transition CRF on Hopper's
+// tensor cores (sm_90a), in fp32 accuracy by 3xTF32: the planes of every
+// frame, which K1's, K2's and K3's recursions read, and K2's contractions.
+// Plain C interface, loaded with ctypes by
+// asr_craft_tpu_torch/kernels/fdt_train.py, whose fdt_planes_torch and
+// contract_wall_torch are the plain versions.
 //
-// Replaces, in asr_craft_tpu/kernels/fdt_pallas.py fdt_backward_grad_pallas
-// (body _bwd_kernel):
-//   fdt_train_plane_kernel    <- the block's plane formation, one matrix-unit
+// Replaces, in asr_craft_tpu/kernels/fdt_pallas.py:
+//   fdt_train_plane_kernel    <- the blocks' plane formation, one matrix-unit
 //                                product of TB frames x Bk utterances (_form,
-//                                called at :354)
+//                                called at :276 in fdt_forward_pallas's
+//                                _fwd_kernel, :354 in fdt_backward_grad_
+//                                pallas's _bwd_kernel, :930 in fdt_viterbi_
+//                                pallas's _fdt_vit_fwd_kernel); a train step
+//                                forms the planes once, in its forward, and
+//                                the backward reads them again
 //   fdt_train_contract_kernel <- the per-block contractions dWall += dplane
 //                                @ xu^T and dxu = Wall^T @ dplane (:466-507)
 //   fdt_train_sum_kernel      <- the sequential grid's carry of dWall from
@@ -16,8 +22,8 @@
 // The products.  N = B T frames, R plane rows, Du input dims, xu = [x; 1]:
 //   plane (M = N, N = R, K = Du): planes[n, r] = x_n . Wall[r, :Du] +
 //     Wall[r, Du], written (B, T, R4) with R4 = R rounded up to 4 (the pad
-//     is zero) so every frame's row starts 16-byte aligned for K2's
-//     recursion, which copies it whole with cp.async.bulk;
+//     is zero) so every frame's row starts 16-byte aligned for the
+//     recursions, which copy it whole with cp.async.bulk;
 //   mode 0 (M = R, N = Du + 1, K = N frames): dWall = dplane^T xu, the
 //     frames split into gridDim.z chunks summed afterwards in chunk order;
 //   mode 1 (M = N, N = Du, K = R): dfeats[n, u0 + d] = dplane[n] . Wall[:, d].

@@ -1,12 +1,15 @@
 // The training kernels of the frame-dependent-transition CRF for Hopper
-// (sm_90a): the dual-lattice log-semiring forward (K1) and the backward
-// with the complete weight gradient (K2).  Plain C interface, loaded with
-// ctypes by asr_craft_tpu_torch/kernels/fdt_train.py; the plain PyTorch
-// versions of the same functions are fdt_forward_wall_torch and
-// fdt_backward_grad_wall_torch in that module.
+// (sm_90a): the dual-lattice log-semiring forward recursion (K1) and the
+// backward recursion with the complete weight gradient (K2).  Plain C
+// interface, loaded with ctypes by asr_craft_tpu_torch/kernels/fdt_train.py;
+// the plain PyTorch versions of the same functions are
+// fdt_forward_planes_torch and fdt_dplane_wall_torch in that module.
 //
 // Replaces the TPU kernels of asr_craft_tpu/kernels/fdt_pallas.py:
-//   fdt_train_fwd_kernel      <- fdt_forward_pallas, body _fwd_kernel
+//   fdt_train_fwd_kernel      <- fdt_forward_pallas, body _fwd_kernel (its
+//                                recursion; the block's plane formation,
+//                                _form called at :276, is fdt_mma.cu's
+//                                plane kernel)
 //   fdt_train_bwd_kernel      <- fdt_backward_grad_pallas, body _bwd_kernel
 //                                (beta recursion and xi/gamma statistics);
 //                                the same body's plane formation and
@@ -14,44 +17,45 @@
 //                                of fdt_mma.cu
 //
 // Layouts.  Wall (R, Du+1) packed by kernels/wall.build_wall, rows
-// [state L' | self L' | adv L' | cross P*P (pi-major)], all state-major;
-// K1 reads it as wall_t (fdt_common.cuh).  planes (B, T, R4) f32, every
-// frame's plane row (fdt_mma.cu fdt_train_plane_kernel; R4 = R rounded up
-// to 4).  feats (B, T, D) f32, labels (B, T) i32 at clamp_ns granularity
-// (clamp_ns = ns: phone labels, 1: state labels), lengths (B,) i32.  alphas
-// (B, T, 2, L') f32: frame t's free then clamped alpha, every frame (frames
-// t >= length keep the carry).  zf, zc (B,) the log-partitions; wf, wc (B,)
-// their cotangents.  dplane (B, T, R) f32: d(wf zf + wc zc) / d(plane row r
-// at frame t) -- the state rows hold the posteriors gamma_t, the transition
+// [state L' | self L' | adv L' | cross P*P (pi-major)], all state-major.
+// planes (B, T, R4) f32, every frame's plane row Wall @ [x_t; 1]
+// (fdt_mma.cu fdt_train_plane_kernel; R4 = R rounded up to 4, the pad
+// never read).  labels (B, T) i32 at clamp_ns granularity (clamp_ns = ns:
+// phone labels, 1: state labels), lengths (B,) i32.  alphas (B, T, 2, L')
+// f32: frame t's free then clamped alpha, every frame (frames t >= length
+// keep the carry).  zf, zc (B,) the log-partitions; wf, wc (B,) their
+// cotangents.  dplane (B, T, R) f32: d(wf zf + wc zc) / d(plane row r at
+// frame t) -- the state rows hold the posteriors gamma_t, the transition
 // rows of frame t the xi of the transitions into frame t (zero at frame 0
 // and at t >= length).
 //
 // What bounds them on this card.  Time is a serial loop: one block owns
-// one utterance and walks its frames (forward up, backward down), so
-// B=128 fills 128 of the 132 SMs.  K1 forms each frame's plane (R x Dw
-// FMAs, 2736 x 145 at the config-2 flagship) from a Wall (1.59 MB) that
-// does not fit one SM's shared memory and is re-read from L2 every frame:
-// the SM's L2 port bounds a frame.  K2's recursion forms no plane: the
-// planes do not depend on beta, so fdt_mma.cu forms all of them first on
-// the tensor cores, and what is left on the chain is the semiring work (2
-// lattices x (L' elementwise + P x P cross lse)) and 2 R exponentials a
-// frame for the xi: latency, at one block an utterance.
+// one utterance and walks its frames (K1 up, K2 down), so B=128 fills 128
+// of the 132 SMs.  Neither forms a plane: the planes do not depend on alpha
+// or beta, so fdt_mma.cu forms all of them first on the tensor cores, once
+// a train step (K1's wrapper hands them on to K2).  What is left on the
+// chain is the semiring work -- 2 lattices x (L' elementwise + P x P cross
+// lse) a frame, and K2's 2 R exponentials for the xi -- and the barriers
+// between its steps: latency, at one block an utterance.
 //
-// What the design does about it.  K1: the plane never leaves shared memory
-// and frames past a row's length are neither formed nor updated.  K2's
-// recursion reads frame t+1's plane row (10.9 KB at the flagship) and
-// alpha_t from device memory one frame ahead, into the other of two
-// shared buffers, while the current frame's work runs: the row by one
-// cp.async.bulk on an mbarrier, alpha by cp.async.  A frame takes three
-// barriers: the buffers in place (A), xs complete (B), the cross lse
-// complete (C); beta_t and gamma_t are formed by one thread a label for
-// both lattices, so no barrier separates them.  The P x P cross-phone terms
-// dominate a frame: each source phone's lse runs on a group of 16 lanes
-// merged by shuffles (the only chain of P terms), and one exponential a
-// term serves both the lse and the xi.  dWall is shared by every
-// utterance, and Hopper blocks run in parallel with no carry between them,
-// so K2 writes dplane to device memory and fdt_mma.cu contracts it in a
-// fixed order.
+// What the design does about it.  Both recursions read frame t+1's plane
+// row (10.9 KB at the flagship) from device memory one frame ahead, into
+// the other of two shared buffers, by one cp.async.bulk on an mbarrier,
+// while the current frame's work runs (K2 also alpha_t, by cp.async).  The
+// P x P cross-phone terms dominate a frame; they run on groups of 16 lanes
+// merged by shuffles: K1 a group a destination phone pj (the lse over the
+// source phones pi), K2 a group a source phone pi (the lse over pj and the
+// xi, one exponential a term serving both).  K1 takes two barriers a frame
+// -- the plane and alpha_t-1 in place (A), the cross lse complete (B) --
+// and writes alpha_t into the other of two shared buffers and straight to
+// device memory.  K2 takes three: the buffers in place (A), xs complete
+// (B), the cross lse complete (C); beta_t and gamma_t are formed by one
+// thread a label for both lattices.  dWall is shared by every utterance,
+// and Hopper blocks run in parallel with no carry between them, so K2
+// writes dplane to device memory and fdt_mma.cu contracts it in a fixed
+// order.  Not done: several utterances a block, the cross block read
+// without bank conflicts (K1's groups read a column of the pi-major cross
+// block: at P = 48 a warp's 32 reads fall on 4 banks).
 //
 // Semantics held to the reference (ops/fdt.py, fdt_pallas.py):
 //   alpha_0 = state2_0 (+ start mask: frame 0 enters first states only);
@@ -76,14 +80,20 @@ using fdtk::kNegInf;
 using fdtk::lse3;
 using fdtk::round_up4;
 
-constexpr int kThreads = 768;       // one pass over 684 flagship row groups
-constexpr int kCrossLanes = 16;     // K2's lanes per source phone
+constexpr int kThreads = 768;       // 48 groups of kCrossLanes lanes
+constexpr int kCrossLanes = 16;     // lanes a phone in the cross lse
+constexpr int kMaxP = 128;          // the wrappers' phone cap
+constexpr int kPerLane = kMaxP / kCrossLanes;
 
-size_t fwd_smem_floats(int Du, int ns, int P) {
-  const size_t Lp = (size_t)ns * P;
-  // plane (16-byte aligned first) | x | alpha (2 L') | cand (2 L') | crossed
-  return round_up4(3 * ns * P + P * P) + (size_t)(Du + 1) + 4 * Lp +
-         2 * (size_t)P;
+// K1's recursion: planes (2 R4, 16-byte aligned first) | alpha (2 x 2 L')
+// | crossed (2 P), then two 8-byte mbarriers
+__host__ __device__ inline int fwd_barrier_offset(int ns, int P) {
+  const int Lp = ns * P;
+  return (2 * round_up4(3 * Lp + P * P) + 4 * Lp + 2 * P + 1) & ~1;
+}
+
+size_t fwd_smem_floats(int ns, int P) {
+  return (size_t)fwd_barrier_offset(ns, P) + 4;
 }
 
 // K2's recursion: planes (2 R4, 16-byte aligned first) | beta (2 L') | xs
@@ -107,93 +117,139 @@ __device__ __forceinline__ float state_mask(int h, int l, int st, int ns,
   return s;
 }
 
+// Frame t's plane row arrives in shared memory one frame ahead, in one of
+// two buffers, by one cp.async.bulk on an mbarrier; alpha_t is written into
+// the other of two buffers from the one that holds alpha_t-1.
 __global__ void __launch_bounds__(kThreads)
-fdt_train_fwd_kernel(const float* __restrict__ wall_t,
-                     const float* __restrict__ feats,
+fdt_train_fwd_kernel(const float* __restrict__ planes,
                      const int* __restrict__ labels,
                      const int* __restrict__ lengths,
                      float* __restrict__ alphas, float* __restrict__ zf,
-                     float* __restrict__ zc, int T, int D, int u0, int Du,
-                     int ns, int P, int clamp_ns, int boundaries) {
+                     float* __restrict__ zc, int T, int ns, int P,
+                     int clamp_ns, int boundaries) {
   extern __shared__ float4 smem4[];
-  const int Lp = ns * P, L2 = 2 * Lp, Dw = Du + 1;
-  const int R4 = round_up4(3 * Lp + P * P), Q = R4 / 4;
-  float* plane = reinterpret_cast<float*>(smem4);        // (R4)
-  float* x = plane + R4;                                 // (Dw) x_t | 1
-  float* alpha = x + Dw;                                 // (2 L') carry
-  float* cand = alpha + L2;                              // (2 L')
-  float* crossed = cand + L2;                            // (2 P)
+  const int Lp = ns * P, L2 = 2 * Lp, R4 = round_up4(3 * Lp + P * P);
+  float* pbuf = reinterpret_cast<float*>(smem4);         // (2, R4) planes
+  float* abuf = pbuf + 2 * R4;                           // (2, 2 L') alpha
+  float* crossed = abuf + 2 * L2;                        // (2 P)
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+      pbuf + fwd_barrier_offset(ns, P));                 // (2) one a buffer
 
   const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const int len_raw = lengths[b];
   const int len = min(max(len_raw, 0), T);
-  const float* xb = feats + (size_t)b * T * D + u0;
+  const float* pb = planes + (size_t)b * T * R4;
   const int* lab = labels + (size_t)b * T;
   float* out = alphas + (size_t)b * T * L2;
   const bool bnd = boundaries && ns > 1;
+  const unsigned row_bytes = sizeof(float) * R4;
+  const int gl = tid & (kCrossLanes - 1);
+  const unsigned gmask = ((1u << kCrossLanes) - 1)
+                         << ((tid & 31) & ~(kCrossLanes - 1));
 
   // frame 0 always runs (a length-0 row still reports its initial lse)
   const int tend = max(len, 1);
+  if (tid == 0) {
+    fdtk::mbar_init(&bar[0], 1);
+    fdtk::mbar_init(&bar[1], 1);
+  }
+  __syncthreads();                      // the barriers initialised
+  if (tid == 0) fdtk::bulk_load(pbuf, pb, row_bytes, &bar[0]);
+  int y_next = lab[0];                  // label of frame t, read a frame ahead
   for (int t = 0; t < tend; ++t) {
-    fdtk::load_x(xb + (size_t)t * D, x, Du);
+    const float* plane = pbuf + (t & 1) * R4;
+    const float* a = abuf + ((t + 1) & 1) * L2;          // alpha_t-1
+    float* an = abuf + (t & 1) * L2;                     // alpha_t
+    const int y = y_next;
+    if (t + 1 < tend) y_next = lab[t + 1];
+    // plane t is the t-th row to land in buffer t & 1: that barrier's
+    // (t >> 1)-th phase
+    fdtk::mbar_wait(&bar[t & 1], (t >> 1) & 1);
+    // (A) plane t and alpha_t-1 in place for every thread; frame t-1's
+    // reads of buffer (t + 1) & 1 are done
     __syncthreads();
-    fdtk::form_plane(wall_t, x, smem4, Q, Dw);
-    __syncthreads();
-    const int y = lab[t];
+    if (tid == 0 && t + 1 < tend)
+      fdtk::bulk_load(pbuf + ((t + 1) & 1) * R4, pb + (size_t)(t + 1) * R4,
+                      row_bytes, &bar[(t + 1) & 1]);
     const bool bnd_end = bnd && t == len_raw - 1;
-    if (t == 0) {
-      for (int i = tid; i < L2; i += nth) {
-        const int h = i / Lp, l = i - h * Lp, st = l % ns;
-        float s = plane[l] + state_mask(h, l, st, ns, bnd_end, clamp_ns, y);
-        if (bnd && st > 0) s += kNegInf;                 // start mask
-        alpha[i] = s;
-      }
-    } else {
-      // crossed[h, pj] = lse_pi(alpha_h[last(pi)] + cross[pi, pj])
-      for (int i = tid; i < 2 * P; i += nth) {
-        const int h = i / P, pj = i - h * P;
-        const float* a = alpha + h * Lp + ns - 1;
+    if (t > 0) {
+      // crossed[h, pj] = lse_pi(alpha_h[last(pi)] + cross[pi, pj]), a group
+      // of kCrossLanes lanes a destination phone pj (pi split over the
+      // group, merged with shuffles), both lattices; each term is formed
+      // once and kept in registers for the max and the sum
+      for (int pj = tid / kCrossLanes; pj < P; pj += nth / kCrossLanes) {
         const float* cr = plane + 3 * Lp + pj;
-        float m = -INFINITY;
-        for (int pi = 0; pi < P; ++pi) m = fmaxf(m, a[pi * ns] + cr[pi * P]);
-        m = fmaxf(m, kNegInf);
-        float s = 0.0f;
-        for (int pi = 0; pi < P; ++pi) s += expf(a[pi * ns] + cr[pi * P] - m);
-        crossed[i] = m + logf(fmaxf(s, 1e-35f));
+        float x0[kPerLane], x1[kPerLane];
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const int pi = gl + k * kCrossLanes;
+          if (pi < P) {
+            const float c = cr[pi * P];
+            x0[k] = a[pi * ns + ns - 1] + c;
+            x1[k] = a[Lp + pi * ns + ns - 1] + c;
+            m0 = fmaxf(m0, x0[k]);
+            m1 = fmaxf(m1, x1[k]);
+          }
+        }
+        for (int o = kCrossLanes / 2; o > 0; o >>= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(gmask, m0, o));
+          m1 = fmaxf(m1, __shfl_xor_sync(gmask, m1, o));
+        }
+        m0 = fmaxf(m0, kNegInf);
+        m1 = fmaxf(m1, kNegInf);
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          if (gl + k * kCrossLanes < P) {
+            s0 += expf(x0[k] - m0);
+            s1 += expf(x1[k] - m1);
+          }
+        }
+        for (int o = kCrossLanes / 2; o > 0; o >>= 1) {
+          s0 += __shfl_xor_sync(gmask, s0, o);
+          s1 += __shfl_xor_sync(gmask, s1, o);
+        }
+        if (gl == 0) {
+          crossed[pj] = m0 + logf(fmaxf(s0, 1e-35f));
+          crossed[P + pj] = m1 + logf(fmaxf(s1, 1e-35f));
+        }
       }
-      __syncthreads();
-      for (int i = tid; i < L2; i += nth) {
-        const int h = i / Lp, l = i - h * Lp, st = l % ns, p = l / ns;
-        const float* a = alpha + h * Lp;
+      __syncthreads();                  // (B) crossed complete
+    }
+    for (int i = tid; i < L2; i += nth) {
+      const int h = i / Lp, l = i - h * Lp, st = l % ns, p = l / ns;
+      float v;
+      if (t == 0) {
+        v = plane[l] + state_mask(h, l, st, ns, bnd_end, clamp_ns, y);
+        if (bnd && st > 0) v += kNegInf;                 // start mask
+      } else {
+        const float* ah = a + h * Lp;
         float c;
         if (ns == 1) {
           c = crossed[h * P + p];
         } else {
-          const float self_c = a[l] + plane[Lp + l];
-          const float adv_c = st > 0 ? a[l - 1] + plane[2 * Lp + l - 1]
+          const float self_c = ah[l] + plane[Lp + l];
+          const float adv_c = st > 0 ? ah[l - 1] + plane[2 * Lp + l - 1]
                                      : kNegInf;
           const float cross_c = st == 0 ? crossed[h * P + p] : kNegInf;
           c = lse3(self_c, adv_c, cross_c);
         }
-        cand[i] = c + plane[l] +
-                  state_mask(h, l, st, ns, bnd_end, clamp_ns, y);
+        v = c + plane[l] + state_mask(h, l, st, ns, bnd_end, clamp_ns, y);
       }
-      __syncthreads();
-      for (int i = tid; i < L2; i += nth) alpha[i] = cand[i];
+      an[i] = v;
+      out[(size_t)t * L2 + i] = v;
     }
-    __syncthreads();
-    for (int i = tid; i < L2; i += nth) out[(size_t)t * L2 + i] = alpha[i];
-    // the next frame's load_x/form_plane overwrite x and the plane only
-    // after every thread has passed this barrier
-    __syncthreads();
   }
+  __syncthreads();                      // the last alpha complete
+  const float* alast = abuf + ((tend - 1) & 1) * L2;
   for (size_t i = (size_t)tend * L2 + tid; i < (size_t)T * L2; i += nth)
-    out[i] = alpha[i % L2];
+    out[i] = alast[i % L2];
 
   // z_h = lse over L' of the final carry: warp h reduces lattice h
   const int warp = tid >> 5, lane = tid & 31;
   if (warp < 2) {
-    const float* a = alpha + warp * Lp;
+    const float* a = alast + warp * Lp;
     float m = -INFINITY;
     for (int l = lane; l < Lp; l += 32) m = fmaxf(m, a[l]);
     for (int o = 16; o > 0; o >>= 1)
@@ -408,25 +464,25 @@ int set_smem(const void* kernel, size_t smem) {
 
 extern "C" {
 
-size_t fdt_train_fwd_smem_bytes(int Du, int ns, int P) {
-  return sizeof(float) * fwd_smem_floats(Du, ns, P);
+size_t fdt_train_fwd_smem_bytes(int ns, int P) {
+  return sizeof(float) * fwd_smem_floats(ns, P);
 }
 
 size_t fdt_train_bwd_smem_bytes(int ns, int P) {
   return sizeof(float) * bwd_smem_floats(ns, P);
 }
 
-int fdt_train_fwd(const float* wall_t, const float* feats, const int* labels,
-                  const int* lengths, float* alphas, float* zf, float* zc,
-                  int B, int T, int D, int u0, int Du, int ns, int P,
-                  int clamp_ns, int boundaries, void* stream) {
-  const size_t smem = fdt_train_fwd_smem_bytes(Du, ns, P);
+// planes (B, T, R4) from fdt_train_plane (fdt_mma.cu); P <= 128
+int fdt_train_fwd(const float* planes, const int* labels, const int* lengths,
+                  float* alphas, float* zf, float* zc, int B, int T, int ns,
+                  int P, int clamp_ns, int boundaries, void* stream) {
+  const size_t smem = fdt_train_fwd_smem_bytes(ns, P);
   const int err = set_smem((const void*)fdt_train_fwd_kernel, smem);
   if (err != 0) return err;
   fdt_train_fwd_kernel<<<B, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      wall_t, feats, labels, lengths, alphas, zf, zc, T, D, u0, Du, ns, P,
-      clamp_ns, boundaries);
+      planes, labels, lengths, alphas, zf, zc, T, ns, P, clamp_ns,
+      boundaries);
   return static_cast<int>(cudaGetLastError());
 }
 

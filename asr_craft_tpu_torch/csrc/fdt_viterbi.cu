@@ -1,42 +1,44 @@
 // Factored max-plus (Viterbi) decode over the frame-dependent-transition
 // lattice, for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
 // asr_craft_tpu_torch/kernels/fdt_viterbi.py; the plain PyTorch version of
-// the same function is fdt_viterbi_wall_torch in that module.
+// the same function is fdt_viterbi_planes_torch in that module.
 //
 // Replaces the TPU kernel asr_craft_tpu/kernels/fdt_pallas.py
-// fdt_viterbi_pallas, whose two pallas_calls become the two kernels here:
-//   fdt_vit_fwd_kernel  <- _fdt_vit_fwd_kernel (max-plus forward with
-//                          in-kernel plane formation, pruning, backpointers)
+// fdt_viterbi_pallas, whose two pallas_calls become the two kernels here
+// (the plane formation of the first, _form called at :930, is fdt_mma.cu's
+// tensor-core plane kernel, launched first):
+//   fdt_vit_fwd_kernel  <- _fdt_vit_fwd_kernel (max-plus forward, pruning,
+//                          backpointers)
 //   fdt_vit_tb_kernel   <- _fdt_vit_bwd_kernel (backpointer traceback)
 //
-// Layouts.  Wall is the packed parameter matrix of kernels/wall.build_wall,
-// passed TRANSPOSED and zero-padded as wall_t (Dw, R4) with Dw = Du + 1
-// (bias last), R4 = R rounded up to a multiple of 4, and rows r in
-// [state L' | self L' | adv L' | cross P*P (pi-major)], all state-major
-// (label l = phone * ns + state).  The plane formation is fdt_common.cuh's,
-// shared with the training kernels (fdt_train.cu).
-// feats (B, T, D) f32, lengths (B,) i32.  Outputs: bp (B, T, L') i32 holds
-// the predecessor label of each state (identity at t = 0 and t >= length),
-// last (B,) i32 / score (B,) f32 the final first-argmax label and score,
-// paths (B, T) i32 the state-major labels.
+// Layouts.  planes (B, T, R4) f32, every frame's plane row Wall @ [x_t; 1]
+// (fdt_mma.cu fdt_train_plane_kernel), rows r in [state L' | self L' | adv
+// L' | cross P*P (pi-major)], all state-major (label l = phone * ns +
+// state), R4 = R rounded up to 4 (the pad never read).  lengths (B,) i32.
+// Outputs: bp (B, T, L') i32 holds the predecessor label of each state
+// (identity at t = 0 and t >= length), last (B,) i32 / score (B,) f32 the
+// final first-argmax label and score, paths (B, T) i32 the state-major
+// labels.
 //
 // What bounds it on this card.  Time is a serial loop: one block owns one
-// utterance and walks its T frames.  Each frame forms the plane
-// (R x Dw FMAs; 2736 x 145 at the config-2 flagship) from a Wall that does
-// not fit one SM's shared memory (1.6 MB) and is therefore re-read from L2
-// every frame, so an SM spends most of a frame streaming Wall through its
-// L2 port.  The DP itself (self/adv elementwise, a P x P max for cross,
-// the pruning counts) is small beside it.
+// utterance and walks its T frames, so B=64 fills 64 of the 132 SMs.  The
+// planes do not depend on the scores, so they are formed before the
+// recursion, all frames at once, on the tensor cores; the recursion's frame
+// is the max-plus step (self/adv elementwise, a P x P max with its argmax
+// for the cross terms) and, under a beam, the pruning counts: latency, at
+// one block an utterance.
 //
-// What this first design does about it.  Wall is transposed once per call
-// so that each thread forms 4 adjacent rows from one 16-byte load per input
-// dim, consecutive threads reading consecutive row groups (coalesced, and
-// enough bytes in flight to keep the SM's L2 port busy rather than waiting
-// on load latency); x_t is broadcast from shared memory, and the plane
-// never leaves shared memory (it never goes to HBM, as on the TPU).
-// Frames past an utterance's length are not computed at all.  Not done
-// yet: splitting an utterance's rows over a cluster of blocks so Wall stays
-// resident in distributed shared memory (and B=64 fills more than 64 SMs).
+// What the design does about it.  Frame t+1's plane row (10.9 KB at the
+// flagship) is read from device memory one frame ahead, into the other of
+// two shared buffers, by one cp.async.bulk on an mbarrier, while the
+// current frame's work runs.  The cross max runs on a group of 16 lanes a
+// destination phone pj (pi split over the group, merged by shuffles with
+// the first-argmax order take_better, so the merge order does not change
+// the argmax).  The scores are kept in two shared buffers (delta_t-1 read,
+// delta_t written): the exact decode takes two barriers a frame, the plane
+// and delta_t-1 in place (A) and the cross max complete (B).  Frames past
+// an utterance's length are not computed at all.  Not done: several
+// utterances a block, so B=64 fills the card.
 //
 // Semantics held to the reference (ops/fdt.py fdt_viterbi, both packages):
 // tie order self > advance > cross; the cross predecessor is the FIRST
@@ -61,49 +63,73 @@ using fdtk::kRedSlots;
 using fdtk::round_up4;
 using fdtk::take_better;
 
-constexpr int kFwdThreads = 768;    // one pass over 684 flagship row groups
+constexpr int kFwdThreads = 768;    // 48 groups of kCrossLanes lanes
 constexpr int kTbThreads = 128;
+constexpr int kCrossLanes = 16;     // lanes a destination phone
+constexpr int kMaxP = 128;          // the wrapper's phone cap
 
-size_t fwd_smem_floats(int Du, int ns, int P) {
-  const size_t Lp = (size_t)ns * P;
-  const size_t R4 = round_up4(3 * ns * P + P * P);
-  // plane (16-byte aligned first) | x | delta | cand | mrun | arun | red
-  return R4 + (size_t)(Du + 1) + 2 * Lp + 2 * (size_t)P + 2 * kRedSlots;
+// planes (2 R4, 16-byte aligned first) | delta (2 L') | cand (L') | mrun
+// (P) | arun (P) | red_v, red_i (kRedSlots each), then two 8-byte mbarriers
+__host__ __device__ inline int fwd_barrier_offset(int ns, int P) {
+  const int Lp = ns * P;
+  return (2 * round_up4(3 * Lp + P * P) + 3 * Lp + 2 * P + 2 * kRedSlots +
+          1) & ~1;
+}
+
+size_t fwd_smem_floats(int ns, int P) {
+  return (size_t)fwd_barrier_offset(ns, P) + 4;
 }
 
 __global__ void __launch_bounds__(kFwdThreads)
-fdt_vit_fwd_kernel(const float* __restrict__ wall_t,
-                   const float* __restrict__ feats,
+fdt_vit_fwd_kernel(const float* __restrict__ planes,
                    const int* __restrict__ lengths, int* __restrict__ bp,
                    int* __restrict__ last_out, float* __restrict__ score_out,
-                   int T, int D, int u0, int Du, int ns, int P,
-                   int boundaries, int use_thr, float thr, int bw) {
+                   int T, int ns, int P, int boundaries, int use_thr,
+                   float thr, int bw) {
   extern __shared__ float4 smem4[];
-  const int Lp = ns * P, R4 = round_up4(3 * Lp + P * P), Dw = Du + 1;
-  const int Q = R4 / 4;                                  // row groups
-  float* plane = reinterpret_cast<float*>(smem4);        // (R4)
-  float* x = plane + R4;                                 // (Dw)  x_t | 1
-  float* delta = x + Dw;                                 // (L') carry
-  float* cand = delta + Lp;                              // (L') new scores
+  const int Lp = ns * P, R4 = round_up4(3 * Lp + P * P);
+  float* pbuf = reinterpret_cast<float*>(smem4);         // (2, R4) planes
+  float* dbuf = pbuf + 2 * R4;                           // (2, L') scores
+  float* cand = dbuf + 2 * Lp;                           // (L') top-k
   float* mrun = cand + Lp;                               // (P) cross max
   int* arun = reinterpret_cast<int*>(mrun + P);          // (P) cross arg
   float* red_v = reinterpret_cast<float*>(arun + P);
   int* red_i = reinterpret_cast<int*>(red_v + kRedSlots);
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(
+      pbuf + fwd_barrier_offset(ns, P));                 // (2) one a buffer
 
   const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const int len_raw = lengths[b];
   const int len = min(max(len_raw, 0), T);
-  const float* xb = feats + (size_t)b * T * D + u0;
+  const float* pb = planes + (size_t)b * T * R4;
   int* bpb = bp + (size_t)b * T * Lp;
   const bool bnd = boundaries && ns > 1;
+  const unsigned row_bytes = sizeof(float) * R4;
+  const int gl = tid & (kCrossLanes - 1);
+  const unsigned gmask = ((1u << kCrossLanes) - 1)
+                         << ((tid & 31) & ~(kCrossLanes - 1));
 
   // frame 0 always runs (a length-0 row still reports its initial max)
   const int tend = max(len, 1);
+  if (tid == 0) {
+    fdtk::mbar_init(&bar[0], 1);
+    fdtk::mbar_init(&bar[1], 1);
+  }
+  __syncthreads();                      // the barriers initialised
+  if (tid == 0) fdtk::bulk_load(pbuf, pb, row_bytes, &bar[0]);
   for (int t = 0; t < tend; ++t) {
-    fdtk::load_x(xb + (size_t)t * D, x, Du);
+    const float* plane = pbuf + (t & 1) * R4;
+    const float* d = dbuf + ((t + 1) & 1) * Lp;          // delta_t-1
+    float* dn = dbuf + (t & 1) * Lp;                     // delta_t
+    // plane t is the t-th row to land in buffer t & 1: that barrier's
+    // (t >> 1)-th phase
+    fdtk::mbar_wait(&bar[t & 1], (t >> 1) & 1);
+    // (A) plane t and delta_t-1 in place for every thread; frame t-1's
+    // reads of buffer (t + 1) & 1 are done
     __syncthreads();
-    fdtk::form_plane(wall_t, x, smem4, Q, Dw);   // plane = Wall @ [x_t; 1]
-    __syncthreads();
+    if (tid == 0 && t + 1 < tend)
+      fdtk::bulk_load(pbuf + ((t + 1) & 1) * R4, pb + (size_t)(t + 1) * R4,
+                      row_bytes, &bar[(t + 1) & 1]);
 
     const bool at_end = t == len_raw - 1;
     if (t == 0) {
@@ -114,27 +140,33 @@ fdt_vit_fwd_kernel(const float* __restrict__ wall_t,
           s += st == 0 ? 0.0f : kNegInf;                       // start
           s += (at_end && st != ns - 1) ? kNegInf : 0.0f;      // end
         }
-        cand[l] = s;
+        dn[l] = s;
         bpb[l] = l;
       }
     } else {
       // cross: max over predecessor phones pi of delta[last(pi)] +
-      // cross[pi, pj]; strict '>' in pi order keeps the first argmax
-      for (int pj = tid; pj < P; pj += nth) {
+      // cross[pi, pj], a group of kCrossLanes lanes a destination pj; each
+      // lane walks its pi upward and the group merges by take_better, a
+      // total order, so the result is the FIRST argmax (lane state (-inf,
+      // 0): every finite candidate beats it)
+      for (int pj = tid / kCrossLanes; pj < P; pj += nth / kCrossLanes) {
         const float* cr = plane + 3 * Lp + pj;
-        float m = delta[ns - 1] + cr[0];
+        float m = -INFINITY;
         int a = 0;
-        for (int pi = 1; pi < P; ++pi) {
-          const float v = delta[pi * ns + ns - 1] + cr[pi * P];
-          if (v > m) {
-            m = v;
-            a = pi;
-          }
+#pragma unroll
+        for (int k = 0; k < kMaxP / kCrossLanes; ++k) {
+          const int pi = gl + k * kCrossLanes;
+          if (pi < P) take_better(m, a, d[pi * ns + ns - 1] + cr[pi * P], pi);
         }
-        mrun[pj] = m;
-        arun[pj] = a;
+        for (int o = kCrossLanes / 2; o > 0; o >>= 1)
+          take_better(m, a, __shfl_xor_sync(gmask, m, o),
+                      __shfl_xor_sync(gmask, a, o));
+        if (gl == 0) {
+          mrun[pj] = m;
+          arun[pj] = a;
+        }
       }
-      __syncthreads();
+      __syncthreads();                  // (B) the cross max complete
       for (int l = tid; l < Lp; l += nth) {
         const int st = l % ns, p = l / ns;
         float best;
@@ -143,9 +175,9 @@ fdt_vit_fwd_kernel(const float* __restrict__ wall_t,
           best = mrun[p];
           from = arun[p];
         } else {
-          const float self_c = delta[l] + plane[Lp + l];
+          const float self_c = d[l] + plane[Lp + l];
           const float adv_c =
-              st > 0 ? delta[l - 1] + plane[2 * Lp + l - 1] : kNegInf;
+              st > 0 ? d[l - 1] + plane[2 * Lp + l - 1] : kNegInf;
           const float cross_c = st == 0 ? mrun[p] : kNegInf;
           best = fmaxf(fmaxf(self_c, adv_c), cross_c);
           from = self_c == best  ? l
@@ -154,42 +186,45 @@ fdt_vit_fwd_kernel(const float* __restrict__ wall_t,
         }
         float s = plane[l];
         if (bnd) s += (at_end && st != ns - 1) ? kNegInf : 0.0f;
-        cand[l] = best + s;
+        dn[l] = best + s;
         bpb[(size_t)t * Lp + l] = from;
       }
     }
-    __syncthreads();
 
     if (use_thr) {
+      // each thread reads only its own labels before block_argmax's
+      // barriers, and prunes them after
       float m = -INFINITY;
       int unused = 0;
-      for (int l = tid; l < Lp; l += nth) m = fmaxf(m, cand[l]);
+      for (int l = tid; l < Lp; l += nth) m = fmaxf(m, dn[l]);
       block_argmax(m, unused, red_v, red_i);
       const float floor_v = m - thr;
       for (int l = tid; l < Lp; l += nth)
-        if (!(cand[l] >= floor_v)) cand[l] = kNegInf;
-      __syncthreads();
+        if (!(dn[l] >= floor_v)) dn[l] = kNegInf;
     }
-    // top-k: v survives iff fewer than bw values are strictly greater,
-    // which is exactly v >= (the bw-th largest value), ties kept
-    for (int l = tid; l < Lp; l += nth) {
-      float v = cand[l];
-      if (bw > 0) {
+    if (bw > 0) {
+      // top-k: v survives iff fewer than bw values are strictly greater,
+      // which is exactly v >= (the bw-th largest value), ties kept
+      __syncthreads();                  // delta_t complete
+      for (int l = tid; l < Lp; l += nth) {
+        const float v = dn[l];
         int above = 0;
-        for (int j = 0; j < Lp; ++j) above += cand[j] > v;
-        if (above >= bw) v = kNegInf;
+        for (int j = 0; j < Lp; ++j) above += dn[j] > v;
+        cand[l] = above >= bw ? kNegInf : v;
       }
-      delta[l] = v;
+      __syncthreads();                  // every count read delta_t
+      for (int l = tid; l < Lp; l += nth) dn[l] = cand[l];
     }
-    __syncthreads();
   }
+  __syncthreads();                      // the last delta complete
+  const float* dlast = dbuf + ((tend - 1) & 1) * Lp;
 
   for (size_t i = (size_t)tend * Lp + tid; i < (size_t)T * Lp; i += nth)
     bpb[i] = (int)(i % Lp);
 
   float v = -INFINITY;
   int a = INT_MAX;
-  for (int l = tid; l < Lp; l += nth) take_better(v, a, delta[l], l);
+  for (int l = tid; l < Lp; l += nth) take_better(v, a, dlast[l], l);
   block_argmax(v, a, red_v, red_i);
   if (tid == 0) {
     score_out[b] = v;
@@ -224,28 +259,28 @@ __global__ void fdt_vit_tb_kernel(const int* __restrict__ bp,
 
 extern "C" {
 
-size_t fdt_viterbi_fwd_smem_bytes(int Du, int ns, int P) {
-  return sizeof(float) * fwd_smem_floats(Du, ns, P);
+size_t fdt_viterbi_fwd_smem_bytes(int ns, int P) {
+  return sizeof(float) * fwd_smem_floats(ns, P);
 }
 
 const char* fdt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int fdt_viterbi_fwd(const float* wall_t, const float* feats,
-                    const int* lengths, int* bp, int* last, float* score,
-                    int B, int T, int D, int u0, int Du, int ns, int P,
+// planes (B, T, R4) from fdt_train_plane (fdt_mma.cu); P <= 128
+int fdt_viterbi_fwd(const float* planes, const int* lengths, int* bp,
+                    int* last, float* score, int B, int T, int ns, int P,
                     int boundaries, int use_thr, float thr, int bw,
                     void* stream) {
-  const size_t smem = fdt_viterbi_fwd_smem_bytes(Du, ns, P);
+  const size_t smem = fdt_viterbi_fwd_smem_bytes(ns, P);
   cudaError_t err = cudaFuncSetAttribute(
       fdt_vit_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   fdt_vit_fwd_kernel<<<B, kFwdThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      wall_t, feats, lengths, bp, last, score, T, D, u0, Du, ns, P,
-      boundaries, use_thr, thr, bw);
+      planes, lengths, bp, last, score, T, ns, P, boundaries, use_thr, thr,
+      bw);
   return static_cast<int>(cudaGetLastError());
 }
 

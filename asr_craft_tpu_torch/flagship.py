@@ -81,10 +81,17 @@ def tiny_batch(cfg, B: int = 8, T: int = 64, seed: int = 0,
             "lengths": torch.full((B,), T, dtype=torch.int32, device=device)}
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """``(fn, args)``: the flagship forward step, ``fn(*args)`` the mean
     per-frame loss of :func:`crf_loss` on :func:`tiny_batch`, with params
-    ``init_params`` at scale 0.01 from a generator seeded 0."""
+    ``init_params`` at scale 0.01 from a generator seeded 0.  On the card
+    unless ``device`` asks for another (``"cpu"``: the plain versions);
+    raises where there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"entry(device={device}): no CUDA device is "
+                           "available (pass device='cpu' to run the plain "
+                           "versions on the CPU)")
     cfg = flagship()
     params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, device)
     batch = tiny_batch(cfg, device=device)

@@ -3,25 +3,31 @@ their plain twins, and the autograd Function that joins them.
 
 Counterpart of the training half of :mod:`asr_craft_tpu.kernels.fdt_pallas`
 (``fdt_forward_pallas``, ``fdt_backward_grad_pallas`` and the custom-VJP
-core ``_fdt_core``).  The kernels are in ``csrc/fdt_train.cu`` (K1, K2's
-recursion) and ``csrc/fdt_mma.cu`` (K2's tensor-core products); the notes
-there say what bounds them on the card.  This module checks, launches and
-holds the plain PyTorch versions the kernels are compared with:
+core ``_fdt_core``).  The kernels are in ``csrc/fdt_train.cu`` (K1's and
+K2's recursions) and ``csrc/fdt_mma.cu`` (the tensor-core products: the
+planes, which K3 reads too, and K2's contraction); the notes there say what
+bounds them on the card.  This module checks, launches and holds the plain
+PyTorch versions the kernels are compared with:
 
-- :func:`fdt_forward_wall_torch` / :func:`fdt_forward_cuda` (K1):
-  ``(Wall, feats, labels, lengths) -> (alphas (B, T, 2, L'), zf, zc)``.
-- :func:`fdt_backward_grad_wall_torch` / :func:`fdt_backward_grad_cuda`
-  (K2): ``(..., alphas, zf, zc, wf, wc) -> dWall (R, Du+1)`` and, with
-  ``want_dfeats``, ``dfeats (B, T, D)``.  K2 is three kernels, each with
-  its plain twin: the planes of every frame (:func:`fdt_planes_torch` /
-  :func:`fdt_planes_cuda`), ``[x; 1] @ Wall^T`` on the tensor cores; the
+- the planes of every frame (:func:`fdt_planes_torch` /
+  :func:`fdt_planes_cuda`), ``[x; 1] @ Wall^T`` on the tensor cores, (B,
+  T, R4) rows of R rounded up to 4 floats;
+- K1 (:func:`fdt_forward_wall_torch` / :func:`fdt_forward_cuda`):
+  ``(Wall, feats, labels, lengths) -> (alphas (B, T, 2, L'), zf, zc)``,
+  the kernel path also returning the planes it read; its recursion alone
+  (:func:`fdt_forward_planes_torch` / :func:`fdt_forward_planes_cuda`)
+  reads the planes and forms none;
+- K2 (:func:`fdt_backward_grad_wall_torch` /
+  :func:`fdt_backward_grad_cuda`): ``(..., alphas, zf, zc, wf, wc) ->
+  dWall (R, Du+1)`` and, with ``want_dfeats``, ``dfeats (B, T, D)``: the
   recursion (:func:`fdt_dplane_wall_torch` / :func:`fdt_dplane_cuda`), an
   explicit beta / xi / gamma recursion (not autograd of the forward, so
   the CPU tests check its arithmetic) that reads the planes and writes
-  ``dplane (B, T, R)``; and the contraction (:func:`contract_wall_torch` /
-  :func:`contract_cuda`) that forms ``dWall`` and ``dfeats`` from it.
+  ``dplane (B, T, R)``, then the contraction (:func:`contract_wall_torch`
+  / :func:`contract_cuda`) that forms ``dWall`` and ``dfeats`` from it.
 - :class:`FdtNllDual`: forward K1, backward K2 with ``(gzf, gzc)`` as the
-  lattice weights; the kernels for CUDA tensors under ``auto``, the plain
+  lattice weights, the planes formed once, in the forward, and read again
+  by the backward; the kernels for CUDA tensors under ``auto``, the plain
   versions for CPU tensors.
 - :func:`fdt_nll_dual_wall`: the entry point ``ops.fdt.fdt_nll_dual``
   calls on the kernel path.
@@ -38,9 +44,9 @@ import torch
 
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
-from asr_craft_tpu_torch.kernels.wall import (SMEM_LIMIT, check_inputs,
-                                              feats_xu, wall_k4, wall_planes,
-                                              wall_t4)
+from asr_craft_tpu_torch.kernels.wall import (MAX_LABELS, SMEM_LIMIT,
+                                              check_inputs, feats_xu, wall_k4,
+                                              plane_blocks)
 from asr_craft_tpu_torch.ops import fdt
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
@@ -85,14 +91,13 @@ def _state2(state, labels, t: int, clamp_ns: int):
         [s, s + fdt._clamp_row(labels[:, t], s.shape[-1], clamp_ns)], dim=1)
 
 
-def fdt_forward_wall_torch(Wall, feats, labels, lengths, *, u0: int, u1: int,
-                           ns: int, P: int, clamp_ns: int,
-                           boundaries: bool = True):
-    """The plain version of :func:`fdt_forward_cuda`: planes from
-    :func:`wall_planes`, then the factored log-semiring loop of
-    :mod:`asr_craft_tpu_torch.ops.fdt` on both lattices.  Returns
-    ``(alphas (B, T, 2, L'), zf (B,), zc (B,))``."""
-    state, selfp, advp, crossp = wall_planes(Wall, feats, u0, u1, ns, P)
+def fdt_forward_planes_torch(planes, labels, lengths, *, ns: int, P: int,
+                             clamp_ns: int, boundaries: bool = True):
+    """The plain version of :func:`fdt_forward_planes_cuda`: the factored
+    log-semiring loop of :mod:`asr_craft_tpu_torch.ops.fdt` on both
+    lattices, over plane rows ``(B, T, >= R)`` (columns past R ignored).
+    Returns ``(alphas (B, T, 2, L'), zf (B,), zc (B,))``."""
+    state, selfp, advp, crossp = plane_blocks(planes, ns, P)
     B, T, Lp = state.shape
     lengths = lengths.to(state.device)
     state = fdt._boundary_state(state, lengths, ns, boundaries)
@@ -109,6 +114,17 @@ def fdt_forward_wall_torch(Wall, feats, labels, lengths, *, u0: int, u1: int,
     z = fdt._lse(a, -1)
     return (torch.stack(alphas, dim=1), z[:, 0].contiguous(),
             z[:, 1].contiguous())
+
+
+def fdt_forward_wall_torch(Wall, feats, labels, lengths, *, u0: int, u1: int,
+                           ns: int, P: int, clamp_ns: int,
+                           boundaries: bool = True):
+    """The plain version of :func:`fdt_forward_cuda`: the planes of
+    :func:`fdt_planes_torch`, then :func:`fdt_forward_planes_torch`.
+    Returns ``(alphas (B, T, 2, L'), zf (B,), zc (B,))``."""
+    return fdt_forward_planes_torch(
+        fdt_planes_torch(Wall, feats, u0=u0, u1=u1), labels, lengths, ns=ns,
+        P=P, clamp_ns=clamp_ns, boundaries=boundaries)
 
 
 def fdt_dplane_wall_torch(Wall, feats, labels, lengths, alphas, zf, zc,
@@ -220,7 +236,7 @@ def _library():
     if _lib is None:
         lib = _build.load_library()
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fdt_train_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+        lib.fdt_train_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.fdt_train_fwd.restype = i32
         lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.fdt_train_plane.restype = i32
@@ -230,7 +246,7 @@ def _library():
         lib.fdt_train_contract.restype = i32
         lib.fdt_mma_tile_rows.restype = i32
         lib.fdt_mma_blocks_per_sm.restype = i32
-        lib.fdt_train_fwd_smem_bytes.argtypes = [i32] * 3
+        lib.fdt_train_fwd_smem_bytes.argtypes = [i32] * 2
         lib.fdt_train_bwd_smem_bytes.argtypes = [i32] * 2
         for name in ("fdt_train_fwd_smem_bytes", "fdt_train_bwd_smem_bytes"):
             getattr(lib, name).restype = ctypes.c_size_t
@@ -262,38 +278,82 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
-                     ns: int, P: int, clamp_ns: int, boundaries: bool = True):
-    """K1 on the card: ``(alphas (B, T, 2, L'), zf (B,), zc (B,))``, as
-    :func:`fdt_forward_wall_torch` returns.  Raises on what the kernel does
-    not take (CPU tensors, P > 128, wrong dtype/shape/layout)."""
-    B, T, D = _check_train(Wall, feats, labels, lengths, u0=u0, u1=u1,
-                           ns=ns, P=P, clamp_ns=clamp_ns)
-    dev, Lp = feats.device, ns * P
+def _check_planes(planes, B: int, T: int, R: int, dev) -> None:
+    _build.check_tensor("planes", planes, torch.float32, 3, dev)
+    if tuple(planes.shape) != (B, T, (R + 3) // 4 * 4):
+        raise ValueError(f"planes {tuple(planes.shape)}, expected "
+                         f"{(B, T, (R + 3) // 4 * 4)}")
+
+
+def fdt_forward_planes_cuda(planes, labels, lengths, *, ns: int, P: int,
+                            clamp_ns: int, boundaries: bool = True):
+    """K1's recursion kernel: ``(alphas (B, T, 2, L'), zf (B,), zc (B,))``
+    from every frame's plane row in :func:`fdt_planes_cuda`'s (B, T, R4)
+    layout, as :func:`fdt_forward_planes_torch` returns them.  Raises on
+    what the kernel does not take (CPU tensors, P > 128, wrong
+    dtype/shape/layout)."""
+    dev = planes.device
+    _build.check_tensor("planes", planes, torch.float32, 3, dev)
+    _build.check_tensor("labels", labels, torch.int32, 2, dev)
+    _build.check_tensor("lengths", lengths, torch.int32, 1, dev)
+    B, T, _ = planes.shape
+    if P > MAX_LABELS:
+        raise ValueError(f"the fdt training kernel supports P <= "
+                         f"{MAX_LABELS} phones, got {P}")
+    if clamp_ns not in (1, ns):
+        raise ValueError(f"clamp_ns must be 1 or ns={ns}, got {clamp_ns}")
+    _check_planes(planes, B, T, 3 * ns * P + P * P, dev)
+    if tuple(labels.shape) != (B, T) or tuple(lengths.shape) != (B,) \
+            or T < 1:
+        raise ValueError(f"labels {tuple(labels.shape)} and lengths "
+                         f"{tuple(lengths.shape)} vs planes "
+                         f"{tuple(planes.shape)}")
     lib = _library()
-    _smem(lib, "fwd", u1 - u0, ns, P)
+    _smem(lib, "fwd", ns, P)
+    Lp = ns * P
     alphas = torch.empty((B, T, 2, Lp), dtype=torch.float32, device=dev)
     zf = torch.empty((B,), dtype=torch.float32, device=dev)
     zc = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
         return alphas, zf, zc
-    wall_t = wall_t4(Wall)          # referenced until the launch returns
     with torch.cuda.device(dev):
         code = lib.fdt_train_fwd(
-            wall_t.data_ptr(), feats.data_ptr(), labels.data_ptr(),
-            lengths.data_ptr(), alphas.data_ptr(), zf.data_ptr(),
-            zc.data_ptr(), B, T, D, u0, u1 - u0, ns, P, clamp_ns,
-            int(boundaries), _stream(dev))
+            planes.data_ptr(), labels.data_ptr(), lengths.data_ptr(),
+            alphas.data_ptr(), zf.data_ptr(), zc.data_ptr(), B, T, ns, P,
+            clamp_ns, int(boundaries), _stream(dev))
     _build.raise_on_error(code, "fdt_train_fwd launch")
     launches["fdt_train_fwd"] += 1
     return alphas, zf, zc
 
 
-def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int):
-    """K2's plane kernel: every frame's plane ``[x; 1] @ Wall^T`` on the
+def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
+                     ns: int, P: int, clamp_ns: int, boundaries: bool = True,
+                     planes=None):
+    """K1 on the card: the plane kernel forms every frame's plane (unless
+    ``planes`` are given, in its (B, T, R4) layout), then the recursion
+    kernel reads them.  Returns ``(alphas (B, T, 2, L'), zf (B,), zc (B,),
+    planes)``: what :func:`fdt_forward_wall_torch` returns, and the planes,
+    which K2 reads again (:func:`fdt_backward_grad_cuda`).  Raises on what
+    the kernels do not take (CPU tensors, P > 128, wrong
+    dtype/shape/layout)."""
+    _check_train(Wall, feats, labels, lengths, u0=u0, u1=u1, ns=ns, P=P,
+                 clamp_ns=clamp_ns)
+    if planes is None:
+        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+    alphas, zf, zc = fdt_forward_planes_cuda(
+        planes, labels, lengths, ns=ns, P=P, clamp_ns=clamp_ns,
+        boundaries=boundaries)
+    return alphas, zf, zc, planes
+
+
+def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
+                    key: str = "fdt_train_plane"):
+    """The plane kernel: every frame's plane ``[x; 1] @ Wall^T`` on the
     tensor cores (3xTF32), as :func:`fdt_planes_torch` returns it, but in
     rows of R4 = R rounded up to 4 floats, (B, T, R4), the pad zero: the
-    layout K2's recursion copies a frame's row from."""
+    layout the recursions (K1, K2, K3) copy a frame's row from.  Counts its
+    launch in ``counts[key]`` (default this module's ``launches``; the
+    decode counts its own planes in ``kernels/fdt_viterbi.py``)."""
     dev = feats.device
     _build.check_tensor("feats", feats, torch.float32, 3, dev)
     _build.check_tensor("Wall", Wall, torch.float32, 2, dev)
@@ -313,8 +373,8 @@ def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int):
             feats.data_ptr(), wall_k.data_ptr(), Wall.data_ptr(),
             planes.data_ptr(), B * T, D, u0, Du, wall_k.shape[1], R, R4,
             _stream(dev))
-    _build.raise_on_error(code, "fdt_train_plane launch")
-    launches["fdt_train_plane"] += 1
+    _build.raise_on_error(code, f"{key} launch")
+    (launches if counts is None else counts)[key] += 1
     return planes
 
 
@@ -375,10 +435,7 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
     R = Wall.shape[0]
     if planes is None:
         planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
-    _build.check_tensor("planes", planes, torch.float32, 3, dev)
-    if tuple(planes.shape) != (B, T, (R + 3) // 4 * 4):
-        raise ValueError(f"planes {tuple(planes.shape)}, expected "
-                         f"{(B, T, (R + 3) // 4 * 4)}")
+    _check_planes(planes, B, T, R, dev)
     dplane = torch.empty((B, T, R), dtype=torch.float32, device=dev)
     if B:
         with torch.cuda.device(dev):
@@ -395,14 +452,15 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
 def fdt_backward_grad_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf,
                            wc, *, u0: int, u1: int, ns: int, P: int,
                            clamp_ns: int, boundaries: bool = True,
-                           want_dfeats: bool = False):
-    """K2 on the card: the plane kernel forms every frame's plane, the
-    recursion kernel reads them and writes ``dplane (B, T, R)``, then the
-    contraction kernel forms ``dWall`` (and ``dfeats`` with
+                           want_dfeats: bool = False, planes=None):
+    """K2 on the card: the recursion kernel reads every frame's plane
+    (``planes``, as :func:`fdt_forward_cuda` returns them; the plane kernel
+    forms them first when none are given) and writes ``dplane (B, T, R)``,
+    then the contraction kernel forms ``dWall`` (and ``dfeats`` with
     ``want_dfeats``), as :func:`fdt_backward_grad_wall_torch` returns."""
     dplane = fdt_dplane_cuda(
         Wall, feats, labels, lengths, alphas, zf, zc, wf, wc, u0=u0, u1=u1,
-        ns=ns, P=P, clamp_ns=clamp_ns, boundaries=boundaries)
+        ns=ns, P=P, clamp_ns=clamp_ns, boundaries=boundaries, planes=planes)
     D, Du, dev = feats.shape[2], u1 - u0, feats.device
     dWall = torch.empty((Wall.shape[0], Du + 1), dtype=torch.float32,
                         device=dev)
@@ -418,10 +476,11 @@ class FdtNllDual(torch.autograd.Function):
     """``(zf, zc) = FdtNllDual.apply(Wall, feats, labels, lengths, u0, u1,
     ns, P, clamp_ns, boundaries, grad_feats)``: K1 forward, K2 backward.
 
-    Replaces ``_fdt_core``'s custom VJP.  The backward returns ``dWall``
-    and, only when ``grad_feats`` is set, the feature cotangent; a dead
-    lattice (z <= NEG_INF/2) gets zero gradient (K2's ``live`` gate, the
-    plain path's ``_dead_guard``)."""
+    Replaces ``_fdt_core``'s custom VJP.  On the kernel path the forward's
+    planes are kept for the backward, so a step forms them once.  The
+    backward returns ``dWall`` and, only when ``grad_feats`` is set, the
+    feature cotangent; a dead lattice (z <= NEG_INF/2) gets zero gradient
+    (K2's ``live`` gate, the plain path's ``_dead_guard``)."""
 
     @staticmethod
     def forward(ctx, Wall, feats, labels, lengths, u0, u1, ns, P, clamp_ns,
@@ -429,22 +488,32 @@ class FdtNllDual(torch.autograd.Function):
         kw = dict(u0=u0, u1=u1, ns=ns, P=P, clamp_ns=clamp_ns,
                   boundaries=boundaries)
         use = kernels.use_kernel(feats)
-        fwd = fdt_forward_cuda if use else fdt_forward_wall_torch
-        alphas, zf, zc = fwd(Wall, feats, labels, lengths, **kw)
-        ctx.save_for_backward(Wall, feats, labels, lengths, alphas, zf, zc)
+        if use:
+            alphas, zf, zc, planes = fdt_forward_cuda(Wall, feats, labels,
+                                                      lengths, **kw)
+        else:
+            alphas, zf, zc = fdt_forward_wall_torch(Wall, feats, labels,
+                                                    lengths, **kw)
+            planes = None
+        ctx.save_for_backward(Wall, feats, labels, lengths, alphas, zf, zc,
+                              planes)
         ctx.kw, ctx.use, ctx.grad_feats = kw, use, grad_feats
         return zf, zc
 
     @staticmethod
     def backward(ctx, gzf, gzc):
-        Wall, feats, labels, lengths, alphas, zf, zc = ctx.saved_tensors
+        Wall, feats, labels, lengths, alphas, zf, zc, planes = \
+            ctx.saved_tensors
         gzf = torch.zeros_like(zf) if gzf is None else gzf.contiguous()
         gzc = torch.zeros_like(zc) if gzc is None else gzc.contiguous()
-        bwd = (fdt_backward_grad_cuda if ctx.use
-               else fdt_backward_grad_wall_torch)
         want = ctx.grad_feats and ctx.needs_input_grad[1]
-        out = bwd(Wall, feats, labels, lengths, alphas, zf, zc, gzf, gzc,
-                  **ctx.kw, want_dfeats=want)
+        args = (Wall, feats, labels, lengths, alphas, zf, zc, gzf, gzc)
+        if ctx.use:
+            out = fdt_backward_grad_cuda(*args, **ctx.kw, want_dfeats=want,
+                                         planes=planes)
+        else:
+            out = fdt_backward_grad_wall_torch(*args, **ctx.kw,
+                                               want_dfeats=want)
         dWall, dfeats = out if want else (out, None)
         return (dWall, dfeats) + (None,) * 9
 

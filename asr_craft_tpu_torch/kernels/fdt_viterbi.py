@@ -1,15 +1,21 @@
 """K3: the factored Viterbi decode — CUDA kernels and their plain twin.
 
 Counterpart of the decode half of :mod:`asr_craft_tpu.kernels.fdt_pallas`
-(``build_wall`` + ``fdt_viterbi_pallas``).  The kernels are in
-``csrc/fdt_viterbi.cu`` (the note there says what bounds them on the card);
-this module packs the parameters, checks and launches, and holds the plain
-PyTorch version the kernels are compared with:
+(``build_wall`` + ``fdt_viterbi_pallas``).  The kernels are the plane
+kernel (``csrc/fdt_mma.cu``, shared with training, launched through
+:func:`asr_craft_tpu_torch.kernels.fdt_train.fdt_planes_cuda` and counted
+here as ``fdt_viterbi_plane``), then the recursion and the traceback
+(``csrc/fdt_viterbi.cu``; the notes there say what bounds them on the
+card).  This module checks and launches them, and holds the plain PyTorch
+versions the kernels are compared with:
 
-- :func:`fdt_viterbi_wall_torch`: the plain version — planes ``[x; 1] @
-  Wall^T`` (:func:`asr_craft_tpu_torch.kernels.wall.wall_planes`) then
-  :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi`.
-- :func:`fdt_viterbi_cuda`: the kernels (forward, then traceback).
+- :func:`fdt_viterbi_planes_torch`: the plain version of the recursion and
+  the traceback on given plane rows (:func:`asr_craft_tpu_torch.ops.fdt.
+  fdt_viterbi` on their blocks), and :func:`fdt_viterbi_wall_torch`, the
+  planes ``[x; 1] @ Wall^T`` followed by it.
+- :func:`fdt_viterbi_cuda`: the kernels (planes and recursion over
+  sub-batches of at most ``PLANE_BUDGET`` bytes of planes, then the
+  traceback).
 - :func:`fdt_viterbi_wall`: the dispatch of :mod:`asr_craft_tpu_torch.kernels`
   (kernel for CUDA tensors under ``auto``; never a silent fallback).
 
@@ -27,11 +33,18 @@ import torch
 
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
-from asr_craft_tpu_torch.kernels.wall import (SMEM_LIMIT, check_inputs,
-                                              wall_planes, wall_t4)
+from asr_craft_tpu_torch.kernels.fdt_train import (fdt_planes_cuda,
+                                                   fdt_planes_torch)
+from asr_craft_tpu_torch.kernels.wall import (MAX_LABELS, SMEM_LIMIT,
+                                              check_inputs, plane_blocks)
 from asr_craft_tpu_torch.ops import fdt
 
-launches = {"fdt_viterbi_fwd": 0, "fdt_viterbi_traceback": 0}
+launches = {"fdt_viterbi_plane": 0, "fdt_viterbi_fwd": 0,
+            "fdt_viterbi_traceback": 0}
+# The most bytes of planes a decode holds at once: the batch is decoded in
+# sub-batches of utterances whose (b, T, R4) planes fit (191 utterances at
+# the flagship's T = 512, R4 = 2736), at least one at a time.
+PLANE_BUDGET = 1 << 30
 
 _lib = None
 
@@ -41,15 +54,29 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def fdt_viterbi_planes_torch(planes, lengths, *, ns: int, P: int,
+                             boundaries: bool = True,
+                             beam_threshold: Optional[float] = None,
+                             beam_width: Optional[int] = None):
+    """The plain version of the recursion and the traceback on plane rows
+    ``(B, T, >= R)`` (columns past R ignored): (paths (B, T) int32
+    state-major, scores (B,))."""
+    return fdt.fdt_viterbi(*plane_blocks(planes, ns, P), lengths, ns,
+                           boundaries, beam_width, beam_threshold)
+
+
 def fdt_viterbi_wall_torch(Wall, feats, lengths, *, u0: int, u1: int,
                            ns: int, P: int, boundaries: bool = True,
                            beam_threshold: Optional[float] = None,
                            beam_width: Optional[int] = None):
-    """The plain version of :func:`fdt_viterbi_cuda`: same arguments, same
-    (paths (B, T) int32 state-major, scores (B,)) results."""
-    return fdt.fdt_viterbi(*wall_planes(Wall, feats, u0, u1, ns, P),
-                           lengths, ns, boundaries, beam_width,
-                           beam_threshold)
+    """The plain version of :func:`fdt_viterbi_cuda`: the planes of
+    :func:`asr_craft_tpu_torch.kernels.fdt_train.fdt_planes_torch`, then
+    :func:`fdt_viterbi_planes_torch`; same arguments, same (paths (B, T)
+    int32 state-major, scores (B,)) results."""
+    return fdt_viterbi_planes_torch(
+        fdt_planes_torch(Wall, feats, u0=u0, u1=u1), lengths, ns=ns, P=P,
+        boundaries=boundaries, beam_threshold=beam_threshold,
+        beam_width=beam_width)
 
 
 def _library():
@@ -57,50 +84,100 @@ def _library():
     if _lib is None:
         lib = _build.load_library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fdt_viterbi_fwd.argtypes = ([ptr] * 6 + [i32] * 8
+        lib.fdt_viterbi_fwd.argtypes = ([ptr] * 5 + [i32] * 5
                                         + [i32, f32, i32, ptr])
         lib.fdt_viterbi_fwd.restype = i32
         lib.fdt_viterbi_traceback.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         lib.fdt_viterbi_traceback.restype = i32
-        lib.fdt_viterbi_fwd_smem_bytes.argtypes = [i32] * 3
+        lib.fdt_viterbi_fwd_smem_bytes.argtypes = [i32] * 2
         lib.fdt_viterbi_fwd_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
+
+
+def sub_batches(B: int, T: int, R: int, budget: int):
+    """``(start, stop)`` of the sub-batches a decode of B utterances runs:
+    as many utterances as keep their (b, T, R4) fp32 planes within
+    ``budget`` bytes, at least one."""
+    per = max(1, budget // (4 * T * ((R + 3) // 4 * 4)))
+    return [(s, min(s + per, B)) for s in range(0, B, per)]
+
+
+def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
+                                ns: int, P: int, boundaries: bool = True,
+                                beam_threshold: Optional[float] = None,
+                                beam_width: Optional[int] = None):
+    """The recursion kernel on every frame's plane row (the plane kernel's
+    (B, T, R4) layout): writes ``bp (B, T, L')`` int32, ``last (B,)`` int32
+    and ``scores (B,)`` (contiguous, on the planes' device; a sub-batch's
+    rows of the decode's outputs), as
+    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns them."""
+    dev = planes.device
+    _build.check_tensor("planes", planes, torch.float32, 3, dev)
+    _build.check_tensor("lengths", lengths, torch.int32, 1, dev)
+    B, T, R4 = planes.shape
+    Lp = ns * P
+    if P > MAX_LABELS:
+        raise ValueError(f"the fdt Viterbi kernel supports P <= "
+                         f"{MAX_LABELS} phones, got {P}")
+    if R4 != (3 * Lp + P * P + 3) // 4 * 4 or tuple(lengths.shape) != (B,):
+        raise ValueError(f"planes {tuple(planes.shape)} and lengths "
+                         f"{tuple(lengths.shape)} do not match ns={ns}, "
+                         f"P={P}")
+    for name, t, dtype, shape in (("bp", bp, torch.int32, (B, T, Lp)),
+                                  ("last", last, torch.int32, (B,)),
+                                  ("scores", scores, torch.float32, (B,))):
+        _build.check_tensor(name, t, dtype, len(shape), dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
+    if beam_width is not None and beam_width < 1:
+        raise ValueError(f"beam_width must be >= 1, got {beam_width}")
+    lib = _library()
+    smem = lib.fdt_viterbi_fwd_smem_bytes(ns, P)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"fdt Viterbi kernel needs {smem} B of shared "
+                         f"memory, over the {SMEM_LIMIT} B a block can use")
+    bw = 0 if beam_width is None or beam_width >= Lp else beam_width
+    if B == 0:
+        return
+    with torch.cuda.device(dev):
+        code = lib.fdt_viterbi_fwd(
+            planes.data_ptr(), lengths.data_ptr(), bp.data_ptr(),
+            last.data_ptr(), scores.data_ptr(), B, T, ns, P,
+            int(boundaries), int(beam_threshold is not None),
+            float(beam_threshold or 0.0), bw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(code, "fdt_viterbi_fwd launch")
+    launches["fdt_viterbi_fwd"] += 1
 
 
 def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
                          P: int, boundaries: bool = True,
                          beam_threshold: Optional[float] = None,
                          beam_width: Optional[int] = None):
-    """Forward kernel: (bp (B, T, L') int32, last (B,) int32, scores (B,)),
-    as :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns."""
+    """The plane kernel and the recursion kernel: (bp (B, T, L') int32, last
+    (B,) int32, scores (B,)), as
+    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns them.
+    The utterances run in :func:`sub_batches` of at most ``PLANE_BUDGET``
+    bytes of planes, each sub-batch's planes formed and read before the
+    next's; utterances are independent, so the results are those of one
+    call."""
     dev = feats.device
     B, T, D = check_inputs("fdt Viterbi", Wall, feats, lengths, u0=u0,
                            u1=u1, ns=ns, P=P)
-    Lp = ns * P
     if beam_width is not None and beam_width < 1:
         raise ValueError(f"beam_width must be >= 1, got {beam_width}")
-    lib = _library()
-    smem = lib.fdt_viterbi_fwd_smem_bytes(u1 - u0, ns, P)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fdt Viterbi kernel needs {smem} B of shared "
-                         f"memory, over the {SMEM_LIMIT} B a block can use")
-    bw = 0 if beam_width is None or beam_width >= Lp else beam_width
+    Lp = ns * P
     bp = torch.empty((B, T, Lp), dtype=torch.int32, device=dev)
     last = torch.empty((B,), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
-    if B == 0:
-        return bp, last, scores
-    wall_t = wall_t4(Wall)          # referenced until the launch returns
-    with torch.cuda.device(dev):
-        code = lib.fdt_viterbi_fwd(
-            wall_t.data_ptr(), feats.data_ptr(), lengths.data_ptr(),
-            bp.data_ptr(), last.data_ptr(), scores.data_ptr(),
-            B, T, D, u0, u1 - u0, ns, P, int(boundaries),
-            int(beam_threshold is not None), float(beam_threshold or 0.0),
-            bw, torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(code, "fdt_viterbi_fwd launch")
-    launches["fdt_viterbi_fwd"] += 1
+    for s, e in sub_batches(B, T, Wall.shape[0], PLANE_BUDGET):
+        planes = fdt_planes_cuda(Wall, feats[s:e], u0=u0, u1=u1,
+                                 counts=launches, key="fdt_viterbi_plane")
+        viterbi_forward_planes_cuda(
+            planes, lengths[s:e], bp[s:e], last[s:e], scores[s:e], ns=ns,
+            P=P, boundaries=boundaries, beam_threshold=beam_threshold,
+            beam_width=beam_width)
     return bp, last, scores
 
 

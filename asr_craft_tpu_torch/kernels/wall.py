@@ -1,6 +1,6 @@
 """The packed parameter matrix ``Wall`` shared by the fdt kernels (K1-K3),
-and the copies of it that the kernels read (:func:`wall_t4`,
-:func:`wall_k4`).
+the copy of it that the tensor-core kernels read (:func:`wall_k4`), and the
+split of a plane row into its blocks (:func:`plane_blocks`).
 
 Counterpart of ``build_wall`` in :mod:`asr_craft_tpu.kernels.fdt_pallas`,
 without the TPU padding (no ``P8`` phone rows, no ``Du8`` columns).  Both
@@ -71,29 +71,24 @@ def feats_xu(feats, u0: int, u1: int):
                                  device=feats.device)], dim=-1)
 
 
-def wall_planes(Wall, feats, u0: int, u1: int, ns: int, P: int):
-    """The factored planes ``[x; 1] @ Wall^T`` as
-    ``(state, selfp, advp, crossp)``, shaped as ``ops.fdt.factored_planes``
-    returns them (``selfp``/``advp`` None for ``ns == 1``)."""
-    B, T, _ = feats.shape
+def plane_blocks(plane, ns: int, P: int):
+    """Split plane rows ``(B, T, >= R)`` into ``(state, selfp, advp,
+    crossp)``, shaped as ``ops.fdt.factored_planes`` returns them
+    (``selfp``/``advp`` None for ``ns == 1``); columns past R (the R4 pad
+    of the kernels' layout) are not read."""
+    B, T, _ = plane.shape
     Lp = ns * P
-    plane = feats_xu(feats, u0, u1) @ Wall.T                 # (B, T, R)
     state = plane[..., :Lp]
-    crossp = plane[..., 3 * Lp:].reshape(B, T, P, P)
+    crossp = plane[..., 3 * Lp:3 * Lp + P * P].reshape(B, T, P, P)
     if ns == 1:
         return state, None, None, crossp
     return state, plane[..., Lp:2 * Lp], plane[..., 2 * Lp:3 * Lp], crossp
 
 
-def wall_t4(Wall):
-    """The kernels' copy of Wall: transposed to (Du+1, R4) and zero-padded
-    to R4 = R rounded up to 4 rows, for coalesced 16-byte reads of 4-row
-    groups (csrc/fdt_common.cuh form_plane)."""
-    R = Wall.shape[0]
-    wall_t = torch.zeros((Wall.shape[1], (R + 3) // 4 * 4),
-                         dtype=torch.float32, device=Wall.device)
-    wall_t[:, :R] = Wall.T
-    return wall_t
+def wall_planes(Wall, feats, u0: int, u1: int, ns: int, P: int):
+    """The factored planes ``[x; 1] @ Wall^T`` as :func:`plane_blocks`
+    splits them."""
+    return plane_blocks(feats_xu(feats, u0, u1) @ Wall.T, ns, P)
 
 
 def wall_k4(Wall):

@@ -1,0 +1,130 @@
+"""Time the config-2 fdt kernels and steps of two checkouts of the
+repository on one card, in turns: A, B, B, A.
+
+    python asr_craft_tpu_torch/utils/ab_timing.py DIR_A DIR_B [--out FILE]
+
+Each turn is its own process, started in that checkout with its package
+first on the path, so two versions of ``asr_craft_tpu_torch`` never meet in
+one interpreter; each builds its kernels at first use into its own
+``_build`` directory.  A turn times, with CUDA events after a warm-up, the
+minimum of two runs of a few calls each, at the flagship's shapes: K1 whole
+(``fdt_forward_cuda``), K2 (``fdt_backward_grad_cuda``, handed K1's planes
+where the checkout's K1 returns them, as its train step does), one train
+step (loss, backward, SGD) at B=128, T=512, K3's forward
+(``viterbi_forward_cuda``) and ``decode()`` at B=64, T=512.  It prints one
+JSON line a turn and, last, the card and every turn's times; ``--out``
+also writes them there.  Only the two checkouts' own APIs in common are
+called, so a checkout from before a change of a wrapper's return value
+runs too.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+NAMES = ("K1", "K2", "train step", "K3 forward", "decode")
+
+
+def _child() -> dict:
+    import inspect
+
+    import torch
+
+    from asr_craft_tpu_torch.flagship import flagship, tiny_batch
+    from asr_craft_tpu_torch.kernels import fdt_train as K1
+    from asr_craft_tpu_torch.kernels import fdt_viterbi as K3
+    from asr_craft_tpu_torch.kernels.wall import build_wall
+    from asr_craft_tpu_torch.models.crf import decode
+    from asr_craft_tpu_torch.train import TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = flagship()
+
+    def ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            best = min(best, start.elapsed_time(end) / reps)
+        return best
+
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, dev)
+    batch = tiny_batch(cfg, 128, 512, 0, dev)
+    feats, labels, lengths = batch["feats"], batch["labels"], \
+        batch["lengths"]
+    Wall, u0, u1, dims = build_wall(params, cfg.fmap, cfg.num_states)
+    kw = dict(u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
+              clamp_ns=cfg.num_states, boundaries=True)
+    args = (Wall, feats, labels, lengths)
+    out = K1.fdt_forward_cuda(*args, **kw)
+    alphas, zf, zc = out[:3]
+    ones = torch.ones_like(zf)
+    grad_args = args + (alphas, zf, zc, ones, -ones)
+    k2_kw = dict(kw)
+    if "planes" in inspect.signature(K1.fdt_backward_grad_cuda).parameters:
+        k2_kw["planes"] = out[3]
+    trainer = Trainer(cfg, TrainConfig(lr=0.5), params=params)
+    dec_feats = feats[:64].contiguous()
+    dec_len = torch.full((64,), 512, dtype=torch.int32, device=dev)
+    vkw = {k: v for k, v in kw.items() if k != "clamp_ns"}
+    return {
+        "K1": ms(lambda: K1.fdt_forward_cuda(*args, **kw), 5),
+        "K2": ms(lambda: K1.fdt_backward_grad_cuda(*grad_args, **k2_kw), 5),
+        "train step": ms(lambda: trainer.train_step(batch, 0.5), 5),
+        "K3 forward": ms(lambda: K3.viterbi_forward_cuda(
+            Wall, dec_feats, dec_len, **vkw), 10),
+        "decode": ms(lambda: decode(cfg, params, dec_feats, dec_len), 10),
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("a", help="the first checkout (timed first and last)")
+    p.add_argument("b", help="the second checkout")
+    p.add_argument("--out", help="also write the result here (JSON)")
+    p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.child:
+        print(json.dumps(_child()), flush=True)
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    turns = []
+    for label, tree in (("a", args.a), ("b", args.b), ("b", args.b),
+                        ("a", args.a)):
+        tree = os.path.abspath(tree)
+        # the checkout's package first on the path, not this file's
+        env = dict(os.environ, PYTHONPATH=tree, PYTHONSAFEPATH="1")
+        run = subprocess.run([sys.executable, "-P", os.path.abspath(__file__),
+                              args.a, args.b, "--child"], cwd=tree, env=env,
+                             capture_output=True, text=True, timeout=1200)
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return run.returncode
+        times = json.loads(run.stdout.strip().splitlines()[-1])
+        turns.append({"tree": label, "dir": tree, "ms": times})
+        print(json.dumps(turns[-1]), flush=True)
+    result = {"card": card, "order": "a, b, b, a",
+              "ms": {name: [t["ms"][name] for t in turns] for name in NAMES}}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({**result, "turns": turns}, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

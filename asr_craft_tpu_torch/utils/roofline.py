@@ -25,7 +25,8 @@ speed-of-light time is
 (the last term only when a measured rate is given), and phases run one after
 another, so a step's SOL is the sum.  The counts follow the port's code, read
 off ``csrc/*.cu`` and the wrappers: batch-major unpadded tensors, the packed
-parameter matrix (``kernels/wall.py``), K2 as a recursion plus a contraction,
+parameter matrix (``kernels/wall.py``), the planes formed before the
+recursions, K2 as a recursion plus a contraction,
 the per-utterance partials of K5 and K11, and K13's walk of one segment at a
 time.  None of the TPU's tile padding exists here.
 
@@ -47,9 +48,9 @@ Peaks: one H100 SXM, 3350 GB/s of device memory, 67 TFLOP/s fp32 on the
 CUDA cores and 495 TFLOP/s TF32 on the tensor cores (NVIDIA's data sheet,
 dense, at the 700 W limit).  Every kernel of the port computes in fp32 (the
 tensor-core products in 3xTF32, which keeps fp32 accuracy), so ``mode``
-takes ``"fp32"`` alone.  The same work is held to the same bound whatever
-implements it: K1 and K3 still form their planes on the CUDA cores, but the
-least time the card could take for those products is the 3xTF32 one.
+takes ``"fp32"`` alone.  The planes of every frame are one phase of their
+own (the plane kernel's), counted once a train step and once a decode; the
+recursions that read them (K1, K2, K3) do no product.
 
 Names, and their counterparts in the JAX module
 -----------------------------------------------
@@ -190,31 +191,50 @@ def _fdt_dims(L: int, D: int, ns: int, Du: int | None):
 
 
 # Element operations a frame: (per phone pair and lattice, per expanded
-# label and lattice).  K1 and K3 to the order of magnitude off their bodies
-# (csrc/fdt_train.cu fdt_train_fwd_kernel, csrc/fdt_viterbi.cu): a
-# cross-phone term is an add and a max, then a subtract, an expf and an add
-# (5; K3 an add and a compare, 2); a row of the lattice takes lse3 and its
-# masks (18), K3 three adds, two compares and the beam (8).
-# K2's recursion (fdt_train_bwd_kernel) line by line.  A phone pair and
-# lattice: the cross lse's max pass (an add, a max: 2), one exponential
-# shared by the lse and the xi (an add, a subtract, the expf, the sum: 4)
-# and the xi's multiply-add (1): 7.  A label and lattice: xs (two adds and
-# the mask's compare: 3), the self and the advance xi (two adds, a
-# subtract, a min, an expf, a multiply, the lattice sum: 7 each), beta_t's
-# lse3 (the self and advance candidates 2, the max of three and its clamp
-# 3, three subtracts, three expf, two adds, the floor, a logf and an add:
-# 16), gamma_t (an add, a subtract, a min, an expf, a multiply, an add: 6),
-# and its share of a source phone's work (two 16-lane shuffle merges of 4
-# rounds each with their maxes and adds: 16; the xi factor's add,
-# subtract, min, expf and multiply: 5; the floor, a logf and an add: 3;
-# 24 over the ns labels of a phone: 8 at ns = 3): 47.
-_FDT_OPS = {"fwd": (5.0, 18.0), "bwd": (7.0, 47.0), "vit": (2.0, 8.0)}
+# label and lattice), counted line by line off the recursions' bodies at the
+# flagship's ns = 3 (a phone's share spread over its ns labels).
+# K1's recursion (csrc/fdt_train.cu fdt_train_fwd_kernel).  A phone pair
+# and lattice: the term (an add), its max, its subtract, its expf and the
+# sum's add: 5.  A label and lattice: the self and advance candidates (2),
+# lse3 (the max of three and its clamp 3, three subtracts, three expf, two
+# adds, the floor, a logf and an add: 14), alpha_t (two adds and the mask's
+# compare: 3), and its share of a destination phone's cross lse (two
+# 16-lane shuffle merges of 4 rounds each with their maxes and adds: 16;
+# the clamp, the floor, a logf and an add: 4; 20 over the ns labels).
+# K2's recursion (fdt_train_bwd_kernel).  A phone pair and lattice: the
+# cross lse's max pass (an add, a max: 2), one exponential shared by the
+# lse and the xi (an add, a subtract, the expf, the sum: 4) and the xi's
+# multiply-add (1): 7.  A label and lattice: xs (two adds and the mask's
+# compare: 3), the self and the advance xi (two adds, a subtract, a min, an
+# expf, a multiply, the lattice sum: 7 each), beta_t's lse3 (the self and
+# advance candidates 2, the max of three and its clamp 3, three subtracts,
+# three expf, two adds, the floor, a logf and an add: 16), gamma_t (an add,
+# a subtract, a min, an expf, a multiply, an add: 6), and its share of a
+# source phone's work (two 16-lane shuffle merges of 4 rounds each with
+# their maxes and adds: 16; the xi factor's add, subtract, min, expf and
+# multiply: 5; the floor, a logf and an add: 3; 24 over the ns labels of a
+# phone: 8 at ns = 3): 47.
+# K3's recursion (csrc/fdt_viterbi.cu fdt_vit_fwd_kernel), one lattice, the
+# exact decode.  A phone pair: the term (an add) and take_better's three
+# compares and two selects: 6.  A label: the self and advance candidates
+# (2), their max with the cross max (2), the backpointer's two compares,
+# two selects and the cross label's multiply-add (5), the end mask's
+# compare and add and the plane's add (3), and its share of a destination
+# phone's cross max (one 16-lane merge of 4 rounds, two shuffles and
+# take_better's five operations each: 28 over the ns labels).
+_FDT_OPS = {"fwd": (5.0, 19.0 + 20.0 / 3), "bwd": (7.0, 47.0),
+            "vit": (6.0, 12.0 + 28.0 / 3)}
 
 
 def _fdt_elems(kind: str, frames: float, L: int, P: int) -> float:
     cross, row = _FDT_OPS[kind]
     lattices = 1 if kind == "vit" else 2
     return frames * lattices * (cross * P * P + row * L)
+
+
+def _round_up4(n: int) -> int:
+    """R4: a plane row's floats in the kernels' layout (16-byte rows)."""
+    return (n + 3) // 4 * 4
 
 
 def _plane_ops(frames: float, R: int, Dw: int) -> tuple[float, float]:
@@ -226,17 +246,16 @@ def _plane_ops(frames: float, R: int, Dw: int) -> tuple[float, float]:
 
 
 def _k_fdt_viterbi_fwd(B, T, L, D, ns, Du=None, frames=None):
-    """K3 forward: Wall, feats and lengths in; backpointers (B, T, L') i32,
-    last states and scores out.  Per frame the plane ``Wall @ [x; 1]`` (held
-    to the 3xTF32 rate) and the max-plus step (an add and a compare per
-    self, advance and cross term)."""
+    """K3's recursion: every existing frame's plane row (B, T, R4) and the
+    lengths in; backpointers (B, T, L') i32, last states and scores out.
+    Per frame the max-plus step (an add and a compare per self, advance and
+    cross term); it forms no plane."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
     frames = B * T if frames is None else frames
-    mma, bias = _plane_ops(frames, R, Dw)
     return Phase("fdt_viterbi_fwd",
-                 _F32 * (R * Dw + B * T * D + B * T * Lp + 3 * B),
-                 frames * 2.0 * (2 * Lp + P * P) + bias,
-                 _fdt_elems("vit", frames, Lp, P), mma)
+                 _F32 * (frames * _round_up4(R) + B * T * Lp + 3 * B),
+                 frames * 2.0 * (2 * Lp + P * P),
+                 _fdt_elems("vit", frames, Lp, P))
 
 
 def _k_traceback(B, T, **_):
@@ -248,29 +267,31 @@ def _k_traceback(B, T, **_):
 
 
 def _k_fdt_train_fwd(B, T, L, D, ns, Du=None, frames=None):
-    """K1: the plane (3xTF32 rate) and two lattices' log-semiring step a
-    frame.  Wall, feats, labels, lengths in; alphas (B, T, 2, L'), zf, zc
-    out."""
+    """K1's recursion: every existing frame's plane row (B, T, R4), labels
+    and lengths in; alphas (B, T, 2, L'), zf, zc out; two lattices'
+    log-semiring step a frame.  It forms no plane."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
     frames = B * T if frames is None else frames
     dp = 2 * (2 * Lp + P * P)                       # one lattice's DP
-    mma, bias = _plane_ops(frames, R, Dw)
     return Phase("fdt_train_fwd",
-                 _F32 * (R * Dw + B * T * D + B * T + 2 * B * T * Lp
+                 _F32 * (frames * _round_up4(R) + B * T + 2 * B * T * Lp
                          + 3 * B),
-                 frames * 2 * dp + bias, _fdt_elems("fwd", frames, Lp, P),
-                 mma)
+                 frames * 2 * dp, _fdt_elems("fwd", frames, Lp, P))
 
 
-def _k_fdt_train_plane(B, T, L, D, ns, Du=None, frames=None):
-    """K2's plane kernel: Wall and feats in, every frame's plane (B, T, R)
-    out; one product of depth Du, held to the 3xTF32 rate, and the bias
-    column's add."""
-    P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
-    frames = B * T if frames is None else frames
-    mma, bias = _plane_ops(frames, R, Dw)
-    return Phase("fdt_train_plane", _F32 * (R * Dw + B * T * D + B * T * R),
-                 bias, 0.0, mma)
+def _k_fdt_plane(name):
+    """The plane kernel under the launch-count key ``name`` (training's
+    ``fdt_train_plane``, the decode's ``fdt_viterbi_plane``)."""
+
+    def count(B, T, L, D, ns, Du=None, frames=None):
+        """Wall and feats in, every frame's plane (B, T, R) out; one product
+        of depth Du, held to the 3xTF32 rate, and the bias column's add."""
+        P, Lp, R, Dw = _fdt_dims(L, D, ns, Du)
+        frames = B * T if frames is None else frames
+        mma, bias = _plane_ops(frames, R, Dw)
+        return Phase(name, _F32 * (R * Dw + B * T * D + B * T * R), bias,
+                     0.0, mma)
+    return count
 
 
 def _k_fdt_train_bwd(B, T, L, D, ns, Du=None, frames=None):
@@ -428,10 +449,11 @@ def _k_seg_traceback(B, T, L, segments=None, **_):
 
 # name (the wrappers' launch-count keys) -> its count
 KERNELS = {
+    "fdt_viterbi_plane": _k_fdt_plane("fdt_viterbi_plane"),
     "fdt_viterbi_fwd": _k_fdt_viterbi_fwd,
     "fdt_viterbi_traceback": _k_traceback,
     "fdt_train_fwd": _k_fdt_train_fwd,
-    "fdt_train_plane": _k_fdt_train_plane,
+    "fdt_train_plane": _k_fdt_plane("fdt_train_plane"),
     "fdt_train_bwd": _k_fdt_train_bwd,
     "fdt_train_contract": _k_fdt_train_contract,
     "viterbi_dense_fwd": _k_viterbi_dense_fwd,
@@ -521,45 +543,57 @@ def train_step_phases(B: int, T: int, L: int, D: int,
     ]
 
 
+def _summed(name: str, phases: list[Phase]) -> Phase:
+    """One phase holding the bytes and operations of several kernels."""
+    return Phase(name, sum(p.bytes for p in phases),
+                 sum(p.flops for p in phases),
+                 sum(p.vpu_elems for p in phases),
+                 sum(p.mma_flops for p in phases))
+
+
 def fdt_train_phases(B: int, T: int, L: int, D: int, ns: int,
                      n_lambda: int | None = None) -> list[Phase]:
     """One frame-dependent-transition train step (config 2): packing
-    (``build_wall``, the copies of Wall the launches take, the scatter of
-    dWall back to the parameters), K1, K2 (the planes, the recursion, which
-    reads them and writes dplane, then the contraction, which reads it
-    back), the optimizer.  The products of plane formation (K1's and K2's)
-    and of the contraction bind the step's bound, at the 3xTF32 rate."""
+    (``build_wall``, the padded copy of Wall the plane kernel reads, the
+    scatter of dWall back to the parameters), the forward (the planes of
+    every frame, formed once a step, and K1's recursion, which reads them),
+    K2 (the recursion, which reads the same planes and writes dplane, then
+    the contraction, which reads it back), the optimizer.  The products of
+    plane formation and of the contraction bind the step's bound, at the
+    3xTF32 rate."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, None)
     wall = R * Dw * _F32
     n_lambda = n_lambda or R * Dw
-    k2 = [kernel_phase(name, B=B, T=T, L=L, D=D, ns=ns)
-          for name in ("fdt_train_plane", "fdt_train_bwd",
-                       "fdt_train_contract")]
+    shape = dict(B=B, T=T, L=L, D=D, ns=ns)
     return [
-        # gather into Wall, its two copies (K1's transposed one, K2's
-        # padded one), dWall scattered back through autograd
-        Phase("fdt_prep", 2 * (n_lambda * _F32 + wall) + 4 * wall, 0.0),
-        _renamed(kernel_phase("fdt_train_fwd", B=B, T=T, L=L, D=D, ns=ns),
-                 "fdt_forward"),
-        Phase("fdt_backward_grad", sum(p.bytes for p in k2),
-              sum(p.flops for p in k2), sum(p.vpu_elems for p in k2),
-              sum(p.mma_flops for p in k2)),
+        # gather into Wall, its one copy (wall_k4), dWall scattered back
+        # through autograd
+        Phase("fdt_prep", 2 * (n_lambda * _F32 + wall) + 2 * wall, 0.0),
+        _summed("fdt_forward", [kernel_phase(name, **shape) for name in
+                                ("fdt_train_plane", "fdt_train_fwd")]),
+        _summed("fdt_backward_grad", [kernel_phase(name, **shape) for name in
+                                      ("fdt_train_bwd",
+                                       "fdt_train_contract")]),
         Phase("optimizer", 4 * n_lambda * _F32, 4.0 * n_lambda),
     ]
 
 
 def fdt_decode_phases(B: int, T: int, L: int, D: int,
                       ns: int) -> list[Phase]:
-    """The config-2 decode (``models/crf.decode``): packing, K3's forward
-    (in-kernel plane formation, int32 backpointers) and its traceback.  The
-    chain of dependent frames is NOT in this model: ``bench``'s measured
-    decode floor (the T-sweep) is the companion latency bound."""
+    """The config-2 decode (``models/crf.decode``): packing (``build_wall``
+    and the padded copy of Wall the plane kernel reads), the forward (the
+    planes of every frame on the tensor cores, then K3's recursion, int32
+    backpointers) and the traceback.  The chain of dependent frames is NOT
+    in this model: ``bench``'s measured decode floor (the T-sweep) is the
+    companion latency bound."""
     P, Lp, R, Dw = _fdt_dims(L, D, ns, None)
     wall = R * Dw * _F32
+    shape = dict(B=B, T=T, L=L, D=D, ns=ns)
     return [
         Phase("fdt_prep", 2 * wall + 2 * wall, 0.0),
-        _renamed(kernel_phase("fdt_viterbi_fwd", B=B, T=T, L=L, D=D, ns=ns),
-                 "fdt_viterbi_forward"),
+        _summed("fdt_viterbi_forward", [kernel_phase(name, **shape) for name
+                                        in ("fdt_viterbi_plane",
+                                            "fdt_viterbi_fwd")]),
         _renamed(kernel_phase("fdt_viterbi_traceback", B=B, T=T),
                  "fdt_traceback"),
     ]
@@ -571,12 +605,13 @@ def fdt_tile_floor(B: int, T: int, L: int, D: int, ns: int,
     """A defended floor for the config-2 train step.  The JAX function
     counts the 128-wide passes of the TPU's matrix unit (``mxu_passes``,
     ``mxu_ms``); nothing is padded here.  Its place is taken by
-    ``fma_ms``: the products of plane formation (K1 and K2 each form
-    ``Wall @ [x; 1]`` once a frame) and of the ``dWall`` contraction, exact
-    from the shapes, at the 3xTF32 rate of the tensor cores, and the
-    multiply-adds of the two recursions' DP at the fp32 rate.  ``vpu_ms``
-    is, as there, the element operations of the two recursions over the
-    measured in-kernel rate (K15), serial with the products.  A step within
+    ``fma_ms``: the products of plane formation (``Wall @ [x; 1]`` once a
+    frame, once a step: the forward forms the planes and K2 reads them
+    again) and of the ``dWall`` contraction, exact from the shapes, at the
+    3xTF32 rate of the tensor cores, and the multiply-adds of the two
+    recursions' DP at the fp32 rate.  ``vpu_ms`` is, as there, the element
+    operations of the two recursions (K1's, K2's) over the measured
+    in-kernel rate (K15), serial with the products.  A step within
     ~1.2x of ``floor_ms`` is at the practical speed of light for this
     shape."""
     phases = [p for p in fdt_train_phases(B, T, L, D, ns)

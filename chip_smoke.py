@@ -9,33 +9,47 @@ Run from the root of a checkout, with one card visible:
 It builds the CUDA kernels from ``asr_craft_tpu_torch/csrc`` and then runs,
 in phases:
 
-(a) parity — the K3 kernels (``fdt_viterbi_fwd`` + ``fdt_viterbi_traceback``)
-    against their plain PyTorch version on the card: the config-2 flagship
-    (B=64, T=512, P=48, ns=3, ragged lengths with an empty row) exact, with
-    ``beam_threshold=8`` and with ``beam_width=16``, and P=128 at small B, T;
+(a) parity — the K3 kernels (``fdt_viterbi_plane``, every frame's plane on
+    the tensor cores; ``fdt_viterbi_fwd``, the recursion that reads them;
+    ``fdt_viterbi_traceback``) against their plain PyTorch version on the
+    card: the config-2 flagship (B=64, T=512, P=48, ns=3, ragged lengths
+    with an empty row) exact, with ``beam_threshold=8`` and with
+    ``beam_width=16``, and P=128 at small B, T; and the recursion alone
+    against its plain version on the same planes (paths equal, scores
+    within rtol 1e-6);
 (b) end to end — ``asr_craft_tpu_torch.cli.decode.main`` on a synthetic
     corpus at flagship widths with a hand-set posterior model, through the
     kernels (launch counts must rise) and again with ``--kernel_backend
     torch`` (same PER, same MLF);
-(c) timing — kernels and plain version at B=64, T=512 (CUDA events);
-(d) training parity — the K1 kernel (``fdt_train_fwd``) and K2's three
-    kernels (``fdt_train_plane``, every frame's plane on the tensor cores;
-    ``fdt_train_bwd``, the beta/xi/gamma recursion that reads them; and
-    ``fdt_train_contract``, the dWall / dfeats contraction on the tensor
-    cores, dWall bit-equal on two runs) against their plain PyTorch
-    versions: the flagship (B=128, T=512, ragged lengths with an empty row
-    and a dead clamped lattice) with phone labels (clamp_ns = ns, and once
-    with ``grad_feats``) and state labels (clamp_ns = 1), P=128 at small B,
-    T, and the parameter gradients of ``crf_loss`` end to end;
+(c) timing — the decode's planes (beside one cuBLAS fp32 ``mm`` of the
+    same product), K3's recursion (exact, and once with ``beam_width=16``),
+    K3's forward whole, the traceback and ``decode()``, kernels against the
+    plain version at B=64, T=512 (CUDA events);
+(d) training parity — the plane kernel (``fdt_train_plane``, every frame's
+    plane on the tensor cores, formed once a step by K1's wrapper), K1's
+    recursion (``fdt_train_fwd``, which reads them; whole K1 against the
+    plain version, and the recursion alone against its plain version on
+    the same planes), and K2's recursion (``fdt_train_bwd``, beta/xi/gamma
+    on the same planes) and contraction (``fdt_train_contract``, dWall /
+    dfeats on the tensor cores, dWall bit-equal on two runs) against their
+    plain PyTorch versions: the flagship (B=128, T=512, ragged lengths with
+    an empty row and a dead clamped lattice) with phone labels (clamp_ns =
+    ns, and once with ``grad_feats``) and state labels (clamp_ns = 1),
+    P=128 at small B, T, and the parameter gradients of ``crf_loss`` end to
+    end; K2 launches no plane kernel when handed K1's planes;
 (e) training end to end — ``asr_craft_tpu_torch.cli.train.main`` with the
     flags of the JAX reference run (256 synthetic utterances, 3 epochs),
     held to the JAX CPU losses and PER; K1, K2 and K3 launch counts must
-    rise; again with ``--kernel_backend torch`` (same losses); the final
-    weights decode to the same PER and MLF under both backends;
-(f) training timing — K1, K2 (planes, recursion, contraction, all three)
-    and a full train step (loss, backward, SGD update), kernels against the
-    plain version at B=128, T=512, all rows full; cuBLAS in fp32 on the
-    planes' and the contraction's products alone; K2's peak device memory;
+    rise, and the plane kernel must launch once a forward (train step or
+    CV batch), none in K2's backward; again with ``--kernel_backend torch``
+    (same losses); the final weights decode to the same PER and MLF under
+    both backends;
+(f) training timing — the planes, K1's recursion, K1 whole, K2's recursion
+    and contraction, K2 whole (on K1's planes) and a full train step (loss,
+    backward, SGD update), kernels against the plain version at B=128,
+    T=512, all rows full; cuBLAS in fp32 on the planes' and the
+    contraction's products alone; one step's launches (one plane kernel)
+    and peak device memory;
 (g) shared-transition parity — the K7 kernel (``viterbi_dense_fwd``, configs
     1 and 3), the K8 kernel (``viterbi_nstate_fwd``, config 5) and the
     traceback kernel (``viterbi_traceback``) against their plain version
@@ -146,20 +160,24 @@ FRAME_S = 0.01                    # 10 ms frames
 # another order by cuBLAS (plain) than by the kernel's sequential FMAs.
 SCORE_TOL = dict(rtol=1e-5, atol=1e-3)
 FWD_SRC = "asr_craft_tpu/kernels/fdt_pallas.py:919"     # _fdt_vit_fwd_kernel
+VIT_PLANE_SRC = "asr_craft_tpu/kernels/fdt_pallas.py:930"   # its _form call
 TB_SRC = "asr_craft_tpu/kernels/fdt_pallas.py:1003"     # _fdt_vit_bwd_kernel
 CU_SRC = "asr_craft_tpu_torch/csrc/fdt_viterbi.cu"
 TRAIN_CU = "asr_craft_tpu_torch/csrc/fdt_train.cu"
 MMA_CU = "asr_craft_tpu_torch/csrc/fdt_mma.cu"
 TRAIN_SRC = {                       # (source, the TPU kernel code replaced)
     "fdt_train_fwd": (TRAIN_CU, "asr_craft_tpu/kernels/fdt_pallas.py:263"),
-    "fdt_train_plane": (MMA_CU, "asr_craft_tpu/kernels/fdt_pallas.py:354"),
+    "fdt_train_plane": (MMA_CU, "asr_craft_tpu/kernels/fdt_pallas.py:276 "
+                                "and :354"),
     "fdt_train_bwd": (TRAIN_CU, "asr_craft_tpu/kernels/fdt_pallas.py:324"),
     "fdt_train_contract": (MMA_CU,
                            "asr_craft_tpu/kernels/fdt_pallas.py:466"),
 }
 # Log-partitions: sums over up to 512 frames of ~2.5e3 magnitude (fp32 ulp
-# 2.4e-4 there); the kernel forms planes by sequential FMAs and takes a
-# three-way lse where the plain loop chains logaddexp.
+# 2.4e-4 there); the plane kernel sums in 3xTF32 where the plain version
+# takes cuBLAS's fp32 product, and the recursion takes a three-way lse and a
+# shuffle tree where the plain loop chains logaddexp.  The same bar holds
+# the recursion alone on the same planes.
 Z_TOL = dict(rtol=1e-5, atol=1e-3)
 # dplane holds posteriors (|v| <= |w| = 1) gated by exp(s - z), where s - z
 # is a difference of two such sums: ~1e-4 relative error at worst.
@@ -291,10 +309,11 @@ CAL_SRC = "asr_craft_tpu/utils/roofline.py:519"   # the inner `kernel`
 # multiply-add where PyTorch rounds twice, and the chain is a contraction,
 # so the gap stays at a few 1e-8 relative on values in (0, 1].
 CAL_ATOL = 2e-6
-# Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: K3's
-# forward is 17.5 us a frame at B=64; the segmental decode at one segment a
-# frame (the bench's zero model) is K12 at 1.5 us and K13 at 0.9.
-FDT_FRAME_US, SCRF_FRAME_US = 17.5, 2.4
+# Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: the
+# config-2 decode (the plane kernel and K3's recursion) is 3.206 us a frame
+# at B=64; the segmental decode at one segment a frame (the bench's zero
+# model) is K12 at 1.5 us and K13 at 0.9.
+FDT_FRAME_US, SCRF_FRAME_US = 3.206, 2.4
 # The JAX package's recipes on the CPU at their own sizes (python
 # recipes/<name>.py --platform cpu): per-epoch mean_loss, the final CV PER
 # and the decode's (errors, tokens); swbd_multihost does not decode.
@@ -346,9 +365,10 @@ class Smoke:
         self.rl = roofline          # the one definition of a kernel's bound
         self.dev = torch.device("cuda")
         self.cfg = flagship()
-        self.err = {"fdt_viterbi_fwd": 0.0, "fdt_viterbi_traceback": 0,
-                    "fdt_train_fwd": 0.0, "fdt_train_plane": 0.0,
-                    "fdt_train_bwd": 0.0, "fdt_train_contract": 0.0}
+        self.err = {"fdt_viterbi_plane": 0.0, "fdt_viterbi_fwd": 0.0,
+                    "fdt_viterbi_traceback": 0, "fdt_train_fwd": 0.0,
+                    "fdt_train_plane": 0.0, "fdt_train_bwd": 0.0,
+                    "fdt_train_contract": 0.0}
         self.counts = {}
         self.train_counts = {}
         self.shared_counts = {}
@@ -383,10 +403,12 @@ class Smoke:
         return Wall, feats, lengths, kw
 
     def check(self, label, Wall, feats, lengths, kw, beams):
+        from asr_craft_tpu_torch.kernels.fdt_train import (fdt_planes_cuda,
+                                                           fdt_planes_torch)
         torch, K, fdt = self.torch, self.K, self.fdt
-        ns = kw["ns"]
+        ns, P = kw["ns"], kw["P"]
         planes = self.wall.wall_planes(Wall, feats, kw["u0"], kw["u1"], ns,
-                                       kw["P"])
+                                       P)
         ref_bp, ref_last, ref_scores = fdt.fdt_viterbi_forward(
             *planes, lengths, ns, True, beams.get("beam_width"),
             beams.get("beam_threshold"))
@@ -397,7 +419,7 @@ class Smoke:
         tb_paths = K.viterbi_traceback_cuda(ref_bp, ref_last, lengths)
         torch.cuda.synchronize()
         if not (torch.isfinite(scores).all() and paths.min() >= 0
-                and paths.max() < ns * kw["P"]):
+                and paths.max() < ns * P):
             raise AssertionError(f"{label}: non-finite scores or bad labels")
         err = float((scores - ref_scores).abs().max())
         if not torch.allclose(scores, ref_scores, **SCORE_TOL):
@@ -418,12 +440,40 @@ class Smoke:
         if tb_err:
             raise AssertionError(f"{label}: traceback kernel differs on the "
                                  "plain backpointers")
-        self.err["fdt_viterbi_fwd"] = max(self.err["fdt_viterbi_fwd"], err)
+        # the plane kernel against cuBLAS's fp32 product, then the recursion
+        # alone against its plain version on the plane kernel's planes: only
+        # the recursion's arithmetic differs, the same fp32 additions in the
+        # same order
+        kplanes = fdt_planes_cuda(Wall, feats, u0=kw["u0"], u1=kw["u1"])
+        rplanes = fdt_planes_torch(Wall, feats, u0=kw["u0"], u1=kw["u1"])
+        R = rplanes.shape[-1]
+        p_err = self.close(f"{label} planes", kplanes[..., :R], rplanes, 0.0,
+                           CONTRACT_REL_MAX * float(rplanes.abs().max()))
+        B, T, Lp = bp.shape
+        sbp = torch.empty_like(bp)
+        slast, sscores = torch.empty_like(last), torch.empty_like(scores)
+        K.viterbi_forward_planes_cuda(kplanes, lengths, sbp, slast, sscores,
+                                      ns=ns, P=P, **beams)
+        spaths = K.viterbi_traceback_cuda(sbp, slast, lengths)
+        rpaths, rscores = K.fdt_viterbi_planes_torch(kplanes, lengths, ns=ns,
+                                                     P=P, **beams)
+        torch.cuda.synchronize()
+        s_err = float((sscores - rscores).abs().max())
+        if not torch.equal(spaths, rpaths):
+            raise AssertionError(f"{label}: the recursion's paths differ from "
+                                 "the plain version's on the same planes")
+        if not torch.allclose(sscores, rscores, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"{label}: the recursion's scores differ "
+                                 f"on the same planes, max abs {s_err}")
+        self.err["fdt_viterbi_plane"] = max(self.err["fdt_viterbi_plane"],
+                                            p_err)
+        self.err["fdt_viterbi_fwd"] = max(self.err["fdt_viterbi_fwd"], s_err)
         self.err["fdt_viterbi_traceback"] = max(
             self.err["fdt_viterbi_traceback"], tb_err)
         log(f"parity {label}: max |score - plain| {err:.3e}, "
             f"paths differing {n_diff}/{len(paths)} (near-ties), "
-            f"traceback exact")
+            f"traceback exact; |planes - matmul| {p_err:.3e}; on the same "
+            f"planes paths equal, max |score - plain| {s_err:.3e}")
 
     def phase_parity(self):
         from asr_craft_tpu_torch.models.crf import CrfConfig
@@ -533,6 +583,8 @@ class Smoke:
             + "; ".join(f"{k} {ms:.4f} ms x{n}" for k, ms, n in rec["top"]))
 
     def phase_timing(self):
+        from asr_craft_tpu_torch.kernels.fdt_train import (fdt_planes_cuda,
+                                                           fdt_planes_torch)
         from asr_craft_tpu_torch.models.crf import decode
         torch, K, fdt, cfg = self.torch, self.K, self.fdt, self.cfg
         B, T = self.B, self.T
@@ -540,16 +592,44 @@ class Smoke:
         lengths = torch.full((B,), T, dtype=torch.int32, device=self.dev)
         params = cfg.init_params(torch.Generator().manual_seed(0), 0.01,
                                  self.dev)
-        ns, bw, thr = kw["ns"], None, None
+        ns, P, u0, u1 = kw["ns"], kw["P"], kw["u0"], kw["u1"]
 
-        def plain_fwd():
+        def plain_fwd(**beams):
             return fdt.fdt_viterbi_forward(
-                *self.wall.wall_planes(Wall, feats, kw["u0"], kw["u1"], ns,
-                               kw["P"]), lengths, ns, True, bw, thr)
+                *self.wall.wall_planes(Wall, feats, u0, u1, ns, P), lengths,
+                ns, True, beams.get("beam_width"),
+                beams.get("beam_threshold"))
+
+        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+        blocks = self.wall.plane_blocks(planes, ns, P)
+        out = [torch.empty((B, T, ns * P), dtype=torch.int32,
+                           device=self.dev),
+               torch.empty((B,), dtype=torch.int32, device=self.dev),
+               torch.empty((B,), dtype=torch.float32, device=self.dev)]
+
+        def recursion(**beams):
+            return lambda: K.viterbi_forward_planes_cuda(
+                planes, lengths, *out, ns=ns, P=P, **beams)
+
+        def plain_recursion(**beams):
+            return lambda: fdt.fdt_viterbi_forward(
+                *blocks, lengths, ns, True, beams.get("beam_width"),
+                beams.get("beam_threshold"))
 
         bp, last, _ = plain_fwd()
+        # the library's call for the planes' product on the same inputs,
+        # [x; 1] made before the clock starts
+        xu2 = self.wall.feats_xu(feats, u0, u1).reshape(B * T, u1 - u0 + 1)
+        library = {"fdt_viterbi_plane": lambda: torch.mm(xu2, Wall.T)}
         fns = {
-            "fdt_viterbi_fwd": (
+            "fdt_viterbi_plane": (
+                lambda: fdt_planes_cuda(Wall, feats, u0=u0, u1=u1),
+                lambda: fdt_planes_torch(Wall, feats, u0=u0, u1=u1), 10, 3),
+            "fdt_viterbi_fwd": (recursion(), plain_recursion(), 10, 3),
+            "fdt_viterbi_fwd beam_width=16": (
+                recursion(beam_width=16), plain_recursion(beam_width=16), 10,
+                3),
+            "K3 forward (planes + recursion)": (
                 lambda: K.viterbi_forward_cuda(Wall, feats, lengths, **kw),
                 plain_fwd, 10, 3),
             "fdt_viterbi_traceback": (
@@ -561,9 +641,10 @@ class Smoke:
                 10, 3),
         }
         audio_s = B * T * FRAME_S
-        self.bounds["fdt_viterbi_fwd"] = self.bound(
-            "fdt_viterbi_fwd", B=B, T=T, L=ns * kw["P"], D=feats.shape[2],
-            ns=ns, Du=kw["u1"] - kw["u0"], frames=int(lengths.sum()))
+        shape = dict(B=B, T=T, L=ns * P, D=feats.shape[2], ns=ns,
+                     Du=u1 - u0, frames=int(lengths.sum()))
+        for name in ("fdt_viterbi_plane", "fdt_viterbi_fwd"):
+            self.bounds[name] = self.bound(name, **shape)
         self.bounds["fdt_viterbi_traceback"] = self.bound(
             "fdt_viterbi_traceback", B=B, T=T)
         for name, (kern, plain, nk, npl) in fns.items():
@@ -574,10 +655,20 @@ class Smoke:
             p2 = self.cuda_ms(plain, npl)
             ms, plain_ms = min(k1, k2), min(p1, p2)
             self.times[name] = (ms, plain_ms)
+            tail = ""
+            if name in library:
+                # cuBLAS in fp32 (allow_tf32 is off), timed twice
+                lib_ms = min(self.cuda_ms(library[name], 10),
+                             self.cuda_ms(library[name], 10))
+                self.library_ms[name] = lib_ms
+                tail = f"; cuBLAS fp32 mm {lib_ms:.4f} ms"
+            if name in self.bounds:
+                b_ms, b_by = self.bounds[name]
+                tail += f"; bound {b_ms:.5f} ms ({b_by})"
             log(f"timing {name} B={B} T={T}: kernel {ms:.4f} ms "
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
-                f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
+                f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
 
     def _plain_decode(self, cfg, params, feats, lengths):
         from asr_craft_tpu_torch import kernels
@@ -633,7 +724,8 @@ class Smoke:
                   clamp_ns=1 if state_labels else cfg.num_states,
                   boundaries=True)
         args = (Wall, feats, labels, lengths)
-        alphas, zf, zc = K.fdt_forward_cuda(*args, **kw)
+        before = dict(K.launches)
+        alphas, zf, zc, planes = K.fdt_forward_cuda(*args, **kw)
         ra, rzf, rzc = K.fdt_forward_wall_torch(*args, **kw)
         z_err = max(self.close(f"{label} zf", zf, rzf, **Z_TOL),
                     self.close(f"{label} zc", zc, rzc, **Z_TOL))
@@ -642,19 +734,33 @@ class Smoke:
                                  f"dead (zf {float(zf[1])}, zc "
                                  f"{float(zc[1])})")
         R = Wall.shape[0]
-        planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
         rplanes = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1)
         p_err = self.close(f"{label} planes", planes[..., :R], rplanes, 0.0,
                            CONTRACT_REL_MAX * float(rplanes.abs().max()))
         if planes[..., R:].any():
             raise AssertionError(f"{label}: the planes' pad is not zero")
+        del rplanes
+        # K1's recursion alone, on the plane kernel's planes
+        rec = dict(ns=kw["ns"], P=kw["P"], clamp_ns=kw["clamp_ns"],
+                   boundaries=True)
+        sa, szf, szc = K.fdt_forward_planes_cuda(planes, labels, lengths,
+                                                 **rec)
+        qa, qzf, qzc = K.fdt_forward_planes_torch(planes, labels, lengths,
+                                                  **rec)
+        s_err = max(self.close(f"{label} alphas on the same planes", sa, qa,
+                               **Z_TOL),
+                    self.close(f"{label} zf on the same planes", szf, qzf,
+                               **Z_TOL),
+                    self.close(f"{label} zc on the same planes", szc, qzc,
+                               **Z_TOL))
+        del sa, qa
         wf, wc = torch.ones_like(zf), -torch.ones_like(zf)   # d(zf - zc)
         grad_args = args + (ra, rzf, rzc, wf, wc)
         dplane = K.fdt_dplane_cuda(*grad_args, **kw, planes=planes)
-        del planes
         rdplane = K.fdt_dplane_wall_torch(*grad_args, **kw)
         dp_err = self.close(f"{label} dplane", dplane, rdplane, 0.0,
                             DPLANE_ATOL)
+        del rdplane
         dWs = []
         for _ in range(2):          # the same bits on every run
             dWs.append(torch.full((R, u1 - u0 + 1), float("nan"),
@@ -666,8 +772,17 @@ class Smoke:
         ref = K.contract_wall_torch(dplane, feats, mode=0, u0=u0, u1=u1)
         c_err = self.close(f"{label} contraction", dWs[0], ref, 0.0,
                            CONTRACT_REL_MAX * float(ref.abs().max()))
+        mid = dict(K.launches)
         out = K.fdt_backward_grad_cuda(*args, alphas, zf, zc, wf, wc, **kw,
-                                       want_dfeats=grad_feats)
+                                       want_dfeats=grad_feats, planes=planes)
+        # K1 whole (one plane kernel) and the recursion alone (K1's kernel
+        # twice in all); then K2 handed K1's planes: no plane kernel
+        ran = {k: mid[k] - before[k] for k in before}
+        ran2 = {k: K.launches[k] - mid[k] for k in before}
+        if (ran["fdt_train_plane"], ran["fdt_train_fwd"],
+                ran2["fdt_train_plane"], ran2["fdt_train_bwd"]) \
+                != (1, 2, 0, 1):
+            raise AssertionError(f"{label}: launches {ran}, then K2 {ran2}")
         rout = K.fdt_backward_grad_wall_torch(*grad_args, **kw,
                                               want_dfeats=grad_feats)
         for name, got, want in zip(("dWall", "dfeats"),
@@ -685,15 +800,17 @@ class Smoke:
             raise AssertionError(f"{label}: dead lattice gradient "
                                  f"{float(dead.abs().max())}")
         torch.cuda.synchronize()
-        for name, e in (("fdt_train_fwd", z_err), ("fdt_train_plane", p_err),
+        for name, e in (("fdt_train_fwd", s_err), ("fdt_train_plane", p_err),
                         ("fdt_train_bwd", dp_err),
                         ("fdt_train_contract", c_err)):
             self.err[name] = max(self.err[name], e)
-        log(f"train parity {label}: max |z - plain| {z_err:.3e}, |planes - "
+        log(f"train parity {label}: K1 max |z - plain| {z_err:.3e}; on the "
+            f"same planes max |alpha, z - plain| {s_err:.3e}; |planes - "
             f"matmul| {p_err:.3e}, |dplane - plain| {dp_err:.3e}, "
             f"|contraction - matmul| {c_err:.3e} (bit-equal on two runs); "
             f"dWall{' and dfeats' if grad_feats else ''} within tolerance; "
-            "dead lattice gradient 0")
+            "dead lattice gradient 0; K2 on K1's planes launched no plane "
+            "kernel")
 
     def check_loss_grads(self):
         """crf_loss + backward(): the kernels against the plain path
@@ -797,6 +914,15 @@ class Smoke:
         if min(self.train_counts.values()) < 1:
             raise AssertionError(f"a kernel never launched in training: "
                                  f"{self.train_counts}")
+        # one plane launch a forward (a train step or a CV batch), none in
+        # K2's backward
+        tc = self.train_counts
+        if tc["fdt_train_plane"] != tc["fdt_train_fwd"] or \
+                tc["fdt_train_bwd"] >= tc["fdt_train_fwd"]:
+            raise AssertionError(f"train CLI: {tc['fdt_train_plane']} plane "
+                                 f"launches for {tc['fdt_train_fwd']} "
+                                 f"forwards and {tc['fdt_train_bwd']} "
+                                 "backwards")
         if max(plain_counts.values()) != 0:
             raise AssertionError(f"plain backend launched {plain_counts}")
         for a, b in zip(losses, plosses):
@@ -841,12 +967,13 @@ class Smoke:
         kw = dict(u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
                   clamp_ns=cfg.num_states, boundaries=True)
         args = (Wall, feats, labels, lengths)
-        alphas, zf, zc = K.fdt_forward_cuda(*args, **kw)
+        alphas, zf, zc, planes = K.fdt_forward_cuda(*args, **kw)
         ones = torch.ones_like(zf)
         grad_args = args + (alphas, zf, zc, ones, -ones)
-        planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
         dplane = K.fdt_dplane_cuda(*grad_args, **kw, planes=planes)
         dW = torch.empty((Wall.shape[0], u1 - u0 + 1), device=self.dev)
+        rec = dict(ns=kw["ns"], P=kw["P"], clamp_ns=kw["clamp_ns"],
+                   boundaries=True)
         # the library's calls for the same products on the same inputs,
         # [x; 1] made before the clock starts: planes = [x; 1] Wall^T,
         # dWall = dplane^T [x; 1]
@@ -856,17 +983,6 @@ class Smoke:
             "fdt_train_plane": lambda: torch.mm(xu2, Wall.T),
             "fdt_train_contract": lambda: torch.mm(dp2.T, xu2),
         }
-        # K2's peak device memory beyond what is allocated before it
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        K.fdt_backward_grad_cuda(*grad_args, **kw)
-        torch.cuda.synchronize()
-        k2_peak = torch.cuda.max_memory_allocated() - base
-        log(f"K2 B={B} T={T}: peak device memory {k2_peak / 2**20:.1f} MiB "
-            f"above the {base / 2**20:.1f} MiB held before it (planes "
-            f"{planes.numel() * 4 / 2**20:.1f} MiB, dplane "
-            f"{dplane.numel() * 4 / 2**20:.1f} MiB)")
         trainer = Trainer(cfg, TrainConfig(lr=0.5), params=params)
 
         def step(backend):
@@ -876,12 +992,39 @@ class Smoke:
             finally:
                 kernels.set_backend("auto")
 
+        # one step's launches and its peak device memory beyond what is
+        # allocated before it: the planes live from the forward to the
+        # backward, beside dplane
+        step("auto")
+        torch.cuda.synchronize()
+        before = dict(K.launches)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step("auto")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ran = {k: K.launches[k] - before[k] for k in before}
+        log(f"train step B={B} T={T}: launches {ran}; peak device memory "
+            f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
+            f"before it (planes {planes.numel() * 4 / 2**20:.1f} MiB, dplane "
+            f"{dplane.numel() * 4 / 2**20:.1f} MiB)")
+        if ran != {"fdt_train_fwd": 1, "fdt_train_plane": 1,
+                   "fdt_train_bwd": 1, "fdt_train_contract": 1}:
+            raise AssertionError(f"a train step launched {ran}: one plane "
+                                 "kernel a step, none in K2's backward")
+
         fns = {
-            "fdt_train_fwd": (lambda: K.fdt_forward_cuda(*args, **kw),
-                              lambda: K.fdt_forward_wall_torch(*args, **kw)),
             "fdt_train_plane": (
                 lambda: K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1),
                 lambda: K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1)),
+            "fdt_train_fwd": (
+                lambda: K.fdt_forward_planes_cuda(planes, labels, lengths,
+                                                  **rec),
+                lambda: K.fdt_forward_planes_torch(planes, labels, lengths,
+                                                   **rec)),
+            "K1 (planes + recursion)": (
+                lambda: K.fdt_forward_cuda(*args, **kw),
+                lambda: K.fdt_forward_wall_torch(*args, **kw)),
             "fdt_train_bwd": (lambda: K.fdt_dplane_cuda(*grad_args, **kw,
                                                         planes=planes),
                               lambda: K.fdt_dplane_wall_torch(*grad_args,
@@ -891,8 +1034,9 @@ class Smoke:
                                         u0=u0, Du=u1 - u0),
                 lambda: K.contract_wall_torch(dplane, feats, mode=0, u0=u0,
                                               u1=u1)),
-            "K2 (planes + recursion + contraction)": (
-                lambda: K.fdt_backward_grad_cuda(*grad_args, **kw),
+            "K2 (recursion + contraction, on K1's planes)": (
+                lambda: K.fdt_backward_grad_cuda(*grad_args, **kw,
+                                                 planes=planes),
                 lambda: K.fdt_backward_grad_wall_torch(*grad_args, **kw)),
             "train step (loss, backward, SGD)": (lambda: step("auto"),
                                                  lambda: step("torch")),
@@ -2164,6 +2308,8 @@ class Smoke:
                         "bound_by": bound_by,
                         "library_ms": self.library_ms.get(key)})
 
+        add("fdt_viterbi_plane", MMA_CU, VIT_PLANE_SRC,
+            self.counts["fdt_viterbi_plane"])
         for name, replaces in (("fdt_viterbi_fwd", FWD_SRC),
                                ("fdt_viterbi_traceback", TB_SRC)):
             add(name, CU_SRC, replaces, self.counts[name])

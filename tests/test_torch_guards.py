@@ -249,6 +249,20 @@ def test_cuda_backend_on_cpu_tensor_raises_in_the_segmental_path():
     assert torch.isfinite(loss) and segmental.launches == before
 
 
+def test_flagship_entry_runs_on_the_card_unless_asked():
+    """The twin of ``__graft_entry__.entry`` runs on the card by default
+    (it raises without one) and on the CPU only when asked."""
+    from asr_craft_tpu_torch import flagship
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard is for hosts "
+                    "without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flagship.entry()
+    fn, args = flagship.entry("cpu")
+    assert all(a.device.type == "cpu" for a in args[1:])
+    assert torch.isfinite(fn(*args))
+
+
 def test_bench_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the guard is for hosts "

@@ -1,4 +1,5 @@
-"""The K3 CUDA kernels against their plain PyTorch version, on the card.
+"""The K3 CUDA kernels (the plane kernel, the recursion, the traceback)
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: the kernels have no CPU mode, so these tests skip on a
 host without an NVIDIA GPU.  On one, from the repository root (the JAX-free
@@ -7,13 +8,18 @@ port needs no conftest, and the GPU machine may have no JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Paths must be equal (exact-arithmetic tie cases) or equal up to the
-near-tie rule; scores allclose at rtol=1e-5, atol=1e-4 (the kernel's
-sequential fp32 FMAs sum the planes in another order than cuBLAS).
+near-tie rule; scores allclose at rtol=1e-5, atol=1e-4 (the plane kernel
+sums in 3xTF32, in another order than cuBLAS's fp32 product).  The
+recursion alone on the plane kernel's planes against its plain version on
+the same planes: paths equal and scores within rtol=1e-6 (the same fp32
+additions in the same order).
 """
 import numpy as np
 import pytest
 import torch
 
+from asr_craft_tpu_torch.kernels import fdt_viterbi as V
+from asr_craft_tpu_torch.kernels.fdt_train import fdt_planes_cuda
 from asr_craft_tpu_torch.kernels.fdt_viterbi import (fdt_viterbi_cuda,
                                                      fdt_viterbi_wall_torch,
                                                      launches)
@@ -88,6 +94,59 @@ def test_kernel_tie_order(dev, ns, mode, integer):
     if not integer:
         Wall = torch.zeros_like(Wall)
     _compare(Wall, feats, lengths, kw, MODES[mode], exact_paths=True)
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["normal", "integer"])
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 3)])
+def test_recursion_matches_plain_on_the_same_planes(dev, P, ns, mode,
+                                                    integer):
+    """K3's recursion and traceback on the plane kernel's planes against
+    the plain planes-in version on the same planes; the empty last row
+    still takes its frame-0 argmax."""
+    Wall, feats, lengths, kw = _problem(dev, P, ns, seed=3 * P + ns,
+                                        integer=integer)
+    planes = fdt_planes_cuda(Wall, feats, u0=kw["u0"], u1=kw["u1"])
+    B, T, _ = feats.shape
+    bp = torch.empty((B, T, ns * P), dtype=torch.int32, device=dev)
+    last = torch.empty((B,), dtype=torch.int32, device=dev)
+    scores = torch.empty((B,), dtype=torch.float32, device=dev)
+    before = dict(launches)
+    V.viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, ns=ns,
+                                  P=P, **MODES[mode])
+    paths = V.viterbi_traceback_cuda(bp, last, lengths)
+    torch.cuda.synchronize()
+    assert launches["fdt_viterbi_fwd"] == before["fdt_viterbi_fwd"] + 1
+    assert launches["fdt_viterbi_plane"] == before["fdt_viterbi_plane"]
+    ref_paths, ref_scores = V.fdt_viterbi_planes_torch(
+        planes, lengths, ns=ns, P=P, **MODES[mode])
+    assert torch.equal(paths, ref_paths)
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-6, atol=0.0)
+    assert int(lengths[-1]) == 0 and int(paths[-1].min()) == \
+        int(paths[-1].max()) == int(last[-1])
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_sub_batches_give_one_calls_results(dev, mode, monkeypatch):
+    """A decode split into sub-batches of at most one or two utterances'
+    planes (PLANE_BUDGET set small): one plane launch and one recursion a
+    sub-batch, and the paths and scores of one call."""
+    Wall, feats, lengths, kw = _problem(dev, 8, 3, seed=5)
+    B, T, _ = feats.shape
+    R4 = (Wall.shape[0] + 3) // 4 * 4
+    one = fdt_viterbi_cuda(Wall, feats, lengths, **kw, **MODES[mode])
+    for budget in (1, 2 * 4 * T * R4):
+        plan = V.sub_batches(B, T, Wall.shape[0], budget)
+        assert len(plan) > 1
+        before = dict(launches)
+        monkeypatch.setattr(V, "PLANE_BUDGET", budget)
+        split = fdt_viterbi_cuda(Wall, feats, lengths, **kw, **MODES[mode])
+        torch.cuda.synchronize()
+        for k, n in (("fdt_viterbi_plane", len(plan)),
+                     ("fdt_viterbi_fwd", len(plan)),
+                     ("fdt_viterbi_traceback", 1)):
+            assert launches[k] == before[k] + n
+        assert torch.equal(split[0], one[0]) and torch.equal(split[1], one[1])
 
 
 def test_traceback_kernel_exact_on_plain_backpointers(dev):

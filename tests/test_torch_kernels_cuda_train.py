@@ -1,14 +1,16 @@
 """The K1/K2 training kernels against their plain PyTorch versions, on the
-card: K1, and K2's plane, recursion and contraction kernels.
+card: the plane kernel, K1's recursion, K2's recursion and contraction.
 
 Marked ``cuda``: the kernels have no CPU mode, so these tests skip on a
 host without an NVIDIA GPU.  On one, from the repository root:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda_train.py -q
 
-Tolerances: ``zf``/``zc`` at rtol=1e-5, atol=1e-4 (log-partitions summed
-over up to 33 frames; the kernel forms planes with sequential fp32 FMAs
-and takes a three-way lse where the plain loop chains logaddexp).
+Tolerances: ``zf``/``zc`` and alphas at rtol=1e-5, atol=1e-4
+(log-partitions summed over up to 33 frames; the plane kernel sums in
+3xTF32 where the plain version takes cuBLAS's fp32 product, and the
+recursion takes a three-way lse and a shuffle tree where the plain loop
+chains logaddexp).
 ``dWall``/``dfeats`` at rtol=1e-4, atol=1e-4 (sums of posteriors times
 features over B*T frames, accumulated in another order by the
 contraction kernel than by cuBLAS).  The tensor-core products (planes,
@@ -71,7 +73,8 @@ def test_kernels_match_plain(dev, P, ns, clamp):
     Wall, feats, labels, lengths, kw = _problem(dev, P, ns, clamp_ns,
                                                 seed=P + ns)
     before = dict(K.launches)
-    alphas, zf, zc = K.fdt_forward_cuda(Wall, feats, labels, lengths, **kw)
+    alphas, zf, zc, planes = K.fdt_forward_cuda(Wall, feats, labels,
+                                                lengths, **kw)
     ra, rzf, rzc = K.fdt_forward_wall_torch(Wall, feats, labels, lengths,
                                             **kw)
     torch.testing.assert_close(zf, rzf, **Z_TOL)
@@ -82,7 +85,7 @@ def test_kernels_match_plain(dev, P, ns, clamp):
     wc = -torch.linspace(1.0, 2.0, len(zf), device=dev)
     dW, dX = K.fdt_backward_grad_cuda(Wall, feats, labels, lengths, alphas,
                                       zf, zc, wf, wc, **kw,
-                                      want_dfeats=True)
+                                      want_dfeats=True, planes=planes)
     rdW, rdX = K.fdt_backward_grad_wall_torch(Wall, feats, labels, lengths,
                                               ra, rzf, rzc, wf, wc, **kw,
                                               want_dfeats=True)
@@ -100,7 +103,8 @@ def test_kernels_match_plain(dev, P, ns, clamp):
 def test_dead_lattice_gets_zero_gradient(dev):
     """A row whose both lattices are dead contributes nothing."""
     Wall, feats, labels, lengths, kw = _problem(dev, 5, 3, 3)
-    alphas, zf, zc = K.fdt_forward_cuda(Wall, feats, labels, lengths, **kw)
+    alphas, zf, zc, _ = K.fdt_forward_cuda(Wall, feats, labels, lengths,
+                                           **kw)
     dead = torch.full_like(zf, -1e30)
     dW = K.fdt_backward_grad_cuda(Wall, feats, labels, lengths, alphas,
                                   dead, dead, torch.ones_like(zf),
@@ -110,18 +114,49 @@ def test_dead_lattice_gets_zero_gradient(dev):
 
 def test_autograd_function_matches_plain(dev):
     """FdtNllDual on CUDA tensors (kernels) vs the same Function on the
-    same inputs moved to the CPU (plain versions)."""
+    same inputs moved to the CPU (plain versions); on the card a forward
+    and backward forms the planes once."""
     Wall, feats, labels, lengths, kw = _problem(dev, 6, 3, 3, seed=3)
     grads = []
     for d in (dev, torch.device("cpu")):
         W = Wall.detach().to(d).requires_grad_(True)
         x = feats.detach().to(d).requires_grad_(True)
+        before = dict(K.launches)
         zf, zc = K.fdt_nll_dual_wall(W, x, labels.to(d), lengths.to(d),
                                      **kw, grad_feats=True)
         (2.0 * zf.sum() - zc[zc > -1e29].sum()).backward()
         grads.append((W.grad.cpu(), x.grad.cpu()))
+        ran = {k: K.launches[k] - before[k] for k in before}
+        assert ran == ({"fdt_train_fwd": 1, "fdt_train_plane": 1,
+                        "fdt_train_bwd": 1, "fdt_train_contract": 2}
+                       if d == dev else {k: 0 for k in before})
     torch.testing.assert_close(grads[0][0], grads[1][0], **G_TOL)
     torch.testing.assert_close(grads[0][1], grads[1][1], **G_TOL)
+
+
+@pytest.mark.parametrize("clamp", ["phone", "state"])
+@pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 3)])
+def test_forward_recursion_matches_plain_on_the_same_planes(dev, P, ns,
+                                                            clamp):
+    """K1's recursion alone against its plain planes-in version on the
+    plane kernel's planes: only the recursion's arithmetic differs.  The
+    empty last row still reports the lse of its frame 0."""
+    clamp_ns = ns if clamp == "phone" else 1
+    Wall, feats, labels, lengths, kw = _problem(dev, P, ns, clamp_ns,
+                                                seed=2 * P + ns)
+    planes = K.fdt_planes_cuda(Wall, feats, u0=kw.pop("u0"), u1=kw.pop("u1"))
+    before = dict(K.launches)
+    alphas, zf, zc = K.fdt_forward_planes_cuda(planes, labels, lengths, **kw)
+    torch.cuda.synchronize()
+    assert K.launches["fdt_train_fwd"] == before["fdt_train_fwd"] + 1
+    assert K.launches["fdt_train_plane"] == before["fdt_train_plane"]
+    ra, rzf, rzc = K.fdt_forward_planes_torch(planes, labels, lengths, **kw)
+    torch.testing.assert_close(alphas, ra, **Z_TOL)
+    torch.testing.assert_close(zf, rzf, **Z_TOL)
+    torch.testing.assert_close(zc, rzc, **Z_TOL)
+    assert int(lengths[-1]) == 0 and torch.isfinite(zf[-1])
+    # a length-0 row carries its frame-0 alpha to every frame
+    assert torch.equal(alphas[-1], alphas[-1, :1].expand_as(alphas[-1]))
 
 
 def _within(got, want, mag):
@@ -204,7 +239,8 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="clamp_ns"):
         K.fdt_forward_cuda(Wall, feats, labels, lengths,
                            **{**kw, "clamp_ns": 2})
-    alphas, zf, zc = K.fdt_forward_cuda(Wall, feats, labels, lengths, **kw)
+    alphas, zf, zc, _ = K.fdt_forward_cuda(Wall, feats, labels, lengths,
+                                           **kw)
     with pytest.raises(ValueError, match="alphas"):
         K.fdt_backward_grad_cuda(Wall, feats, labels, lengths,
                                  alphas[:, :-1].contiguous(), zf, zc, zf,

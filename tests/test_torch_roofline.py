@@ -133,12 +133,13 @@ def test_no_tile_padding():
 FDT = dict(L=144, D=144, ns=3)
 SEG = dict(B=128, T=512, L=48, Dmax=16)
 TABLE = [
-    ("fdt_train_fwd", dict(B=128, T=512, **FDT), "0.31297", "operations"),
+    ("fdt_train_fwd", dict(B=128, T=512, **FDT), "0.23671", "bytes"),
     ("fdt_train_plane", dict(B=128, T=512, **FDT), "0.31297", "operations"),
     ("fdt_train_bwd", dict(B=128, T=512, **FDT), "0.45081", "bytes"),
     ("fdt_train_contract", dict(B=128, T=512, **FDT), "0.31297",
      "operations"),
-    ("fdt_viterbi_fwd", dict(B=64, T=512, **FDT), "0.15649", "operations"),
+    ("fdt_viterbi_plane", dict(B=64, T=512, **FDT), "0.15649", "operations"),
+    ("fdt_viterbi_fwd", dict(B=64, T=512, **FDT), "0.11268", "bytes"),
     ("fdt_viterbi_traceback", dict(B=64, T=512), "0.00008", "bytes"),
     ("forward_dual", dict(B=128, T=512, L=138), "0.07451", "operations"),
     ("forward_dual", dict(B=128, T=512, L=48), "0.0113", "bytes"),
@@ -185,13 +186,26 @@ def test_every_kernel_has_a_count_and_steps_reuse_it():
     assert (ph["scrf_forward"].bytes, ph["scrf_forward"].flops,
             ph["scrf_forward"].vpu_elems) == (k9.bytes, k9.flops,
                                               k9.vpu_elems)
+    # the planes once a step, in the forward; K1's and K2's recursions
+    # form none; the decode's forward is its planes and K3's recursion
     ph = {p.name: p for p in rl.fdt_train_phases(128, 512, 144, 144, 3)}
-    k2 = [rl.kernel_phase(n, B=128, T=512, **FDT)
-          for n in ("fdt_train_plane", "fdt_train_bwd",
-                    "fdt_train_contract")]
-    assert ph["fdt_backward_grad"].flops == sum(k.flops for k in k2)
-    assert ph["fdt_backward_grad"].mma_flops == \
-        sum(k.mma_flops for k in k2) == 2 * k2[0].mma_flops
+    k = {n: rl.kernel_phase(n, B=128, T=512, **FDT)
+         for n in ("fdt_train_plane", "fdt_train_fwd", "fdt_train_bwd",
+                   "fdt_train_contract")}
+    assert k["fdt_train_fwd"].mma_flops == k["fdt_train_bwd"].mma_flops == 0
+    for step, names in (("fdt_forward", ("fdt_train_plane", "fdt_train_fwd")),
+                        ("fdt_backward_grad", ("fdt_train_bwd",
+                                               "fdt_train_contract"))):
+        for field in ("bytes", "flops", "vpu_elems", "mma_flops"):
+            assert getattr(ph[step], field) == \
+                sum(getattr(k[n], field) for n in names)
+    assert ph["fdt_forward"].mma_flops == ph["fdt_backward_grad"].mma_flops \
+        == k["fdt_train_plane"].mma_flops
+    dec = {p.name: p for p in rl.fdt_decode_phases(64, 512, 144, 144, 3)}
+    kd = [rl.kernel_phase(n, B=64, T=512, **FDT)
+          for n in ("fdt_viterbi_plane", "fdt_viterbi_fwd")]
+    assert dec["fdt_viterbi_forward"].bytes == sum(x.bytes for x in kd)
+    assert dec["fdt_viterbi_forward"].mma_flops == kd[0].mma_flops
     # ragged batches and K13's walk count what the data needs
     full = rl.kernel_phase("segmental_forward", **SEG)
     half = rl.kernel_phase("segmental_forward", **SEG, frames=128 * 256)
@@ -225,12 +239,13 @@ def test_tile_floors():
     assert set(floor) == {"fma_ms", "vpu_ms", "floor_ms"}
     assert math.isclose(floor["floor_ms"], floor["fma_ms"] + floor["vpu_ms"],
                         abs_tol=2e-3)
-    # the products of K1's and K2's planes and of the contraction (depth
-    # Du = 144) at the 3xTF32 rate; the multiply-adds of the two recursions
-    # and the three bias adds (the contraction's column sum) at the fp32 rate
+    # the products of the step's planes (formed once) and of the contraction
+    # (depth Du = 144) at the 3xTF32 rate; the multiply-adds of the two
+    # recursions and the two bias adds (the contraction's column sum) at the
+    # fp32 rate
     R, Du, dp = 3 * 144 + 48 * 48, 144, 2 * (2 * 144 + 48 * 48)
-    mma = 128 * 512 * 3 * 2.0 * R * Du
-    flops = 128 * 512 * (8 * dp + 3 * R)
+    mma = 128 * 512 * 2 * 2.0 * R * Du
+    flops = 128 * 512 * (8 * dp + 2 * R)
     assert math.isclose(floor["fma_ms"],
                         (mma / 165e12 + flops / 67e12) * 1e3, abs_tol=1e-3)
 
@@ -268,9 +283,11 @@ def test_products_are_held_to_the_3xtf32_rate():
     # a spec without tensor cores runs the products at its fp32 rate
     slow = rl.ChipSpec("slow", 1.0, 1.0, 1.0)
     assert rl.Phase("p", 0.0, 0.0, 0.0, 2e12).sol_s(slow) == 2.0
-    # K2's plane kernel and contraction: a product of depth Du = 144 and an
-    # add a row for the bias column (the contraction's column sum)
-    for name in ("fdt_train_plane", "fdt_train_contract"):
+    # the plane kernel (under both its keys) and K2's contraction: a product
+    # of depth Du = 144 and an add a row for the bias column (the
+    # contraction's column sum)
+    for name in ("fdt_train_plane", "fdt_viterbi_plane",
+                 "fdt_train_contract"):
         k = rl.kernel_phase(name, B=128, T=512, **FDT)
         assert k.flops == 128 * 512 * 2736.0
         assert k.mma_flops == 128 * 512 * 2.0 * 2736 * 144
