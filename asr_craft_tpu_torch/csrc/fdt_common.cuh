@@ -1,12 +1,16 @@
 // Pieces shared by the port's kernels (fdt_viterbi.cu: K3; fdt_train.cu:
 // K1's and K2's recursions; fdt_mma.cu: the plane kernel and K2's
-// contraction; viterbi.cu: K7, K8; fwdbwd.cu: K4-K6, K14; segmental.cu:
-// K9-K13; calibrate.cu: K15):
+// contraction; viterbi.cu: K7, K8; fwdbwd.cu: K4's, K5's, K6's and K14's
+// recursions; fwdbwd_mma.cu: K5's contraction; segmental.cu: K9-K13;
+// calibrate.cu: K15):
 // the semiring zero, the block-wide first argmax of the max-plus decodes,
 // the asynchronous copies (the planes' rows reach the fdt recursions by
-// cp.async.bulk on an mbarrier, one frame ahead), the guarded three-way
-// log-sum-exp of the reference and, at the end, the pieces of the
-// recursions over one (L, L) transition factor held in shared memory.
+// cp.async.bulk on an mbarrier, one frame ahead), the 3xTF32 pieces of the
+// tensor-core products, the guarded three-way log-sum-exp of the reference
+// and, at the end, the pieces of the recursions over one (L, L) transition
+// factor: held in shared memory and read a strided column a lane (the
+// segmental kernels), or held a contiguous quarter a lane, in registers or
+// in shared memory (the forward-backward kernels).
 //
 // No kernel forms a plane of the fdt lattice inside its recursion: the
 // planes Wall @ [x_t; 1] of every frame come from fdt_mma.cu's plane
@@ -150,6 +154,30 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
         : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// 3xTF32 on the tensor cores (fdt_mma.cu, fwdbwd_mma.cu): each fp32 operand
+// is split as big = tf32(a) (cvt.rna), small = tf32(a - big), and a product
+// accumulates small.big + big.small + big.big in fp32 (mma.sync m16n8k8).
+// ---------------------------------------------------------------------------
+
+// x = big + small: big = x rounded to TF32, small = the rest rounded to TF32
+__device__ __forceinline__ void split(float x, unsigned& big,
+                                      unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+// c += a b on one m16n8k8 TF32 tile (a: row-major fragment, b: col-major)
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // log(e^a + e^b + e^c) with the reference's guards (fdt_pallas.py _lse3):
 // the max is clamped at NEG_INF and the sum floored at 1e-35.
 __device__ __forceinline__ float lse3(float a, float b, float c) {
@@ -246,6 +274,161 @@ static __global__ void sum_partials_kernel(const float* __restrict__ part,
   float acc = 0.0f;
   for (int b = 0; b < B; ++b) acc += part[(size_t)b * n + i];
   out[i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// The factor held a contiguous quarter a lane (fwdbwd.cu).  A group of
+// kGroup lanes owns D destinations l_d and splits the predecessors p into
+// quarters of 4 QV each (lane g takes p in [4 QV g, 4 QV (g + 1))), read as
+// QV float4 chunks: the factor's rows F[l_d, :] (destination-major) from
+// registers or from shared memory, the exponentials e[p] of each lattice
+// from a vector padded with zeros to Lq = 16 QV, each chunk once for all D
+// destinations.  QV is odd, so the four quarters of a quarter-warp's
+// 16-byte loads start on four different bank quads, and the shared factor's
+// rows (stride Lq) shift the next destination by four.
+// ---------------------------------------------------------------------------
+
+// F[l_d, 4 QV g + j], j < 4 QV (0 past L or for l_d >= L): in registers
+// (SHARED false), or the addresses of the quarters in shared memory, where
+// the caller staged F with row stride 16 QV (stage_rows_padded).
+template <int D, int QV, bool SHARED>
+struct FactorRows {
+  float4 r[SHARED ? 1 : D][SHARED ? 1 : QV];
+  const float4* s[D];
+
+  __device__ __forceinline__ void load(const float* __restrict__ Fg,
+                                       const float* Fs, int L,
+                                       const int (&l)[D], int g) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const bool ok = l[d] < L;
+      if constexpr (SHARED) {
+        s[d] = reinterpret_cast<const float4*>(
+                   Fs + (size_t)(ok ? l[d] : 0) * 16 * QV) + g * QV;
+      } else {
+        const float* row = Fg + (size_t)(ok ? l[d] : 0) * L;
+#pragma unroll
+        for (int k = 0; k < QV; ++k) {
+          float v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int p = 4 * (QV * g + k) + j;
+            v[j] = ok && p < L ? row[p] : 0.0f;
+          }
+          r[d][k] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ float4 at(int d, int k) const {
+    if constexpr (SHARED) return s[d][k];
+    else return r[d][k];
+  }
+};
+
+// m[i] = max(max_l v[i * L + l], NEG_INF) for every warp, as row_max gives
+// it, with l < 32 NV: one redux.sync a lattice on the floats' order-keeping
+// integer keys in place of five rounds of shuffles, the lattices' loads
+// interleaved.  No barrier is needed before its use.
+__device__ __forceinline__ int order_key(float f) {
+  const int b = __float_as_int(f);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float from_order_key(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+template <int NLAT, int NV>
+__device__ __forceinline__ void row_max_redux(const float* v, int L,
+                                              float (&m)[NLAT]) {
+  const int lane = threadIdx.x & 31;
+  float x[NLAT];
+#pragma unroll
+  for (int i = 0; i < NLAT; ++i) x[i] = kNegInf;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int l = lane + 32 * k;
+#pragma unroll
+    for (int i = 0; i < NLAT; ++i)
+      if (l < L) x[i] = fmaxf(x[i], v[i * L + l]);
+  }
+#pragma unroll
+  for (int i = 0; i < NLAT; ++i)
+    m[i] = from_order_key(__reduce_max_sync(0xffffffffu, order_key(x[i])));
+}
+
+// Copies the (L, L) factor into rows of Lq floats, zeros past column L.
+__device__ __forceinline__ void stage_rows_padded(const float* __restrict__ Fg,
+                                                  float* Fs, int L, int Lq) {
+  for (int i = threadIdx.x; i < L * Lq; i += blockDim.x) {
+    const int r = i / Lq, c = i - r * Lq;
+    Fs[i] = c < L ? Fg[(size_t)r * L + c] : 0.0f;
+  }
+}
+
+// The group's D NLAT sums sum_p e[i 16 QV + p] F[l_d, p] (pair q = d NLAT +
+// i), each finished by lane q % kGroup: out[j] = the sum of pair kGroup j +
+// g (pairs past D NLAT: unspecified).  A lane adds its quarter in two
+// partial sums a pair, then the group reduces and scatters the D NLAT
+// partials by shuffles (xor 2, then xor 1; for one or two pairs every lane
+// gets every sum), in one fixed order.  All lanes of the warp must call it;
+// e is 16-byte aligned.
+template <int NLAT, int D, int QV, bool SHARED>
+__device__ __forceinline__ void quarter_dot(
+    const float* e, const FactorRows<D, QV, SHARED>& f, int g,
+    float (&out)[(D * NLAT + 3) / 4]) {
+  constexpr int NP = D * NLAT;
+  static_assert(NP == 1 || NP == 2 || NP == 4 || NP == 8, "pairs a group");
+  const float4* ev = reinterpret_cast<const float4*>(e) + g * QV;
+  float a[NP][2];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) a[q][0] = a[q][1] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < QV; ++k) {
+    float4 x[NLAT], w[D];
+#pragma unroll
+    for (int i = 0; i < NLAT; ++i) x[i] = ev[i * 4 * QV + k];
+#pragma unroll
+    for (int d = 0; d < D; ++d) w[d] = f.at(d, k);
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int i = 0; i < NLAT; ++i) {
+        float* s = a[d * NLAT + i];
+        s[0] = fmaf(x[i].x, w[d].x, s[0]);
+        s[1] = fmaf(x[i].y, w[d].y, s[1]);
+        s[0] = fmaf(x[i].z, w[d].z, s[0]);
+        s[1] = fmaf(x[i].w, w[d].w, s[1]);
+      }
+  }
+  float v[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) v[q] = a[q][0] + a[q][1];
+  constexpr unsigned kAll = 0xffffffffu;
+  if constexpr (NP <= 2) {
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      v[q] += __shfl_xor_sync(kAll, v[q], 1);
+      v[q] += __shfl_xor_sync(kAll, v[q], 2);
+    }
+    out[0] = NP == 2 && g == 1 ? v[NP - 1] : v[0];
+  } else {
+    constexpr int J = NP / 4;
+    const bool hi2 = g & 2, hi1 = g & 1;
+    float w[J][2];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float lo = v[4 * j + c], hi = v[4 * j + c + 2];
+        w[j][c] = (hi2 ? hi : lo) + __shfl_xor_sync(kAll, hi2 ? lo : hi, 2);
+      }
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      out[j] = (hi1 ? w[j][1] : w[j][0]) +
+               __shfl_xor_sync(kAll, hi1 ? w[j][0] : w[j][1], 1);
+  }
 }
 
 template <typename Kernel>

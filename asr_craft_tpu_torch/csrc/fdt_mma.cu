@@ -63,6 +63,8 @@ namespace {
 
 using fdtk::cp_async16;
 using fdtk::cp_async4;
+using fdtk::mma;
+using fdtk::split;
 
 constexpr int kBM = 128, kBN = 160, kBK = 16, kStages = 4, kThreads = 256;
 constexpr int kBlocksPerSM = 2;    // registers capped at 128 a thread
@@ -118,23 +120,6 @@ __device__ __forceinline__ void stage(float* s, const View& v, int o0,
                 ok ? 4 : 0);
     }
   }
-}
-
-// x = big + small: big = x rounded to TF32, small = the rest rounded to TF32
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  const float rest = x - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 using Acc = float[kMI][kNI][4];

@@ -1,5 +1,5 @@
 // Log-semiring forward-backward over a SHARED transition matrix, for Hopper
-// (sm_90a).  Plain C interface, loaded with ctypes by
+// (sm_90a): the recursions.  Plain C interface, loaded with ctypes by
 // asr_craft_tpu_torch/kernels/fwdbwd.py, which holds the plain PyTorch
 // version of every kernel here.
 //
@@ -15,115 +15,140 @@
 //                                   backward_dual_pallas): free and clamped
 //                                   beta
 //   fb_backward_kernel<2, true>  <- _dual_bwd_grad_kernel (K5,
-//                                   backward_dual_grad_pallas): the beta
-//                                   recursion fused with the classical
-//                                   gradient; betas are never stored
-// and sum_partials_kernel (fdt_common.cuh), which finishes K5's transition
-// gradient.
+//                                   backward_dual_grad_pallas), its beta
+//                                   recursion: betas are never stored; it
+//                                   writes g_state and the rows U_t, V_t
+//                                   of the transition gradient, whose
+//                                   product UV = sum_t U_t^T V_t
+//                                   (dual_pallas.py:226) is fwdbwd_mma.cu's
+//                                   fb_contract_kernel on the tensor cores.
 //
 // Layouts (batch-major, as models.crf.potentials returns them).  state
-// (B, T, L) f32 with the boundary masks folded in; P (L, L) = exp(trans -
-// tmax[None, :]) with tmax (L,) the column maxima clamped at NEG_INF, or for
-// the backward Pt (L, L) = exp(trans^T - tmax_r[None, :]) with tmax_r the row
-// maxima (both formed by the wrapper); labels (B, T) i32; lengths (B,) i32.
-// Outputs: alphas / betas / g_state (B, T, L) f32 per lattice, logZ (B,),
-// UV (L, L) with g_trans = sign(UV) * exp(trans + log|UV|) left to the
-// wrapper, as in the reference.
+// (B, T, L) f32 with the boundary masks folded in; the factor F (L, L)
+// destination-major: row l holds what reaches destination l, F[l, p] =
+// exp(trans[p, l] - tmax[l]) forward (tmax the column maxima clamped at
+// NEG_INF) and exp(trans[l, p] - tmax_r[l]) backward (tmax_r the row maxima),
+// both formed by the wrapper; labels (B, T) i32; lengths (B,) i32.  Outputs:
+// alphas / betas / g_state (B, T, L) f32 per lattice, logZ (B,), and for K5
+// U, V (B, T, 2, ld) with ld >= L (columns past L are not written).
 //
 // The step is the reference's rescaled-exp product.  Forward:
 //   m = max(max_p alpha[p], NEG_INF)
-//   alpha'[l] = m + tmax[l] + log(max(sum_p exp(alpha[p] - m) P[p, l],
+//   alpha'[l] = m + tmax[l] + log(max(sum_p exp(alpha[p] - m) F[l, p],
 //               1e-38)) + state2[t, l]
 // backward, with x = beta + state2[t + 1]:
-//   beta'[l] = m + tmax_r[l] + log(max(sum_p exp(x[p] - m) Pt[p, l], 1e-38))
+//   beta'[l] = m + tmax_r[l] + log(max(sum_p exp(x[p] - m) F[l, p], 1e-38))
 // where state2 is state for the free lattice and state + (l / clamp_ns ==
 // label ? 0 : NEG_INF) for the clamped one.  Frame 0 sets alpha to state2
 // whatever the length; frames t >= length keep alpha; beta is 0 at
-// t + 1 >= length.  K5 adds, per frame t with t + 1 < length,
-//   U[p] = exp(alpha[t, p] - mU) * exp(mU + m - z) * w,  V = exp(x - m)
-//   UV += U^T V  (both lattices),
-// and g_state[t, l] = sum over lattices of exp(alpha[t, l] + beta[t, l] -
-// z) * w for t < length, 0 past it.  NEG_INF is finite (-1e30) and every max
-// is clamped at it, so a lattice no state admits yields exp(-huge) = 0, not
-// NaN.  All arithmetic is IEEE fp32.
+// t + 1 >= length.  K5 writes, per frame t with t + 1 < length and lattice
+// i, V_t = exp(x - m) and
+//   U_t[p] = exp(alpha[t, p] + m - z) * w,
+// (rows with t + 1 >= length are 0), and g_state[t, l] = sum over lattices
+// of exp(alpha[t, l] + beta[t, l] - z) * w for t < length, 0 past it.  The
+// reference forms U_t as exp(alpha - mU) * exp(mU + m - z) * w with mU the
+// row maximum of alpha[t]: one exponent here is the sum of its two, so U_t
+// is finite wherever the reference's is and 0 wherever its scale is (and no
+// second row maximum sits on the frame chain).  NEG_INF is finite (-1e30)
+// and every max is clamped at it, so a lattice no state admits yields
+// exp(-huge) = 0, not NaN: its alphas lie at or below NEG_INF while m and z
+// are clamped there, so its U, V products and g_state are exactly 0.  All
+// arithmetic is IEEE fp32.
 //
 // What bounds them on this card.  One block owns one utterance and walks its
 // frames in order; at the configs' widths (L = 48, 42; L' = 138) a frame is
 // 2 L^2 multiply-adds per lattice, far too little to fill an SM, so the time
-// is the latency of the frame chain: a row max, an exp pass, the product and
-// two or three block barriers, 511 times.  Against that:
-// - both lattices ride one pass over P (each P[p, l] is read once for two
-//   rows), which sits in shared memory with its row stride padded to 8 mod
-//   32 so the kGroup lanes of a destination hit different banks (opted into
-//   above 48 KB);
-// - each destination's sum over predecessors is split over kGroup lanes of
-//   a warp and merged with shuffles; the forward loads the frame's state
-//   row before the product;
-// - the row max is taken redundantly by every warp (shuffles, no barrier).
-// K5's UV cannot be one carried accumulator: blocks run in parallel and
-// atomics would make gradients differ from run to run.  Each block sums its
-// own utterance's U^T V over its frames in a fixed order, and
-// sum_partials_kernel adds the B partials in batch order: the same bits
-// on every run.  Each thread keeps a kTile x kTile tile of the partial in
-// registers: a frame costs it 4 kTile shared-memory loads of U and V, not a
-// read-modify-write per element.
-// Widths.  The factor and the working vectors must fit a block's shared
-// memory, which holds for L <= 232; K5's tiles must cover (L, L) with the
-// block's threads, which holds for L <= 144.  The configs train at L = 42,
-// 48 and 138.  The wrapper raises beyond.
-// Not done yet: several utterances per block at small L, and the xi product
-// on tensor cores.
+// is the frame chain: a row max, an exp pass, the product, the log and two
+// block barriers, 511 times.  What a first, simpler design paid on it,
+// and what this one does instead:
+// - loads from device memory on the chain.  The lane that finishes a
+//   (destination, lattice) pair loads frame t's state entry and label into
+//   registers one frame ahead, and K5's alpha[t, l] with cp.async into a
+//   two-frame ring in shared memory, waiting for its own copy where it uses
+//   it (measured on the card: 6-23% faster than a register load for alpha,
+//   no faster for the state entry);
+// - shared-memory traffic in the product.  A group of kGroup = 4 lanes owns
+//   D destinations and splits the predecessors into contiguous quarters of
+//   4 QV (fdt_common.cuh quarter_dot): a lane reads the lattices'
+//   exponentials as QV float4 chunks, each once for all D destinations, and
+//   holds its quarters of the D factor rows for the whole walk, in
+//   registers where they fit (QV = 3, 5, 9 with D = 2: L <= 48, 80, 144)
+//   or in shared memory (QV = 15, D = 4: L <= 232), which the wrapper picks
+//   as template parameters: no branch in the frame loop.  Every warp still
+//   reads every exponential, so the block's reads of them fall as 1 / D: at
+//   L' = 138 ~650 wavefronts a frame, against ~1,900 scalar loads of the
+//   factor and both lattices before; and the block is 3 to 9 warps, so its
+//   barriers and its redundant row maxima cost less.  D = 2 measured best
+//   on the card at L' = 138 (K4 19% and K5's recursion 24% faster than D =
+//   4, whose five warps queue their multiply-adds on one scheduler in
+//   two; D = 1 was no faster than D = 4) and as fast as D = 1 at L = 48;
+// - the group's D NLAT sums are reduced and scattered by shuffles, each
+//   finished (its log, its outputs) by one lane;
+// - the row max, taken redundantly by every warp with no barrier, is one
+//   redux.sync a lattice on order-keeping integer keys (fdt_common.cuh
+//   row_max_redux): five rounds of shuffles a lattice were the largest
+//   single cost of a frame (a knockout test on the card: ~40% at L = 48);
+// - K5's outer products.  It writes its rows and leaves their product to the
+//   tensor cores: no register tile, no second row max or exp pass on the
+//   frame chain.
+// Widths: L <= 232 (the shared layout's factor and vectors fit a block's
+// shared memory); the wrapper raises beyond.  Not done yet: several
+// utterances per block at small L, and the clamped lattice's sparsity (ns
+// live states a frame).
 
 #include <cmath>
 #include <cstddef>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "fdt_common.cuh"
 
 namespace {
 
-using fdtk::kNegInf;
-
+using fdtk::FactorRows;
 using fdtk::kGroup;
-using fdtk::kMaxThreads;
+using fdtk::kNegInf;
 using fdtk::kProdFloor;
 using fdtk::kSmemLimit;
-using fdtk::kTile;
-using fdtk::kTileThreads;
-using fdtk::group_dot;
 using fdtk::opt_in;
-using fdtk::padded_stride;
-using fdtk::row_max;
-using fdtk::stage_matrix;
-using fdtk::threads_for;
+using fdtk::quarter_dot;
+using fdtk::row_max_redux;
+using fdtk::stage_rows_padded;
 
-// K5's register tiles cover the (L, L) partial when the block has
-// ceil(L / kTile)^2 threads and is small enough for their registers.
-bool tile_fits(int L) {
-  const int nt = (L + kTile - 1) / kTile;
-  return nt * nt <= threads_for(L) && threads_for(L) <= kTileThreads;
+// The layouts a launch may take (kernels/fwdbwd.factor_layout picks one by
+// L): QV float4 chunks of each of a group's D factor rows a lane, in
+// registers or, for the widest lattices, in shared memory.
+constexpr int kSharedQV = 15;             // L <= 240
+constexpr int kFbThreads = 320;           // every layout's block, at most
+
+// kGroup lanes for every D destinations, in whole warps; at least two
+// warps (logZ takes one warp per lattice)
+int fb_threads(int L, int D) {
+  const int n = (kGroup * ((L + D - 1) / D) + 31) / 32 * 32;
+  return n < 64 ? 64 : n;
 }
 
-// A launch's shared memory.  ps: the row stride of the transition factor;
-// bytes: the factor and the working vectors; ok false: the kernel does not
-// take this L.
-struct Plan {
-  int ps;
-  size_t bytes;
-  bool ok;
-};
-
-// vectors: forward alpha, e; backward beta, x, v (+ a2, u with grad); tmax
-size_t vector_floats(int L, int nlat, int grad, int forward) {
-  const size_t per = forward ? 2 : (grad ? 5 : 3);
-  return per * nlat * (size_t)L + L;
+bool layout_ok(int L, int qv, int D, int shared) {
+  const bool known = shared ? qv == kSharedQV && D == 4
+                            : (qv == 3 || qv == 5 || qv == 9) && D == 2;
+  return L >= 1 && known && 16 * qv >= L && fb_threads(L, D) <= kFbThreads;
 }
 
-Plan make_plan(int L, int nlat, int grad, int forward) {
-  const int ps = padded_stride(L);
-  const size_t bytes =
-      sizeof(float) * ((size_t)L * ps + vector_floats(L, nlat, grad, forward));
-  return {ps, bytes, bytes <= kSmemLimit && (!grad || tile_fits(L))};
+// The (dest, lattice) pairs a lane finishes: D NLAT over kGroup lanes
+__host__ __device__ constexpr int owned(int D, int nlat) {
+  return (D * nlat + kGroup - 1) / kGroup;
+}
+
+// A launch's dynamic shared memory, 0: not taken.  [the factor (L, Lq) if
+// shared][the exponentials (nlat, Lq)][the carry (nlat, L)][K5: the ring of
+// alpha entries (2 frames, owned pairs, threads)]
+size_t smem_bytes(int L, int nlat, int qv, int D, int shared, int grad) {
+  if (!layout_ok(L, qv, D, shared) || (nlat != 1 && nlat != 2)) return 0;
+  const size_t Lq = 16 * (size_t)qv;
+  const size_t ring = grad ? 2 * (size_t)owned(D, nlat) * fb_threads(L, D) : 0;
+  const size_t bytes = sizeof(float) * ((shared ? (size_t)L * Lq : 0) +
+                                        (size_t)nlat * (Lq + L) + ring);
+  return bytes <= kSmemLimit ? bytes : 0;
 }
 
 __device__ __forceinline__ float clamp_penalty(int l, int label,
@@ -131,88 +156,134 @@ __device__ __forceinline__ float clamp_penalty(int l, int label,
   return l / clamp_ns == label ? 0.0f : kNegInf;
 }
 
+// The lane roles every kernel here shares.  Group `slot` (kGroup lanes)
+// owns destinations l[d] = slot + d nslots; its lane g finishes the pairs q
+// = g + kGroup j (pair q: destination q / NLAT, lattice q % NLAT).
+template <int NLAT, int D>
+struct Roles {
+  static constexpr int OWN = owned(D, NLAT);
+  int g, l[D];
+  int ol[OWN], oi[OWN];          // the finished pairs' destination, lattice
+  bool own[OWN];
+  __device__ Roles(int L) {
+    const int slot = threadIdx.x / kGroup, nslots = blockDim.x / kGroup;
+    g = threadIdx.x % kGroup;
+#pragma unroll
+    for (int d = 0; d < D; ++d) l[d] = slot + d * nslots;
+#pragma unroll
+    for (int j = 0; j < OWN; ++j) {
+      const int q = g + kGroup * j;
+      ol[j] = slot + (q / NLAT) * nslots;
+      oi[j] = q % NLAT;
+      own[j] = q < D * NLAT && ol[j] < L;
+    }
+  }
+};
+
 template <int NLAT>
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ float pick(const float (&v)[NLAT], int i) {
+  return i == 0 ? v[0] : v[NLAT - 1];
+}
+
+// What an owned pair reads of frame t, loaded a frame before its use
+struct Row {
+  float s = 0.0f, a = 0.0f;   // the state entry, alpha (K5)
+  int lab = 0;
+};
+
+template <int NLAT, int QV, int D, bool SHARED>
+__global__ void __launch_bounds__(kFbThreads)
 fb_forward_kernel(const float* __restrict__ state,
-                  const float* __restrict__ Pg,
+                  const float* __restrict__ Fg,
                   const float* __restrict__ tmax_g,
                   const int* __restrict__ labels,
                   const int* __restrict__ lengths, float* __restrict__ a0,
                   float* __restrict__ a1, float* __restrict__ z0,
-                  float* __restrict__ z1, int T, int L, int clamp_ns,
-                  int ps) {
-  extern __shared__ float smem[];
+                  float* __restrict__ z1, int T, int L, int clamp_ns) {
+  constexpr int Lq = 16 * QV;
+  using R = Roles<NLAT, D>;
+  extern __shared__ float4 smem4[];
+  float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
+  float* e = Fs + (SHARED ? (size_t)L * Lq : 0);     // (NLAT, Lq) exp
+  float* alpha = e + NLAT * Lq;                      // (NLAT, L) carry
   const int tid = threadIdx.x, nth = blockDim.x;
-  const float* Pm = smem;
-  stage_matrix(Pg, smem, L, ps);
-  float* alpha = smem + (size_t)L * ps;        // (NLAT, L) carry
-  float* e = alpha + NLAT * L;                 // (NLAT, L) exp(alpha - m)
-  float* tmx = e + NLAT * L;                   // (L)
-
+  const R r(L);
   const int b = blockIdx.x;
   const int len = min(max(lengths[b], 0), T);
   const float* sb = state + (size_t)b * T * L;
-  const int* lb = NLAT == 2 ? labels + (size_t)b * T : nullptr;
-  float* out[2] = {a0 + (size_t)b * T * L,
-                   NLAT == 2 ? a1 + (size_t)b * T * L : nullptr};
+  const int* lb = NLAT == 2 ? labels + (size_t)b * T : labels;
+  float* out0 = a0 + (size_t)b * T * L;
+  float* out1 = a1 + (size_t)b * T * L;
+  auto out = [&](int i) { return i == 0 ? out0 : out1; };
 
-  // frame 0: alpha = state2, whatever the length
-  {
-    const int lab = NLAT == 2 ? lb[0] : 0;
-    for (int l = tid; l < L; l += nth) {
-      const float s = sb[l];
-      tmx[l] = tmax_g[l];
-      alpha[l] = s;
-      out[0][l] = s;
-      if (NLAT == 2) {
-        const float c = s + clamp_penalty(l, lab, clamp_ns);
-        alpha[L + l] = c;
-        out[1][l] = c;
+  if constexpr (SHARED) stage_rows_padded(Fg, Fs, L, Lq);
+  FactorRows<D, QV, SHARED> f;
+  f.load(Fg, Fs, L, r.l, r.g);
+  for (int j = tid; j < NLAT * Lq; j += nth) e[j] = 0.0f;   // pads stay 0
+  float tm[R::OWN];
+  // frame t's state entry and label, for the pairs this lane finishes
+  auto fetch = [&](int t, Row (&rw)[R::OWN]) {
+#pragma unroll
+    for (int j = 0; j < R::OWN; ++j)
+      if (t < len && r.own[j]) {
+        rw[j].s = sb[(size_t)t * L + r.ol[j]];
+        if (NLAT == 2) rw[j].lab = lb[t];
       }
+  };
+  // frame 0: alpha = state2, whatever the length
+#pragma unroll
+  for (int j = 0; j < R::OWN; ++j) {
+    tm[j] = r.own[j] ? tmax_g[r.ol[j]] : 0.0f;
+    if (r.own[j]) {
+      float s = sb[r.ol[j]];
+      if (NLAT == 2 && r.oi[j] == 1)
+        s += clamp_penalty(r.ol[j], lb[0], clamp_ns);
+      alpha[r.oi[j] * L + r.ol[j]] = s;
+      out(r.oi[j])[r.ol[j]] = s;
     }
   }
+  Row cur[R::OWN];
+  fetch(1, cur);
   __syncthreads();
 
-  const int g = tid % kGroup, slot = tid / kGroup, nslots = nth / kGroup;
   for (int t = 1; t < len; ++t) {
+    Row nxt[R::OWN];
+    fetch(t + 1, nxt);                    // a frame ahead of its use
     float m[NLAT];
-    row_max<NLAT>(alpha, L, m);
-    for (int j = tid; j < NLAT * L; j += nth)
-      e[j] = expf(alpha[j] - m[NLAT == 2 && j >= L ? NLAT - 1 : 0]);
-    __syncthreads();
-    const int lab = NLAT == 2 ? lb[t] : 0;
-    // a uniform loop, so every lane reaches the group's shuffles
-    for (int l0 = 0; l0 < L; l0 += nslots) {
-      const int l = l0 + slot;
-      const bool ok = l < L;
-      const bool mine = ok && g == 0;
-      const float s = mine ? sb[(size_t)t * L + l] : 0.0f;
-      float acc[NLAT];
-      group_dot<NLAT>(e, Pm, ps, L, ok ? l : 0, g, ok, acc);
-      if (mine) {
-#pragma unroll
-        for (int i = 0; i < NLAT; ++i) {
-          const float st = i == 0 ? s : s + clamp_penalty(l, lab, clamp_ns);
-          const float v =
-              m[i] + tmx[l] + logf(fmaxf(acc[i], kProdFloor)) + st;
-          alpha[i * L + l] = v;
-          out[i][(size_t)t * L + l] = v;
-        }
-      }
+    row_max_redux<NLAT, (QV + 1) / 2>(alpha, L, m);
+    for (int j = tid; j < NLAT * L; j += nth) {
+      const int i = NLAT == 2 && j >= L ? 1 : 0;
+      e[i * Lq + j - i * L] = expf(alpha[j] - pick(m, i));
     }
     __syncthreads();
+    float acc[R::OWN];
+    quarter_dot<NLAT, D, QV, SHARED>(e, f, r.g, acc);
+#pragma unroll
+    for (int j = 0; j < R::OWN; ++j) {
+      if (!r.own[j]) continue;
+      const int i = r.oi[j], l = r.ol[j];
+      float st = cur[j].s;
+      if (NLAT == 2 && i == 1) st += clamp_penalty(l, cur[j].lab, clamp_ns);
+      const float v = pick(m, i) + tm[j] +
+                      logf(fmaxf(acc[j], kProdFloor)) + st;
+      alpha[i * L + l] = v;
+      out(i)[(size_t)t * L + l] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R::OWN; ++j) cur[j] = nxt[j];
   }
 
   // frames past the length keep the carry
   for (size_t i = (size_t)max(len, 1) * L + tid; i < (size_t)T * L; i += nth) {
     const int l = (int)(i % L);
-    out[0][i] = alpha[l];
-    if (NLAT == 2) out[1][i] = alpha[L + l];
+    out0[i] = alpha[l];
+    if (NLAT == 2) out1[i] = alpha[L + l];
   }
 
   // logZ = lse(carry): warp i sums lattice i
   float m[NLAT];
-  row_max<NLAT>(alpha, L, m);
+  row_max_redux<NLAT, (QV + 1) / 2>(alpha, L, m);
   const int warp = tid >> 5, lane = tid & 31;
   if (warp < NLAT) {
     const float mi = warp == 0 ? m[0] : m[NLAT - 1];
@@ -226,216 +297,268 @@ fb_forward_kernel(const float* __restrict__ state,
 }
 
 // GRAD false: o0, o1 = betas of the free / clamped lattice (B, T, L).
-// GRAD true (NLAT 2): o0 = g_state (B, T, L), o1 = the (B, L, L) partials of
-// UV, one slice per block, summed in kTile x kTile register tiles.
-template <int NLAT, bool GRAD>
-__global__ void __launch_bounds__(GRAD ? kTileThreads : kMaxThreads)
+// GRAD true (NLAT 2): o0 = g_state (B, T, L); U, V the (B, T, 2, ld) rows
+// of the transition gradient.
+template <int NLAT, bool GRAD, int QV, int D, bool SHARED>
+__global__ void __launch_bounds__(kFbThreads)
 fb_backward_kernel(const float* __restrict__ state,
-                   const float* __restrict__ Ptg,
+                   const float* __restrict__ Fg,
                    const float* __restrict__ tmaxr_g,
                    const int* __restrict__ labels,
                    const int* __restrict__ lengths,
                    const float* __restrict__ af, const float* __restrict__ ac,
                    const float* __restrict__ zf, const float* __restrict__ zc,
                    const float* __restrict__ wf, const float* __restrict__ wc,
-                   float* __restrict__ o0, float* __restrict__ o1, int T,
-                   int L, int clamp_ns, int ps) {
-  extern __shared__ float smem[];
+                   float* __restrict__ o0, float* __restrict__ o1,
+                   float* __restrict__ U, float* __restrict__ V, int T,
+                   int L, int clamp_ns, int ld) {
+  constexpr int Lq = 16 * QV;
+  using R = Roles<NLAT, D>;
+  extern __shared__ float4 smem4[];
+  float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
+  float* v = Fs + (SHARED ? (size_t)L * Lq : 0);     // (NLAT, Lq) exp(x - m)
+  float* x = v + NLAT * Lq;                          // (NLAT, L) beta + s2
   const int tid = threadIdx.x, nth = blockDim.x;
+  const R r(L);
   const int b = blockIdx.x;
-  const float* Pm = smem;
-  stage_matrix(Ptg, smem, L, ps);
-  float* beta = smem + (size_t)L * ps;         // (NLAT, L)
-  float* x = beta + NLAT * L;                  // beta + state2[t + 1]
-  float* v = x + NLAT * L;                     // exp(x - m)
-  float* tmx = v + NLAT * L;                   // (L)
-  float* a2 = tmx + L;                         // GRAD: alpha[t]
-  float* u = a2 + NLAT * L;                    // GRAD: scaled exp(a2 - mU)
-  // this thread's register tile of the partial: rows p0.., columns l0..
-  constexpr int kT = GRAD ? kTile : 1;
-  const int nt = (L + kT - 1) / kT;
-  const bool tiled = GRAD && tid < nt * nt;
-  const int p0 = (tid / nt) * kT, l0 = (tid % nt) * kT;
-  float acc[kT][kT];
-#pragma unroll
-  for (int i = 0; i < kT; ++i)
-#pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] = 0.0f;
-
   const int len = min(max(lengths[b], 0), T);
   const float* sb = state + (size_t)b * T * L;
-  const int* lb = NLAT == 2 ? labels + (size_t)b * T : nullptr;
-  const float* ab[2] = {GRAD ? af + (size_t)b * T * L : nullptr,
-                        GRAD ? ac + (size_t)b * T * L : nullptr};
-  float* out[2] = {o0 + (size_t)b * T * L,
-                   NLAT == 2 && !GRAD ? o1 + (size_t)b * T * L : nullptr};
-  float z[2] = {0.0f, 0.0f}, w[2] = {0.0f, 0.0f};
-  if (GRAD) {
-    z[0] = zf[b];
-    z[1] = zc[b];
-    w[0] = wf[b];
-    w[1] = wc[b];
-  }
+  const int* lb = NLAT == 2 ? labels + (size_t)b * T : labels;
+  const float* abf = GRAD ? af + (size_t)b * T * L : nullptr;
+  const float* abc = GRAD ? ac + (size_t)b * T * L : nullptr;
+  auto ab = [&](int i) { return i == 0 ? abf : abc; };
+  float* out0 = o0 + (size_t)b * T * L;
+  float* out1 = NLAT == 2 && !GRAD ? o1 + (size_t)b * T * L : nullptr;
+  auto out = [&](int i) { return i == 0 ? out0 : out1; };
+  // row (t, lattice i) of U and V
+  auto row = [&](int t, int i) {
+    return ((size_t)b * T + t) * 2 * ld + (size_t)i * ld;
+  };
 
-  for (int j = tid; j < NLAT * L; j += nth) beta[j] = 0.0f;
-  for (int l = tid; l < L; l += nth) tmx[l] = tmaxr_g[l];
-  // beta is 0 from frame length - 1 on; g_state is 0 from frame length on
-  const int zero_from = GRAD ? len : max(len - 1, 0);
-  for (size_t i = (size_t)zero_from * L + tid; i < (size_t)T * L; i += nth) {
-    out[0][i] = 0.0f;
-    if (NLAT == 2 && !GRAD) out[1][i] = 0.0f;
+  if constexpr (SHARED) stage_rows_padded(Fg, Fs, L, Lq);
+  FactorRows<D, QV, SHARED> f;
+  f.load(Fg, Fs, L, r.l, r.g);
+  for (int j = tid; j < NLAT * Lq; j += nth) v[j] = 0.0f;   // pads stay 0
+  float tm[R::OWN], z[R::OWN], w[R::OWN];
+#pragma unroll
+  for (int j = 0; j < R::OWN; ++j) {
+    tm[j] = r.own[j] ? tmaxr_g[r.ol[j]] : 0.0f;
+    z[j] = GRAD ? (r.oi[j] == 0 ? zf[b] : zc[b]) : 0.0f;
+    w[j] = GRAD ? (r.oi[j] == 0 ? wf[b] : wc[b]) : 0.0f;
   }
-  if (GRAD && len >= 1) {
-    const size_t row = (size_t)(len - 1) * L;
-    for (int l = tid; l < L; l += nth)
-      out[0][row + l] = expf(ab[0][row + l] + 0.0f - z[0]) * w[0] +
-                        expf(ab[1][row + l] + 0.0f - z[1]) * w[1];
+  // beta is 0 from frame length - 1 on; g_state is 0 from frame length on,
+  // U and V from frame length - 1 on
+  {
+    const int zero_from = GRAD ? len : max(len - 1, 0);
+    for (size_t i = (size_t)zero_from * L + tid; i < (size_t)T * L;
+         i += nth) {
+      out0[i] = 0.0f;
+      if (NLAT == 2 && !GRAD) out1[i] = 0.0f;
+    }
+    if (GRAD) {
+      const int r0 = 2 * max(len - 1, 0);
+      for (int i = tid; i < (2 * T - r0) * L; i += nth) {
+        const int q = i / L, c = i - q * L;
+        const size_t o = ((size_t)b * T * 2 + r0 + q) * ld + c;
+        U[o] = 0.0f;
+        V[o] = 0.0f;
+      }
+    }
   }
+  // frame t's state entry, label and alpha, for the pairs this lane
+  // finishes
+  float* aring = x + NLAT * L;       // GRAD: (2, OWN, nth) alpha entries
+  auto aslot = [&](int t, int j) {
+    return aring + ((t & 1) * R::OWN + j) * nth + tid;
+  };
+  auto fetch = [&](int t, Row (&rw)[R::OWN]) {
+#pragma unroll
+    for (int j = 0; j < R::OWN; ++j) {
+      const bool go = t >= 0 && r.own[j];
+      const size_t at = go ? (size_t)t * L + r.ol[j] : 0;
+      if (go) {
+        rw[j].s = sb[at];
+        if (NLAT == 2) rw[j].lab = lb[t];
+      }
+      if (GRAD)
+        fdtk::cp_async4(aslot(t, j), ab(r.oi[j]) + at, go ? 4 : 0);
+    }
+    if (GRAD) fdtk::cp_async_commit();
+  };
+  // frame length - 1: beta = 0, so x = state2; g_state there
+  float gi[R::OWN];
+#pragma unroll
+  for (int j = 0; j < R::OWN; ++j) {
+    gi[j] = 0.0f;
+    if (r.own[j] && len >= 1) {
+      const size_t at = (size_t)(len - 1) * L + r.ol[j];
+      float s = sb[at];
+      if (NLAT == 2 && r.oi[j] == 1)
+        s += clamp_penalty(r.ol[j], lb[len - 1], clamp_ns);
+      x[r.oi[j] * L + r.ol[j]] = 0.0f + s;
+      if (GRAD) gi[j] = expf(ab(r.oi[j])[at] + 0.0f - z[j]) * w[j];
+    }
+  }
+  if (GRAD) {
+#pragma unroll
+    for (int j = 0; j < R::OWN; ++j) {
+      gi[j] += __shfl_down_sync(0xffffffffu, gi[j], 1);
+      if (r.own[j] && r.oi[j] == 0 && len >= 1)
+        out0[(size_t)(len - 1) * L + r.ol[j]] = gi[j];
+    }
+  }
+  Row cur[R::OWN];
+  fetch(len - 2, cur);
   __syncthreads();
 
-  const int g = tid % kGroup, slot = tid / kGroup, nslots = nth / kGroup;
   for (int t = len - 2; t >= 0; --t) {
-    const int n = t + 1;
-    const int lab = NLAT == 2 ? lb[n] : 0;
+    Row nxt[R::OWN];
+    fetch(t - 1, nxt);                    // a frame ahead of its use
+    float m[NLAT];
+    row_max_redux<NLAT, (QV + 1) / 2>(x, L, m);
     for (int j = tid; j < NLAT * L; j += nth) {
       const int i = NLAT == 2 && j >= L ? 1 : 0;
-      const int l = j - i * L;
-      float s = sb[(size_t)n * L + l];
-      if (i == 1) s += clamp_penalty(l, lab, clamp_ns);
-      x[j] = beta[j] + s;
-      if (GRAD) a2[j] = ab[i][(size_t)t * L + l];
+      const float ev = expf(x[j] - pick(m, i));
+      v[i * Lq + j - i * L] = ev;
+      if (GRAD) V[row(t, i) + j - i * L] = ev;
     }
     __syncthreads();
-    float m[NLAT], scale[NLAT], mU[NLAT];
-    row_max<NLAT>(x, L, m);
+    float acc[R::OWN];
+    quarter_dot<NLAT, D, QV, SHARED>(v, f, r.g, acc);
     if (GRAD) {
-      row_max<NLAT>(a2, L, mU);
+      fdtk::cp_async_wait<1>();           // frame t's alpha entries
 #pragma unroll
-      for (int i = 0; i < NLAT; ++i)
-        scale[i] = expf(mU[i] + m[i] - z[i]) * w[i];
+      for (int j = 0; j < R::OWN; ++j) cur[j].a = *aslot(t, j);
     }
-    for (int j = tid; j < NLAT * L; j += nth) {
-      const int i = NLAT == 2 && j >= L ? NLAT - 1 : 0;
-      v[j] = expf(x[j] - m[i]);
-      if (GRAD) u[j] = expf(a2[j] - mU[i]) * scale[i];
-    }
-    __syncthreads();
-    // a uniform loop, so every lane reaches the group's shuffles
-    for (int l0 = 0; l0 < L; l0 += nslots) {
-      const int l = l0 + slot;
-      const bool ok = l < L;
-      float acc[NLAT];
-      group_dot<NLAT>(v, Pm, ps, L, ok ? l : 0, g, ok, acc);
-      if (ok && g == 0) {
-        float gsum = 0.0f;
 #pragma unroll
-        for (int i = 0; i < NLAT; ++i) {
-          const float nb = m[i] + tmx[l] + logf(fmaxf(acc[i], kProdFloor));
-          beta[i * L + l] = nb;
-          if (GRAD)
-            gsum += expf(a2[i * L + l] + nb - z[i]) * w[i];
-          else
-            out[i][(size_t)t * L + l] = nb;
-        }
-        if (GRAD) out[0][(size_t)t * L + l] = gsum;
+    for (int j = 0; j < R::OWN; ++j) {
+      gi[j] = 0.0f;
+      if (!r.own[j]) continue;
+      const int i = r.oi[j], l = r.ol[j];
+      const float mi = pick(m, i);
+      const float nb = mi + tm[j] + logf(fmaxf(acc[j], kProdFloor));
+      if (GRAD) {
+        gi[j] = expf(cur[j].a + nb - z[j]) * w[j];
+        U[row(t, i) + l] = expf(cur[j].a + mi - z[j]) * w[j];
+      } else {
+        out(i)[(size_t)t * L + l] = nb;
+      }
+      if (t > 0) {
+        float st = cur[j].s;
+        if (NLAT == 2 && i == 1)
+          st += clamp_penalty(l, cur[j].lab, clamp_ns);
+        x[i * L + l] = nb + st;
       }
     }
-    if (tiled) {
-      // UV[p, l] += U_f[p] V_f[l] + U_c[p] V_c[l] on this thread's tile
-      float uf[kT], uc[kT], vf[kT], vc[kT];
+    if (GRAD) {
+      // + the clamped lattice's term, held by the next lane
 #pragma unroll
-      for (int i = 0; i < kT; ++i) {
-        const bool pin = p0 + i < L, lin = l0 + i < L;
-        uf[i] = pin ? u[p0 + i] : 0.0f;
-        uc[i] = pin ? u[L + p0 + i] : 0.0f;
-        vf[i] = lin ? v[l0 + i] : 0.0f;
-        vc[i] = lin ? v[L + l0 + i] : 0.0f;
+      for (int j = 0; j < R::OWN; ++j) {
+        gi[j] += __shfl_down_sync(0xffffffffu, gi[j], 1);
+        if (r.own[j] && r.oi[j] == 0) out0[(size_t)t * L + r.ol[j]] = gi[j];
       }
-#pragma unroll
-      for (int i = 0; i < kT; ++i)
-#pragma unroll
-        for (int j = 0; j < kT; ++j)
-          acc[i][j] = fmaf(uc[i], vc[j], fmaf(uf[i], vf[j], acc[i][j]));
     }
     __syncthreads();
-  }
-  if (tiled) {
-    float* part = o1 + (size_t)b * L * L;
 #pragma unroll
-    for (int i = 0; i < kT; ++i)
-#pragma unroll
-      for (int j = 0; j < kT; ++j)
-        if (p0 + i < L && l0 + j < L)
-          part[(size_t)(p0 + i) * L + l0 + j] = acc[i][j];
+    for (int j = 0; j < R::OWN; ++j) cur[j] = nxt[j];
   }
+  if (GRAD) fdtk::cp_async_wait<0>();
+}
+
+// Calls fn(nlat, QV, D, SHARED) as compile-time constants for the layout
+// the wrapper picked; cudaErrorInvalidValue for one that is not built.
+template <class Fn>
+int by_layout(int nlat, int qv, int shared, Fn&& fn) {
+  using std::integral_constant;
+  using I = int;
+  auto pick_layout = [&](auto n) -> int {
+    if (shared)
+      return fn(n, integral_constant<I, kSharedQV>{},
+                integral_constant<I, 4>{}, std::true_type{});
+    switch (qv) {
+      case 3: return fn(n, integral_constant<I, 3>{},
+                        integral_constant<I, 2>{}, std::false_type{});
+      case 5: return fn(n, integral_constant<I, 5>{},
+                        integral_constant<I, 2>{}, std::false_type{});
+      case 9: return fn(n, integral_constant<I, 9>{},
+                        integral_constant<I, 2>{}, std::false_type{});
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  return nlat == 2 ? pick_layout(integral_constant<I, 2>{})
+                   : pick_layout(integral_constant<I, 1>{});
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int B, int threads, size_t bytes, void* stream,
+           Args... args) {
+  const cudaError_t err = opt_in(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// A kernel's dynamic shared memory at width L in bytes, for the wrapper's
-// check and the tests; 0: the kernel does not take this L.
-size_t fwdbwd_smem_bytes(int L, int nlat, int grad, int forward) {
-  const Plan p = make_plan(L, nlat, grad, forward);
-  return p.ok ? p.bytes : 0;
+// A recursion's dynamic shared memory at width L in bytes, for the
+// wrapper's check and the tests; 0: no kernel takes this (L, layout).  qv,
+// D, shared: the factor's layout (kernels/fwdbwd.factor_layout).
+size_t fwdbwd_smem_bytes(int L, int nlat, int qv, int D, int shared,
+                         int grad) {
+  return smem_bytes(L, nlat, qv, D, shared, grad);
 }
 
-int fwdbwd_forward(const float* state, const float* P, const float* tmax,
+int fwdbwd_forward(const float* state, const float* F, const float* tmax,
                    const int* labels, const int* lengths, float* a0,
                    float* a1, float* z0, float* z1, int B, int T, int L,
-                   int nlat, int clamp_ns, void* stream) {
-  const Plan p = make_plan(L, nlat, 0, 1);
-  if (!p.ok || (nlat != 1 && nlat != 2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = nlat == 2 ? fb_forward_kernel<2> : fb_forward_kernel<1>;
-  cudaError_t err = opt_in(kernel, p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads_for(L), p.bytes, static_cast<cudaStream_t>(stream)>>>(
-      state, P, tmax, labels, lengths, a0, a1, z0, z1, T, L, clamp_ns, p.ps);
-  return static_cast<int>(cudaGetLastError());
+                   int nlat, int clamp_ns, int qv, int D, int shared,
+                   void* stream) {
+  const size_t bytes = smem_bytes(L, nlat, qv, D, shared, 0);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_layout(nlat, qv, shared, [&](auto n, auto q, auto d, auto sh) {
+    return launch(fb_forward_kernel<decltype(n)::value, decltype(q)::value,
+                                    decltype(d)::value, decltype(sh)::value>,
+                  B, fb_threads(L, D), bytes, stream, state, F, tmax, labels,
+                  lengths, a0, a1, z0, z1, T, L, clamp_ns);
+  });
 }
 
-int fwdbwd_backward(const float* state, const float* Pt, const float* tmax_r,
+int fwdbwd_backward(const float* state, const float* F, const float* tmax_r,
                     const int* labels, const int* lengths, float* b0,
                     float* b1, int B, int T, int L, int nlat, int clamp_ns,
-                    void* stream) {
-  const Plan p = make_plan(L, nlat, 0, 0);
-  if (!p.ok || (nlat != 1 && nlat != 2))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = nlat == 2 ? fb_backward_kernel<2, false>
-                          : fb_backward_kernel<1, false>;
-  cudaError_t err = opt_in(kernel, p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads_for(L), p.bytes, static_cast<cudaStream_t>(stream)>>>(
-      state, Pt, tmax_r, labels, lengths, nullptr, nullptr, nullptr, nullptr,
-      nullptr, nullptr, b0, b1, T, L, clamp_ns, p.ps);
-  return static_cast<int>(cudaGetLastError());
+                    int qv, int D, int shared, void* stream) {
+  const size_t bytes = smem_bytes(L, nlat, qv, D, shared, 0);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return by_layout(nlat, qv, shared, [&](auto n, auto q, auto d, auto sh) {
+    return launch(fb_backward_kernel<decltype(n)::value, false,
+                                     decltype(q)::value, decltype(d)::value,
+                                     decltype(sh)::value>,
+                  B, fb_threads(L, D), bytes, stream, state, F, tmax_r,
+                  labels, lengths, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, b0, b1, nullptr, nullptr, T, L, clamp_ns,
+                  0);
+  });
 }
 
-// K5: g_state (B, T, L), the per-utterance partials part (B, L, L), then
-// UV (L, L) = their sum in batch order.
-int fwdbwd_backward_grad(const float* state, const float* Pt,
+// K5's recursion: g_state (B, T, L) and the rows U, V (B, T, 2, ld).
+int fwdbwd_backward_grad(const float* state, const float* F,
                          const float* tmax_r, const int* labels,
                          const int* lengths, const float* af, const float* ac,
                          const float* zf, const float* zc, const float* wf,
-                         const float* wc, float* g_state, float* part,
-                         float* UV, int B, int T, int L, int clamp_ns,
-                         void* stream) {
-  const Plan p = make_plan(L, 2, 1, 0);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fb_backward_kernel<2, true>;
-  cudaError_t err = opt_in(kernel, p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<B, threads_for(L), p.bytes, s>>>(
-      state, Pt, tmax_r, labels, lengths, af, ac, zf, zc, wf, wc, g_state,
-      part, T, L, clamp_ns, p.ps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = L * L;
-  fdtk::sum_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, UV, B, n);
-  return static_cast<int>(cudaGetLastError());
+                         const float* wc, float* g_state, float* U, float* V,
+                         int B, int T, int L, int ld, int clamp_ns, int qv,
+                         int D, int shared, void* stream) {
+  const size_t bytes = smem_bytes(L, 2, qv, D, shared, 1);
+  if (bytes == 0 || ld < L) return static_cast<int>(cudaErrorInvalidValue);
+  return by_layout(2, qv, shared, [&](auto, auto q, auto d, auto sh) {
+    return launch(fb_backward_kernel<2, true, decltype(q)::value,
+                                     decltype(d)::value, decltype(sh)::value>,
+                  B, fb_threads(L, D), bytes, stream, state, F, tmax_r,
+                  labels, lengths, af, ac, zf, zc, wf, wc, g_state, nullptr,
+                  U, V, T, L, clamp_ns, ld);
+  });
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""Time the config-2 fdt kernels and steps of two checkouts of the
-repository on one card, in turns: A, B, B, A.
+"""Time the kernels and steps of two checkouts of the repository on one
+card, in turns: A, B, B, A.
 
     python asr_craft_tpu_torch/utils/ab_timing.py DIR_A DIR_B [--out FILE]
 
@@ -7,15 +7,21 @@ Each turn is its own process, started in that checkout with its package
 first on the path, so two versions of ``asr_craft_tpu_torch`` never meet in
 one interpreter; each builds its kernels at first use into its own
 ``_build`` directory.  A turn times, with CUDA events after a warm-up, the
-minimum of two runs of a few calls each, at the flagship's shapes: K1 whole
-(``fdt_forward_cuda``), K2 (``fdt_backward_grad_cuda``, handed K1's planes
-where the checkout's K1 returns them, as its train step does), one train
-step (loss, backward, SGD) at B=128, T=512, K3's forward
-(``viterbi_forward_cuda``) and ``decode()`` at B=64, T=512.  It prints one
-JSON line a turn and, last, the card and every turn's times; ``--out``
-also writes them there.  Only the two checkouts' own APIs in common are
-called, so a checkout from before a change of a wrapper's return value
-runs too.
+minimum of two runs of a few calls each:
+- the config-2 flagship: K1 whole (``fdt_forward_cuda``), K2
+  (``fdt_backward_grad_cuda``, handed K1's planes where the checkout's K1
+  returns them, as its train step does), one train step (loss, backward,
+  SGD) at B=128, T=512, K3's forward (``viterbi_forward_cuda``) and
+  ``decode()`` at B=64, T=512;
+- the shared-transition path at B=128, T=512, all rows full: K4
+  (``forward_dual_cuda``), K5 whole (``backward_dual_grad_cuda``) and one
+  train step at configs 1 and 5, and K6a, K6b, K14 at config 5;
+- the segmental CRF (config 4) at B=128, T=512: K9, K11, one train step
+  (``scrf_loss_fused``, backward, SGD) and ``scrf_decode``.
+It prints one JSON line a turn and, last, the card and every turn's times;
+``--out`` also writes them there.  Only the two checkouts' own APIs in
+common are called, so a checkout from before a change of a wrapper's
+return value runs too.
 """
 from __future__ import annotations
 
@@ -25,7 +31,106 @@ import os
 import subprocess
 import sys
 
-NAMES = ("K1", "K2", "train step", "K3 forward", "decode")
+NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
+         "K4 config1", "K5 config1", "shared step config1",
+         "K4 config5", "K5 config5", "shared step config5",
+         "K6a config5", "K6b config5", "K14 config5",
+         "K9", "K11", "scrf step", "scrf_decode")
+
+
+def _ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def _shared(torch, dev) -> dict:
+    """K4, K5 and a train step at configs 1 and 5; K6a, K6b, K14 at 5."""
+    from asr_craft_tpu_torch import flagship
+    from asr_craft_tpu_torch.kernels import fwdbwd as K
+    from asr_craft_tpu_torch.models.crf import apply_boundaries, potentials
+    from asr_craft_tpu_torch.train import TrainConfig, Trainer
+
+    out = {}
+    for key, cfg in (("config1", flagship.timit_mono()),
+                     ("config5", flagship.swbd())):
+        params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+        batch = flagship.tiny_batch(cfg, 128, 512, 0, dev)
+        lengths = batch["lengths"]
+        with torch.no_grad():
+            state, trans = potentials(cfg, params, batch["feats"])
+            state = apply_boundaries(cfg, state, lengths).contiguous()
+        trans = trans.contiguous()
+        dual = (state, trans, batch["labels"], lengths)
+        ns = cfg.num_states
+        af, ac, zf, zc = K.forward_dual_cuda(*dual, ns)
+        ones = torch.ones_like(zf)
+        grad_in = (af, ac, zf, zc, ones, -ones)
+        trainer = Trainer(cfg, TrainConfig(lr=0.03), params=params)
+        out[f"K4 {key}"] = _ms(torch, lambda: K.forward_dual_cuda(*dual, ns),
+                               10)
+        out[f"K5 {key}"] = _ms(
+            torch, lambda: K.backward_dual_grad_cuda(*dual, *grad_in, ns), 10)
+        out[f"shared step {key}"] = _ms(
+            torch, lambda: trainer.train_step(batch, 0.03), 5)
+        if key == "config5":
+            single = (state, trans, lengths)
+            out["K6a config5"] = _ms(torch, lambda: K.forward_cuda(*single),
+                                     10)
+            out["K6b config5"] = _ms(torch, lambda: K.backward_cuda(*single),
+                                     10)
+            out["K14 config5"] = _ms(
+                torch, lambda: K.backward_dual_cuda(*dual, ns), 10)
+    return out
+
+
+def _segmental(torch, dev) -> dict:
+    """K9, K11, a train step and scrf_decode at config 4."""
+    from asr_craft_tpu_torch import flagship
+    from asr_craft_tpu_torch.kernels import segmental as K
+    from asr_craft_tpu_torch.models.segmental import (_frame_scores_and_bias,
+                                                      scrf_decode,
+                                                      scrf_loss_fused)
+
+    cfg = flagship.scrf()
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+    batch = flagship.scrf_batch(cfg, 128, 512, 0, dev, False)
+    lengths = batch["lengths"]
+    with torch.no_grad():
+        frame, bias = _frame_scores_and_bias(cfg, params, batch["feats"])
+    args = (frame.contiguous(), params["b_trans"].contiguous(),
+            bias.contiguous(), lengths)
+    alphas, logZ = K.segmental_forward_cuda(*args)
+    betas = K.segmental_backward_cuda(*args)
+    grad_in = (alphas, betas, logZ, torch.ones_like(logZ))
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    opt = torch.optim.SGD(p.values(), lr=0.05)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, _ = scrf_loss_fused(cfg, p, batch["feats"], batch["labels"],
+                                  lengths)
+        loss.backward()
+        opt.step()
+
+    return {
+        "K9": _ms(torch, lambda: K.segmental_forward_cuda(*args), 10),
+        "K11": _ms(torch, lambda: K.segmental_grad_cuda(*args, *grad_in),
+                   10),
+        "scrf step": _ms(torch, step, 5),
+        "scrf_decode": _ms(torch, lambda: scrf_decode(
+            cfg, p, batch["feats"], lengths), 10),
+    }
 
 
 def _child() -> dict:
@@ -43,21 +148,6 @@ def _child() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = flagship()
-
-    def ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        best = float("inf")
-        for _ in range(2):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            best = min(best, start.elapsed_time(end) / reps)
-        return best
 
     params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, dev)
     batch = tiny_batch(cfg, 128, 512, 0, dev)
@@ -79,12 +169,16 @@ def _child() -> dict:
     dec_len = torch.full((64,), 512, dtype=torch.int32, device=dev)
     vkw = {k: v for k, v in kw.items() if k != "clamp_ns"}
     return {
-        "K1": ms(lambda: K1.fdt_forward_cuda(*args, **kw), 5),
-        "K2": ms(lambda: K1.fdt_backward_grad_cuda(*grad_args, **k2_kw), 5),
-        "train step": ms(lambda: trainer.train_step(batch, 0.5), 5),
-        "K3 forward": ms(lambda: K3.viterbi_forward_cuda(
+        "K1": _ms(torch, lambda: K1.fdt_forward_cuda(*args, **kw), 5),
+        "K2": _ms(torch, lambda: K1.fdt_backward_grad_cuda(
+            *grad_args, **k2_kw), 5),
+        "train step": _ms(torch, lambda: trainer.train_step(batch, 0.5), 5),
+        "K3 forward": _ms(torch, lambda: K3.viterbi_forward_cuda(
             Wall, dec_feats, dec_len, **vkw), 10),
-        "decode": ms(lambda: decode(cfg, params, dec_feats, dec_len), 10),
+        "decode": _ms(torch, lambda: decode(cfg, params, dec_feats, dec_len),
+                      10),
+        **_shared(torch, dev),
+        **_segmental(torch, dev),
     }
 
 

@@ -13,9 +13,9 @@ move between device memory and the SMs (each input read once, each output
 written once), its fp32 operations, and its element operations on the
 recursion's critical path.  Its fp32 operations come in two kinds: the
 matrix products with no dependence between frames (``mma_flops``: plane
-formation, K2's contraction), which the tensor cores run at fp32 accuracy
-by 3xTF32, three TF32 products for one, so at a third of the TF32 rate; and
-the rest (``flops``), held to the CUDA cores' fp32 rate.  Its
+formation, K2's and K5's contractions), which the tensor cores run at fp32
+accuracy by 3xTF32, three TF32 products for one, so at a third of the TF32
+rate; and the rest (``flops``), held to the CUDA cores' fp32 rate.  Its
 speed-of-light time is
 
     sol = max(bytes / memory rate, mma_flops / (TF32 peak / 3),
@@ -27,8 +27,10 @@ another, so a step's SOL is the sum.  The counts follow the port's code, read
 off ``csrc/*.cu`` and the wrappers: batch-major unpadded tensors, the packed
 parameter matrix (``kernels/wall.py``), the planes formed before the
 recursions, K2 as a recursion plus a contraction,
-the per-utterance partials of K5 and K11, and K13's walk of one segment at a
-time.  None of the TPU's tile padding exists here.
+K5 as a recursion that writes its transition gradient's rows plus their
+contraction on the tensor cores, the per-utterance partials of K11, and
+K13's walk of one segment at a time.  None of the TPU's tile padding exists
+here.
 
 One definition of a kernel's bound.  :func:`kernel_phase` counts one kernel's
 bytes and operations from its shapes; :func:`bound` turns a phase into the
@@ -337,31 +339,47 @@ def _k_viterbi_nstate_fwd(B, T, L, ns, frames=None, **_):
     return Phase("viterbi_nstate_fwd", _shared_io(B, T, L), ops, ops)
 
 
-# Element operations a frame and label beside the (L, L) product, counted
-# off csrc/fwdbwd.cu: the row max, a subtract and an expf, the floor, a logf
-# and two adds (8 a lattice); K5 also loads alpha[t], takes a second row max
-# and two more expf passes for the posterior and the outer product's
-# operands (20 a lattice).
-_FB_ROW_OPS = {"forward": 8.0, "backward": 8.0, "forward_dual": 16.0,
-               "backward_dual": 16.0, "backward_dual_grad": 40.0}
+# Element operations a frame and label (both lattices of the dual kernels)
+# beside the (L) x (L, L) products, counted line by line off csrc/fwdbwd.cu
+# and fdt_common.cuh at the configs' layouts.  A lattice and label: its
+# share of the row max (a max; the redux.sync is a warp's), the exp pass (a
+# subtract, an expf), the group's merge of the destination's sum (four
+# partial-sum adds, three shuffles and three adds of the reduce-scatter:
+# 10), and its finish: the floor, a logf and three adds (alpha: m + tmax +
+# log + state; beta: m + tmax + log, then x = beta + state): 18.  The clamped
+# lattice adds its penalty (a division, a compare, a select: 3).  K5's
+# recursion adds, a lattice and label, U (an add, a subtract, an expf, a
+# multiply) and the posterior (the same four), and a label the lattice sum
+# of g_state (an add): 17.
+_FB_ROW_OPS = {"forward": 18.0, "backward": 18.0, "forward_dual": 39.0,
+               "backward_dual": 39.0, "backward_dual_grad": 56.0}
 
 
 def _k_fb(name, tensors, products):
-    """K4, K5, K6a, K6b, K14: ``tensors`` (B, T, L) arrays moved,
-    ``products`` (L) x (L, L) products a frame."""
+    """K4, K5's recursion, K6a, K6b, K14: ``tensors`` (B, T, L) arrays
+    moved, ``products`` (L) x (L, L) products a frame."""
     def count(B, T, L, frames=None, **_):
         frames = B * T if frames is None else frames
         dual = name != "forward" and name != "backward"
         small = _F32 * (L * L + L + 2 * B)
         extra = _F32 * B * T if dual else 0               # the labels
-        if name == "backward_dual_grad":
-            extra += _F32 * L * L                         # UV out
         return Phase(name, _F32 * tensors * B * T * L + extra + small,
                      frames * 2.0 * products * L * L,
                      frames * (_FB_ROW_OPS[name] * L + products * L * L))
     count.__doc__ = (f"{name}: {tensors} (B, T, L) tensors moved, "
                      f"{products} (L) x (L, L) products a frame.")
     return count
+
+
+def _k_fb_contract(B, T, L, frames=None, **_):
+    """K5's contraction ``UV = sum U_t^T V_t``: the rows of both lattices
+    at the frames with a successor (``frames - B`` of them a lattice, the
+    last frame of each row having none) read once, UV written; one product
+    over those rows, held to the 3xTF32 rate."""
+    frames = B * T if frames is None else frames
+    rows = 2 * max(frames - B, 0)
+    return Phase("backward_dual_contract", _F32 * (2 * rows * L + L * L),
+                 0.0, 0.0, rows * 2.0 * L * L)
 
 
 # Element operations of the segmental kernels, counted off csrc/segmental.cu.
@@ -463,7 +481,10 @@ KERNELS = {
     "backward": _k_fb("backward", 2, 1),
     "forward_dual": _k_fb("forward_dual", 3, 2),
     "backward_dual": _k_fb("backward_dual", 3, 2),
-    "backward_dual_grad": _k_fb("backward_dual_grad", 4, 4),
+    # K5's recursion: state, af, ac in; g_state and the (B, T, 2, L) rows U
+    # and V out
+    "backward_dual_grad": _k_fb("backward_dual_grad", 8, 2),
+    "backward_dual_contract": _k_fb_contract,
     "segmental_forward": _k_seg("segmental_forward", "fwd", 2, 6, 1),
     "segmental_backward": _k_seg("segmental_backward", "bwd", 2, 6, 1),
     "segmental_grad": _k_seg("segmental_grad", "grad", 5, 12, 2),
@@ -518,9 +539,9 @@ def train_step_phases(B: int, T: int, L: int, D: int,
                       n_lambda: int | None = None) -> list[Phase]:
     """One shared-transition train step (configs 1, 3, 5: loss, gradient,
     update): the potentials (``models/crf.potentials``: one fp32 matmul and
-    the boundary pass), K4, K5 with its per-utterance ``U^T V`` partials
-    and their ordered sum, the feature map's backward matmul, the
-    optimizer."""
+    the boundary pass), K4, K5 (its recursion, which writes the rows of the
+    transition gradient, and their contraction), the feature map's backward
+    matmul, the optimizer."""
     tbl = T * B * L * _F32
     btd = B * T * D * _F32
     n_lambda = n_lambda or (D * L + L * L + 2 * L)
@@ -530,10 +551,10 @@ def train_step_phases(B: int, T: int, L: int, D: int,
               2.0 * B * T * D * L),
         _renamed(kernel_phase("forward_dual", B=B, T=T, L=L),
                  "dual_forward"),
-        # K5 writes one (L, L) partial per utterance; a second kernel reads
-        # them back and sums them in batch order
-        _renamed(kernel_phase("backward_dual_grad", B=B, T=T, L=L),
-                 "dual_backward_grad", 2.0 * B * L * L * _F32),
+        # K5: the recursion writes the rows U, V; the contraction reads them
+        _summed("dual_backward_grad",
+                [kernel_phase(n, B=B, T=T, L=L)
+                 for n in ("backward_dual_grad", "backward_dual_contract")]),
         # dW = feats^T @ g_state (the boundary pass's backward reads and
         # writes g_state once more)
         Phase("featuremap_bwd", btd + 3 * tbl + D * L * _F32,

@@ -65,25 +65,31 @@ in phases:
 (i) shared-transition timing — K7, K8, the traceback and ``decode()``
     against the plain version at B=64, T=512 for configs 1, 3 and 5;
 (j) shared-transition training parity — the K6a / K6b kernels (``forward``,
-    ``backward``), K4 / K14 (``forward_dual``, ``backward_dual``) and K5
-    (``backward_dual_grad``) against their plain versions on the potentials
-    of random models of configs 1, 3 and 5 at B=128, T=512 (ragged lengths,
-    an empty row, a row whose labels no state admits: zero gradient), with
-    phone labels and, for config 5, state labels; UV and g_state bit-equal
-    on two runs; the parameter gradients of the shared ``crf_loss``;
+    ``backward``), K4 / K14 (``forward_dual``, ``backward_dual``) and K5, its
+    recursion (``backward_dual_grad``: g_state and the rows U, V of the
+    transition gradient) and its contraction on the tensor cores
+    (``backward_dual_contract``: UV, held alone against its plain version on
+    the same rows), against their plain versions on the potentials of random
+    models of configs 1, 3 and 5 at B=128, T=512 (ragged lengths, an empty
+    row, a row whose labels no state admits: zero gradient and zero rows),
+    with phone labels and, for config 5, state labels; UV and g_state
+    bit-equal on two runs; one launch of each half a ``backward_dual_grad``;
+    the parameter gradients of the shared ``crf_loss``;
 (k) shared-transition training end to end — ``cli.train.main`` for configs
     1, 3 and 5 with their recipes' model flags (256 synthetic utterances, 3
-    epochs), held to the JAX CPU losses and PER: K4, K5, K7, K8 and the
-    traceback must launch; then, each with its own launch counts, the
-    trained models' ``frame_posteriors`` (K6a, K6b must launch) and
+    epochs), held to the JAX CPU losses and PER: K4, K5 (both halves), K7,
+    K8 and the traceback must launch; then, each with its own launch counts,
+    the trained models' ``frame_posteriors`` (K6a, K6b must launch) and
     ``kernels.fwdbwd.backward_dual`` (K14: no higher entry point calls it,
     here or in the JAX package); the train CLI again with
     ``--kernel_backend torch`` (same losses); the trained weights decode to
     the same PER and MLF under both backends;
-(l) shared-transition training timing — the five kernels and a full train
-    step (loss, backward, SGD update) against the plain version at B=128,
-    T=512, all rows full, for configs 1, 3 and 5, and cuBLAS on the
-    ``U^T V`` contraction alone;
+(l) shared-transition training timing — the six kernels (K5's recursion and
+    contraction apart, the contraction on the recursion's rows beside one
+    cuBLAS fp32 ``U.T @ V`` of the same rows), K5 whole and a full train step
+    (loss, backward, SGD update) against the plain version at B=128, T=512,
+    all rows full, for configs 1, 3 and 5, and the device-busy share of the
+    step (a ``torch.profiler`` trace);
 (m) segmental parity — the K9-K13 kernels (``segmental_forward``,
     ``segmental_backward``, ``segmental_grad``, ``segmental_viterbi``,
     ``segmental_viterbi_traceback``) against their plain versions on the
@@ -236,12 +242,15 @@ JAX_WORDS = ("utt000000 w02 w05 w02\n"
              "utt000009 w04 w03\n")
 JAX_WORD_ERRORS = (0, 33)
 FB_CU = "asr_craft_tpu_torch/csrc/fwdbwd.cu"
+FB_MMA_CU = "asr_craft_tpu_torch/csrc/fwdbwd_mma.cu"
 FB_SRC = {                          # the TPU kernel bodies they replace
     "forward": "asr_craft_tpu/kernels/fwdbwd_pallas.py:65",
     "backward": "asr_craft_tpu/kernels/fwdbwd_pallas.py:136",
     "forward_dual": "asr_craft_tpu/kernels/dual_pallas.py:39",
     "backward_dual": "asr_craft_tpu/kernels/dual_pallas.py:134",
     "backward_dual_grad": "asr_craft_tpu/kernels/dual_pallas.py:172",
+    # K5's U^T V (uv_acc += dot_general), on the tensor cores here
+    "backward_dual_contract": "asr_craft_tpu/kernels/dual_pallas.py:226",
 }
 # Alphas, betas and logZ: sums over up to 512 frames, ~1e3 in magnitude
 # (fp32 ulp 6e-5 there); the kernel splits each sum over four lanes and
@@ -1355,7 +1364,14 @@ class Smoke:
         wf, wc = torch.ones_like(zf), -torch.ones_like(zf)   # d(zf - zc)
         grad_in = (raf, rac, rzf, rzc, wf, wc)
         rg, rUV = K.backward_dual_grad_plain(*dual, *grad_in, cns)
+        before = dict(K.launches)
         g, UV = K.backward_dual_grad_cuda(*dual, *grad_in, cns)
+        ran = {k: K.launches[k] - before[k] for k in before}
+        if ran != {**dict.fromkeys(before, 0), "backward_dual_grad": 1,
+                   "backward_dual_contract": 1}:
+            raise AssertionError(f"{label}: backward_dual_grad launched "
+                                 f"{ran}, not one recursion and one "
+                                 "contraction")
         g2, UV2 = K.backward_dual_grad_cuda(*dual, *grad_in, cns)
         close("backward_dual_grad", "g_state", g, rg, rtol=0.0,
               atol=FB_G_ATOL)
@@ -1363,22 +1379,34 @@ class Smoke:
                             REL_MAX * float(rUV.abs().max()))
         if not (torch.equal(UV, UV2) and torch.equal(g, g2)):
             raise AssertionError(f"{label}: K5 differs between two runs")
+        # the contraction alone, on the recursion's own rows
+        L = state.shape[-1]
+        _, U, V = K.backward_dual_grad_rows_cuda(*dual, *grad_in, cns)
+        cUV = K.backward_dual_contract_cuda(U, V, L)
+        pUV = K.backward_dual_contract_plain(U, V, L)
+        errs["backward_dual_contract"] = self.close(
+            f"{label} contraction", cUV, pUV, RTOL,
+            REL_MAX * float(pUV.abs().max()))
         # the dead lattice alone: zero gradient, exactly
         one = lambda x: x[1:2].contiguous()
-        dg, dUV = K.backward_dual_grad_cuda(
-            one(state), trans, one(labels), one(lengths), one(af), one(ac),
-            one(zf), one(zc), torch.zeros_like(one(zf)),
-            torch.ones_like(one(zf)), cns)
+        dead = (one(state), trans, one(labels), one(lengths), one(af),
+                one(ac), one(zf), one(zc), torch.zeros_like(one(zf)),
+                torch.ones_like(one(zf)), cns)
+        dg, dUV = K.backward_dual_grad_cuda(*dead)
+        _, dU, _ = K.backward_dual_grad_rows_cuda(*dead)
         torch.cuda.synchronize()
-        if float(dg.abs().max()) != 0.0 or float(dUV.abs().max()) != 0.0:
+        if (float(dg.abs().max()) != 0.0 or float(dUV.abs().max()) != 0.0
+                or float(dU[..., :L].abs().max()) != 0.0):
             raise AssertionError(f"{label}: dead lattice gradient "
                                  f"{float(dg.abs().max())}, "
-                                 f"{float(dUV.abs().max())}")
+                                 f"{float(dUV.abs().max())}, rows "
+                                 f"{float(dU[..., :L].abs().max())}")
         for name, e in errs.items():
             self.err[name] = max(self.err[name], e)
         log(f"fb parity {label}: max |kernel - plain| {errs}, |UV - plain| "
             f"{uv_err:.3e} (largest |UV| {float(rUV.abs().max()):.3e}); K5 "
-            "bit-equal on two runs; dead lattice gradient 0")
+            "bit-equal on two runs, one recursion and one contraction a "
+            "call; dead lattice gradient and rows 0")
 
     def check_shared_loss_grads(self, key, cfg):
         """The shared crf_loss + backward(): the K4/K5 path against the
@@ -1515,7 +1543,8 @@ class Smoke:
                 for key in configs}
         train_counts = {**fwdbwd.launches, **viterbi.launches}
         require("shared train CLI", train_counts,
-                ("forward_dual", "backward_dual_grad", "viterbi_dense_fwd",
+                ("forward_dual", "backward_dual_grad",
+                 "backward_dual_contract", "viterbi_dense_fwd",
                  "viterbi_nstate_fwd", "viterbi_traceback"))
         # frame_posteriors of the trained models: K6a, K6b.
         problems = {key: self.trained_problem(cfg, runs[key][2])
@@ -1547,7 +1576,8 @@ class Smoke:
             "backward": post_counts["backward"],
             "forward_dual": train_counts["forward_dual"],
             "backward_dual": dual_counts["backward_dual"],
-            "backward_dual_grad": train_counts["backward_dual_grad"]}
+            "backward_dual_grad": train_counts["backward_dual_grad"],
+            "backward_dual_contract": train_counts["backward_dual_contract"]}
         for key, cfg in configs.items():
             self.check_trained_posteriors(key, cfg, problems[key],
                                           posts[key], betas[key])
@@ -1628,11 +1658,13 @@ class Smoke:
                 finally:
                     kernels.set_backend("auto")
 
-            # the xi contraction alone, as one cuBLAS product over both
-            # lattices' frames: what K5's U^T V would cost a library
-            U = torch.rand((2 * B * (T - 1), L), device=self.dev)
-            V = torch.rand((2 * B * (T - 1), L), device=self.dev)
-            cublas = min(self.cuda_ms(lambda: U.T @ V, 20) for _ in range(2))
+            # K5's rows, prebuilt by its recursion; the contraction on them
+            # beside one cuBLAS fp32 product of the same rows
+            _, U, V = K.backward_dual_grad_rows_cuda(*dual, *grad_in, cns)
+            U2 = U[..., :L].reshape(-1, L).contiguous()
+            V2 = V[..., :L].reshape(-1, L).contiguous()
+            cublas = min(self.cuda_ms(lambda: U2.T @ V2, 20)
+                         for _ in range(2))
             bounds = {name: self.bound(name, B=B, T=T, L=L)
                       for name in FB_SRC}
             fns = {
@@ -1645,14 +1677,22 @@ class Smoke:
                 "backward_dual": (lambda: K.backward_dual_cuda(*dual, cns),
                                   lambda: K.backward_dual_plain(*dual, cns)),
                 "backward_dual_grad": (
+                    lambda: K.backward_dual_grad_rows_cuda(*dual, *grad_in,
+                                                           cns),
+                    lambda: K.backward_dual_grad_rows_plain(*dual, *grad_in,
+                                                            cns)),
+                "backward_dual_contract": (
+                    lambda: K.backward_dual_contract_cuda(U, V, L),
+                    lambda: K.backward_dual_contract_plain(U, V, L)),
+                "K5 whole (backward_dual_grad)": (
                     lambda: K.backward_dual_grad_cuda(*dual, *grad_in, cns),
                     lambda: K.backward_dual_grad_plain(*dual, *grad_in,
                                                        cns)),
                 "train step (loss, backward, SGD)": (lambda: step("auto"),
                                                      lambda: step("torch")),
             }
-            log(f"timing {key} cuBLAS U^T V alone ({2 * B * (T - 1)} x {L})^T "
-                f"({2 * B * (T - 1)} x {L}): {cublas:.4f} ms")
+            log(f"timing {key} cuBLAS U^T V on K5's rows ({U2.shape[0]} x "
+                f"{L})^T ({U2.shape[0]} x {L}): {cublas:.4f} ms")
             for name, (kern, plain) in fns.items():
                 # plain, kernel, kernel, plain: compare within one call only
                 p1 = self.cuda_ms(plain, 1)
@@ -1670,7 +1710,9 @@ class Smoke:
                     f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                     f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                     f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
-            self.library_ms[f"{key} backward_dual_grad"] = cublas
+            self.library_ms[f"{key} backward_dual_contract"] = cublas
+            # how much of the step the device works, and on what
+            self.device_share(f"{key} train step", lambda: step("auto"))
 
     # -- (m) segmental parity ---------------------------------------------------
     def seg_problem(self, B, T, seed, ragged=True, pooling="mean"):
@@ -2323,8 +2365,8 @@ class Smoke:
                 f"{key} {name}")
         # times at config 5, the widest lattice
         for name, replaces in FB_SRC.items():
-            add(name, FB_CU, replaces, self.fb_counts[name],
-                f"config5 {name}")
+            add(name, FB_MMA_CU if name == "backward_dual_contract" else FB_CU,
+                replaces, self.fb_counts[name], f"config5 {name}")
         for name, replaces in SEG_SRC.items():
             add(name, SEG_CU, replaces, self.seg_counts[name])
         add("calibrate", CAL_CU, CAL_SRC, self.bench_counts["calibrate"])

@@ -1,5 +1,6 @@
-"""The K4, K5, K6a, K6b and K14 CUDA kernels (shared-transition
-forward-backward) against their plain PyTorch versions, on the card.
+"""The K4, K5 (its recursion and its tensor-core contraction), K6a, K6b
+and K14 CUDA kernels (shared-transition forward-backward) against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``: the kernels have no CPU mode, so these tests skip on a
 host without an NVIDIA GPU.  On one, from the repository root:
@@ -13,7 +14,11 @@ Tolerances.  The kernels split each sum over four lanes and take ``expf`` /
 fp32 ulp 6e-5 there) within rtol 1e-5, atol 2e-3; g_state (posteriors
 scaled by |w| <= 1.5, each the exp of a difference of such sums, so ~1e-4
 relative at worst) within atol 1e-3; UV within 1e-4 of its largest entry
-plus rtol 1e-3.
+plus rtol 1e-3 (the contraction alone too: 3xTF32 keeps ~2^-21 of each
+term, and the sums run in another order).  The recursions hold their factor
+in registers up to L = 144 and in shared memory beyond
+(``fwdbwd.factor_layout``: one, two or four destinations a group of
+lanes): the shapes take every layout.
 """
 import numpy as np
 import pytest
@@ -29,7 +34,10 @@ pytestmark = pytest.mark.cuda
 Z_TOL = dict(rtol=1e-5, atol=2e-3)
 G_ATOL = 1e-3
 SHAPES = [(5, 1, 6, 29), (48, 1, 8, 64), (42, 1, 128, 512), (4, 3, 6, 29),
-          (23, 3, 5, 33), (46, 3, 128, 512), (48, 3, 3, 20)]
+          (23, 3, 5, 33), (46, 3, 128, 512), (48, 3, 3, 20), (30, 2, 5, 33),
+          (50, 3, 4, 40)]
+# BASELINE configs 1, 3 and 5: (P, ns) at their widths L = 48, 42, 138
+CONFIGS = [(48, 1), (42, 1), (46, 3)]
 
 
 @pytest.fixture
@@ -128,30 +136,102 @@ def test_dual_kernels_match_plain(dev, P, ns, B, T, state_labels):
     assert float(g_state[-1].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("P,ns", CONFIGS)
+def test_k5_halves_match_plain_at_the_configs(dev, P, ns):
+    """K5's recursion (g_state and the rows U, V) and its contraction, each
+    against its plain version on the same inputs, at B=128, T=512 with
+    ragged lengths; both bit-equal on two runs; one launch of each per
+    ``backward_dual_grad``."""
+    B, T = 128, 512
+    state, trans, labels, lengths = _problem(dev, P, ns, B, T, 7)
+    args = (state, trans, labels, lengths)
+    raf, rac, rzf, rzc = (x.contiguous()
+                          for x in K.forward_dual_plain(*args, ns))
+    rng = np.random.default_rng(8)
+    wf = torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32)).to(dev)
+    wc = -torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32)).to(
+        dev)
+    grad_in = (raf, rac, rzf, rzc, wf, wc)
+    L = P * ns
+    g, U, V = K.backward_dual_grad_rows_cuda(*args, *grad_in, ns)
+    g2, U2, V2 = K.backward_dual_grad_rows_cuda(*args, *grad_in, ns)
+    rg, rU, rV = K.backward_dual_grad_rows_plain(*args, *grad_in, ns)
+    torch.cuda.synchronize()
+    assert U.shape == (B, T, 2, K.row_width(L))
+    _close(g, rg, rtol=0.0, atol=G_ATOL)
+    # V = exp(x - m) in (0, 1], its exponent a difference within a frame;
+    # U = exp(alpha + m - z) w carries the frame's scale m, a sum over up to
+    # 512 frames held to Z_TOL (1.2e-2 at |m| ~ 1e3), so U to twice that,
+    # relative; their products, which the scale leaves, to UV's bar
+    _close(V[..., :L], rV, rtol=0.0, atol=G_ATOL)
+    _close(U[..., :L], rU, rtol=2.4e-2, atol=1e-30)
+    rUV = K.backward_dual_contract_plain(rU, rV)
+    _close(K.backward_dual_contract_plain(U, V, L), rUV, rtol=1e-3,
+           atol=1e-4 * float(rUV.abs().max()))
+    for a, b in ((g, g2), (U[..., :L], U2[..., :L]), (V[..., :L],
+                                                       V2[..., :L])):
+        assert torch.equal(a, b)
+    # rows past each length hold zeros (frame length - 1 has no successor)
+    for b in (1, B - 1):
+        n = max(int(lengths[b]) - 1, 0)
+        assert not U[b, n:, :, :L].any() and not V[b, n:, :, :L].any()
+    before = dict(K.launches)
+    UV = K.backward_dual_contract_cuda(U, V, L)
+    UV2 = K.backward_dual_contract_cuda(U, V, L)
+    rUV = K.backward_dual_contract_plain(U, V, L)
+    torch.cuda.synchronize()
+    _close(UV, rUV, rtol=1e-3, atol=1e-4 * float(rUV.abs().max()))
+    assert torch.equal(UV, UV2)
+    assert K.launches["backward_dual_contract"] == \
+        before["backward_dual_contract"] + 2
+    before = dict(K.launches)
+    g3, UV3 = K.backward_dual_grad(*args, *grad_in, ns)
+    assert torch.equal(g3, g) and torch.equal(UV3, UV)
+    ran = {k: K.launches[k] - before[k] for k in before}
+    assert ran == {**dict.fromkeys(before, 0), "backward_dual_grad": 1,
+                   "backward_dual_contract": 1}
+
+
+@pytest.mark.parametrize("P,ns", CONFIGS)
+def test_forward_dual_matches_plain_at_the_configs(dev, P, ns):
+    """K4 at B=128, T=512 with ragged lengths, phone labels."""
+    state, trans, labels, lengths = _problem(dev, P, ns, 128, 512, 9)
+    args = (state, trans, labels, lengths)
+    before = K.launches["forward_dual"]
+    got = K.forward_dual_cuda(*args, ns)
+    assert K.launches["forward_dual"] == before + 1
+    for a, b in zip(got, K.forward_dual_plain(*args, ns)):
+        _close(a, b, **Z_TOL)
+
+
 def test_dead_clamped_lattice_gives_zero_gradient(dev):
     """A row whose labels no state admits, weighted on the clamped lattice
-    alone: g_state and UV are exactly zero, and nothing is NaN."""
+    alone: g_state, the rows U and UV are exactly zero, and nothing is
+    NaN."""
     state, trans, labels, lengths = _problem(dev, 46, 3, 4, 64)
     one = lambda x: x[2:3].contiguous()
     args = (one(state), trans, one(labels), one(lengths))
     af, ac, zf, zc = K.forward_dual_cuda(*args, 3)
-    g_state, UV = K.backward_dual_grad_cuda(
-        *args, af, ac, zf, zc, torch.zeros_like(zf), torch.ones_like(zf), 3)
+    grad_in = (af, ac, zf, zc, torch.zeros_like(zf), torch.ones_like(zf))
+    g_state, UV = K.backward_dual_grad_cuda(*args, *grad_in, 3)
+    _, U, V = K.backward_dual_grad_rows_cuda(*args, *grad_in, 3)
     torch.cuda.synchronize()
     assert float(zc) < -1e29
     assert float(g_state.abs().max()) == 0.0 and float(UV.abs().max()) == 0.0
+    assert float(U[..., :138].abs().max()) == 0.0
+    assert torch.isfinite(V[..., :138]).all()
 
 
 @pytest.mark.parametrize("L", [1, 48, 138, 144, 145, 232, 233, 390])
 def test_kernels_take_the_widths_they_state(dev, L):
-    """Every kernel up to L = 232 (the factor fits shared memory), the fused
-    gradient up to L = 144 (its register tiles cover the partial)."""
-    for n_lat in (1, 2):
-        for forward in (True, False):
-            n = K.smem_bytes(L, n_lat, False, forward)
-            assert (0 < n <= 232448) if L <= 232 else n == 0
-    n = K.smem_bytes(L, 2, True, False)
-    assert (0 < n <= 232448) if L <= 144 else n == 0
+    """Every recursion up to L = 232, K5's included since its transition
+    gradient left the block's registers for the contraction: the factor's
+    quarters in registers up to L = 144, in shared memory beyond."""
+    for n_lat, grad in ((1, False), (2, False), (2, True)):
+        n = K.smem_bytes(L, n_lat, grad)
+        assert (0 < n <= 232448) if L <= 232 else n == 0
+    layout = K.factor_layout(L)
+    assert layout is None if L > 232 else layout[2] == (L > 144)
 
 
 def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
@@ -169,14 +249,20 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     for got, want in zip(K.backward_dual_cuda(*args, 1),
                          K.backward_dual_plain(*args, 1)):
         _close(got, want, **Z_TOL)
+    w = torch.ones_like(zf)
+    g, UV = K.backward_dual_grad_cuda(*args, af, ac, zf, zc, w, -w, 1)
+    rg, rUV = K.backward_dual_grad_plain(*args, af, ac, zf, zc, w, -w, 1)
+    _close(g, rg, rtol=0.0, atol=G_ATOL)
+    _close(UV, rUV, rtol=1e-3, atol=1e-4 * float(rUV.abs().max()))
     before = dict(K.launches)
-    with pytest.raises(ValueError, match="L <= 144"):
-        K.backward_dual_grad_cuda(*args, af, ac, zf, zc, zf, zc, 1)
     wide = _problem(dev, 233, 1, 2, 8)
     with pytest.raises(ValueError, match="L <= 232"):
         K.forward_cuda(wide[0], wide[1], wide[3])
     with pytest.raises(ValueError, match="L <= 232"):
         K.backward_dual_cuda(*wide, 1)
+    w = torch.ones((2,), device=dev)
+    with pytest.raises(ValueError, match="L <= 232"):
+        K.backward_dual_grad_cuda(*wide, wide[0], wide[0], w, w, w, w, 1)
     assert K.launches == before
 
 

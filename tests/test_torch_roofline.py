@@ -143,9 +143,11 @@ TABLE = [
     ("fdt_viterbi_traceback", dict(B=64, T=512), "0.00008", "bytes"),
     ("forward_dual", dict(B=128, T=512, L=138), "0.07451", "operations"),
     ("forward_dual", dict(B=128, T=512, L=48), "0.0113", "bytes"),
-    ("backward_dual_grad", dict(B=128, T=512, L=138), "0.14902",
-     "operations"),
-    ("backward_dual_grad", dict(B=128, T=512, L=48), "0.0180", "operations"),
+    ("backward_dual_grad", dict(B=128, T=512, L=138), "0.08649", "bytes"),
+    ("backward_dual_grad", dict(B=128, T=512, L=48), "0.0301", "bytes"),
+    ("backward_dual_contract", dict(B=128, T=512, L=138), "0.04313",
+     "bytes"),
+    ("backward_dual_contract", dict(B=128, T=512, L=48), "0.0150", "bytes"),
     ("forward", dict(B=128, T=512, L=138), "0.03726", "operations"),
     ("forward", dict(B=128, T=512, L=48), "0.0075", "bytes"),
     ("backward", dict(B=128, T=512, L=138), "0.03726", "operations"),
@@ -291,3 +293,43 @@ def test_products_are_held_to_the_3xtf32_rate():
         k = rl.kernel_phase(name, B=128, T=512, **FDT)
         assert k.flops == 128 * 512 * 2736.0
         assert k.mma_flops == 128 * 512 * 2.0 * 2736 * 144
+
+
+def test_k5_is_a_recursion_and_a_tensor_core_contraction():
+    """K5's recursion writes g_state and the rows U, V of both lattices and
+    does the two lattices' (L) x (L, L) products a frame, no outer product;
+    its contraction reads the rows of the frames with a successor and holds
+    their product to the 3xTF32 rate; the shared train step's
+    ``dual_backward_grad`` is the two together."""
+    B, T, L = 128, 512, 138
+    rec = rl.kernel_phase("backward_dual_grad", B=B, T=T, L=L)
+    con = rl.kernel_phase("backward_dual_contract", B=B, T=T, L=L)
+    assert rec.flops == B * T * 2 * 2.0 * L * L and rec.mma_flops == 0
+    rows = 2 * B * (T - 1)
+    assert con.mma_flops == rows * 2.0 * L * L and con.flops == 0
+    assert con.bytes == 4 * (2 * rows * L + L * L)
+    assert rec.bytes == 4 * (8 * B * T * L + B * T + L * L + L + 2 * B)
+    ph = {p.name: p for p in rl.train_step_phases(B, T, L, 3 * L)}
+    for field in ("bytes", "flops", "vpu_elems", "mma_flops"):
+        assert getattr(ph["dual_backward_grad"], field) == \
+            getattr(rec, field) + getattr(con, field)
+    ms, by = rl.bound(con)
+    assert by == "bytes" and ms > con.mma_flops / 165e12 * 1e3
+    # a ragged batch counts the frames that exist, each row's last one
+    # without a successor
+    few = rl.kernel_phase("backward_dual_contract", B=B, T=T, L=L,
+                          frames=B * 100)
+    assert few.mma_flops == 2 * B * 99 * 2.0 * L * L
+
+
+@pytest.mark.parametrize("name,per_label", [
+    ("forward", 18.0), ("backward", 18.0), ("forward_dual", 39.0),
+    ("backward_dual", 39.0), ("backward_dual_grad", 56.0)])
+def test_fb_element_operations_are_the_recount(name, per_label):
+    """The recursions' element operations a frame: the recounted inventory a
+    label beside one element operation a multiply-add of the products (one
+    a lattice)."""
+    B, T, L = 4, 16, 48
+    products = 1 if name in ("forward", "backward") else 2
+    ph = rl.kernel_phase(name, B=B, T=T, L=L)
+    assert ph.vpu_elems == B * T * (per_label * L + products * L * L)
