@@ -8,9 +8,9 @@
 // cp.async.bulk on an mbarrier, one frame ahead), the 3xTF32 pieces of the
 // tensor-core products, the guarded three-way log-sum-exp of the reference
 // and, at the end, the pieces of the recursions over one (L, L) transition
-// factor: held in shared memory and read a strided column a lane (the
-// segmental kernels), or held a contiguous quarter a lane, in registers or
-// in shared memory (the forward-backward kernels).
+// factor: held in shared memory and read a strided column a lane (K10, K12),
+// or held a contiguous quarter a lane, in registers or in shared memory (the
+// forward-backward kernels and K9).
 //
 // No kernel forms a plane of the fdt lattice inside its recursion: the
 // planes Wall @ [x_t; 1] of every frame come from fdt_mma.cu's plane
@@ -192,8 +192,6 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kGroup = 4;               // lanes per destination's sum
-constexpr int kTile = 6;                // a thread's tile of an (L, L) partial
-constexpr int kTileThreads = 640;       // ... leaves it ~100 registers
 constexpr float kProdFloor = 1e-38f;    // the reference's log floor
 constexpr size_t kSmemLimit = 232448;   // bytes a Hopper block may opt into
 
@@ -265,15 +263,31 @@ __device__ __forceinline__ void stage_matrix(const float* __restrict__ Pg,
   }
 }
 
-// out[i] = sum_b part[b, i], b in order: a fixed summation order
-static __global__ void sum_partials_kernel(const float* __restrict__ part,
-                                           float* __restrict__ out, int B,
-                                           int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// out[i] = sum_b part[b, i] in a fixed order: a block of kSumThreads takes
+// 32 consecutive entries, its warp w adds rows w, w + kSumWarps, ... in
+// order (32 entries a coalesced row segment, 8 rows in flight), then the
+// warps' sums are added in warp order.  Launch with (n + 31) / 32 blocks.
+constexpr int kSumWarps = 16;
+constexpr int kSumThreads = 32 * kSumWarps;
+
+static __global__ void __launch_bounds__(kSumThreads)
+sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                    int B, int n) {
+  __shared__ float red[kSumWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
   float acc = 0.0f;
-  for (int b = 0; b < B; ++b) acc += part[(size_t)b * n + i];
-  out[i] = acc;
+  if (i < n) {
+#pragma unroll 8
+    for (int b = w; b < B; b += kSumWarps) acc += part[(size_t)b * n + i];
+  }
+  red[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && i < n) {
+    float sum = 0.0f;
+    for (int k = 0; k < kSumWarps; ++k) sum += red[k][lane];
+    out[i] = sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -373,11 +387,14 @@ __device__ __forceinline__ void stage_rows_padded(const float* __restrict__ Fg,
 // partial sums a pair, then the group reduces and scatters the D NLAT
 // partials by shuffles (xor 2, then xor 1; for one or two pairs every lane
 // gets every sum), in one fixed order.  All lanes of the warp must call it;
-// e is 16-byte aligned.
-template <int NLAT, int D, int QV, bool SHARED>
+// e is 16-byte aligned.  EXP (one lattice): e holds a row x and the sums
+// take exp(x[p] - em) in its place, each lane exponentiating its own quarter
+// (segmental.cu's K9: no separate exp pass and barrier on the frame chain).
+template <int NLAT, int D, int QV, bool SHARED, bool EXP = false>
 __device__ __forceinline__ void quarter_dot(
     const float* e, const FactorRows<D, QV, SHARED>& f, int g,
-    float (&out)[(D * NLAT + 3) / 4]) {
+    float (&out)[(D * NLAT + 3) / 4], float em = 0.0f) {
+  static_assert(!EXP || NLAT == 1, "EXP takes one lattice");
   constexpr int NP = D * NLAT;
   static_assert(NP == 1 || NP == 2 || NP == 4 || NP == 8, "pairs a group");
   const float4* ev = reinterpret_cast<const float4*>(e) + g * QV;
@@ -389,6 +406,12 @@ __device__ __forceinline__ void quarter_dot(
     float4 x[NLAT], w[D];
 #pragma unroll
     for (int i = 0; i < NLAT; ++i) x[i] = ev[i * 4 * QV + k];
+    if constexpr (EXP) {                // ex2.approx: on the frame chain
+      x[0].x = __expf(x[0].x - em);
+      x[0].y = __expf(x[0].y - em);
+      x[0].z = __expf(x[0].z - em);
+      x[0].w = __expf(x[0].w - em);
+    }
 #pragma unroll
     for (int d = 0; d < D; ++d) w[d] = f.at(d, k);
 #pragma unroll

@@ -207,7 +207,8 @@ int fb_contract(const float* U, const float* V, float* part, float* UV,
   }
   if (err != 0 || used <= 1) return err;
   const int n = L * L;
-  fdtk::sum_partials_kernel<<<cdiv(n, 256), 256, 0, s>>>(part, UV, used, n);
+  fdtk::sum_partials_kernel<<<cdiv(n, 32), fdtk::kSumThreads, 0, s>>>(
+      part, UV, used, n);
   return static_cast<int>(cudaGetLastError());
 }
 

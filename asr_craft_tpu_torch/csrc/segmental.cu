@@ -4,16 +4,23 @@
 // PyTorch version of every kernel here.
 //
 // Replaces the five TPU kernels of asr_craft_tpu/kernels/segmental_pallas.py:
-//   seg_forward_kernel<false> <- _seg_fwd_kernel (K9,
+//   seg_alpha_kernel          <- _seg_fwd_kernel (K9,
 //                                segmental_forward_pallas): alpha and logZ
+//                                (seg_forward_kernel<false> at the few
+//                                widths whose windows only its smaller
+//                                footprint fits)
 //   seg_backward_kernel       <- _seg_bwd_kernel (K10,
 //                                segmental_backward_pallas): beta
-//   seg_grad_kernel           <- _seg_grad_kernel and the drain after it (K11,
-//                                segmental_grad_pallas): the xi pass, giving
-//                                the end and start contributions A and S, the
-//                                bias gradient gd and the transition partial
-//                                gt; sum_partials_kernel (fdt_common.cuh)
-//                                adds the per-utterance gd and gt
+//   seg_message_kernel,       <- _seg_grad_kernel and the drain after it (K11,
+//   seg_xi16_kernel /            segmental_grad_pallas): the xi pass, giving
+//   seg_xi_kernel,               the end and start contributions A and S, the
+//   sum_partials_kernel          bias gradient gd and the transition partial
+//   (fdt_common.cuh)             gt.  The message pass writes E = exp(alpha -
+//                                m), the messages q and the running sums CS;
+//                                the xi pass A, S, the rows F and the gd
+//                                partials, which sum_partials_kernel adds; gt =
+//                                sum_u E[u]^T F[u] is fwdbwd_mma.cu's
+//                                fb_contract_kernel on the tensor cores
 //   seg_forward_kernel<true>  <- _seg_vit_kernel (K12,
 //                                segmental_viterbi_pallas): max-plus deltas,
 //                                duration argmaxes, final score and label
@@ -23,15 +30,18 @@
 //
 // Layouts (batch-major).  frame (B, T, L) f32: per-frame label scores.  bias
 // (Dmax, L): the duration and label bias of a segment.  invd (Dmax,): 1 /
-// (d + 1) for mean pooling, else 1.  lengths (B,) i32.  The transition
-// factor is formed by the wrapper: P (L, L) = exp(trans - tmax[None, :]) with
-// tmax the column maxima clamped at NEG_INF (K9, K11), Pt = exp(trans^T -
-// tmax_r[None, :]) with tmax_r the row maxima (K10), or trans itself (K12,
-// K13).  A segment labelled l over frames [t - d, t] scores
+// (d + 1) for mean pooling, else 1 (K9 and K11 form it from the pooling).
+// lengths (B,) i32.  The transition factor: P (L, L) = exp(trans -
+// tmax[None, :]) with tmax the column maxima clamped at NEG_INF, formed from
+// trans inside K9 (destination-major, P^T) and K11's message pass (rows
+// padded to L4 = L rounded up to 4), by the wrapper for K9's old frame;
+// Pt = exp(trans^T - tmax_r[None, :]) with tmax_r the row maxima (K10,
+// from the wrapper), or trans itself (K12, K13).  A segment
+// labelled l over frames [t - d, t] scores
 //   seg[t, d, l] = invd[d] * (CS[t + 1, l] - CS[t - d, l]) + bias[d, l],
-// CS[k] the sum of the first k frames' scores, kept as a running sum inside
-// the kernel (K10 walks down and keeps the sum of the frames above, whose
-// differences are the same).
+// CS[k] the sum of the first k frames' scores, a running sum in frame order
+// (K10 walks down and keeps the sum of the frames above, whose differences
+// are the same).
 //
 // The recursions.  The duration message depends on its source frame u alone
 // and is formed once per frame:
@@ -50,44 +60,93 @@
 //              beta[t + d + 1, l'])
 //   beta[t, l] = zm + tmax_r[l] + log(max(sum_l' exp(z[l'] - zm) Pt[l', l],
 //                1e-38))
-// K11, per frame t < length with x[d, l] = seg[t, d, l] + beta[t, l] - logZ:
-//   xi[d, l] = g * exp(q[t - 1 - d, l] + x[d, l])
-//   A[t, l] = sum_d invd[d] xi[d, l];   S[t - d, l] += invd[d] xi[d, l]
-//   gd[d, l] += xi[d, l];   F[u, l] += g * exp(x[d, l] + m_u)  (u = t - 1 - d)
-//   gt[p, l] = sum_u exp(alpha[u, p] - m_u) F[u, l]
+// K11, over the segments [k, t] (t = k + d < length, d < Dmax) with source
+// u = k - 1 and x = seg[t, d, l] + beta[t, l] - logZ:
+//   xi[t, d, l] = g * exp(q[u, l] + x)          (q[-1] = 0, CS[0] = 0)
+//   A[t, l] = sum_d invd[d] xi[t, d, l];   S[k, l] = sum_d invd[d] xi[k + d,
+//   d, l];   gd[d, l] = sum xi[., d, l];   F[u, l] = g sum_d exp(x + m_u)
+//   (u >= 0);   gt[p, l] = sum_u E[u, p] F[u, l],  E[u] = exp(alpha[u] - m_u)
 // with g_trans = sign(gt) * exp(trans + log|gt|) and the frame gradient
 // (reverse cumulative sums of A and S) left to the caller.  Rows at and past
-// the length hold NEG_INF (alphas, betas, deltas) or 0 (A, S, arg_d).
+// the length hold NEG_INF (alphas, betas, deltas) or 0 (A, S, F, E, arg_d).
 // NEG_INF is the finite -1e30 and every max is clamped at it.
 //
-// What bounds them on this card.  One block owns one utterance and walks its
-// frames in order; a frame is Dmax * L window terms and one (L) x (L, L)
-// product, far too little to fill an SM, so the time is the latency of the
-// frame chain: the window pass, a row max, the product and three block
-// barriers, up to 512 times.  Against that:
-// - the window is Dmax circular slots in shared memory keyed by the source
-//   frame modulo Dmax: nothing is shifted, a slot's real duration is
-//   computed from the frame index, and durations that would start before
-//   frame 0 are skipped, not masked;
-// - a label's Dmax window terms and its product over predecessors are split
-//   over kGroup lanes of a warp and merged with shuffles; the factor sits in
-//   shared memory with its row stride padded to 8 mod 32;
-// - the running cumulative score lives in a register of each lane; the row
-//   max is taken redundantly by every warp.
-// K11's gd and gt cannot be carried accumulators: blocks run in parallel and
-// atomics would make gradients differ from run to run.  Each block sums its
-// own utterance (gd in shared memory, gt in kTile x kTile register tiles,
-// one outer product when a source frame's slot retires and the last Dmax at
-// the end), and sum_partials_kernel adds the B partials in batch order: the
-// same bits on every run.  K13 is one warp per utterance: a serial walk of
-// one (L) argmax per segment.
-// Widths.  The factor, the windows and the bias must fit a block's shared
-// memory (227 KB), and K11's tiles must cover (L, L) with the block's
-// threads (L <= 144); seg_smem_bytes says which (L, Dmax) a kernel takes and
-// the wrapper raises beyond.  Config 4 runs L = 48, Dmax = 16.
-// Not done yet: several utterances per block at small L; K11 has no frame
-// chain of its own (alpha and beta are inputs) and could spread an
-// utterance's frames over several blocks.
+// What bounds them on this card.  K9, K10 and K12 walk an utterance's frames
+// in order, one block each; a frame is Dmax * L window terms and one (L) x
+// (L, L) product, far too little to fill an SM, so the time is the latency
+// of the frame chain.  K11 has no chain of its own (alpha and beta are its
+// inputs): it runs frame-parallel, bound by its exponentials (two a window
+// term) and the instructions around them.  Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W, config 4 (B=128, T=512, L=48, Dmax=16; PERF.md has the
+// table):
+// - K9 takes fwdbwd.cu's recursion frame (K4 / K6a's): a group of kGroup =
+//   4 lanes owns D destinations and holds a contiguous quarter of each one's
+//   factor row (fdt_common.cuh FactorRows), formed here from trans, in
+//   registers up to L = 144 (D = 1) and in shared memory beyond (D = 4); the
+//   product exponentiates its own quarter of the alpha row
+//   (quarter_dot<..., EXP>), so alpha[t] is the one row the block shares and
+//   one barrier a frame suffices (the row is double-buffered by frame
+//   parity); the row max is one redux.sync; the frame's scores arrive a
+//   frame ahead in registers; a lane's window terms (durations g, g + 4,
+//   ...) sit in registers and are summed in one pass (max, then the
+//   exp-sum of the held terms; deeper windows merge 16 durations a pass
+//   online), with the bias and invd of the first 16 durations in registers;
+//   the exponentials and logarithms on the chain are ex2/lg2.approx.  The
+//   message slots of a label are written and read by its own group alone,
+//   so a __syncwarp orders them.  0.46 ms against PR 5's frame's 0.93.
+//   Tried and dropped: two destinations a group (K4's choice): the window's
+//   terms and merges, not the product, fill a frame here, and D = 2 halved
+//   the warps that run them (1.02 ms, slower than PR 5's frame); accurate
+//   expf / logf on the chain.
+// - K10 and K12 keep PR 5's frame: the Dmax circular slots in shared memory
+//   keyed by the source frame modulo Dmax, a label's window terms and its
+//   product split over kGroup lanes and merged with shuffles, the factor in
+//   shared memory with its row stride padded to 8 mod 32, a shuffle row max
+//   and three block barriers a frame.
+// - K11 in three parts (five launches), none of which walks an utterance's
+//   frames in order but for the running sum CS:
+//   * the message pass, a block of TC = 64 frames: m_u, E[u] as 16-byte
+//     rows, q[u] by 4 x 4 register tiles over the factor, formed in shared
+//     memory from trans; one more block an utterance adds CS in frame order,
+//     a thread a label; every input is staged by cp.async with all copies in
+//     flight (a loop of global loads into shared memory waited ~1 us a
+//     round: one block an utterance walking its chunks took 0.108 ms in a
+//     trace, this 0.048);
+//   * the xi pass, a block of TX = 64 start frames with a halo of Dmax - 1
+//     start frames before the chunk (their segments that end in it feed A)
+//     and Dmax - 1 end frames after it (for S and F).  Up to Dmax = 16
+//     (seg_xi16_kernel) a thread owns a label and 4 consecutive start
+//     frames, the durations are unrolled, and S, F, gd and the thread's A
+//     over the 19 end frames it reaches sit in registers: no barrier and no
+//     shared-memory update per term; the threads' A and gd partials are
+//     summed at the end, each entry in a fixed order.  Deeper windows, and
+//     widths whose threads would not fit a block (seg_xi_kernel), step d
+//     over the window with one barrier a duration, A in shared memory.
+//     0.147 ms in a trace (the d-stepping form at Dmax = 16: 0.170);
+//     knockouts of that form on the card: F's exponential 15%, A's
+//     shared-memory update 8%, the barriers 7%, blocks of 32 or 16 start
+//     frames 2.2x and 1.6x slower;
+//   * gt = E^T F on the tensor cores (3xTF32) over the B T rows, in 256
+//     chunks summed in order: 0.031 ms against cuBLAS fp32 E.T @ F's 0.025.
+//   Every output is written once; nothing is scattered, nothing atomic; gd
+//   and gt are the same bits on every run.  Each exponential of the xi pass
+//   is one ex2.approx of its (small, non-positive) exponent; g multiplies
+//   each sum once.
+// K13 is one warp per utterance: a serial walk of one (L) argmax per segment.
+// Widths.  K10 and K12 take the (L, Dmax) at which the factor, the windows
+// and the bias fit a block's shared memory (227 KB; L <= 205 at Dmax = 16).
+// K9 takes the same widths: its own frame where its rows and windows fit,
+// seg_forward_kernel<false> (PR 5's frame, a smaller footprint) at the few
+// where they do not (L 229-232 at Dmax 5-6).  K11 takes what K9 takes and
+// its parts fit; at Dmax = 16 that is L <= 205, every width it took before.
+// seg_smem_bytes says which (L, Dmax) a kernel takes and the wrapper raises
+// beyond.  Config 4 runs L = 48, Dmax = 16.
+// Not done yet: several utterances per block at small L for K9, K10 and
+// K12; K10 and K12 on K9's frame (K10 mirrored); the xi pass at its bound
+// (0.023 ms by bytes): knockouts put ~0.095 of its 0.15 ms in the terms
+// (~0.025 their exponentials, the rest guards, loads and spills) and ~0.06
+// in a block's fixed work; an unguarded path for interior threads and the
+// end frames' values in registers are untried.
 
 #include <climits>
 #include <cmath>
@@ -98,19 +157,21 @@
 
 namespace {
 
+using fdtk::FactorRows;
 using fdtk::group_dot;
 using fdtk::kGroup;
 using fdtk::kMaxThreads;
 using fdtk::kNegInf;
 using fdtk::kProdFloor;
 using fdtk::kSmemLimit;
-using fdtk::kTile;
-using fdtk::kTileThreads;
 using fdtk::opt_in;
 using fdtk::padded_stride;
+using fdtk::quarter_dot;
+using fdtk::round_up4;
 using fdtk::row_max;
+using fdtk::row_max_redux;
 using fdtk::stage_matrix;
-using fdtk::sum_partials_kernel;
+using fdtk::stage_rows_padded;
 using fdtk::take_better;
 using fdtk::threads_for;
 
@@ -125,22 +186,145 @@ struct Plan {
   bool ok;
 };
 
-// The factor, the (Dmax, L) windows and bias, invd, three (L) vectors and,
-// for K11, the per-slot scales.  K9, K10, K12: two windows; K11: q, CS, e,
-// F, S and gd.
-Plan make_plan(int kind, int L, int Dmax) {
+// PR 5's frame (K10, K12 and K9's old frame): the factor, the two (Dmax, L)
+// windows and bias, invd and three (L) vectors.
+Plan make_plan(int L, int Dmax) {
   const int ps = padded_stride(L);
-  const size_t windows = kind == kGrad ? 6 : 2;
-  const size_t floats = (size_t)L * ps + (windows + 1) * Dmax * L + Dmax +
-                        3 * (size_t)L + (kind == kGrad ? Dmax : 0);
+  const size_t floats = (size_t)L * ps + 3 * (size_t)Dmax * L + Dmax +
+                        3 * (size_t)L;
   const size_t bytes = sizeof(float) * floats;
-  bool ok = L >= 1 && Dmax >= 1 && bytes <= kSmemLimit &&
-            (long)L * kGroup <= kMaxThreads;
-  if (kind == kGrad) {
-    const int nt = (L + kTile - 1) / kTile;
-    ok = ok && nt * nt <= threads_for(L) && threads_for(L) <= kTileThreads;
-  }
+  const bool ok = L >= 1 && Dmax >= 1 && bytes <= kSmemLimit &&
+                  (long)L * kGroup <= kMaxThreads;
   return {ps, bytes, ok};
+}
+
+// ---------------------------------------------------------------------------
+// K9's frame.  Layouts (alpha_layout picks one by L, as
+// kernels/fwdbwd.factor_layout does): QV float4 chunks of each of a group's
+// D factor rows a lane, in registers (QV = 3, 5, 9 with D = 1: L <= 48, 80,
+// 144) or in shared memory (D = 4, QV = ceil(L / 16): L <= 240).  One
+// destination a group where the factor fits registers: the window's terms
+// and merges sit on the frame chain, and one destination a lane group halves
+// them against two (the product's reads, which D > 1 shares in fwdbwd.cu,
+// are the smaller part here).
+// ---------------------------------------------------------------------------
+
+constexpr int kWin = 4;                  // window terms a lane holds a pass
+constexpr int kWinPass = kGroup * kWin;  // durations a pass: 16
+constexpr int kAlphaThreads = 640;       // every layout's block, at most
+
+int alpha_threads(int L, int D) {
+  const int n = (kGroup * ((L + D - 1) / D) + 31) / 32 * 32;
+  return n < 64 ? 64 : n;
+}
+
+bool alpha_layout_ok(int L, int qv, int D, int shared) {
+  const bool known = shared ? D == 4 && qv >= 10 && qv <= 15 &&
+                                qv == (L + 15) / 16
+                            : (qv == 3 || qv == 5 || qv == 9) && D == 1;
+  return L >= 1 && known && 16 * qv >= L &&
+         alpha_threads(L, D) <= kAlphaThreads;
+}
+
+// K9's shared memory in this layout, 0 where it does not fit: [the factor
+// (L, Lq) if shared][the alpha row by frame parity (2, Lq)][the q and CS
+// slots (Dmax, ws) each][tmax (L) if shared], ws the padded row stride
+// where it fits, else L.
+// *ws_out: the slot stride.
+size_t alpha_bytes(int L, int Dmax, int qv, int D, int shared, int* ws_out) {
+  if (!alpha_layout_ok(L, qv, D, shared) || Dmax < 1) return 0;
+  const size_t Lq = 16 * (size_t)qv;
+  const size_t fixed = (shared ? (size_t)L * (Lq + 1) : 0) + 2 * Lq;
+  for (int ws : {padded_stride(L), L}) {
+    const size_t bytes = sizeof(float) * (fixed + 2 * (size_t)Dmax * ws);
+    if (bytes <= kSmemLimit) {
+      if (ws_out) *ws_out = ws;
+      return bytes;
+    }
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// K11's parts.
+// ---------------------------------------------------------------------------
+
+constexpr int kMsgThreads = 256;
+
+// The xi pass's threads at most, by start frames a thread: NSRC = 4 (config
+// 4: 960 threads, 30 warps an SM, at 64 registers; the windowed kernel
+// spills ~170 bytes there), 8 (128 registers), 16 (for deep windows: 64
+// registers, with spills).
+constexpr int xi_threads(int nsrc) { return nsrc == 8 ? 512 : 1024; }
+constexpr int kGdPass = 16;             // durations a gd reduction sums
+
+// The message pass: the factor (L, L4), tmax, a chunk's alpha rows (TC, L),
+// its E tile (TC, L4) and maxima (TC).  *tc: the frames a
+// chunk, the most of 64, 32, ..., 4 that fits.
+size_t msg_bytes(int L, int* tc) {
+  const size_t L4 = round_up4(L);
+  for (int TC = 64; TC >= 4; TC /= 2) {
+    const size_t bytes = sizeof(float) * ((size_t)L * L4 + L +
+                                          (size_t)TC * L + TC * L4 + TC);
+    if (bytes <= kSmemLimit) {
+      if (tc) *tc = TC;
+      return bytes;
+    }
+  }
+  return 0;
+}
+
+// The xi pass: TX start frames a block, NJ threads a label, each owning up
+// to NSRC of the block's NS = TX + Dmax - 1 start frames (the chunk and its
+// halo); shared memory holds CS and beta - logZ of the NS end frames from
+// the chunk's first, A of the chunk (TX, L), the bias (Dmax, L), invd and
+// the threads' gd partials of kGdPass durations (kGdPass, NJ, L), summed
+// once a pass, off the barrier of every duration.
+struct XiPlan {
+  int tx, nj, nsrc, threads;
+  size_t bytes;
+  bool windowed;                  // seg_xi16_kernel (Dmax <= 16)
+};
+
+XiPlan xi_plan(int L, int Dmax) {
+  // windows of at most 16 durations: NSRC = 4 consecutive start frames a
+  // thread, the threads' A partials over W = NSRC + 15 end frames and gd
+  // partials of every duration in shared memory; while TX >= 16 fits
+  constexpr int nsrc = 4, W = nsrc + kWinPass - 1;
+  for (int TX = 64; Dmax <= kWinPass && TX >= 16; TX /= 2) {
+    const long NS = (long)TX + Dmax - 1;
+    const long nj = (NS + nsrc - 1) / nsrc;
+    const long threads = (nj * L + 31) / 32 * 32;
+    const size_t bytes =
+        sizeof(float) * (2 * (size_t)NS * L + (size_t)Dmax * L + Dmax +
+                         (size_t)Dmax * nj * L + (size_t)nj * W * L);
+    if (threads <= xi_threads(nsrc) && bytes <= kSmemLimit)
+      return {TX, (int)nj, nsrc, (int)threads, bytes, true};
+  }
+  for (int TX = 64; TX >= 1; TX /= 2)
+    for (int nsrc : {4, 8, 16}) {
+      const long NS = (long)TX + Dmax - 1;
+      const long nj = (NS + nsrc - 1) / nsrc;
+      const long threads = (nj * L + 31) / 32 * 32;
+      if (threads > xi_threads(nsrc)) continue;
+      const size_t bytes =
+          sizeof(float) * (2 * (size_t)NS * L + (size_t)TX * L +
+                           (size_t)Dmax * L + Dmax +
+                           kGdPass * (size_t)nj * L);
+      if (bytes <= kSmemLimit)
+        return {TX, (int)nj, nsrc, (int)threads, bytes, false};
+    }
+  return {0, 0, 0, 0, 0, false};
+}
+
+// K11 takes what K9 takes (PR 5's frame) and its two parts fit: the larger
+// part's shared memory, 0 if not taken.
+size_t grad_bytes(int L, int Dmax) {
+  if (!make_plan(L, Dmax).ok) return 0;
+  const size_t m = msg_bytes(L, nullptr);
+  const XiPlan x = xi_plan(L, Dmax);
+  if (m == 0 || x.bytes == 0) return 0;
+  return m > x.bytes ? m : x.bytes;
 }
 
 // The slot of source frame t - 1 - d when frame t sits in slot r = t mod
@@ -171,6 +355,21 @@ __device__ __forceinline__ float window_term(const float* qw,
     return __fadd_rn(q, __fadd_rn(__fmul_rn(__fsub_rn(cum, cs), invd[d]),
                                   biasv[d * L + l]));
   return q + ((cum - cs) * invd[d] + biasv[d * L + l]);
+}
+
+// invd[d]: 1 / (d + 1) for mean pooling (one IEEE division, the plain
+// version's bits), else 1
+__device__ __forceinline__ float pool_weight(int d, int mean_pool) {
+  return mean_pool ? __fdiv_rn(1.0f, (float)(d + 1)) : 1.0f;
+}
+
+// max(max_p trans[p, c], NEG_INF): column c's maximum, as
+// kernels/fwdbwd.forward_factors takes it
+__device__ __forceinline__ float column_max(const float* __restrict__ trans,
+                                            int L, int c) {
+  float x = kNegInf;
+  for (int p = 0; p < L; ++p) x = fmaxf(x, trans[(size_t)p * L + c]);
+  return x;
 }
 
 __device__ __forceinline__ float group_max(float x) {
@@ -419,171 +618,588 @@ seg_backward_kernel(const float* __restrict__ frame,
   }
 }
 
-// acc += u^T v on this thread's kTile x kTile tile (rows p0.., columns
-// l0..) of an (L, L) partial: K11's gt gains exp(alpha[u] - m_u)^T F[u] when
-// source frame u retires.
-__device__ __forceinline__ void tile_outer(const float* u, const float* v,
-                                           int p0, int l0, int L,
-                                           float (&acc)[kTile][kTile]) {
-  float uu[kTile], vv[kTile];
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    uu[i] = p0 + i < L ? u[p0 + i] : 0.0f;
-    vv[i] = l0 + i < L ? v[l0 + i] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < kTile; ++i)
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[i][j] = fmaf(uu[i], vv[j], acc[i][j]);
-}
 
-// K11.  A, S (B, T, L); gd_part (B, Dmax, L) and gt_part (B, L, L): this
-// utterance's partials, summed over the batch by sum_partials_kernel.
-__global__ void __launch_bounds__(kTileThreads)
-seg_grad_kernel(const float* __restrict__ frame, const float* __restrict__ Pg,
-                const float* __restrict__ tmax_g,
-                const float* __restrict__ bias_g,
-                const float* __restrict__ invd_g,
-                const int* __restrict__ lengths,
-                const float* __restrict__ alphas,
-                const float* __restrict__ betas,
-                const float* __restrict__ logZ, const float* __restrict__ gvec,
-                float* __restrict__ A, float* __restrict__ S,
-                float* __restrict__ gd_part, float* __restrict__ gt_part,
-                int T, int L, int Dmax, int ps) {
-  extern __shared__ float smem[];
+// K9 on fwdbwd.cu's recursion frame: alphas (B, T, L), logZ (B,).  Group
+// `slot` (kGroup lanes) owns destinations l[d] = slot + d nslots; its lane g
+// takes the window terms of durations g, g + 4, ... of each, and finishes
+// destination g (g < D): the alpha entry, the message and the slots.
+template <int QV, int D, bool SHARED>
+__global__ void __launch_bounds__(kAlphaThreads)
+seg_alpha_kernel(const float* __restrict__ frame,
+                 const float* __restrict__ trans,
+                 const float* __restrict__ bias_g, int mean_pool,
+                 const int* __restrict__ lengths, float* __restrict__ alphas,
+                 float* __restrict__ logZ, int T, int L, int Dmax, int ws) {
+  constexpr int Lq = 16 * QV;
+  extern __shared__ float4 smem4[];
+  float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
+  float* arow = Fs + (SHARED ? (size_t)L * Lq : 0);  // (2, Lq) by parity
+  float* qw = arow + 2 * Lq;                         // (Dmax, ws) q by slot
+  float* csw = qw + (size_t)Dmax * ws;               // (Dmax, ws) CS[u + 1]
+  float* tcol = csw + (size_t)Dmax * ws;             // SHARED: (L) tmax
   const int tid = threadIdx.x, nth = blockDim.x;
-  const float* Pm = smem;
-  stage_matrix(Pg, smem, L, ps);
-  const int W = Dmax * L;
-  float* qw = smem + (size_t)L * ps;           // q[u] by slot
-  float* csw = qw + W;                         // CS[u + 1]
-  float* ew = csw + W;                         // exp(alpha[u] - m_u)
-  float* Fw = ew + W;                          // F[u]
-  float* Sw = Fw + W;                          // S[k] by slot k mod Dmax
-  float* gdacc = Sw + W;                       // (Dmax, L) this utterance's gd
-  float* biasv = gdacc + W;
-  float* invd = biasv + W;                     // (Dmax)
-  float* mw = invd + Dmax;                     // (Dmax) m_u by slot
-  float* a = mw + Dmax;                        // (L) alpha[t]
-  float* enew = a + L;                         // (L) exp(alpha[t] - m_t)
-  float* tmx = enew + L;                       // (L)
-
-  // this thread's register tile of gt: rows p0.., columns l0..
-  const int nt = (L + kTile - 1) / kTile;
-  const bool tiled = tid < nt * nt;
-  const int p0 = (tid / nt) * kTile, l0 = (tid % nt) * kTile;
-  float acc[kTile][kTile];
+  const int slot = tid / kGroup, nslots = nth / kGroup, g = tid % kGroup;
+  int l[D];
+  bool ok[D];
 #pragma unroll
-  for (int i = 0; i < kTile; ++i)
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) acc[i][j] = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    l[d] = slot + d * nslots;
+    ok[d] = l[d] < L;
+  }
+  const bool own = g < D && slot + g * nslots < L;
+  const int lo = own ? slot + g * nslots : 0;        // my destination
   const int b = blockIdx.x;
   const int len = min(max(lengths[b], 0), T);
-  const size_t off = (size_t)b * T * L;
-  const float* fb = frame + off;
-  const float* alb = alphas + off;
-  const float* beb = betas + off;
-  float* Ab = A + off;
-  float* Sb = S + off;
-  const float gb = gvec[b], lz = logZ[b];
+  const float* fb = frame + (size_t)b * T * L;
+  float* ob = alphas + (size_t)b * T * L;
 
-  stage_bias(bias_g, invd_g, biasv, invd, L, Dmax);
-  for (int i = tid; i < W; i += nth) {
-    Fw[i] = 0.0f;
-    Sw[i] = 0.0f;
-    gdacc[i] = 0.0f;
+  // the factor, destination-major, formed here from trans: F[l, p] =
+  // exp(trans[p, l] - tmax[l]), tmax the column maxima clamped at NEG_INF
+  FactorRows<D, QV, SHARED> f;
+  float tm = 0.0f;                                   // tmax[lo]
+  if constexpr (SHARED) {
+    for (int c = tid; c < L; c += nth) tcol[c] = column_max(trans, L, c);
+    __syncthreads();
+    for (int i = tid; i < L * Lq; i += nth) {
+      const int r = i / Lq, c = i - r * Lq;
+      Fs[i] = c < L ? expf(trans[(size_t)c * L + r] - tcol[r]) : 0.0f;
+    }
+    f.load(nullptr, Fs, L, l, g);
+    if (own) tm = tcol[lo];
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float cm = ok[d] ? column_max(trans, L, l[d]) : 0.0f;
+      if (own && lo == l[d]) tm = cm;
+#pragma unroll
+      for (int k = 0; k < QV; ++k) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = 4 * (QV * g + k) + j;
+          v[j] = ok[d] && p < L ? expf(trans[(size_t)p * L + l[d]] - cm)
+                                : 0.0f;
+        }
+        f.r[d][k] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
   }
-  for (int l = tid; l < L; l += nth) tmx[l] = tmax_g[l];
-  for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth) {
-    Ab[i] = 0.0f;
-    Sb[i] = 0.0f;
+  for (int j = tid; j < 2 * Lq; j += nth) arow[j] = kNegInf;
+  for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth)
+    ob[i] = kNegInf;
+  // the bias and invd of durations g + 4 i (i < kWin), constant over frames
+  float bz[D][kWin], iv[kWin];
+#pragma unroll
+  for (int i = 0; i < kWin; ++i) {
+    const int d = g + kGroup * i;
+    iv[i] = d < Dmax ? pool_weight(d, mean_pool) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      bz[k][i] = d < Dmax && ok[k] ? bias_g[(size_t)d * L + l[k]] : 0.0f;
+  }
+  float cum[D], cur[D];                // CS[t + 1] and frame t's scores
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    cum[k] = 0.0f;
+    cur[k] = len > 0 && ok[k] ? fb[l[k]] : 0.0f;
   }
   __syncthreads();
 
-  const int g = tid % kGroup, l = tid / kGroup;
-  const bool ok = l < L, mine = ok && g == 0;
-  float cum = 0.0f;                            // CS[t + 1, l]
-  int r = 0;                                   // t mod Dmax
+  int r = 0;                           // t mod Dmax
   for (int t = 0; t < len; ++t) {
-    float x0 = 0.0f, at = kNegInf;
-    if (ok) {
-      cum += fb[(size_t)t * L + l];
-      x0 = beb[(size_t)t * L + l] - lz;
+    float nxt[D];                      // a frame ahead of its use
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      nxt[k] = t + 1 < len && ok[k] ? fb[(size_t)(t + 1) * L + l[k]] : 0.0f;
+      cum[k] += cur[k];
     }
-    if (mine) at = alb[(size_t)t * L + l];
     const int dhi = min(t, Dmax - 1);
-    float asum = 0.0f;
-    if (ok)
-      for (int d = g; d <= dhi; d += kGroup) {
-        float q = 0.0f, cs = 0.0f;
-        int s = -1;                            // d == t: no source frame
-        if (d < t) {
-          s = source_slot(r, d, Dmax);
-          q = qw[s * L + l];
-          cs = csw[s * L + l];
+    float alpha[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      float mx = kNegInf, sum = 0.0f;
+      for (int c = 0; c <= dhi; c += kWinPass) {
+        float w[kWin];
+        float cm = kNegInf;
+#pragma unroll
+        for (int i = 0; i < kWin; ++i) {
+          const int d = c + g + kGroup * i;
+          w[i] = -INFINITY;
+          if (ok[k] && d <= dhi) {
+            float q = 0.0f, cs = 0.0f;
+            if (d < t) {
+              const int s = source_slot(r, d, Dmax);
+              q = qw[s * ws + l[k]];
+              cs = csw[s * ws + l[k]];
+            }
+            const float bv = c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
+            const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
+            w[i] = q + ((cum[k] - cs) * in + bv);
+            cm = fmaxf(cm, w[i]);
+          }
         }
-        const float xv = ((cum - cs) * invd[d] + biasv[d * L + l]) + x0;
-        const float xi = gb * expf(q + xv);
-        const float y = invd[d] * xi;
-        asum += y;
-        const int ks = s + 1 == Dmax ? 0 : s + 1;   // start frame t - d
-        Sw[ks * L + l] += y;
-        gdacc[d * L + l] += xi;
-        if (s >= 0) Fw[s * L + l] += gb * expf(xv + mw[s]);
+        cm = group_max(cm);
+        if (c == 0) {
+          mx = cm;
+        } else if (cm > mx) {          // a deeper pass: rescale online
+          sum *= __expf(mx - cm);
+          mx = cm;
+        }
+#pragma unroll
+        for (int i = 0; i < kWin; ++i)
+          if (w[i] != -INFINITY) sum += __expf(w[i] - mx);
       }
-    asum = group_sum(asum);
-    if (mine) {
-      Ab[(size_t)t * L + l] = asum;
-      a[l] = at;
+      alpha[k] = mx + __logf(fmaxf(group_sum(sum), kProdFloor));
+    }
+    float* at = arow + (t & 1) * Lq;
+    float am = alpha[0], cm = cum[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k)
+      if (g == k) {
+        am = alpha[k];
+        cm = cum[k];
+      }
+    if (own) {
+      at[lo] = am;
+      ob[(size_t)t * L + lo] = am;
     }
     __syncthreads();
     float m[1];
-    row_max<1>(a, L, m);
-    if (mine) enew[l] = expf(at - m[0]);
-    // slot r holds source frame t - Dmax, complete now: retire it
-    if (t >= Dmax && tiled)
-      tile_outer(ew + r * L, Fw + r * L, p0, l0, L, acc);
-    // start frame t - Dmax + 1 is complete too: emit it
-    if (mine && t >= Dmax - 1) {
-      const int ks = r + 1 == Dmax ? 0 : r + 1;
-      Sb[(size_t)(t - Dmax + 1) * L + l] = Sw[ks * L + l];
-      Sw[ks * L + l] = 0.0f;
+    row_max_redux<1, (QV + 1) / 2>(at, L, m);
+    float acc[(D + 3) / 4];
+    quarter_dot<1, D, QV, SHARED, true>(at, f, g, acc, m[0]);
+    if (own) {
+      qw[r * ws + lo] = m[0] + tm + __logf(fmaxf(acc[0], kProdFloor));
+      csw[r * ws + lo] = cm;
     }
-    __syncthreads();
-    float dot[1];
-    group_dot<1>(enew, Pm, ps, L, ok ? l : 0, g, ok, dot);
-    if (mine) {
-      qw[r * L + l] = m[0] + tmx[l] + logf(fmaxf(dot[0], kProdFloor));
-      csw[r * L + l] = cum;
-      ew[r * L + l] = enew[l];
-      Fw[r * L + l] = 0.0f;
-    }
-    if (tid == 0) mw[r] = m[0];
-    __syncthreads();
+    __syncwarp();                      // the group's slots, for frame t + 1
     r = r + 1 == Dmax ? 0 : r + 1;
+#pragma unroll
+    for (int k = 0; k < D; ++k) cur[k] = nxt[k];
   }
 
-  // the last Dmax source frames never met their overwrite: retire them in
-  // frame order, and emit the start frames still in the window
-  for (int u = max(0, len - Dmax); u < len; ++u)
-    if (tiled) {
-      const int s = u % Dmax;
-      tile_outer(ew + s * L, Fw + s * L, p0, l0, L, acc);
-    }
-  if (mine)
-    for (int k = max(0, len - Dmax + 1); k < len; ++k)
-      Sb[(size_t)k * L + l] = Sw[(k % Dmax) * L + l];
-  for (int i = tid; i < W; i += nth) gd_part[(size_t)b * W + i] = gdacc[i];
-  if (tiled) {
-    float* part = gt_part + (size_t)b * L * L;
-#pragma unroll
-    for (int i = 0; i < kTile; ++i)
-#pragma unroll
-      for (int j = 0; j < kTile; ++j)
-        if (p0 + i < L && l0 + j < L)
-          part[(size_t)(p0 + i) * L + l0 + j] = acc[i][j];
+  // logZ = lse(alpha[length - 1]); an empty row reads NEG_INF
+  if (tid < 32) {
+    const float* last = arow + ((len - 1) & 1) * Lq;
+    float m[1];
+    row_max<1>(last, L, m);
+    float sum = 0.0f;
+    for (int k = tid; k < L; k += 32) sum += expf(last[k] - m[0]);
+    for (int o = 16; o > 0; o >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (tid == 0) logZ[b] = m[0] + logf(fmaxf(sum, kProdFloor));
   }
+}
+
+// dst[0, n) = src[0, n) by cp.async, every copy in flight at once; each
+// thread waits for its own, the caller's barrier for everyone's.
+__device__ __forceinline__ void stage_async(float* dst,
+                                            const float* __restrict__ src,
+                                            int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    fdtk::cp_async4(dst + i, src + i);
+  fdtk::cp_async_commit();
+  fdtk::cp_async_wait<0>();
+}
+
+// K11's message pass over frames [t0, t0 + TC) of utterance blockIdx.y (t0
+// = TC blockIdx.x): m (B, T) the row maxima of alpha, E (B, T, L4) =
+// exp(alpha - m) (0 in the pad columns and at and past the length) and q
+// (B, T, L) the messages; the last block of each utterance (blockIdx.x ==
+// gridDim.x - 1) writes cs (B, T, L) = CS[u + 1], the running sum in frame
+// order (the plain version's bits), one thread a label, the block staging
+// TC frames at a time.  Rows at and past the length of q, cs and m are not
+// written.  The factor P is formed from trans (L, L) in shared memory, its
+// rows padded to L4 with zeros.
+__global__ void __launch_bounds__(kMsgThreads)
+seg_message_kernel(const float* __restrict__ alphas,
+                   const float* __restrict__ frame,
+                   const float* __restrict__ trans,
+                   const int* __restrict__ lengths, float* __restrict__ E,
+                   float* __restrict__ qg, float* __restrict__ csg,
+                   float* __restrict__ mg, int T, int L, int TC) {
+  extern __shared__ float4 smem4[];
+  const int L4 = round_up4(L);
+  float* Ps = reinterpret_cast<float*>(smem4);     // (L, L4)
+  float* Es = Ps + (size_t)L * L4;                 // (TC, L4)
+  float* As = Es + (size_t)TC * L4;                // (TC, L) alpha rows
+  float* tmx = As + (size_t)TC * L;                // (L)
+  float* ms = tmx + L;                             // (TC)
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nth >> 5;
+  const int b = blockIdx.y, t0 = blockIdx.x * TC;
+  const int len = min(max(lengths[b], 0), T);
+  const size_t row0 = (size_t)b * T;
+  if (blockIdx.x == gridDim.x - 1) {               // the running sums
+    float cum = 0.0f;
+    for (int c0 = 0; c0 < len; c0 += TC) {
+      const int n = min(TC, len - c0);
+      __syncthreads();                             // the last rows are read
+      stage_async(As, frame + (row0 + c0) * L, n * L);
+      __syncthreads();
+      if (tid < L)
+        for (int tt = 0; tt < n; ++tt) {
+          cum += As[tt * L + tid];
+          csg[(row0 + c0 + tt) * L + tid] = cum;
+        }
+    }
+    return;
+  }
+  const int n = max(min(TC, len - t0), 0);         // live frames here
+  // rows at and past the length: E is 0 there
+  const int z0 = t0 + n, z1 = min(t0 + TC, T);
+  for (int i = tid; i < (z1 - z0) * L4; i += nth)
+    E[(row0 + z0) * L4 + i] = 0.0f;
+  if (n == 0) return;
+  for (int i = tid; i < L * L4; i += nth) {
+    const int p = i / L4, c = i - p * L4;
+    fdtk::cp_async4(Ps + i, trans + (size_t)p * L + min(c, L - 1),
+                    c < L ? 4 : 0);
+  }
+  stage_async(As, alphas + (row0 + t0) * L, n * L);
+  __syncthreads();
+  // the factor from trans, in place: P = exp(trans - tmax), tmax the
+  // column maxima clamped at NEG_INF (kernels/fwdbwd.forward_factors)
+  for (int c = tid; c < L; c += nth) {
+    float x = kNegInf;
+    for (int p = 0; p < L; ++p) x = fmaxf(x, Ps[p * L4 + c]);
+    tmx[c] = x;
+  }
+  __syncthreads();
+  for (int i = tid; i < L * L4; i += nth) {
+    const int c = i % L4;
+    if (c < L) Ps[i] = expf(Ps[i] - tmx[c]);
+  }
+  for (int tt = warp; tt < n; tt += nwarps) {
+    float x = kNegInf;
+    for (int l = lane; l < L; l += 32) x = fmaxf(x, As[tt * L + l]);
+    for (int o = 16; o > 0; o >>= 1)
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    if (lane == 0) {
+      ms[tt] = x;
+      mg[row0 + t0 + tt] = x;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < TC * L4; i += nth) {
+    const int tt = i / L4, p = i - tt * L4;
+    const float e = tt < n && p < L ? __expf(As[tt * L + p] - ms[tt]) : 0.0f;
+    Es[i] = e;
+    if (tt < n) E[(row0 + t0) * L4 + i] = e;
+  }
+  __syncthreads();
+  // q on 4 x 4 tiles (frames f0.., labels l0..): the factor's row p read as
+  // one float4, E[f][p] broadcast
+  const int nl = L4 / 4, ng = (n + 3) / 4;
+  for (int w = tid; w < ng * nl; w += nth) {
+    const int f0 = (w / nl) * 4, l0 = (w % nl) * 4;
+    float acc[4][4] = {};
+    for (int p = 0; p < L; ++p) {
+      const float4 pv = *reinterpret_cast<const float4*>(Ps + p * L4 + l0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float e = Es[(f0 + j) * L4 + p];
+        acc[j][0] = fmaf(e, pv.x, acc[j][0]);
+        acc[j][1] = fmaf(e, pv.y, acc[j][1]);
+        acc[j][2] = fmaf(e, pv.z, acc[j][2]);
+        acc[j][3] = fmaf(e, pv.w, acc[j][3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int tt = f0 + j, l = l0 + k;
+        if (tt < n && l < L)
+          qg[(row0 + t0 + tt) * L + l] =
+              ms[tt] + tmx[l] + __logf(fmaxf(acc[j][k], kProdFloor));
+      }
+  }
+}
+
+// K11's xi pass, the part its two kernels share.  The block of start frames
+// [k0, k0 + TX) of utterance blockIdx.y (k0 = TX blockIdx.x) writes A and S
+// of frames [k0, k0 + TX), F of source frames [k0 - 1, k0 + TX - 1) (and
+// the last row, from the last chunk) and its gd partial (Dmax, L).  It also
+// reads the Dmax - 1 start frames before k0 (their segments that end in the
+// chunk feed A) and the Dmax - 1 end frames after it (the segments of its
+// start frames that end there feed S and F).  Rows no segment reaches are
+// zeroed here; the block's CS and beta - logZ of end frames [k0, te), the
+// bias and invd are staged into shared memory.
+struct XiChunk {
+  int len, k0, k1, kh, te;    // start frames [kh, k1) read, ends [k0, te)
+  size_t row0;
+  float lz, gb;
+  float* gdb;                 // this block's gd partial
+};
+
+__device__ __forceinline__ bool xi_begin(
+    XiChunk& c, const float* __restrict__ csg, const float* __restrict__ betas,
+    const float* __restrict__ logZ, const float* __restrict__ gvec,
+    const float* __restrict__ bias_g, int mean_pool,
+    const int* __restrict__ lengths, float* __restrict__ A,
+    float* __restrict__ S, float* __restrict__ F,
+    float* __restrict__ gd_part, float* cums, float* x0s, float* bs,
+    float* iv, int T, int L, int Dmax, int TX) {
+  const int tid = threadIdx.x, nth = blockDim.x, L4 = round_up4(L);
+  const int b = blockIdx.y;
+  c.k0 = blockIdx.x * TX;
+  c.len = min(max(lengths[b], 0), T);
+  c.row0 = (size_t)b * T;
+  c.gdb = gd_part + ((size_t)b * gridDim.x + blockIdx.x) * Dmax * L;
+  const int kend = min(c.k0 + TX, T);              // the chunk's frames
+  c.k1 = min(kend, max(c.len, c.k0));              // ... that start segments
+  // rows no segment reaches: A, S of [k1, kend), F of sources [k1 - 1, ...)
+  for (int i = tid; i < (kend - c.k1) * L; i += nth) {
+    const size_t o = (c.row0 + c.k1) * L + i;
+    A[o] = 0.0f;
+    S[o] = 0.0f;
+  }
+  const int fr0 = max(c.k1 - 1, 0), fr1 = c.k0 + TX >= T ? T : kend - 1;
+  for (int i = tid; i < (fr1 - fr0) * L; i += nth) {
+    const int u = fr0 + i / L, l = i % L;
+    F[(c.row0 + u) * L4 + l] = 0.0f;
+  }
+  if (c.k1 <= c.k0) {                              // past the length
+    for (int i = tid; i < Dmax * L; i += nth) c.gdb[i] = 0.0f;
+    return false;
+  }
+  c.kh = max(c.k0 - Dmax + 1, 0);
+  c.te = min(c.k1 + Dmax - 1, c.len);
+  c.lz = logZ[b];
+  c.gb = gvec[b];
+  const int ne = (c.te - c.k0) * L;
+  const size_t o = (c.row0 + c.k0) * L;
+  for (int i = tid; i < ne; i += nth) {
+    fdtk::cp_async4(cums + i, csg + o + i);
+    fdtk::cp_async4(x0s + i, betas + o + i);
+  }
+  for (int i = tid; i < Dmax * L; i += nth) fdtk::cp_async4(bs + i, bias_g + i);
+  for (int d = tid; d < Dmax; d += nth) iv[d] = pool_weight(d, mean_pool);
+  fdtk::cp_async_commit();
+  fdtk::cp_async_wait<0>();
+  for (int i = tid; i < ne; i += nth) x0s[i] -= c.lz;   // its own copies
+  return true;
+}
+
+// The message, CS and m of start frame k's source u = k - 1 (0 for k == 0:
+// the segment from frame 0 has no source).
+__device__ __forceinline__ void xi_source(const float* __restrict__ qg,
+                                          const float* __restrict__ csg,
+                                          const float* __restrict__ mg,
+                                          const XiChunk& c, int k, int l,
+                                          int L, bool live, float& q,
+                                          float& cs, float& m) {
+  q = cs = m = 0.0f;
+  if (live && k > 0) {
+    const size_t o = (c.row0 + k - 1) * L + l;
+    q = qg[o];
+    cs = csg[o];
+    m = mg[c.row0 + k - 1];
+  }
+}
+
+// Any window depth.  Thread (jl, l): label l, start frames kh + jl + NJ i
+// (i < NSRC), whose message, CS and m sit in its registers while the block
+// steps d over the window: S, F and gd gathered in registers, A in shared
+// memory, one barrier a duration; the threads' gd partials of kGdPass
+// durations are summed once a pass.  Each exponential is one ex2.approx of
+// its (small, non-positive) exponent times log2(e); g is applied once to
+// each sum.
+template <int NSRC>
+__global__ void __launch_bounds__(xi_threads(NSRC))
+seg_xi_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
+              const float* __restrict__ mg, const float* __restrict__ betas,
+              const float* __restrict__ logZ, const float* __restrict__ gvec,
+              const float* __restrict__ bias_g, int mean_pool,
+              const int* __restrict__ lengths, float* __restrict__ A,
+              float* __restrict__ S, float* __restrict__ F,
+              float* __restrict__ gd_part, int T, int L, int Dmax, int TX,
+              int NJ) {
+  extern __shared__ float4 smem4[];
+  const int L4 = round_up4(L);
+  const int NSmax = TX + Dmax - 1;
+  float* cums = reinterpret_cast<float*>(smem4);   // (NSmax, L) CS[t + 1]
+  float* x0s = cums + (size_t)NSmax * L;           // (NSmax, L) beta - logZ
+  float* As = x0s + (size_t)NSmax * L;             // (TX, L)
+  float* bs = As + (size_t)TX * L;                 // (Dmax, L)
+  float* iv = bs + (size_t)Dmax * L;               // (Dmax)
+  float* gdp = iv + Dmax;                          // (kGdPass, NJ, L)
+  const int tid = threadIdx.x, nth = blockDim.x;
+  XiChunk c;
+  if (!xi_begin(c, csg, betas, logZ, gvec, bias_g, mean_pool, lengths, A, S,
+                F, gd_part, cums, x0s, bs, iv, T, L, Dmax, TX))
+    return;
+  const int k0 = c.k0;
+  for (int i = tid; i < TX * L; i += nth) As[i] = 0.0f;
+  // start frame k = k0 + kk[i] takes durations [dlo, dhi): its segments
+  // that end in [k0, te)
+  const int jl = tid / L, l = tid % L;
+  const bool act = jl < NJ;
+  float qv[NSRC], cv[NSRC], mv[NSRC], sacc[NSRC], facc[NSRC];
+  int kk[NSRC], dlo[NSRC], dhi[NSRC];
+#pragma unroll
+  for (int i = 0; i < NSRC; ++i) {
+    const int k = c.kh + jl + NJ * i;
+    sacc[i] = facc[i] = 0.0f;
+    kk[i] = k - k0;
+    dlo[i] = max(k0 - k, 0);
+    dhi[i] = act && k < c.k1 ? c.te - k : 0;
+    xi_source(qg, csg, mg, c, k, l, L, dhi[i] > 0, qv[i], cv[i], mv[i]);
+  }
+  __syncthreads();
+
+  const int dmax = min(Dmax, c.te - c.kh);         // durations that occur
+  for (int d = 0; d < dmax; ++d) {
+    float gdl = 0.0f;
+    if (act) {
+      const float in = iv[d], bv = bs[d * L + l];
+#pragma unroll
+      for (int i = 0; i < NSRC; ++i) {
+        if (d < dlo[i] || d >= dhi[i]) continue;
+        const int e = kk[i] + d;                   // end frame t - k0
+        const float xv = ((cums[e * L + l] - cv[i]) * in + bv) +
+                         x0s[e * L + l];
+        const float xi = __expf(qv[i] + xv);
+        const float y = in * xi;
+        if (e < TX) As[e * L + l] += y;
+        if (kk[i] >= 0) {                          // a start frame of mine
+          sacc[i] += y;
+          gdl += xi;
+          if (kk[i] + k0 > 0) facc[i] += __expf(xv + mv[i]);
+        }
+      }
+      gdp[((d % kGdPass) * NJ + jl) * L + l] = gdl;
+    }
+    __syncthreads();            // A of this duration
+    if (d % kGdPass == kGdPass - 1 || d == dmax - 1) {
+      // the gd partials of the last kGdPass durations, each summed over
+      // its label's threads in order
+      const int d0 = d - d % kGdPass;
+      for (int o = tid; o < (d - d0 + 1) * L; o += nth) {
+        const int dd = o / L, ll = o - dd * L;
+        float s = 0.0f;
+        for (int j = 0; j < NJ; ++j) s += gdp[(dd * NJ + j) * L + ll];
+        c.gdb[(size_t)(d0 + dd) * L + ll] = c.gb * s;
+      }
+      __syncthreads();
+    }
+  }
+  for (int d = dmax + tid; d < Dmax; d += nth)     // durations too long
+    for (int i = 0; i < L; ++i) c.gdb[(size_t)d * L + i] = 0.0f;
+
+  for (int i = tid; i < (c.k1 - k0) * L; i += nth)
+    A[(c.row0 + k0) * L + i] = c.gb * As[i];
+  if (act)
+#pragma unroll
+    for (int i = 0; i < NSRC; ++i) {
+      const int k = k0 + kk[i];
+      if (k < k0 || k >= c.k1) continue;
+      S[(c.row0 + k) * L + l] = c.gb * sacc[i];
+      if (k > 0) F[(c.row0 + k - 1) * L4 + l] = c.gb * facc[i];
+    }
+}
+
+// Windows of at most kWinPass = 16 durations (config 4): thread (jl, l)
+// owns the NSRC consecutive start frames kh + NSRC jl + i, and the block's
+// durations are unrolled, so every term's sums sit in registers: S, F and
+// the thread's A over the W = NSRC + 15 end frames its segments reach, with
+// no barrier and no shared-memory update per term.  The threads' A and gd
+// partials are summed at the end, each entry over its threads in order.
+template <int NSRC>
+__global__ void __launch_bounds__(xi_threads(NSRC))
+seg_xi16_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
+                const float* __restrict__ mg,
+                const float* __restrict__ betas,
+                const float* __restrict__ logZ,
+                const float* __restrict__ gvec,
+                const float* __restrict__ bias_g, int mean_pool,
+                const int* __restrict__ lengths, float* __restrict__ A,
+                float* __restrict__ S, float* __restrict__ F,
+                float* __restrict__ gd_part, int T, int L, int Dmax, int TX,
+                int NJ) {
+  constexpr int W = NSRC + kWinPass - 1;
+  extern __shared__ float4 smem4[];
+  const int L4 = round_up4(L);
+  const int NSmax = TX + Dmax - 1;
+  float* cums = reinterpret_cast<float*>(smem4);   // (NSmax, L) CS[t + 1]
+  float* x0s = cums + (size_t)NSmax * L;           // (NSmax, L) beta - logZ
+  float* bs = x0s + (size_t)NSmax * L;             // (Dmax, L)
+  float* iv = bs + (size_t)Dmax * L;               // (Dmax)
+  float* gdp = iv + Dmax;                          // (Dmax, NJ, L)
+  float* Ap = gdp + (size_t)Dmax * NJ * L;         // (NJ, W, L)
+  const int tid = threadIdx.x, nth = blockDim.x;
+  XiChunk c;
+  if (!xi_begin(c, csg, betas, logZ, gvec, bias_g, mean_pool, lengths, A, S,
+                F, gd_part, cums, x0s, bs, iv, T, L, Dmax, TX))
+    return;
+  const int k0 = c.k0;
+  const int jl = tid / L, l = tid % L;
+  const bool act = jl < NJ;
+  const int klo = c.kh + NSRC * jl;
+  float qv[NSRC], cv[NSRC], mv[NSRC], sacc[NSRC], facc[NSRC], a[W];
+#pragma unroll
+  for (int i = 0; i < NSRC; ++i) {
+    sacc[i] = facc[i] = 0.0f;
+    xi_source(qg, csg, mg, c, klo + i, l, L, act && klo + i < c.k1, qv[i],
+              cv[i], mv[i]);
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) a[w] = 0.0f;
+  __syncthreads();
+
+  if (act) {
+#pragma unroll
+    for (int d = 0; d < kWinPass; ++d) {
+      if (d >= Dmax) break;
+      const float in = iv[d], bv = bs[d * L + l];
+      float gdl = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NSRC; ++i) {
+        const int k = klo + i, e = k + d - k0;     // end frame t - k0
+        if (k >= c.k1 || e < 0 || k + d >= c.te) continue;
+        const float xv = ((cums[e * L + l] - cv[i]) * in + bv) +
+                         x0s[e * L + l];
+        const float xi = __expf(qv[i] + xv);
+        const float y = in * xi;
+        a[i + d] += y;
+        if (k >= k0) {                             // a start frame of mine
+          sacc[i] += y;
+          gdl += xi;
+          if (k > 0) facc[i] += __expf(xv + mv[i]);
+        }
+      }
+      gdp[((size_t)d * NJ + jl) * L + l] = gdl;
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) Ap[((size_t)jl * W + w) * L + l] = a[w];
+  }
+  __syncthreads();
+
+  // gd: each (d, l) over its label's threads in order
+  for (int o = tid; o < Dmax * L; o += nth) {
+    const int d = o / L, ll = o - d * L;
+    float s = 0.0f;
+    for (int j = 0; j < NJ; ++j) s += gdp[((size_t)d * NJ + j) * L + ll];
+    c.gdb[o] = c.gb * s;
+  }
+  // A[t]: the partials of the threads whose end frames reach t, in order
+  for (int o = tid; o < (c.k1 - k0) * L; o += nth) {
+    const int r = k0 + o / L - c.kh, ll = o % L;
+    const int j0 = max(0, (r - W + NSRC) / NSRC), j1 = min(NJ - 1, r / NSRC);
+    float s = 0.0f;
+    for (int j = j0; j <= j1; ++j)
+      s += Ap[((size_t)j * W + r - NSRC * j) * L + ll];
+    A[(c.row0 + k0) * L + o] = c.gb * s;
+  }
+  if (act)
+#pragma unroll
+    for (int i = 0; i < NSRC; ++i) {
+      const int k = klo + i;
+      if (k < k0 || k >= c.k1) continue;
+      S[(c.row0 + k) * L + l] = c.gb * sacc[i];
+      if (k > 0) F[(c.row0 + k - 1) * L4 + l] = c.gb * facc[i];
+    }
 }
 
 // K13: one warp per utterance.  From (length - 1, lab0): the segment ending
@@ -631,32 +1247,143 @@ seg_traceback_kernel(const float* __restrict__ deltas,
   }
 }
 
+
+// K9's layout at width L: QV, D and whether the factor sits in shared
+// memory (as kernels/fwdbwd.factor_layout, with the shared rows as short as
+// L allows); false above L = 240.
+bool alpha_layout(int L, int& qv, int& D, int& shared) {
+  D = 1;
+  shared = 0;
+  for (int q : {3, 5, 9})
+    if (16 * q >= L) {
+      qv = q;
+      return L >= 1;
+    }
+  D = 4;
+  shared = 1;
+  qv = (L + 15) / 16;
+  return qv <= 15;
+}
+
+// K9's frame at (L, Dmax): QV of seg_alpha_kernel, 0 for PR 5's frame
+// (seg_forward_kernel<false>), -1 if neither takes it; *bytes, *ws: the
+// launch's shared memory and slot stride.
+int forward_frame(int L, int Dmax, size_t* bytes, int* ws) {
+  const Plan p = make_plan(L, Dmax);
+  *bytes = p.bytes;
+  if (!p.ok) return -1;                // K9 takes K10's and K12's widths
+  int qv, D, shared;
+  if (alpha_layout(L, qv, D, shared)) {
+    const size_t n = alpha_bytes(L, Dmax, qv, D, shared, ws);
+    if (n) {
+      *bytes = n;
+      return qv;
+    }
+  }
+  return 0;
+}
+
+template <int QV, int D, bool SHARED>
+int launch_alpha(const float* frame, const float* trans, const float* bias,
+                 int mean_pool, const int* lengths, float* alphas,
+                 float* logZ, int B, int T, int L, int Dmax, int ws,
+                 size_t bytes, cudaStream_t s) {
+  auto kernel = seg_alpha_kernel<QV, D, SHARED>;
+  const cudaError_t err = opt_in(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, alpha_threads(L, D), bytes, s>>>(
+      frame, trans, bias, mean_pool, lengths, alphas, logZ, T, L, Dmax, ws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NSRC, bool WINDOWED>
+int launch_xi(const XiPlan& x, const float* q, const float* cs,
+              const float* m, const float* betas, const float* logZ,
+              const float* g, const float* bias, int mean_pool,
+              const int* lengths, float* A, float* S, float* F,
+              float* gd_part, int B, int T, int L, int Dmax, cudaStream_t s) {
+  auto kernel = seg_xi_kernel<NSRC>;
+  if constexpr (WINDOWED) kernel = seg_xi16_kernel<NSRC>;
+  const cudaError_t err = opt_in(kernel, x.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + x.tx - 1) / x.tx, B);
+  kernel<<<grid, x.threads, x.bytes, s>>>(q, cs, m, betas, logZ, g, bias,
+                                          mean_pool, lengths, A, S, F,
+                                          gd_part, T, L, Dmax, x.tx, x.nj);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // A kernel's dynamic shared memory at (L, Dmax) in bytes, for the wrapper's
 // check and the tests; 0: the kernel does not take them.  kind: 0 K9, 1 K12,
-// 2 K10, 3 K11.
+// 2 K10, 3 K11 (the larger of its message and xi passes').
 size_t seg_smem_bytes(int kind, int L, int Dmax) {
-  const Plan p = make_plan(kind, L, Dmax);
+  if (kind == kForward) {
+    size_t bytes = 0;
+    int ws;
+    return forward_frame(L, Dmax, &bytes, &ws) >= 0 ? bytes : 0;
+  }
+  if (kind == kGrad) return grad_bytes(L, Dmax);
+  const Plan p = make_plan(L, Dmax);
   return p.ok ? p.bytes : 0;
 }
 
-// K9: alphas (B, T, L), logZ (B,).
-int seg_forward(const float* frame, const float* P, const float* tmax,
-                const float* bias, const float* invd, const int* lengths,
-                float* alphas, float* logZ, int B, int T, int L, int Dmax,
-                void* stream) {
-  const Plan p = make_plan(kForward, L, Dmax);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = seg_forward_kernel<false>;
-  cudaError_t err = opt_in(kernel, p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads_for(L), p.bytes, static_cast<cudaStream_t>(stream)>>>(
-      frame, P, tmax, bias, invd, lengths, alphas, nullptr, logZ, nullptr, T,
-      L, Dmax, p.ps, 0, 0.0f);
-  return static_cast<int>(cudaGetLastError());
+// K9's frame at (L, Dmax): the QV of its layout, 0 for PR 5's frame, -1 if
+// K9 does not take them.
+int seg_forward_frame(int L, int Dmax) {
+  size_t bytes;
+  int ws;
+  return forward_frame(L, Dmax, &bytes, &ws);
+}
+
+// The start frames a block of K11's xi pass takes at (L, Dmax); its gd
+// partials are (B ceil(T / chunk), Dmax, L).  0: not taken.
+int seg_grad_chunk(int L, int Dmax) {
+  return grad_bytes(L, Dmax) ? xi_plan(L, Dmax).tx : 0;
+}
+
+// K9: alphas (B, T, L), logZ (B,).  Its own frame forms the factor and
+// invd from trans and mean_pool; PR 5's takes P (L, L) source-major, tmax
+// and invd from the caller (null where seg_forward_frame > 0).
+int seg_forward(const float* frame, const float* trans, const float* P,
+                const float* tmax, const float* bias, const float* invd,
+                int mean_pool, const int* lengths, float* alphas,
+                float* logZ, int B, int T, int L, int Dmax, void* stream) {
+  size_t bytes = 0;
+  int ws = 0;
+  const int qv = forward_frame(L, Dmax, &bytes, &ws);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ALPHA(Q, D, SH)                                                    \
+  case Q:                                                                  \
+    return launch_alpha<Q, D, SH>(frame, trans, bias, mean_pool, lengths,  \
+                                  alphas, logZ, B, T, L, Dmax, ws, bytes, s)
+  switch (qv) {
+    ALPHA(3, 1, false);
+    ALPHA(5, 1, false);
+    ALPHA(9, 1, false);
+    ALPHA(10, 4, true);
+    ALPHA(11, 4, true);
+    ALPHA(12, 4, true);
+    ALPHA(13, 4, true);
+    ALPHA(14, 4, true);
+    ALPHA(15, 4, true);
+    case 0: {
+      if (!P || !tmax || !invd) return static_cast<int>(cudaErrorInvalidValue);
+      const Plan p = make_plan(L, Dmax);
+      auto kernel = seg_forward_kernel<false>;
+      const cudaError_t err = opt_in(kernel, p.bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<B, threads_for(L), p.bytes, s>>>(
+          frame, P, tmax, bias, invd, lengths, alphas, nullptr, logZ,
+          nullptr, T, L, Dmax, p.ps, 0, 0.0f);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+#undef ALPHA
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K12: deltas, arg_d (B, T, L), scores, lab0 (B,).
@@ -664,7 +1391,7 @@ int seg_viterbi(const float* frame, const float* trans, const float* bias,
                 const float* invd, const int* lengths, float* deltas,
                 int* argd, float* scores, int* lab0, int B, int T, int L,
                 int Dmax, int use_thr, float thr, void* stream) {
-  const Plan p = make_plan(kViterbi, L, Dmax);
+  const Plan p = make_plan(L, Dmax);
   if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = seg_forward_kernel<true>;
   cudaError_t err = opt_in(kernel, p.bytes);
@@ -679,7 +1406,7 @@ int seg_viterbi(const float* frame, const float* trans, const float* bias,
 int seg_backward(const float* frame, const float* Pt, const float* tmax_r,
                  const float* bias, const float* invd, const int* lengths,
                  float* betas, int B, int T, int L, int Dmax, void* stream) {
-  const Plan p = make_plan(kBackward, L, Dmax);
+  const Plan p = make_plan(L, Dmax);
   if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = opt_in(seg_backward_kernel, p.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -689,30 +1416,50 @@ int seg_backward(const float* frame, const float* Pt, const float* tmax_r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K11: A, S (B, T, L), the partials gd_part (B, Dmax, L) and gt_part
-// (B, L, L), then gd (Dmax, L) and gt (L, L) = their sums in batch order.
-int seg_grad(const float* frame, const float* P, const float* tmax,
-             const float* bias, const float* invd, const int* lengths,
-             const float* alphas, const float* betas, const float* logZ,
-             const float* g, float* A, float* S, float* gd_part,
-             float* gt_part, float* gd, float* gt, int B, int T, int L,
-             int Dmax, void* stream) {
-  const Plan p = make_plan(kGrad, L, Dmax);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = opt_in(seg_grad_kernel, p.bytes);
+// K11's message pass: E (B, T, L4), q, cs (B, T, L), m (B, T) from alphas,
+// frame (B, T, L) and trans (L, L).
+int seg_grad_message(const float* alphas, const float* frame,
+                     const float* trans, const int* lengths, float* E,
+                     float* q, float* cs, float* m, int B, int T, int L,
+                     int Dmax, void* stream) {
+  int tc = 0;
+  const size_t bytes = msg_bytes(L, &tc);
+  if (!grad_bytes(L, Dmax)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = opt_in(seg_message_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  seg_grad_kernel<<<B, threads_for(L), p.bytes, s>>>(
-      frame, P, tmax, bias, invd, lengths, alphas, betas, logZ, g, A, S,
-      gd_part, gt_part, T, L, Dmax, p.ps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int n = Dmax * L;
-  sum_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(gd_part, gd, B, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  n = L * L;
-  sum_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(gt_part, gt, B, n);
+  const dim3 grid((T + tc - 1) / tc + 1, B);      // + the running sums
+  seg_message_kernel<<<grid, kMsgThreads, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      alphas, frame, trans, lengths, E, q, cs, m, T, L, tc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K11's xi pass: A, S (B, T, L), F (B, T, L4), the gd partials gd_part
+// (B ceil(T / seg_grad_chunk), Dmax, L), then gd (Dmax, L) = their sum in
+// block order.
+int seg_grad_xi(const float* q, const float* cs, const float* m,
+                const float* betas, const float* logZ, const float* g,
+                const float* bias, int mean_pool, const int* lengths,
+                float* A, float* S, float* F, float* gd_part, float* gd,
+                int B, int T, int L, int Dmax, void* stream) {
+  if (!grad_bytes(L, Dmax)) return static_cast<int>(cudaErrorInvalidValue);
+  const XiPlan x = xi_plan(L, Dmax);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+#define XI(NSRC, WIN)                                                    \
+  launch_xi<NSRC, WIN>(x, q, cs, m, betas, logZ, g, bias, mean_pool,     \
+                       lengths, A, S, F, gd_part, B, T, L, Dmax, s)
+  switch (x.windowed ? 0 : x.nsrc) {
+    case 0: err = XI(4, true); break;
+    case 4: err = XI(4, false); break;
+    case 8: err = XI(8, false); break;
+    default: err = XI(16, false);
+  }
+#undef XI
+  if (err != 0) return err;
+  const int n = Dmax * L, rows = B * ((T + x.tx - 1) / x.tx);
+  fdtk::sum_partials_kernel<<<(n + 31) / 32, fdtk::kSumThreads, 0, s>>>(
+      gd_part, gd, rows, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -469,6 +469,15 @@ def backward_dual_contract_cuda(U, V, L: int):
     :func:`backward_dual_grad_rows_cuda` writes).  The rows are summed in
     :func:`contract_splits` chunks, then the chunks in order: the same result
     on every run."""
+    UV = contract_rows(U, V, L)
+    launches["backward_dual_contract"] += 1
+    return UV
+
+
+def contract_rows(U, V, L: int):
+    """The launch of :func:`backward_dual_contract_cuda`, uncounted: K11's
+    ``E^T F`` (``kernels.segmental``) runs the same kernel and counts it
+    under its own name."""
     dev = U.device
     ld = row_width(L)
     for name, x in (("U", U), ("V", V)):
@@ -491,7 +500,6 @@ def backward_dual_contract_cuda(U, V, L: int):
                                UV.data_ptr(), K, L, ld, tile, splits,
                                _stream(dev))
     _build.raise_on_error(code, "fwdbwd backward_dual_contract launch")
-    launches["backward_dual_contract"] += 1
     return UV
 
 

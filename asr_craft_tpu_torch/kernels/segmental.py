@@ -9,14 +9,20 @@ Counterpart of :mod:`asr_craft_tpu.kernels.segmental_pallas`
 bounds them on the card).  This module checks, launches and holds the plain
 PyTorch version of each: explicit frame loops that form the duration message
 once per source frame and keep the running cumulative score, as the kernels
-do.
+do; K11's in its three parts, each frame-parallel but for the running sum.
 
 =====================================  ==========================  ==========
 dispatch                               kernel wrapper              plain
 =====================================  ==========================  ==========
 :func:`segmental_forward` (K9)         ``segmental_forward_cuda``  ``..._plain``
 :func:`segmental_backward` (K10)       ``segmental_backward_cuda`` ``..._plain``
-:func:`segmental_grad` (K11)           ``segmental_grad_cuda``     ``..._plain``
+:func:`segmental_grad` (K11: the       ``segmental_grad_cuda``     ``..._plain``
+three below)
+- the message pass                     ``segmental_grad_message_   ``..._plain``
+                                       cuda``
+- the xi pass                          ``segmental_grad_xi_cuda``  ``..._plain``
+- ``gt = E^T F`` (tensor cores)        ``segmental_grad_contract_  ``..._plain``
+                                       cuda``
 :func:`segmental_viterbi` (K12)        ``segmental_viterbi_cuda``  ``..._plain``
 :func:`segmental_viterbi_traceback`    ``segmental_viterbi_        ``..._plain``
 (K13)                                  traceback_cuda``
@@ -33,20 +39,25 @@ Where the port's outputs differ from the JAX functions':
   from the row of frame ``length - 1``; an empty row reports ``NEG_INF`` and
   label 0.
 - K11 returns ``(A, S, gd, gt)`` with ``S[b, k]`` the start contributions
-  of frame ``k`` itself: one block sees the whole utterance and writes each
-  completed start frame to its place.  The JAX function returns them
+  of frame ``k`` itself: the xi pass gathers each start frame's segments
+  and writes it to its place.  The JAX function returns them
   delayed (``S_emit[t] = S[t - Dmax + 1]``) with the last ``Dmax - 1`` in
   ``acc_fin``; :func:`emit_layout` rebuilds that pair for the tests, and
   :func:`frame_grad` is the assembly the training path uses.
 
 A kernel takes the ``(L, Dmax)`` at which the transition factor and the
 Dmax-slot windows fit a block's shared memory (at ``Dmax = 16``: ``L <=
-205``; K11 ``L <= 144``, where its register tiles cover the ``(L, L)``
-partial); the wrappers raise beyond.
+205``, K11 included; :func:`smem_bytes` says which); the wrappers raise
+beyond.  K11's message and xi passes hold ~50 MB of temporaries at config 4
+(``E``, ``F`` (B, T, L4), ``q``, ``cs`` (B, T, L), ``m`` (B, T)).
 
 The dispatchers follow :func:`asr_craft_tpu_torch.kernels.use_kernel`: a
 CUDA tensor under ``auto`` launches the kernel or raises, a CPU tensor takes
-the plain version.  ``launches`` counts each wrapper's kernel launches.
+the plain version.  ``launches`` counts each wrapper's kernel launches
+(K11: one for each of its three parts).
+
+What bounds the kernels on the card, what was measured and what was tried
+and dropped is in the note of ``csrc/segmental.cu`` and in PERF.md.
 """
 from __future__ import annotations
 
@@ -57,13 +68,16 @@ import torch
 
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
-from asr_craft_tpu_torch.kernels.fwdbwd import (backward_factors,
+from asr_craft_tpu_torch.kernels import fwdbwd
+from asr_craft_tpu_torch.kernels.fwdbwd import (backward_dual_contract_plain,
+                                                backward_factors,
                                                 forward_factors, row_max,
-                                                safe_log)
+                                                row_width, safe_log)
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 launches = {"segmental_forward": 0, "segmental_backward": 0,
-            "segmental_grad": 0, "segmental_viterbi": 0,
+            "segmental_grad_message": 0, "segmental_grad": 0,
+            "segmental_grad_contract": 0, "segmental_viterbi": 0,
             "segmental_viterbi_traceback": 0}
 KINDS = {"segmental_forward": 0, "segmental_viterbi": 1,
          "segmental_backward": 2, "segmental_grad": 3}
@@ -215,6 +229,86 @@ def segmental_backward_plain(frame, trans, bias, lengths, mean_pool=True):
     return betas
 
 
+def _running_sum(frame):
+    """``cs (B, T, L)``: ``cs[:, t] = CS[t + 1]``, the sum of frames ``0 ..
+    t``, added in frame order as the kernels add it."""
+    cs = torch.empty_like(frame)
+    cum = torch.zeros_like(frame[:, 0])
+    for t in range(frame.shape[1]):
+        cum = cum + frame[:, t]
+        cs[:, t] = cum
+    return cs
+
+
+def segmental_grad_message_plain(frame, trans, bias, lengths, alphas):
+    """The plain version of :func:`segmental_grad_message_cuda` (K11's
+    message pass): ``(E (B, T, L4), q (B, T, L), cs (B, T, L), m (B, T))``,
+    ``m`` the row maxima of the alphas, ``E = exp(alphas - m)`` in rows of
+    ``L4 = row_width(L)`` floats (zeros past ``L`` and at and past a
+    length), ``q = m + tmax + log(E @ P)`` the messages and ``cs`` the
+    running sums.  Rows of ``q``, ``cs`` and ``m`` at and past a length are
+    not read (0 here)."""
+    B, T, L = frame.shape
+    dev = frame.device
+    live = (torch.arange(T, device=dev)[None, :]
+            < lengths.to(dev)[:, None])[..., None]
+    tmax, P = forward_factors(trans)
+    m = row_max(alphas)                            # (B, T, 1)
+    e = torch.where(live, torch.exp(alphas - m), 0.0)
+    q = torch.where(live, m + tmax + safe_log(e @ P), 0.0)
+    cs = torch.where(live, _running_sum(frame), 0.0)
+    E = torch.zeros((B, T, row_width(L)), dtype=frame.dtype, device=dev)
+    E[..., :L] = e
+    return E, q, cs, torch.where(live, m, 0.0)[..., 0]
+
+
+def segmental_grad_xi_plain(q, cs, m, betas, logZ, g, bias, lengths,
+                            mean_pool=True):
+    """The plain version of :func:`segmental_grad_xi_cuda` (K11's xi pass),
+    gathered by duration as the kernel gathers: ``(A (B, T, L), S (B, T, L),
+    F (B, T, L4), gd (Dmax, L))``.  Segment ``[k, t]`` (``t = k + d <
+    length``) has source ``u = k - 1`` (none for ``k = 0``: message and CS
+    0) and ``x = (cs[t] - cs[u]) * invd[d] + bias[d] + beta[t] - logZ``;
+    ``xi = g exp(q[u] + x)``; ``A[t]`` and ``S[k]`` gather ``invd[d] xi``,
+    ``gd[d]`` gathers ``xi``, ``F[u]`` gathers ``g exp(x + m[u])``, each over
+    ``d`` in ascending order.  Rows at and past a length (and ``F`` at
+    ``length - 1``) hold 0."""
+    B, T, L = q.shape
+    dev = q.device
+    Dmax = bias.shape[0]
+    invd = pool_weights(Dmax, mean_pool, dev)
+    ts = torch.arange(T, device=dev)
+    lengths = lengths.to(dev)
+    x0 = betas - logZ[:, None, None]
+    gB = g[:, None, None]
+    A, S = torch.zeros_like(q), torch.zeros_like(q)
+    F = torch.zeros((B, T, row_width(L)), dtype=q.dtype, device=dev)
+    gd = torch.zeros((Dmax, L), dtype=q.dtype, device=dev)
+    zero = torch.zeros_like(q[:, :1])
+    for d in range(min(Dmax, T)):
+        n = T - d                                  # ends d.., starts 0..n-1
+        q_src = torch.cat([zero, q[:, :n - 1]], 1)
+        cs_src = torch.cat([zero, cs[:, :n - 1]], 1)
+        xv = ((cs[:, d:] - cs_src) * invd[d] + bias[d]) + x0[:, d:]
+        valid = (ts[d:][None, :] < lengths[:, None])[..., None]
+        xi = torch.where(valid, torch.exp(q_src + xv) * gB, 0.0)
+        y = invd[d] * xi
+        A[:, d:] += y
+        S[:, :n] += y
+        gd[d] = xi.sum(dim=(0, 1))
+        if n > 1:                                  # starts k >= 1: u = k - 1
+            F[:, :n - 1, :L] += torch.where(
+                valid[:, 1:], torch.exp(xv[:, 1:] + m[:, :n - 1, None]) * gB,
+                0.0)
+    return A, S, F, gd
+
+
+def segmental_grad_contract_plain(E, F, L: int):
+    """The plain version of :func:`segmental_grad_contract_cuda`: ``gt (L,
+    L) = sum_u E[u]^T F[u]`` over the rows' first ``L`` columns."""
+    return backward_dual_contract_plain(E, F, L)
+
+
 def segmental_grad_plain(frame, trans, bias, lengths, alphas, betas, logZ, g,
                          mean_pool=True):
     """The plain version of :func:`segmental_grad_cuda` (K11): the xi pass.
@@ -222,38 +316,13 @@ def segmental_grad_plain(frame, trans, bias, lengths, alphas, betas, logZ, g,
     pooled posteriors of the segments ending (A) and starting (S) at each
     frame, the bias gradient, and the transition partial with ``g_trans =
     sign(gt) * exp(trans + log|gt|)`` left to the caller.  ``g (B,)``: the
-    cotangent of logZ, folded into every term."""
-    B, T, L = frame.shape
-    dev = frame.device
-    lengths = lengths.to(dev)
-    Dmax = bias.shape[0]
-    invd = pool_weights(Dmax, mean_pool, dev)
-    tmax, P = forward_factors(trans)
-    m_all = row_max(alphas)                        # (B, T, 1)
-    e_all = torch.exp(alphas - m_all)
-    q_all = m_all + tmax + safe_log(e_all @ P)
-    cs_all = torch.zeros_like(frame)
-    A, S, F = (torch.zeros_like(frame) for _ in range(3))
-    gd = torch.zeros((B, Dmax, L), dtype=frame.dtype, device=dev)
-    cum = torch.zeros((B, L), dtype=frame.dtype, device=dev)
-    gB = g[:, None, None]
-    for t in range(T):
-        cum = cum + frame[:, t]
-        q, seg = _window(q_all, cs_all, cum, bias, invd, t)
-        n, nd = q.shape[1], min(t, Dmax)
-        xv = seg + (betas[:, t] - logZ[:, None])[:, None]
-        valid = (t < lengths)[:, None, None]
-        xi = torch.where(valid, torch.exp(q + xv) * gB, 0.0)
-        y = invd[:n, None] * xi
-        A[:, t] = y.sum(dim=1)
-        S[:, t - n + 1:t + 1] += y.flip(1)         # d starts at frame t - d
-        gd[:, :n] += xi
-        if nd:                                     # source frames t - 1 - d
-            mu = m_all[:, t - nd:t].flip(1)
-            F[:, t - nd:t] += torch.where(
-                valid, torch.exp(xv[:, :nd] + mu) * gB, 0.0).flip(1)
-        cs_all[:, t] = cum
-    return A, S, gd.sum(dim=0), torch.einsum("btp,btl->pl", e_all, F)
+    cotangent of logZ, folded into every term.  The message pass, the xi
+    pass and the contraction, as the kernels run them."""
+    E, q, cs, m = segmental_grad_message_plain(frame, trans, bias, lengths,
+                                               alphas)
+    A, S, F, gd = segmental_grad_xi_plain(q, cs, m, betas, logZ, g, bias,
+                                          lengths, mean_pool)
+    return A, S, gd, segmental_grad_contract_plain(E, F, frame.shape[-1])
 
 
 def segmental_viterbi_traceback_plain(deltas, arg_d, trans, lab0, lengths):
@@ -315,14 +384,20 @@ def _library():
     if _lib is None:
         lib = _build.load_library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.seg_forward.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.seg_forward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3 + [i32] * 4
+                                    + [ptr])
         lib.seg_viterbi.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
         lib.seg_backward.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-        lib.seg_grad.argtypes = [ptr] * 16 + [i32] * 4 + [ptr]
+        lib.seg_grad_message.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.seg_grad_xi.argtypes = ([ptr] * 7 + [i32] + [ptr] * 6 + [i32] * 4
+                                    + [ptr])
         lib.seg_traceback.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
         for name in ("seg_forward", "seg_viterbi", "seg_backward",
-                     "seg_grad", "seg_traceback"):
+                     "seg_grad_message", "seg_grad_xi", "seg_traceback",
+                     "seg_forward_frame", "seg_grad_chunk"):
             getattr(lib, name).restype = i32
+        lib.seg_forward_frame.argtypes = [i32] * 2
+        lib.seg_grad_chunk.argtypes = [i32] * 2
         lib.seg_smem_bytes.argtypes = [i32] * 3
         lib.seg_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
@@ -331,8 +406,17 @@ def _library():
 
 def smem_bytes(name: str, L: int, max_dur: int) -> int:
     """The dynamic shared memory of kernel ``name`` (a key of ``KINDS``) at
-    this shape in bytes; 0: it does not take this ``(L, Dmax)``."""
+    this shape in bytes (K11: the larger of its two passes'); 0: it does not
+    take this ``(L, Dmax)``."""
     return _library().seg_smem_bytes(KINDS[name], L, max_dur)
+
+
+def forward_frame(L: int, max_dur: int) -> int:
+    """K9's frame at ``(L, Dmax)``: the ``QV`` of its own layout (3, 5, 9:
+    the factor in registers; 10-15: in shared memory), 0 where only PR 5's
+    frame (``seg_forward_kernel<false>``, a smaller footprint) fits its
+    windows, -1 where K9 does not take them."""
+    return _library().seg_forward_frame(L, max_dur)
 
 
 def _check(name, frame, trans, bias, lengths):
@@ -354,8 +438,8 @@ def _check(name, frame, trans, bias, lengths):
         raise ValueError(
             f"L = {L}, Dmax = {Dmax}: the segmental kernels take the widths "
             "at which the transition factor and the Dmax-slot windows fit a "
-            "block's shared memory (232448 bytes; L <= 205 at Dmax = 16), "
-            "the gradient kernel L <= 144")
+            "block's shared memory (232448 bytes; L <= 205 at Dmax = 16, "
+            "the gradient's passes too)")
     return B, T, L, Dmax
 
 
@@ -371,14 +455,19 @@ def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True):
     alphas = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     logZ = torch.empty((B,), dtype=torch.float32, device=dev)
     if B:
-        tmax, P = forward_factors(trans)    # referenced until the launch
-        invd = pool_weights(Dmax, mean_pool, dev)
+        # K9's own frame forms its factor and invd from trans and the
+        # pooling; PR 5's frame takes them formed (referenced until the
+        # launch)
+        old = forward_frame(L, Dmax) == 0
+        tmax, P = forward_factors(trans) if old else (None, None)
+        invd = pool_weights(Dmax, mean_pool, dev) if old else None
+        ptr = lambda x: None if x is None else x.data_ptr()
         with torch.cuda.device(dev):
             code = _library().seg_forward(
-                frame.data_ptr(), P.data_ptr(), tmax.data_ptr(),
-                bias.data_ptr(), invd.data_ptr(), lengths.data_ptr(),
-                alphas.data_ptr(), logZ.data_ptr(), B, T, L, Dmax,
-                _stream(dev))
+                frame.data_ptr(), trans.data_ptr(), ptr(P), ptr(tmax),
+                bias.data_ptr(), ptr(invd), int(mean_pool),
+                lengths.data_ptr(), alphas.data_ptr(), logZ.data_ptr(), B, T,
+                L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental forward launch")
         launches["segmental_forward"] += 1
     return alphas, logZ
@@ -427,43 +516,118 @@ def segmental_backward_cuda(frame, trans, bias, lengths, mean_pool=True):
     return betas
 
 
-def segmental_grad_cuda(frame, trans, bias, lengths, alphas, betas, logZ, g,
-                        mean_pool=True):
-    """K11 on the card: ``(A, S, gd, gt)``, as :func:`segmental_grad_plain`
-    returns.  Each utterance's block sums its own ``gd`` and ``gt`` and a
-    second kernel adds the partials in batch order, so the result is the
-    same on every run."""
-    B, T, L, Dmax = _check("segmental_grad", frame, trans, bias, lengths)
-    dev = frame.device
-    for name, x in (("alphas", alphas), ("betas", betas)):
+def _check_rows(B, T, L, dev, **tensors):
+    """Each tensor a (B, T, L) float32 one on ``dev``."""
+    for name, x in tensors.items():
         _build.check_tensor(name, x, torch.float32, 3, dev)
         if tuple(x.shape) != (B, T, L):
             raise ValueError(f"{name} {tuple(x.shape)}, expected "
                              f"{(B, T, L)}")
-    for name, v in (("logZ", logZ), ("g", g)):
+
+
+def _check_per_row(B, dev, **tensors):
+    """Each tensor a 1-D float32 one of B entries on ``dev``."""
+    for name, v in tensors.items():
         _build.check_tensor(name, v, torch.float32, 1, dev)
         if v.shape[0] != B:
             raise ValueError(f"{name} has {v.shape[0]} rows, expected {B}")
+
+
+def segmental_grad_message_cuda(frame, trans, bias, lengths, alphas):
+    """K11's message pass on the card: ``(E, q, cs, m)``, as
+    :func:`segmental_grad_message_plain` returns (rows of ``q``, ``cs`` and
+    ``m`` at and past a length are left unwritten)."""
+    B, T, L, Dmax = _check("segmental_grad", frame, trans, bias, lengths)
+    dev = frame.device
+    _check_rows(B, T, L, dev, alphas=alphas)
+    E = torch.empty((B, T, row_width(L)), dtype=torch.float32, device=dev)
+    q = torch.empty((B, T, L), dtype=torch.float32, device=dev)
+    cs = torch.empty((B, T, L), dtype=torch.float32, device=dev)
+    m = torch.empty((B, T), dtype=torch.float32, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            code = _library().seg_grad_message(
+                alphas.data_ptr(), frame.data_ptr(), trans.data_ptr(),
+                lengths.data_ptr(), E.data_ptr(), q.data_ptr(), cs.data_ptr(),
+                m.data_ptr(), B, T, L, Dmax, _stream(dev))
+        _build.raise_on_error(code, "segmental grad message launch")
+        launches["segmental_grad_message"] += 1
+    return E, q, cs, m
+
+
+def segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias, lengths,
+                           mean_pool=True):
+    """K11's xi pass on the card: ``(A, S, F, gd)``, as
+    :func:`segmental_grad_xi_plain` returns.  Each block of start frames
+    writes its gd partial and a second kernel adds them in block order, so
+    the result is the same on every run."""
+    dev = q.device
+    _build.check_tensor("q", q, torch.float32, 3, dev)
+    B, T, L = q.shape
+    _check_rows(B, T, L, dev, cs=cs, betas=betas)
+    _check_per_row(B, dev, logZ=logZ, g=g)
+    _build.check_tensor("m", m, torch.float32, 2, dev)
+    _build.check_tensor("bias", bias, torch.float32, 2, dev)
+    _build.check_tensor("lengths", lengths, torch.int32, 1, dev)
+    Dmax = bias.shape[0]
+    if tuple(m.shape) != (B, T) or bias.shape[1] != L or \
+            tuple(lengths.shape) != (B,):
+        raise ValueError(f"m {tuple(m.shape)}, bias {tuple(bias.shape)}, "
+                         f"lengths {tuple(lengths.shape)} vs q {(B, T, L)}")
+    chunk = _library().seg_grad_chunk(L, Dmax)
+    if chunk == 0:
+        raise ValueError(f"L = {L}, Dmax = {Dmax}: the gradient's passes "
+                         "do not take these widths (L <= 205 at Dmax = 16)")
     A = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     S = torch.empty((B, T, L), dtype=torch.float32, device=dev)
-    gd = torch.zeros((Dmax, L), dtype=torch.float32, device=dev)
-    gt = torch.zeros((L, L), dtype=torch.float32, device=dev)
+    F = torch.empty((B, T, row_width(L)), dtype=torch.float32, device=dev)
+    gd = torch.empty((Dmax, L), dtype=torch.float32, device=dev)
     if B:
-        tmax, P = forward_factors(trans)
-        invd = pool_weights(Dmax, mean_pool, dev)
-        gd_part = torch.empty((B, Dmax, L), dtype=torch.float32, device=dev)
-        gt_part = torch.empty((B, L, L), dtype=torch.float32, device=dev)
+        gd_part = torch.empty((B * -(-T // chunk), Dmax, L),
+                              dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
-            code = _library().seg_grad(
-                frame.data_ptr(), P.data_ptr(), tmax.data_ptr(),
-                bias.data_ptr(), invd.data_ptr(), lengths.data_ptr(),
-                alphas.data_ptr(), betas.data_ptr(), logZ.data_ptr(),
-                g.data_ptr(), A.data_ptr(), S.data_ptr(), gd_part.data_ptr(),
-                gt_part.data_ptr(), gd.data_ptr(), gt.data_ptr(), B, T, L,
-                Dmax, _stream(dev))
-        _build.raise_on_error(code, "segmental grad launch")
+            code = _library().seg_grad_xi(
+                q.data_ptr(), cs.data_ptr(), m.data_ptr(), betas.data_ptr(),
+                logZ.data_ptr(), g.data_ptr(), bias.data_ptr(),
+                int(mean_pool), lengths.data_ptr(), A.data_ptr(),
+                S.data_ptr(), F.data_ptr(), gd_part.data_ptr(), gd.data_ptr(),
+                B, T, L, Dmax, _stream(dev))
+        _build.raise_on_error(code, "segmental grad xi launch")
         launches["segmental_grad"] += 1
-    return A, S, gd, gt
+    else:
+        gd.zero_()
+    return A, S, F, gd
+
+
+def segmental_grad_contract_cuda(E, F, L: int):
+    """``gt = sum_u E[u]^T F[u]`` on the card, on the tensor cores (3xTF32):
+    K5's contraction kernel (``csrc/fwdbwd_mma.cu``) over the ``B T`` rows
+    of ``L4`` floats, summed in chunks and the chunks in order, as
+    :func:`segmental_grad_contract_plain` returns."""
+    gt = fwdbwd.contract_rows(E, F, L)
+    launches["segmental_grad_contract"] += 1
+    return gt
+
+
+def segmental_grad_cuda(frame, trans, bias, lengths, alphas, betas, logZ, g,
+                        mean_pool=True):
+    """K11 on the card: ``(A, S, gd, gt)``, as :func:`segmental_grad_plain`
+    returns: the message pass, the xi pass and the contraction, five kernel
+    launches in all, every sum in a fixed order: the same result on every
+    run."""
+    B, T, L, Dmax = _check("segmental_grad", frame, trans, bias, lengths)
+    dev = frame.device
+    _check_rows(B, T, L, dev, alphas=alphas, betas=betas)
+    _check_per_row(B, dev, logZ=logZ, g=g)
+    if not B:
+        z = torch.zeros((B, T, L), dtype=torch.float32, device=dev)
+        return (z, z.clone(), torch.zeros((Dmax, L), device=dev),
+                torch.zeros((L, L), device=dev))
+    E, q, cs, m = segmental_grad_message_cuda(frame, trans, bias, lengths,
+                                              alphas)
+    A, S, F, gd = segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias,
+                                         lengths, mean_pool)
+    return A, S, gd, segmental_grad_contract_cuda(E, F, L)
 
 
 def segmental_viterbi_traceback_cuda(deltas, arg_d, trans, lab0, lengths):

@@ -16,8 +16,9 @@ minimum of two runs of a few calls each:
 - the shared-transition path at B=128, T=512, all rows full: K4
   (``forward_dual_cuda``), K5 whole (``backward_dual_grad_cuda``) and one
   train step at configs 1 and 5, and K6a, K6b, K14 at config 5;
-- the segmental CRF (config 4) at B=128, T=512: K9, K11, one train step
-  (``scrf_loss_fused``, backward, SGD) and ``scrf_decode``.
+- the segmental CRF (config 4) at B=128, T=512: K9, K10, K11 (whole), K12,
+  K13, one train step (``scrf_loss_fused``, backward, SGD) and
+  ``scrf_decode``.
 It prints one JSON line a turn and, last, the card and every turn's times;
 ``--out`` also writes them there.  Only the two checkouts' own APIs in
 common are called, so a checkout from before a change of a wrapper's
@@ -35,7 +36,7 @@ NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
          "K4 config1", "K5 config1", "shared step config1",
          "K4 config5", "K5 config5", "shared step config5",
          "K6a config5", "K6b config5", "K14 config5",
-         "K9", "K11", "scrf step", "scrf_decode")
+         "K9", "K10", "K11", "K12", "K13", "scrf step", "scrf_decode")
 
 
 def _ms(torch, fn, reps):
@@ -95,7 +96,7 @@ def _shared(torch, dev) -> dict:
 
 
 def _segmental(torch, dev) -> dict:
-    """K9, K11, a train step and scrf_decode at config 4."""
+    """K9-K13, a train step and scrf_decode at config 4."""
     from asr_craft_tpu_torch import flagship
     from asr_craft_tpu_torch.kernels import segmental as K
     from asr_craft_tpu_torch.models.segmental import (_frame_scores_and_bias,
@@ -113,6 +114,8 @@ def _segmental(torch, dev) -> dict:
     alphas, logZ = K.segmental_forward_cuda(*args)
     betas = K.segmental_backward_cuda(*args)
     grad_in = (alphas, betas, logZ, torch.ones_like(logZ))
+    deltas, arg_d, lab0, _ = K.segmental_viterbi_cuda(*args)
+    tb_in = (deltas, arg_d, args[1], lab0, lengths)
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
     opt = torch.optim.SGD(p.values(), lr=0.05)
 
@@ -125,7 +128,11 @@ def _segmental(torch, dev) -> dict:
 
     return {
         "K9": _ms(torch, lambda: K.segmental_forward_cuda(*args), 10),
+        "K10": _ms(torch, lambda: K.segmental_backward_cuda(*args), 10),
         "K11": _ms(torch, lambda: K.segmental_grad_cuda(*args, *grad_in),
+                   10),
+        "K12": _ms(torch, lambda: K.segmental_viterbi_cuda(*args), 10),
+        "K13": _ms(torch, lambda: K.segmental_viterbi_traceback_cuda(*tb_in),
                    10),
         "scrf step": _ms(torch, step, 5),
         "scrf_decode": _ms(torch, lambda: scrf_decode(

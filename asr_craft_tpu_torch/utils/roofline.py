@@ -13,7 +13,7 @@ move between device memory and the SMs (each input read once, each output
 written once), its fp32 operations, and its element operations on the
 recursion's critical path.  Its fp32 operations come in two kinds: the
 matrix products with no dependence between frames (``mma_flops``: plane
-formation, K2's and K5's contractions), which the tensor cores run at fp32
+formation, K2's, K5's and K11's contractions), which the tensor cores run at fp32
 accuracy by 3xTF32, three TF32 products for one, so at a third of the TF32
 rate; and the rest (``flops``), held to the CUDA cores' fp32 rate.  Its
 speed-of-light time is
@@ -28,8 +28,9 @@ off ``csrc/*.cu`` and the wrappers: batch-major unpadded tensors, the packed
 parameter matrix (``kernels/wall.py``), the planes formed before the
 recursions, K2 as a recursion plus a contraction,
 K5 as a recursion that writes its transition gradient's rows plus their
-contraction on the tensor cores, the per-utterance partials of K11, and
-K13's walk of one segment at a time.  None of the TPU's tile padding exists
+contraction on the tensor cores, K11 as a message pass, a frame-parallel
+xi pass and the E^T F contraction on the tensor cores, and K13's walk of
+one segment at a time.  None of the TPU's tile padding exists
 here.
 
 One definition of a kernel's bound.  :func:`kernel_phase` counts one kernel's
@@ -387,25 +388,31 @@ def _k_fb_contract(B, T, L, frames=None, **_):
 # (L, L) products a frame).  A window term is one (duration, label) pair of
 # the Dmax * L a frame holds.
 _SCRF_PASSES = {
-    # K9, seg_forward_kernel<false>.  The window is walked twice: the term
-    # itself (a subtract, a multiply-add, an add: 3) and a max; then the
-    # term again, a subtract, an expf and an add (3 + 1 + 3 + 3 = 10).  A
-    # label: the running sum, two group merges (4), logf + floor + add (3),
-    # the row max (2), a subtract and an expf (2), and the message m + tmax
-    # + log(max(dot, floor)) with its two merges (6): 18.
-    "fwd": (10.0, 18.0, 1),
-    # K10, seg_backward_kernel: the same two walks over the frames above
-    # and the same row work, mirrored.
+    # K9, seg_alpha_kernel (since PR 10).  The window is walked once, its
+    # terms kept in registers: the term (a subtract, a multiply-add, an add:
+    # 3) and a max, then a subtract, an expf and an add of the exp-sum: 7.
+    # A label: the running sum (1), the group's max and sum merges (two
+    # shuffles and two operations each: 8), the floor, logf and add of
+    # alpha (3), its share of the redux row max (1), its product's
+    # reduce-scatter (a partial-sum add, two shuffles and two adds: 5) and
+    # the message m + tmax + log(max(dot, floor)) (4): 22.  Two products:
+    # the multiply-adds, and the quarters' exponentials (every group
+    # exponentiates the whole row, a subtract and an expf an entry: L / D
+    # groups x Lq entries, ~L^2 at D = 2).
+    "fwd": (7.0, 22.0, 2),
+    # K10, seg_backward_kernel.  The window is walked twice: the term and a
+    # max (4), then the term again, a subtract, an expf and an add (6): 10.
+    # A label: the running sum, two group merges (4), logf + floor + add
+    # (3), the row max (2), a subtract and an expf (2), the message with
+    # its two merges (6): 18.
     "bwd": (10.0, 18.0, 1),
-    # K11, seg_grad_kernel.  The window is walked once: the term and beta -
-    # logZ (4), exp(q + xv) and g (3), y = invd * xi and its sum (2), three
-    # shared-memory read-modify-writes (S, gd: 2; F with its second expf, an
-    # add and a multiply: 4), 14 in all with two expf.  A label: the running
-    # sum and beta - logZ (2), the group merge (2), the row max, a subtract
-    # and an expf (4), the message (6), the emit and the slot's reset (3):
-    # 17.  Two products: the message's, and the retiring frame's outer
-    # product into the gt tile.
-    "grad": (14.0, 17.0, 2),
+    # K11's xi pass, seg_xi16_kernel / seg_xi_kernel (since PR 10), by
+    # window term: the term (a subtract, a multiply-add and the add of beta
+    # - logZ, staged once a frame: 3), exp(q + x) (an add, the log2(e)
+    # multiply and an ex2: 3), y = invd xi (1), the gathers of A, S and gd
+    # (3), F's exp(x + m) (3) and its add (1): 14; g multiplies each sum
+    # once.  It walks no frame chain: its row work is the message pass's.
+    "grad": (14.0, 0.0, 0),
     # K12, seg_forward_kernel<true>.  The window is walked once: four single
     # IEEE operations for the term, a compare and a select (6).  A label:
     # the running sum, the group's argmax merges (4), the row max (2), the
@@ -414,6 +421,12 @@ _SCRF_PASSES = {
     # per (p, l).
     "vit": (6.0, 12.0, 1),
 }
+# K11's message pass, seg_message_kernel, a label of a frame: its share of
+# the row max (1), E's subtract and exp (2), the running sum (1) and the
+# message's floor, log and two adds (4): 8, beside one (L) x (L, L) product
+# (each block's forming of the factor, L^2 exponentials for 64 frames, is
+# left out).
+_SCRF_MSG_OPS = 8.0
 # K13, seg_traceback_kernel, works per SEGMENT of the best path, not per
 # frame: one add and one compare per predecessor label (2 L), five shuffle
 # rounds and the marker stores (12).
@@ -433,16 +446,14 @@ def _scrf_small(B, L, Dmax):
 
 
 def _k_seg(name, kind, tensors, term_flops, products):
-    """K9-K12: ``tensors`` (B, T, L) arrays moved; per frame ``products``
-    (L) x (L, L) products and ``term_flops`` fp32 operations per window
-    term (a subtract, a multiply, two adds, the max and the exp-sum: 6; K12
-    compares where K9 sums: 5; K11 also scatters A, S, gd and F: 12)."""
+    """K9, K10, K12: ``tensors`` (B, T, L) arrays moved; per frame
+    ``products`` (L) x (L, L) products and ``term_flops`` fp32 operations
+    per window term (a subtract, a multiply, two adds, the max and the
+    exp-sum: 6; K12 compares where K9 sums: 5)."""
     def count(B, T, L, Dmax, frames=None, **_):
         frames = B * T if frames is None else frames
-        extra = _F32 * (L * L + Dmax * L) if kind == "grad" else 0   # gt, gd
         return Phase(name,
-                     _F32 * tensors * B * T * L + _scrf_small(B, L, Dmax)
-                     + extra,
+                     _F32 * tensors * B * T * L + _scrf_small(B, L, Dmax),
                      frames * (2.0 * products * L * L
                                + term_flops * Dmax * L),
                      _scrf_elems(kind, frames, L, Dmax))
@@ -450,6 +461,45 @@ def _k_seg(name, kind, tensors, term_flops, products):
                      f"{products} products and {term_flops} operations per "
                      "window term a frame.")
     return count
+
+
+def _k_seg_message(B, T, L, frames=None, **_):
+    """K11's message pass: alpha and the frame scores in; E (rows of L4),
+    q, cs (B, T, L) and m (B, T) out; per frame one (L) x (L, L) product
+    and ``_SCRF_MSG_OPS`` a label."""
+    frames = B * T if frames is None else frames
+    return Phase("segmental_grad_message",
+                 _F32 * (B * T * (4 * L + _round_up4(L) + 1) + L * L + L
+                         + B),
+                 frames * (2.0 * L * L + _SCRF_MSG_OPS * L),
+                 frames * (L * L + _SCRF_MSG_OPS * L))
+
+
+def _k_seg_xi(B, T, L, Dmax, frames=None, **_):
+    """K11's xi pass: q, cs, beta in and A, S out (B, T, L), m (B, T) in, F
+    out (rows of L4), the bias, invd, logZ, g and gd; 14 operations a
+    window term (the block partials of gd are not counted)."""
+    frames = B * T if frames is None else frames
+    w = _SCRF_PASSES["grad"][0]
+    return Phase("segmental_grad",
+                 _F32 * (B * T * (5 * L + _round_up4(L) + 1)
+                         + 2 * Dmax * L + Dmax + 3 * B),
+                 frames * w * Dmax * L, _scrf_elems("grad", frames, L, Dmax))
+
+
+def _k_seg_contract(B, T, L, frames=None, **_):
+    """K11's ``gt = sum_u E[u]^T F[u]``: the rows with a successor frame
+    (``frames - B``: a row's last frame feeds no segment) read once from E
+    and F, gt written; one product over them at the 3xTF32 rate."""
+    frames = B * T if frames is None else frames
+    rows = max(frames - B, 0)
+    return Phase("segmental_grad_contract", _F32 * (2 * rows * L + L * L),
+                 0.0, 0.0, rows * 2.0 * L * L)
+
+
+# K11's parts, in launch order (their sum is the step model's scrf_grad)
+SCRF_GRAD_PARTS = ("segmental_grad_message", "segmental_grad",
+                   "segmental_grad_contract")
 
 
 def _k_seg_traceback(B, T, L, segments=None, **_):
@@ -487,7 +537,9 @@ KERNELS = {
     "backward_dual_contract": _k_fb_contract,
     "segmental_forward": _k_seg("segmental_forward", "fwd", 2, 6, 1),
     "segmental_backward": _k_seg("segmental_backward", "bwd", 2, 6, 1),
-    "segmental_grad": _k_seg("segmental_grad", "grad", 5, 12, 2),
+    "segmental_grad_message": _k_seg_message,
+    "segmental_grad": _k_seg_xi,
+    "segmental_grad_contract": _k_seg_contract,
     "segmental_viterbi": _k_seg("segmental_viterbi", "vit", 3, 5, 1),
     "segmental_viterbi_traceback": _k_seg_traceback,
 }
@@ -649,8 +701,7 @@ def fdt_tile_floor(B: int, T: int, L: int, D: int, ns: int,
 def scrf_train_phases(B: int, T: int, L: int, D: int,
                       Dmax: int) -> list[Phase]:
     """One streaming SCRF train step (config 4): the frame scores, K9, K10,
-    K11 (with its per-utterance gd and gt partials), the gold numerator and
-    the gradient assembly.  Element operations are the kernel-body
+    K11 (its three parts), the gold numerator and the gradient assembly.  Element operations are the kernel-body
     inventories (``_SCRF_PASSES``).  The chain of dependent frames is NOT
     modeled: ``bench``'s measured decode floor is the latency companion."""
     btd = B * T * D * _F32
@@ -662,10 +713,9 @@ def scrf_train_phases(B: int, T: int, L: int, D: int,
         _renamed(kernel_phase("segmental_forward", **shape), "scrf_forward"),
         _renamed(kernel_phase("segmental_backward", **shape),
                  "scrf_backward"),
-        # K11 writes gd and gt partials per utterance; sum_partials_kernel
-        # reads them back and sums them in batch order
-        _renamed(kernel_phase("segmental_grad", **shape), "scrf_grad",
-                 2.0 * B * (Dmax * L + L * L) * _F32),
+        # K11: its message pass, its xi pass and the E^T F contraction
+        _summed("scrf_grad", [kernel_phase(n, **shape)
+                              for n in SCRF_GRAD_PARTS]),
         # scatter-free gold numerator, value and gradient: run analysis, a
         # gather and two one-hot count einsums
         Phase("scrf_numerator", 4 * tbl,
@@ -709,13 +759,17 @@ def scrf_tile_floor(B: int, T: int, L: int, Dmax: int,
     one block per batch column, a barrier a step).  The JAX function adds
     its matrix-unit passes at their own rate; here the products run on the
     same CUDA cores as everything else, so they are element operations
-    like the rest.  A step within ~1.2x of this floor is at the practical
+    like the rest.  K11 walks no frame chain (since PR 10): its floor
+    (``grad``) is the bound of its three parts, which the measured rate
+    does not move.  A step within ~1.2x of this floor is at the practical
     speed of light for this design; what remains is to change the
     inventory itself, or the number of blocks a frame keeps busy."""
     geps = (vpu_geps or 3000.0) * 1e9
     frames = float(B) * T
     parts = {name: _scrf_elems(name, frames, L, Dmax) / geps
-             for name in ("fwd", "bwd", "grad", "vit")}
+             for name in ("fwd", "bwd", "vit")}
+    parts["grad"] = sum(bound(kernel_phase(n, B=B, T=T, L=L, Dmax=Dmax))[0]
+                        for n in SCRF_GRAD_PARTS) * 1e-3
     parts["tb"] = kernel_phase("segmental_viterbi_traceback", B=B, T=T, L=L,
                                segments=segments).vpu_elems / geps
     train = parts["fwd"] + parts["bwd"] + parts["grad"]

@@ -91,7 +91,10 @@ in phases:
     all rows full, for configs 1, 3 and 5, and the device-busy share of the
     step (a ``torch.profiler`` trace);
 (m) segmental parity — the K9-K13 kernels (``segmental_forward``,
-    ``segmental_backward``, ``segmental_grad``, ``segmental_viterbi``,
+    ``segmental_backward``, K11 whole and in its three parts
+    (``segmental_grad_message``, the xi pass ``segmental_grad``, the
+    tensor-core ``segmental_grad_contract``, each also alone on the plain
+    version's inputs), ``segmental_viterbi``,
     ``segmental_viterbi_traceback``) against their plain versions on the
     frame scores of a random config-4 model at B=128, T=512, L=48, Dmax=16
     (ragged lengths, an empty row), mean and sum pooling: alphas, betas,
@@ -104,9 +107,12 @@ in phases:
     run's losses and PER: K9-K13 must launch; ``--decode_only`` on the
     weights it wrote under both backends (the same counts); 30 epochs again
     under both backends (the same losses);
-(o) segmental timing — the five kernels, one train step
-    (``scrf_loss_fused``, backward, SGD) and one ``scrf_decode`` against the
-    plain version at B=128, T=512, L=48, D=144, Dmax=16, all rows full;
+(o) segmental timing — the five kernels (K11 in its three parts and
+    whole, its contraction beside one cuBLAS fp32 ``E.T @ F`` of the same
+    rows), one train step (``scrf_loss_fused``, backward, SGD) and one
+    ``scrf_decode`` against the plain version at B=128, T=512, L=48, D=144,
+    Dmax=16, all rows full, and the device-busy share and kernel count of
+    the step and the decode;
 (p) calibration parity — the K15 kernel (``calibrate``) against its plain
     version at a short chain (2 steps, where nothing has settled) and at 64
     steps over the whole (16, 48, 128) window; its launch count rises; its
@@ -291,7 +297,12 @@ SEG_CU = "asr_craft_tpu_torch/csrc/segmental.cu"
 SEG_SRC = {                         # the TPU kernel bodies they replace
     "segmental_forward": "asr_craft_tpu/kernels/segmental_pallas.py:71",
     "segmental_backward": "asr_craft_tpu/kernels/segmental_pallas.py:257",
+    # K11 in three parts: the message (the PT_ref dot of its body), the xi
+    # pass (the body), gt (gt_ref += dot_general), on the tensor cores here
+    "segmental_grad_message": "asr_craft_tpu/kernels/segmental_pallas.py:478",
     "segmental_grad": "asr_craft_tpu/kernels/segmental_pallas.py:382",
+    "segmental_grad_contract":
+        "asr_craft_tpu/kernels/segmental_pallas.py:465",
     "segmental_viterbi": "asr_craft_tpu/kernels/segmental_pallas.py:616",
     "segmental_viterbi_traceback":
         "asr_craft_tpu/kernels/segmental_pallas.py:748",
@@ -1787,6 +1798,7 @@ class Smoke:
         if float(A[-1].abs().max()) != 0.0 or float(S[-1].abs().max()) != 0.0:
             raise AssertionError(f"segmental {pooling}: the empty row has a "
                                  "gradient")
+        self.check_grad_parts(pooling, args, grad_in, mean_pool, errs)
         n_segs = {}
         for mode, thr in (("exact", None), ("beam_threshold=8", 8.0)):
             got = K.segmental_viterbi_cuda(*args, mean_pool, thr)
@@ -1832,6 +1844,55 @@ class Smoke:
             f"(largest {float(rgt.abs().max()):.3e}); K11 bit-equal on two "
             f"runs; deltas, arg_d, markers and packed segments equal "
             f"(segments {n_segs})")
+
+    def check_grad_parts(self, pooling, args, grad_in, mean_pool, errs):
+        """K11's three parts, each on its plain twin's inputs: the message
+        pass (E within 1e-5, the messages as alphas, the running sums and
+        row maxima equal on the live rows), the xi pass (A and S as K11's,
+        F and gd as gt) and the contraction (on the tensor cores: as K5's
+        alone, CONTRACT_REL_MAX of its largest entry)."""
+        from asr_craft_tpu_torch.kernels import segmental as K
+        torch = self.torch
+        frame, trans, bias, lengths = args
+        ra, rb, rz, g = grad_in
+        B, T, L = frame.shape
+        live = (torch.arange(T, device=self.dev)[None, :]
+                < lengths[:, None].long())
+        E, q, cs, m = K.segmental_grad_message_cuda(*args, ra)
+        rE, rq, rcs, rm = K.segmental_grad_message_plain(*args, ra)
+        self.close(f"segmental {pooling} message E", E, rE, 0.0, 1e-5)
+        q_err = self.close(f"segmental {pooling} message q", q[live],
+                           rq[live], **FB_Z_TOL)
+        if not (torch.equal(cs[live], rcs[live])
+                and torch.equal(m[live], rm[live])):
+            raise AssertionError(f"segmental {pooling}: the message pass's "
+                                 "running sums or row maxima differ")
+        A, S, F, gd = K.segmental_grad_xi_cuda(rq, rcs, rm, rb, rz, g, bias,
+                                               lengths, mean_pool)
+        rA, rS, rF, rgd = K.segmental_grad_xi_plain(rq, rcs, rm, rb, rz, g,
+                                                    bias, lengths, mean_pool)
+        xi_err = max(self.close(f"segmental {pooling} xi A", A, rA, 0.0,
+                                SEG_G_ATOL),
+                     self.close(f"segmental {pooling} xi S", S, rS, 0.0,
+                                SEG_G_ATOL))
+        self.close(f"segmental {pooling} xi F", F[..., :L], rF[..., :L],
+                   RTOL, REL_MAX * float(rF.abs().max()))
+        self.close(f"segmental {pooling} xi gd", gd, rgd, RTOL,
+                   REL_MAX * float(rgd.abs().max()))
+        if float(F[-1].abs().max()) != 0.0:
+            raise AssertionError(f"segmental {pooling}: the empty row has F "
+                                 "rows")
+        gt = K.segmental_grad_contract_cuda(rE, rF, L)
+        rgt = K.segmental_grad_contract_plain(rE, rF, L)
+        c_err = self.close(f"segmental {pooling} contraction gt", gt, rgt,
+                           RTOL, CONTRACT_REL_MAX * float(rgt.abs().max()))
+        for name, e in (("segmental_grad_message", q_err),
+                        ("segmental_grad", xi_err),
+                        ("segmental_grad_contract", c_err)):
+            errs[name] = max(errs.get(name, 0.0), e)
+        log(f"segmental parity {pooling} K11 parts alone: |q - plain| "
+            f"{q_err:.3e}, |A, S - plain| {xi_err:.3e}, |gt - plain| "
+            f"{c_err:.3e} (largest {float(rgt.abs().max()):.3e})")
 
     def check_scrf_loss_grads(self, pooling):
         """scrf_loss_fused + backward(): the K9-K11 path against the plain
@@ -1996,6 +2057,18 @@ class Smoke:
                                    Dmax=cfg.max_dur, frames=frames,
                                    segments=segments)
                   for name in SEG_SRC}
+        # K11's parts on their own inputs (the message pass's outputs); the
+        # contraction beside one cuBLAS fp32 product of the same rows
+        L = cfg.num_labels
+        E, q, cs, m = K.segmental_grad_message_cuda(*args, alphas)
+        xi_in = (q, cs, m, betas, logZ, grad_in[3], bias, lengths)
+        F = K.segmental_grad_xi_cuda(*xi_in)[2]
+        E2 = E[..., :L].reshape(-1, L).contiguous()
+        F2 = F[..., :L].reshape(-1, L).contiguous()
+        cublas = min(self.cuda_ms(lambda: E2.T @ F2, 20) for _ in range(2))
+        self.library_ms["segmental_grad_contract"] = cublas
+        log(f"timing cuBLAS E^T F on K11's rows ({E2.shape[0]} x {L})^T "
+            f"({E2.shape[0]} x {L}): {cublas:.4f} ms")
         fns = {
             "segmental_forward": (
                 lambda: K.segmental_forward_cuda(*args),
@@ -2003,7 +2076,16 @@ class Smoke:
             "segmental_backward": (
                 lambda: K.segmental_backward_cuda(*args),
                 lambda: K.segmental_backward_plain(*args)),
+            "segmental_grad_message": (
+                lambda: K.segmental_grad_message_cuda(*args, alphas),
+                lambda: K.segmental_grad_message_plain(*args, alphas)),
             "segmental_grad": (
+                lambda: K.segmental_grad_xi_cuda(*xi_in),
+                lambda: K.segmental_grad_xi_plain(*xi_in)),
+            "segmental_grad_contract": (
+                lambda: K.segmental_grad_contract_cuda(E, F, L),
+                lambda: K.segmental_grad_contract_plain(E, F, L)),
+            "K11 whole (segmental_grad)": (
                 lambda: K.segmental_grad_cuda(*args, *grad_in),
                 lambda: K.segmental_grad_plain(*args, *grad_in)),
             "segmental_viterbi": (
@@ -2041,7 +2123,7 @@ class Smoke:
         t = {k: v[0] for k, v in self.times.items()}
         rest_step = (t["scrf train step (loss, backward, SGD)"]
                      - t["segmental_forward"] - t["segmental_backward"]
-                     - t["segmental_grad"])
+                     - t["K11 whole (segmental_grad)"])
         rest_dec = (t["scrf_decode"] - t["segmental_viterbi"]
                     - t["segmental_viterbi_traceback"])
         self.device_share("scrf train step", lambda: step("auto"))

@@ -13,7 +13,9 @@ takes a cuBLAS product and ``torch.exp`` / ``torch.log``: alphas, betas and
 logZ (magnitude up to ~1e3 at T = 512, fp32 ulp 6e-5 there) within rtol
 1e-5, atol 2e-3; A and S (posteriors scaled by |g| <= 1.5, each the exp of
 a difference of such sums) within atol 1e-3; gd and gt within 1e-4 of their
-largest entry plus rtol 1e-3.  The max-plus kernel computes single IEEE
+largest entry plus rtol 1e-3.  K11's parts alone, on the same inputs: E and
+the messages q as alphas (E within 1e-5 absolute: values <= 1), the running
+sums cs equal (the same adds in the same order), F as gt.  The max-plus kernel computes single IEEE
 operations in the plain version's order: deltas, duration argmaxes, scores,
 labels and segment markers are equal bit for bit.
 """
@@ -32,7 +34,8 @@ G_ATOL = 1e-3
 # (B, T, Dmax, L)
 SHAPES = [(3, 9, 4, 3), (3, 5, 8, 4), (2, 6, 6, 2), (4, 1, 2, 3),
           (5, 23, 8, 12), (6, 40, 1, 5), (8, 64, 16, 12), (128, 512, 16, 48),
-          (3, 70, 16, 144), (3, 37, 5, 7)]
+          (3, 70, 16, 144), (3, 37, 5, 7), (3, 50, 20, 33), (3, 40, 16, 150),
+          (3, 30, 6, 229)]
 
 
 @pytest.fixture
@@ -91,7 +94,9 @@ def test_log_semiring_kernels_match_plain(dev, B, T, Dmax, L, mean_pool):
     assert K.launches["segmental_forward"] == before["segmental_forward"] + 1
     assert K.launches["segmental_backward"] == \
         before["segmental_backward"] + 1
-    assert K.launches["segmental_grad"] == before["segmental_grad"] + 2
+    for name in ("segmental_grad_message", "segmental_grad",
+                 "segmental_grad_contract"):
+        assert K.launches[name] == before[name] + 2
     rA, rS, rgd, rgt = K.segmental_grad_plain(*args, *grad_in, mean_pool)
     _close(out[0], rA, rtol=0.0, atol=G_ATOL)
     _close(out[1], rS, rtol=0.0, atol=G_ATOL)
@@ -145,45 +150,161 @@ def test_ties_fall_as_in_the_plain_version(dev, seed):
     assert torch.equal(tb[0], rtb[0]) and torch.equal(tb[1], rtb[1])
 
 
+def _ps(L):
+    return L + ((8 - L % 32) + 32) % 32
+
+
+def _frame5_ok(L, Dmax):
+    """PR 5's frame (K10, K12): the factor, two windows and the bias."""
+    return 4 * (L * _ps(L) + 3 * Dmax * L + Dmax + 3 * L) <= 232448
+
+
+def _old_grad_ok(L, Dmax):
+    """What K11 took before it was split (its register tiles: L <= 144)."""
+    return (4 * (L * _ps(L) + 7 * Dmax * L + 2 * Dmax + 3 * L) <= 232448
+            and L <= 144)
+
+
 @pytest.mark.parametrize("L,Dmax", [(1, 1), (48, 16), (144, 16), (145, 16),
                                     (205, 16), (206, 16), (48, 64),
-                                    (48, 300), (160, 100)])
+                                    (48, 300), (160, 100), (229, 6),
+                                    (232, 5), (25, 321), (1, 6000)])
 def test_kernels_take_the_widths_they_state(dev, L, Dmax):
-    """At Dmax = 16: K9, K10 and K12 up to L = 205 (the factor and the
-    windows fit shared memory), K11 up to L = 144 (its tiles cover the
-    partial); a window too deep is refused as well."""
-    ps = L + ((8 - L % 32) + 32) % 32
-    small = 4 * (L * ps + 3 * Dmax * L + Dmax + 3 * L)
-    big = 4 * (L * ps + 7 * Dmax * L + 2 * Dmax + 3 * L)
-    for name in ("segmental_forward", "segmental_viterbi",
-                 "segmental_backward"):
-        n = K.smem_bytes(name, L, Dmax)
-        assert n == (small if small <= 232448 else 0)
-    n = K.smem_bytes("segmental_grad", L, Dmax)
-    assert n == (big if big <= 232448 and L <= 144 else 0)
-    assert (K.smem_bytes("segmental_forward", L, 16) > 0) == (L <= 205)
+    """At Dmax = 16: K9-K12 up to L = 205 (the factor and the windows fit
+    shared memory), K11 included; a window too deep is refused as well.  K9
+    takes every width K10 and K12 take (its own frame, or PR 5's where only
+    that fits), K11 every width it took before it was split."""
+    small = 4 * (L * _ps(L) + 3 * Dmax * L + Dmax + 3 * L)
+    for name in ("segmental_viterbi", "segmental_backward"):
+        assert K.smem_bytes(name, L, Dmax) == (small if small <= 232448
+                                               else 0)
+    fwd = K.smem_bytes("segmental_forward", L, Dmax)
+    assert (fwd > 0) == _frame5_ok(L, Dmax)
+    assert (K.forward_frame(L, Dmax) >= 0) == _frame5_ok(L, Dmax)
+    grad = K.smem_bytes("segmental_grad", L, Dmax)
+    assert 0 <= grad <= 232448
+    if _old_grad_ok(L, Dmax):
+        assert grad > 0
+    if grad:
+        assert fwd > 0
+    if Dmax == 16:
+        assert (grad > 0) == (L <= 205)
+
+
+def test_every_width_taken_before_is_taken(dev):
+    """Over a grid of widths: K9 wherever PR 5's frame fits, K11 wherever
+    its old kernel did."""
+    for L in list(range(1, 240, 7)) + [144, 145, 205, 229, 232]:
+        for Dmax in (1, 2, 5, 16, 17, 40, 100, 333, 1000, 4000):
+            if _frame5_ok(L, Dmax):
+                assert K.smem_bytes("segmental_forward", L, Dmax) > 0
+            if _old_grad_ok(L, Dmax):
+                assert K.smem_bytes("segmental_grad", L, Dmax) > 0, (L, Dmax)
 
 
 def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     args = _problem(dev, 3, 20, 16, 205, seed=3)
+    assert K.forward_frame(205, 16) == 13          # the factor shared
     alphas, logZ = K.segmental_forward_cuda(*args)
     ra, rz = K.segmental_forward_plain(*args)
     _close(alphas, ra, **Z_TOL)
     _close(logZ, rz, **Z_TOL)
-    _close(K.segmental_backward_cuda(*args),
-           K.segmental_backward_plain(*args), **Z_TOL)
+    rb = K.segmental_backward_plain(*args)
+    _close(K.segmental_backward_cuda(*args), rb, **Z_TOL)
     for x, y in zip(K.segmental_viterbi_cuda(*args),
                     K.segmental_viterbi_plain(*args)):
         assert torch.equal(x, y)
+    g = torch.ones_like(rz)
+    out = K.segmental_grad_cuda(*args, ra, rb, rz, g)
+    want = K.segmental_grad_plain(*args, ra, rb, rz, g)
+    _close(out[0], want[0], rtol=0.0, atol=G_ATOL)
+    _close(out[1], want[1], rtol=0.0, atol=G_ATOL)
+    _rel(out[2], want[2])
+    _rel(out[3], want[3])
     before = dict(K.launches)
-    with pytest.raises(ValueError, match="L <= 144"):
-        K.segmental_grad_cuda(*args, ra, ra, rz, rz)
     wide = _problem(dev, 2, 8, 16, 206)
     for fn in (K.segmental_forward_cuda, K.segmental_backward_cuda,
                K.segmental_viterbi_cuda):
         with pytest.raises(ValueError, match="L <= 205"):
             fn(*wide)
+    w = wide[0]
+    with pytest.raises(ValueError, match="L <= 205"):
+        K.segmental_grad_cuda(*wide, w, w, w[:, 0, 0], w[:, 0, 0])
     assert K.launches == before
+
+
+@pytest.mark.parametrize("L,Dmax,frame", [(48, 16, 3), (80, 16, 5),
+                                          (150, 16, 10), (205, 16, 13),
+                                          (229, 6, 0)])
+def test_forward_frames_match_plain(dev, L, Dmax, frame):
+    """K9 in each layout: the factor in registers, in shared memory, and
+    PR 5's frame where only its footprint fits."""
+    assert K.forward_frame(L, Dmax) == frame
+    args = _problem(dev, 4, 33, Dmax, L, seed=5)
+    for mean_pool in (True, False):
+        alphas, logZ = K.segmental_forward_cuda(*args, mean_pool)
+        ra, rz = K.segmental_forward_plain(*args, mean_pool)
+        _close(alphas, ra, **Z_TOL)
+        _close(logZ, rz, **Z_TOL)
+        assert float(logZ[-1]) <= -1e29          # the empty row
+
+
+def _config4(dev, pooling, seed=0):
+    args = _problem(dev, 128, 512, 16, 48, seed=seed)
+    mean_pool = pooling == "mean"
+    ra, rz = K.segmental_forward_plain(*args, mean_pool)
+    rb = K.segmental_backward_plain(*args, mean_pool)
+    g = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -1.5, 1.5, 128).astype(np.float32)).to(dev)
+    return args, mean_pool, (ra, rb, rz, g)
+
+
+@pytest.mark.parametrize("pooling", ["mean", "sum"])
+def test_grad_parts_match_plain_at_config4(dev, pooling):
+    """K11's message pass, xi pass and contraction, each against its plain
+    version on the same inputs, at B=128, T=512, L=48, Dmax=16 (ragged, an
+    empty row)."""
+    args, mean_pool, (ra, rb, rz, g) = _config4(dev, pooling)
+    frame, trans, bias, lengths = args
+    live = (torch.arange(512, device=dev)[None, :]
+            < lengths[:, None].long())
+    E, q, cs, m = K.segmental_grad_message_cuda(frame, trans, bias, lengths,
+                                                ra)
+    rE, rq, rcs, rm = K.segmental_grad_message_plain(frame, trans, bias,
+                                                     lengths, ra)
+    _close(E, rE, rtol=0.0, atol=1e-5)
+    _close(q[live], rq[live], **Z_TOL)
+    _close(m[live], rm[live], rtol=0.0, atol=0.0)
+    assert torch.equal(cs[live], rcs[live])
+    A, S, F, gd = K.segmental_grad_xi_cuda(rq, rcs, rm, rb, rz, g, bias,
+                                           lengths, mean_pool)
+    rA, rS, rF, rgd = K.segmental_grad_xi_plain(rq, rcs, rm, rb, rz, g, bias,
+                                                lengths, mean_pool)
+    _close(A, rA, rtol=0.0, atol=G_ATOL)
+    _close(S, rS, rtol=0.0, atol=G_ATOL)
+    _rel(F[..., :48], rF[..., :48])
+    _rel(gd, rgd)
+    gt = K.segmental_grad_contract_cuda(rE, rF, 48)
+    _rel(gt, K.segmental_grad_contract_plain(rE, rF, 48))
+    assert float(A[-1].abs().max()) == float(S[-1].abs().max()) == 0.0
+    assert float(F[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("pooling", ["mean", "sum"])
+def test_grad_and_forward_match_plain_at_config4(dev, pooling):
+    """K11 whole and K9 at config 4; K11 the same bits on two runs."""
+    args, mean_pool, grad_in = _config4(dev, pooling, seed=1)
+    alphas, logZ = K.segmental_forward_cuda(*args, mean_pool)
+    _close(alphas, grad_in[0], **Z_TOL)
+    _close(logZ, grad_in[2], **Z_TOL)
+    out = K.segmental_grad_cuda(*args, *grad_in, mean_pool)
+    again = K.segmental_grad_cuda(*args, *grad_in, mean_pool)
+    want = K.segmental_grad_plain(*args, *grad_in, mean_pool)
+    _close(out[0], want[0], rtol=0.0, atol=G_ATOL)
+    _close(out[1], want[1], rtol=0.0, atol=G_ATOL)
+    _rel(out[2], want[2])
+    _rel(out[3], want[3])
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
 @pytest.mark.parametrize("pooling", ["mean", "sum"])

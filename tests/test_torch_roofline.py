@@ -158,7 +158,9 @@ TABLE = [
     ("viterbi_traceback", dict(B=64, T=512), "0.00008", "bytes"),
     ("segmental_forward", SEG, "0.00901", "operations"),
     ("segmental_backward", SEG, "0.00901", "operations"),
-    ("segmental_grad", SEG, "0.01879", "bytes"),
+    ("segmental_grad_message", SEG, "0.01886", "bytes"),
+    ("segmental_grad", SEG, "0.02262", "bytes"),
+    ("segmental_grad_contract", SEG, "0.00750", "bytes"),
     ("segmental_viterbi", SEG, "0.01127", "bytes"),
     ("segmental_viterbi_traceback", dict(B=128, T=512, L=48,
                                          segments=31020), "0.00197",
@@ -219,9 +221,11 @@ def test_every_kernel_has_a_count_and_steps_reuse_it():
 
 def test_tile_floors():
     """scrf_tile_floor: positive per-kernel floors, train = fwd + bwd +
-    grad, decode = vit + tb, inversely proportional to the measured rate;
-    the gradient kernel does the most work a frame.  fdt_tile_floor keeps
-    vpu_ms and floor_ms; fma_ms stands where mxu_passes stood."""
+    grad, decode = vit + tb; the recursions' floors inversely proportional
+    to the measured rate, K9's window pass the heaviest; K11 walks no chain,
+    so its floor is its parts' bound, which the rate does not move.
+    fdt_tile_floor keeps vpu_ms and floor_ms; fma_ms stands where
+    mxu_passes stood."""
     tile = rl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=1500.0)
     k = tile["kernels_ms"]
     assert set(k) == {"fwd", "bwd", "grad", "vit", "tb"}
@@ -230,10 +234,15 @@ def test_tile_floors():
                         k["fwd"] + k["bwd"] + k["grad"], abs_tol=2e-3)
     assert math.isclose(tile["decode_floor_ms"], k["vit"] + k["tb"],
                         abs_tol=2e-3)
-    assert k["grad"] > k["fwd"] >= k["bwd"] > k["vit"]
+    assert k["fwd"] >= k["bwd"] > k["vit"] > k["grad"]
+    parts = sum(rl.bound(rl.kernel_phase(n, **SEG))[0]
+                for n in rl.SCRF_GRAD_PARTS)
+    assert math.isclose(k["grad"], parts, abs_tol=1e-3)
     slow = rl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=750.0)
-    assert math.isclose(slow["train_floor_ms"], 2 * tile["train_floor_ms"],
-                        rel_tol=1e-2)
+    sk = slow["kernels_ms"]
+    for name in ("fwd", "bwd", "vit"):
+        assert math.isclose(sk[name], 2 * k[name], rel_tol=1e-2)
+    assert sk["grad"] == k["grad"]
     assert tile["vpu_geps_used"] == 1500.0
     jax_keys = set(jrl.scrf_tile_floor(128, 512, 48, 16, vpu_geps=1500.0))
     assert set(tile) == jax_keys
@@ -333,3 +342,42 @@ def test_fb_element_operations_are_the_recount(name, per_label):
     products = 1 if name in ("forward", "backward") else 2
     ph = rl.kernel_phase(name, B=B, T=T, L=L)
     assert ph.vpu_elems == B * T * (per_label * L + products * L * L)
+
+
+def test_k11_is_three_frame_parallel_parts():
+    """K11's message pass, xi pass and contraction each have a count; the
+    contraction's product is held to the 3xTF32 rate over the rows with a
+    successor frame; the step's ``scrf_grad`` is the three together."""
+    msg, xi, con = (rl.kernel_phase(n, **SEG) for n in rl.SCRF_GRAD_PARTS)
+    B, T, L, Dmax = 128, 512, 48, 16
+    assert con.mma_flops == B * (T - 1) * 2.0 * L * L and con.flops == 0
+    assert con.bytes == 4 * (2 * B * (T - 1) * L + L * L)
+    assert msg.flops == B * T * (2.0 * L * L + 8 * L) and msg.mma_flops == 0
+    assert msg.bytes == 4 * (B * T * (4 * L + 48 + 1) + L * L + L + B)
+    assert xi.flops == B * T * 14.0 * Dmax * L and xi.mma_flops == 0
+    assert xi.vpu_elems == B * T * 14.0 * Dmax * L
+    ph = {p.name: p for p in rl.scrf_train_phases(B, T, L, 144, Dmax)}
+    for field in ("bytes", "flops", "vpu_elems", "mma_flops"):
+        assert getattr(ph["scrf_grad"], field) == sum(
+            getattr(p, field) for p in (msg, xi, con))
+    # L not a multiple of 4: E and F move rows of L4 floats
+    odd = rl.kernel_phase("segmental_grad", B=2, T=8, L=5, Dmax=3)
+    assert odd.bytes == 4 * (2 * 8 * (5 * 5 + 8 + 1) + 2 * 3 * 5 + 3 + 6)
+    half = rl.kernel_phase("segmental_grad_contract", **SEG,
+                           frames=B * 256)
+    assert half.mma_flops == B * 255 * 2.0 * L * L
+
+
+@pytest.mark.parametrize("name,per_term,per_label,products", [
+    ("fwd", 7.0, 22.0, 2), ("bwd", 10.0, 18.0, 1), ("grad", 14.0, 0.0, 0),
+    ("vit", 6.0, 12.0, 1)])
+def test_scrf_passes_are_the_recount(name, per_term, per_label, products):
+    """The segmental inventories a frame: K9 walks its window once (since
+    PR 10) and exponentiates the row in every group; K11's xi pass has no
+    row work; K10 and K12 keep PR 5's frame."""
+    assert rl._SCRF_PASSES[name] == (per_term, per_label, products)
+    key = {"fwd": "segmental_forward", "bwd": "segmental_backward",
+           "vit": "segmental_viterbi", "grad": "segmental_grad"}[name]
+    ph = rl.kernel_phase(key, B=2, T=8, L=6, Dmax=3)
+    assert ph.vpu_elems == 16 * (per_term * 3 * 6 + per_label * 6
+                                 + products * 36)

@@ -304,5 +304,6 @@ def test_cuda_wrappers_and_backend_raise_on_cpu_tensors():
         kernels.set_backend("auto")
     assert K.launches == before
     assert set(K.launches) == {
-        "segmental_forward", "segmental_backward", "segmental_grad",
-        "segmental_viterbi", "segmental_viterbi_traceback"}
+        "segmental_forward", "segmental_backward", "segmental_grad_message",
+        "segmental_grad", "segmental_grad_contract", "segmental_viterbi",
+        "segmental_viterbi_traceback"}
