@@ -9,8 +9,9 @@
 //                                (seg_forward_kernel<false> at the few
 //                                widths whose windows only its smaller
 //                                footprint fits)
-//   seg_backward_kernel       <- _seg_bwd_kernel (K10,
+//   seg_beta_kernel           <- _seg_bwd_kernel (K10,
 //                                segmental_backward_pallas): beta
+//                                (seg_backward_kernel at those widths)
 //   seg_message_kernel,       <- _seg_grad_kernel and the drain after it (K11,
 //   seg_xi16_kernel /            segmental_grad_pallas): the xi pass, giving
 //   seg_xi_kernel,               the end and start contributions A and S, the
@@ -21,23 +22,27 @@
 //                                partials, which sum_partials_kernel adds; gt =
 //                                sum_u E[u]^T F[u] is fwdbwd_mma.cu's
 //                                fb_contract_kernel on the tensor cores
-//   seg_forward_kernel<true>  <- _seg_vit_kernel (K12,
+//   seg_delta_kernel          <- _seg_vit_kernel (K12,
 //                                segmental_viterbi_pallas): max-plus deltas,
 //                                duration argmaxes, final score and label
+//                                (seg_forward_kernel<true> at those widths)
 //   seg_traceback_kernel      <- _seg_vit_tb_kernel (K13,
 //                                segmental_viterbi_traceback_pallas): the
 //                                segment-end markers of the best path
 //
 // Layouts (batch-major).  frame (B, T, L) f32: per-frame label scores.  bias
 // (Dmax, L): the duration and label bias of a segment.  invd (Dmax,): 1 /
-// (d + 1) for mean pooling, else 1 (K9 and K11 form it from the pooling).
+// (d + 1) for mean pooling, else 1 (formed from the pooling inside every
+// kernel but the three-barrier frame's, which take it from the wrapper).
 // lengths (B,) i32.  The transition factor: P (L, L) = exp(trans -
 // tmax[None, :]) with tmax the column maxima clamped at NEG_INF, formed from
 // trans inside K9 (destination-major, P^T) and K11's message pass (rows
-// padded to L4 = L rounded up to 4), by the wrapper for K9's old frame;
-// Pt = exp(trans^T - tmax_r[None, :]) with tmax_r the row maxima (K10,
-// from the wrapper), or trans itself (K12, K13).  A segment
-// labelled l over frames [t - d, t] scores
+// padded to L4 = L rounded up to 4); Pt = exp(trans^T - tmax_r[None, :])
+// with tmax_r the row maxima, formed inside K10 (destination-major: the rows
+// of exp(trans - tmax_r[:, None])); trans itself for K12 (destination-major:
+// its columns) and K13.  The three-barrier frame takes P, Pt, tmax and
+// tmax_r from the wrapper.  A segment labelled l over frames [t - d, t]
+// scores
 //   seg[t, d, l] = invd[d] * (CS[t + 1, l] - CS[t - d, l]) + bias[d, l],
 // CS[k] the sum of the first k frames' scores, a running sum in frame order
 // (K10 walks down and keeps the sum of the frames above, whose differences
@@ -79,30 +84,43 @@
 // term) and the instructions around them.  Measured on an NVIDIA H100 80GB
 // HBM3 at 700 W, config 4 (B=128, T=512, L=48, Dmax=16; PERF.md has the
 // table):
-// - K9 takes fwdbwd.cu's recursion frame (K4 / K6a's): a group of kGroup =
-//   4 lanes owns D destinations and holds a contiguous quarter of each one's
-//   factor row (fdt_common.cuh FactorRows), formed here from trans, in
-//   registers up to L = 144 (D = 1) and in shared memory beyond (D = 4); the
-//   product exponentiates its own quarter of the alpha row
-//   (quarter_dot<..., EXP>), so alpha[t] is the one row the block shares and
-//   one barrier a frame suffices (the row is double-buffered by frame
-//   parity); the row max is one redux.sync; the frame's scores arrive a
-//   frame ahead in registers; a lane's window terms (durations g, g + 4,
-//   ...) sit in registers and are summed in one pass (max, then the
-//   exp-sum of the held terms; deeper windows merge 16 durations a pass
-//   online), with the bias and invd of the first 16 durations in registers;
-//   the exponentials and logarithms on the chain are ex2/lg2.approx.  The
-//   message slots of a label are written and read by its own group alone,
-//   so a __syncwarp orders them.  0.46 ms against PR 5's frame's 0.93.
-//   Tried and dropped: two destinations a group (K4's choice): the window's
-//   terms and merges, not the product, fill a frame here, and D = 2 halved
-//   the warps that run them (1.02 ms, slower than PR 5's frame); accurate
-//   expf / logf on the chain.
-// - K10 and K12 keep PR 5's frame: the Dmax circular slots in shared memory
-//   keyed by the source frame modulo Dmax, a label's window terms and its
-//   product split over kGroup lanes and merged with shuffles, the factor in
-//   shared memory with its row stride padded to 8 mod 32, a shuffle row max
-//   and three block barriers a frame.
+// - K9, K10 and K12 take fwdbwd.cu's recursion frame (K4 / K6a's): a group of
+//   kGroup = 4 lanes owns D destinations and holds a contiguous quarter of
+//   each one's factor row (fdt_common.cuh FactorRows), formed in the kernel
+//   from trans, in registers up to L = 144 (D = 1) and in shared memory beyond
+//   (D = 4); the frame's one shared row (K9 alpha[t], K10 z[t], K12 the raw
+//   delta[t]) is double-buffered by frame parity, so one barrier a frame
+//   suffices; the row max is one redux.sync; the product reads the row a
+//   quarter a lane and folds into the read what the three-barrier frame did in
+//   a pass of its own behind a barrier (K9 and K10 exponentiate their quarter,
+//   quarter_dot<..., EXP>; K12 applies the beam to its quarter, quarter_max);
+//   the frame's scores arrive a frame ahead in registers; a lane's window
+//   terms (durations g, g + 4, ...) sit in registers and are taken in one pass
+//   (K9, K10: the max, then the exp-sum of the held terms, deeper windows
+//   merging 16 durations a pass online; K12: the lane's first argmax over
+//   ascending d, merged across the group by take_better), with the bias and
+//   invd of the first 16 durations in registers; K9's and K10's exponentials
+//   and logarithms on the chain are ex2/lg2.approx, K12 has none.  The slots
+//   of a label are written and read by its own group alone, so a __syncwarp
+//   orders them.  K9 0.46 ms against the three-barrier frame's 0.93, K10 0.46
+//   against 0.88, K12 0.37 against 0.80.  Tried and dropped: for K9, two
+//   destinations a group (K4's choice): the window's terms and merges, not the
+//   product, fill a frame here, and D = 2 halved the warps that run them (1.02
+//   ms, slower than the three-barrier frame); accurate expf / logf on the
+//   chain; for all three, the frame's pieces as shared helpers (a lambda for
+//   the window term): 4-8% slower than each kernel written out.
+// - K10 mirrors K9 in time: the window holds beta[v] and the suffix sum R[v +
+//   1] of the frames above (v = t + d + 1), and destination l's factor row is
+//   row l of trans.  K12 is K9 in the max-plus semiring: its factor row is
+//   column l of trans, padded with -INFINITY (a pad never wins or ties), and
+//   its sums stay single IEEE operations (__fadd_rn, __fmul_rn, __fsub_rn; max
+//   in any order is exact), so it keeps the plain version's bits.
+// - The three-barrier frame (seg_forward_kernel, seg_backward_kernel), the
+//   port's first, kept for the few widths only its smaller footprint fits: the
+//   Dmax circular slots in shared memory keyed by the source frame modulo
+//   Dmax, a label's window terms and its product split over kGroup lanes and
+//   merged with shuffles, the factor in shared memory with its row stride
+//   padded to 8 mod 32, a shuffle row max and three block barriers a frame.
 // - K11 in three parts (five launches), none of which walks an utterance's
 //   frames in order but for the running sum CS:
 //   * the message pass, a block of TC = 64 frames: m_u, E[u] as 16-byte
@@ -133,20 +151,20 @@
 //   is one ex2.approx of its (small, non-positive) exponent; g multiplies
 //   each sum once.
 // K13 is one warp per utterance: a serial walk of one (L) argmax per segment.
-// Widths.  K10 and K12 take the (L, Dmax) at which the factor, the windows
-// and the bias fit a block's shared memory (227 KB; L <= 205 at Dmax = 16).
-// K9 takes the same widths: its own frame where its rows and windows fit,
-// seg_forward_kernel<false> (PR 5's frame, a smaller footprint) at the few
-// where they do not (L 229-232 at Dmax 5-6).  K11 takes what K9 takes and
-// its parts fit; at Dmax = 16 that is L <= 205, every width it took before.
-// seg_smem_bytes says which (L, Dmax) a kernel takes and the wrapper raises
-// beyond.  Config 4 runs L = 48, Dmax = 16.
+// Widths.  K9, K10 and K12 take the (L, Dmax) at which the three-barrier
+// frame fits a block's shared memory (227 KB; L <= 205 at Dmax = 16): their
+// own frame where its rows and windows fit, the three-barrier frame at the
+// few where only that does
+// (L 229-232 at Dmax 5-6); seg_frame says which.  K11 takes what K9 takes
+// and its parts fit; at Dmax = 16 that is L <= 205, every width it took
+// before.  seg_smem_bytes says which (L, Dmax) a kernel takes and the
+// wrapper raises beyond.  Config 4 runs L = 48, Dmax = 16.
 // Not done yet: several utterances per block at small L for K9, K10 and
-// K12; K10 and K12 on K9's frame (K10 mirrored); the xi pass at its bound
-// (0.023 ms by bytes): knockouts put ~0.095 of its 0.15 ms in the terms
-// (~0.025 their exponentials, the rest guards, loads and spills) and ~0.06
-// in a block's fixed work; an unguarded path for interior threads and the
-// end frames' values in registers are untried.
+// K12; the xi pass at its bound (0.023 ms by bytes): knockouts put ~0.095
+// of its 0.15 ms in the terms (~0.025 their exponentials, the rest guards,
+// loads and spills) and ~0.06 in a block's fixed work; an unguarded path
+// for interior threads and the end frames' values in registers are
+// untried.
 
 #include <climits>
 #include <cmath>
@@ -186,8 +204,9 @@ struct Plan {
   bool ok;
 };
 
-// PR 5's frame (K10, K12 and K9's old frame): the factor, the two (Dmax, L)
-// windows and bias, invd and three (L) vectors.
+// The three-barrier frame (K9's, K10's and K12's at the widths only it
+// fits): the factor, the two (Dmax, L) windows and bias, invd and three (L)
+// vectors.
 Plan make_plan(int L, int Dmax) {
   const int ps = padded_stride(L);
   const size_t floats = (size_t)L * ps + 3 * (size_t)Dmax * L + Dmax +
@@ -199,40 +218,40 @@ Plan make_plan(int L, int Dmax) {
 }
 
 // ---------------------------------------------------------------------------
-// K9's frame.  Layouts (alpha_layout picks one by L, as
-// kernels/fwdbwd.factor_layout does): QV float4 chunks of each of a group's
-// D factor rows a lane, in registers (QV = 3, 5, 9 with D = 1: L <= 48, 80,
-// 144) or in shared memory (D = 4, QV = ceil(L / 16): L <= 240).  One
-// destination a group where the factor fits registers: the window's terms
-// and merges sit on the frame chain, and one destination a lane group halves
-// them against two (the product's reads, which D > 1 shares in fwdbwd.cu,
-// are the smaller part here).
+// K9's frame, which K10 and K12 share.  Layouts (frame_layout picks one by
+// L, as kernels/fwdbwd.factor_layout does): QV float4 chunks of each of a
+// group's D factor rows a lane, in registers (QV = 3, 5, 9 with D = 1: L <=
+// 48, 80, 144) or in shared memory (D = 4, QV = ceil(L / 16): L <= 240).
+// One destination a group where the factor fits registers: the window's
+// terms and merges sit on the frame chain, and one destination a lane group
+// halves them against two (the product's reads, which D > 1 shares in
+// fwdbwd.cu, are the smaller part here).
 // ---------------------------------------------------------------------------
 
 constexpr int kWin = 4;                  // window terms a lane holds a pass
 constexpr int kWinPass = kGroup * kWin;  // durations a pass: 16
-constexpr int kAlphaThreads = 640;       // every layout's block, at most
+constexpr int kFrameThreads = 640;       // every layout's block, at most
 
-int alpha_threads(int L, int D) {
+int frame_threads(int L, int D) {
   const int n = (kGroup * ((L + D - 1) / D) + 31) / 32 * 32;
   return n < 64 ? 64 : n;
 }
 
-bool alpha_layout_ok(int L, int qv, int D, int shared) {
+bool frame_layout_ok(int L, int qv, int D, int shared) {
   const bool known = shared ? D == 4 && qv >= 10 && qv <= 15 &&
                                 qv == (L + 15) / 16
                             : (qv == 3 || qv == 5 || qv == 9) && D == 1;
   return L >= 1 && known && 16 * qv >= L &&
-         alpha_threads(L, D) <= kAlphaThreads;
+         frame_threads(L, D) <= kFrameThreads;
 }
 
-// K9's shared memory in this layout, 0 where it does not fit: [the factor
-// (L, Lq) if shared][the alpha row by frame parity (2, Lq)][the q and CS
-// slots (Dmax, ws) each][tmax (L) if shared], ws the padded row stride
-// where it fits, else L.
-// *ws_out: the slot stride.
-size_t alpha_bytes(int L, int Dmax, int qv, int D, int shared, int* ws_out) {
-  if (!alpha_layout_ok(L, qv, D, shared) || Dmax < 1) return 0;
+// The frame's shared memory in this layout, 0 where it does not fit: [the
+// factor (L, Lq) if shared][the shared row by frame parity (2, Lq)][two
+// slots (Dmax, ws): K9 q and CS, K10 beta and R, K12 M and CS][the factor
+// rows' maxima (L) if shared, K9's and K10's], ws the padded row stride
+// where it fits, else L.  *ws_out: the slot stride.
+size_t frame_bytes(int L, int Dmax, int qv, int D, int shared, int* ws_out) {
+  if (!frame_layout_ok(L, qv, D, shared) || Dmax < 1) return 0;
   const size_t Lq = 16 * (size_t)qv;
   const size_t fixed = (shared ? (size_t)L * (Lq + 1) : 0) + 2 * Lq;
   for (int ws : {padded_stride(L), L}) {
@@ -317,8 +336,8 @@ XiPlan xi_plan(int L, int Dmax) {
   return {0, 0, 0, 0, 0, false};
 }
 
-// K11 takes what K9 takes (PR 5's frame) and its two parts fit: the larger
-// part's shared memory, 0 if not taken.
+// K11 takes what K9 takes (the three-barrier frame's widths) and its two
+// parts fit: the larger part's shared memory, 0 if not taken.
 size_t grad_bytes(int L, int Dmax) {
   if (!make_plan(L, Dmax).ok) return 0;
   const size_t m = msg_bytes(L, nullptr);
@@ -363,12 +382,15 @@ __device__ __forceinline__ float pool_weight(int d, int mean_pool) {
   return mean_pool ? __fdiv_rn(1.0f, (float)(d + 1)) : 1.0f;
 }
 
-// max(max_p trans[p, c], NEG_INF): column c's maximum, as
-// kernels/fwdbwd.forward_factors takes it
-__device__ __forceinline__ float column_max(const float* __restrict__ trans,
-                                            int L, int c) {
+// max(max_p X[l, p], NEG_INF), X = trans (ROWS: the row maxima tmax_r, as
+// kernels/fwdbwd.backward_factors takes them) or trans^T (the column maxima
+// tmax, as forward_factors does)
+template <bool ROWS>
+__device__ __forceinline__ float trans_max(const float* __restrict__ trans,
+                                           int L, int l) {
   float x = kNegInf;
-  for (int p = 0; p < L; ++p) x = fmaxf(x, trans[(size_t)p * L + c]);
+  for (int p = 0; p < L; ++p)
+    x = fmaxf(x, ROWS ? trans[(size_t)l * L + p] : trans[(size_t)p * L + l]);
   return x;
 }
 
@@ -619,12 +641,58 @@ seg_backward_kernel(const float* __restrict__ frame,
 }
 
 
+// The max-plus counterpart of quarter_dot<1, D, QV, SHARED>: out = max_p
+// (x[p] + F[l_g, p]) for destination g (every lane for D = 1), x a row of
+// 16 QV floats, 16-byte aligned.  Lane g takes its quarter, pruning each
+// x[p] below cut to NEG_INF on read (prune: K12's beam), then the group's
+// maxima are reduced and scattered by shuffles.  Single adds and maxima are
+// exact in any order.  F's pads past L are -INFINITY: a pad entry never
+// wins or ties.
+template <int D, int QV, bool SHARED>
+__device__ __forceinline__ float quarter_max(
+    const float* x, const FactorRows<D, QV, SHARED>& f, int g, bool prune,
+    float cut) {
+  static_assert(D == 1 || D == 4, "destinations a group");
+  const float4* xv = reinterpret_cast<const float4*>(x) + g * QV;
+  float a[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) a[d] = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < QV; ++k) {
+    float4 v = xv[k];
+    if (prune) {
+      v.x = v.x >= cut ? v.x : kNegInf;
+      v.y = v.y >= cut ? v.y : kNegInf;
+      v.z = v.z >= cut ? v.z : kNegInf;
+      v.w = v.w >= cut ? v.w : kNegInf;
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float4 w = f.at(d, k);
+      a[d] = fmaxf(a[d], fmaxf(fmaxf(__fadd_rn(v.x, w.x), __fadd_rn(v.y, w.y)),
+                               fmaxf(__fadd_rn(v.z, w.z),
+                                     __fadd_rn(v.w, w.w))));
+    }
+  }
+  constexpr unsigned kAll = 0xffffffffu;
+  if constexpr (D == 1) {
+    return group_max(a[0]);
+  } else {
+    const bool hi2 = g & 2, hi1 = g & 1;
+    const float w0 = fmaxf(hi2 ? a[2] : a[0],
+                           __shfl_xor_sync(kAll, hi2 ? a[0] : a[2], 2));
+    const float w1 = fmaxf(hi2 ? a[3] : a[1],
+                           __shfl_xor_sync(kAll, hi2 ? a[1] : a[3], 2));
+    return fmaxf(hi1 ? w1 : w0, __shfl_xor_sync(kAll, hi1 ? w0 : w1, 1));
+  }
+}
+
 // K9 on fwdbwd.cu's recursion frame: alphas (B, T, L), logZ (B,).  Group
 // `slot` (kGroup lanes) owns destinations l[d] = slot + d nslots; its lane g
 // takes the window terms of durations g, g + 4, ... of each, and finishes
 // destination g (g < D): the alpha entry, the message and the slots.
 template <int QV, int D, bool SHARED>
-__global__ void __launch_bounds__(kAlphaThreads)
+__global__ void __launch_bounds__(kFrameThreads)
 seg_alpha_kernel(const float* __restrict__ frame,
                  const float* __restrict__ trans,
                  const float* __restrict__ bias_g, int mean_pool,
@@ -658,7 +726,7 @@ seg_alpha_kernel(const float* __restrict__ frame,
   FactorRows<D, QV, SHARED> f;
   float tm = 0.0f;                                   // tmax[lo]
   if constexpr (SHARED) {
-    for (int c = tid; c < L; c += nth) tcol[c] = column_max(trans, L, c);
+    for (int c = tid; c < L; c += nth) tcol[c] = trans_max<false>(trans, L, c);
     __syncthreads();
     for (int i = tid; i < L * Lq; i += nth) {
       const int r = i / Lq, c = i - r * Lq;
@@ -669,7 +737,7 @@ seg_alpha_kernel(const float* __restrict__ frame,
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      const float cm = ok[d] ? column_max(trans, L, l[d]) : 0.0f;
+      const float cm = ok[d] ? trans_max<false>(trans, L, l[d]) : 0.0f;
       if (own && lo == l[d]) tm = cm;
 #pragma unroll
       for (int k = 0; k < QV; ++k) {
@@ -788,6 +856,349 @@ seg_alpha_kernel(const float* __restrict__ frame,
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
     if (tid == 0) logZ[b] = m[0] + logf(fmaxf(sum, kProdFloor));
+  }
+}
+
+// K10 on K9's frame, mirrored in time: betas (B, T, L), the frames walked
+// down from length - 1 (beta = 0 there).  The slots hold beta[v] and
+// R[v + 1] of the frames above, by v mod Dmax, R[k] the sum of frames k ..
+// length - 1 (CS[b] - CS[a] = R[a] - R[b]); the window of frame t takes the
+// segments [t + 1, v], v = t + d + 1 < length.  Group `slot` owns
+// destinations l[d] = slot + d nslots as in K9; destination l's factor row
+// is row l of trans: F[l, p] = exp(trans[l, p] - tmax_r[l]).
+template <int QV, int D, bool SHARED>
+__global__ void __launch_bounds__(kFrameThreads)
+seg_beta_kernel(const float* __restrict__ frame,
+                const float* __restrict__ trans,
+                const float* __restrict__ bias_g, int mean_pool,
+                const int* __restrict__ lengths, float* __restrict__ betas,
+                int T, int L, int Dmax, int ws) {
+  constexpr int Lq = 16 * QV;
+  extern __shared__ float4 smem4[];
+  float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
+  float* zrow = Fs + (SHARED ? (size_t)L * Lq : 0);  // (2, Lq) z by parity
+  float* bw = zrow + 2 * Lq;                         // (Dmax, ws) beta[v]
+  float* rw = bw + (size_t)Dmax * ws;                // (Dmax, ws) R[v + 1]
+  float* trow = rw + (size_t)Dmax * ws;              // SHARED: (L) tmax_r
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int slot = tid / kGroup, nslots = nth / kGroup, g = tid % kGroup;
+  int l[D];
+  bool ok[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    l[d] = slot + d * nslots;
+    ok[d] = l[d] < L;
+  }
+  const bool own = g < D && slot + g * nslots < L;
+  const int lo = own ? slot + g * nslots : 0;        // my destination
+  const int b = blockIdx.x;
+  const int len = min(max(lengths[b], 0), T);
+  const float* fb = frame + (size_t)b * T * L;
+  float* ob = betas + (size_t)b * T * L;
+
+  // the factor, destination-major, formed here from trans's rows
+  FactorRows<D, QV, SHARED> f;
+  float tm = 0.0f;                                   // tmax_r[lo]
+  if constexpr (SHARED) {
+    for (int c = tid; c < L; c += nth) trow[c] = trans_max<true>(trans, L, c);
+    __syncthreads();
+    for (int i = tid; i < L * Lq; i += nth) {
+      const int r = i / Lq, c = i - r * Lq;
+      Fs[i] = c < L ? expf(trans[(size_t)r * L + c] - trow[r]) : 0.0f;
+    }
+    f.load(nullptr, Fs, L, l, g);
+    if (own) tm = trow[lo];
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float rm = ok[d] ? trans_max<true>(trans, L, l[d]) : 0.0f;
+      if (own && lo == l[d]) tm = rm;
+#pragma unroll
+      for (int k = 0; k < QV; ++k) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = 4 * (QV * g + k) + j;
+          v[j] = ok[d] && p < L ? expf(trans[(size_t)l[d] * L + p] - rm)
+                                : 0.0f;
+        }
+        f.r[d][k] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+  for (int j = tid; j < 2 * Lq; j += nth) zrow[j] = kNegInf;
+  for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth)
+    ob[i] = kNegInf;
+  // the bias and invd of durations g + 4 i (i < kWin), constant over frames
+  float bz[D][kWin], iv[kWin];
+#pragma unroll
+  for (int i = 0; i < kWin; ++i) {
+    const int d = g + kGroup * i;
+    iv[i] = d < Dmax ? pool_weight(d, mean_pool) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      bz[k][i] = d < Dmax && ok[k] ? bias_g[(size_t)d * L + l[k]] : 0.0f;
+  }
+  float rnow[D], cur[D];               // R[t + 1] and frame t's scores
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    rnow[k] = 0.0f;
+    cur[k] = len > 0 && ok[k] ? fb[(size_t)(len - 1) * L + l[k]] : 0.0f;
+  }
+  __syncthreads();
+
+  int r = len > 0 ? (len - 1) % Dmax : 0;  // t mod Dmax
+  for (int t = len - 1; t >= 0; --t) {
+    float nxt[D];                      // a frame ahead of its use
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      nxt[k] = t > 0 && ok[k] ? fb[(size_t)(t - 1) * L + l[k]] : 0.0f;
+    float beta = 0.0f;                 // beta[length - 1] = 0
+    if (t < len - 1) {                 // the same for the whole block
+      const int dhi = min(Dmax - 1, len - 2 - t);
+      float z[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        float mx = kNegInf, sum = 0.0f;
+        for (int c = 0; c <= dhi; c += kWinPass) {
+          float w[kWin];
+          float cm = kNegInf;
+#pragma unroll
+          for (int i = 0; i < kWin; ++i) {
+            const int d = c + g + kGroup * i;
+            w[i] = -INFINITY;
+            if (ok[k] && d <= dhi) {
+              int s = r + 1 + d;       // the slot of frame t + d + 1
+              if (s >= Dmax) s -= Dmax;
+              const float bv =
+                  c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
+              const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
+              w[i] = ((rnow[k] - rw[s * ws + l[k]]) * in + bv) +
+                     bw[s * ws + l[k]];
+              cm = fmaxf(cm, w[i]);
+            }
+          }
+          cm = group_max(cm);
+          if (c == 0) {
+            mx = cm;
+          } else if (cm > mx) {        // a deeper pass: rescale online
+            sum *= __expf(mx - cm);
+            mx = cm;
+          }
+#pragma unroll
+          for (int i = 0; i < kWin; ++i)
+            if (w[i] != -INFINITY) sum += __expf(w[i] - mx);
+        }
+        z[k] = mx + __logf(fmaxf(group_sum(sum), kProdFloor));
+      }
+      float* zt = zrow + (t & 1) * Lq;
+      float zo = z[0];
+#pragma unroll
+      for (int k = 1; k < D; ++k)
+        if (g == k) zo = z[k];
+      if (own) zt[lo] = zo;
+      __syncthreads();
+      float m[1];
+      row_max_redux<1, (QV + 1) / 2>(zt, L, m);
+      float acc[(D + 3) / 4];
+      quarter_dot<1, D, QV, SHARED, true>(zt, f, g, acc, m[0]);
+      beta = m[0] + tm + __logf(fmaxf(acc[0], kProdFloor));
+    }
+    float ro = rnow[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k)
+      if (g == k) ro = rnow[k];
+    if (own) {
+      ob[(size_t)t * L + lo] = beta;
+      bw[r * ws + lo] = beta;
+      rw[r * ws + lo] = ro;
+    }
+    __syncwarp();                      // the group's slots, for frame t - 1
+    r = r == 0 ? Dmax - 1 : r - 1;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      rnow[k] += cur[k];
+      cur[k] = nxt[k];
+    }
+  }
+}
+
+// K12 on K9's frame: deltas, arg_d (B, T, L), scores, lab0 (B,).  The slots
+// hold M[u] and CS[u + 1] of source frame u; destination l's factor row is
+// column l of trans (pads -INFINITY); the raw delta row is the one row the
+// block shares, each lane applying the beam to its own quarter on read.
+// Every sum is a single IEEE operation in the plain version's order and
+// every max exact, so the outputs are the plain version's bits.
+template <int QV, int D, bool SHARED>
+__global__ void __launch_bounds__(kFrameThreads)
+seg_delta_kernel(const float* __restrict__ frame,
+                 const float* __restrict__ trans,
+                 const float* __restrict__ bias_g, int mean_pool,
+                 const int* __restrict__ lengths, float* __restrict__ deltas,
+                 int* __restrict__ argd, float* __restrict__ scores,
+                 int* __restrict__ lab0, int T, int L, int Dmax, int ws,
+                 int use_thr, float thr) {
+  constexpr int Lq = 16 * QV;
+  extern __shared__ float4 smem4[];
+  float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
+  float* drow = Fs + (SHARED ? (size_t)L * Lq : 0);  // (2, Lq) by parity
+  float* mw = drow + 2 * Lq;                         // (Dmax, ws) M by slot
+  float* csw = mw + (size_t)Dmax * ws;               // (Dmax, ws) CS[u + 1]
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int slot = tid / kGroup, nslots = nth / kGroup, g = tid % kGroup;
+  int l[D];
+  bool ok[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    l[d] = slot + d * nslots;
+    ok[d] = l[d] < L;
+  }
+  const bool own = g < D && slot + g * nslots < L;
+  const int lo = own ? slot + g * nslots : 0;        // my destination
+  const int b = blockIdx.x;
+  const int len = min(max(lengths[b], 0), T);
+  const float* fb = frame + (size_t)b * T * L;
+  float* ob = deltas + (size_t)b * T * L;
+  int* ab = argd + (size_t)b * T * L;
+
+  // the factor, destination-major: F[l, p] = trans[p, l], -INFINITY past L
+  FactorRows<D, QV, SHARED> f;
+  if constexpr (SHARED) {
+    for (int i = tid; i < L * Lq; i += nth) {
+      const int r = i / Lq, c = i - r * Lq;
+      Fs[i] = c < L ? trans[(size_t)c * L + r] : -INFINITY;
+    }
+    f.load(nullptr, Fs, L, l, g);
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int k = 0; k < QV; ++k) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = 4 * (QV * g + k) + j;
+          v[j] = ok[d] && p < L ? trans[(size_t)p * L + l[d]] : -INFINITY;
+        }
+        f.r[d][k] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+  }
+  for (int j = tid; j < 2 * Lq; j += nth) drow[j] = kNegInf;
+  for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth) {
+    ob[i] = kNegInf;
+    ab[i] = 0;
+  }
+  // the bias and invd of durations g + 4 i (i < kWin), constant over frames
+  float bz[D][kWin], iv[kWin];
+#pragma unroll
+  for (int i = 0; i < kWin; ++i) {
+    const int d = g + kGroup * i;
+    iv[i] = d < Dmax ? pool_weight(d, mean_pool) : 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      bz[k][i] = d < Dmax && ok[k] ? bias_g[(size_t)d * L + l[k]] : 0.0f;
+  }
+  float cum[D], cur[D];                // CS[t + 1] and frame t's scores
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    cum[k] = 0.0f;
+    cur[k] = len > 0 && ok[k] ? fb[l[k]] : 0.0f;
+  }
+  __syncthreads();
+
+  const bool prune = use_thr != 0;
+  float cut = 0.0f;                    // the beam's cut of the last frame
+  int r = 0;                           // t mod Dmax
+  for (int t = 0; t < len; ++t) {
+    float nxt[D];                      // a frame ahead of its use
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      nxt[k] = t + 1 < len && ok[k] ? fb[(size_t)(t + 1) * L + l[k]] : 0.0f;
+      cum[k] += cur[k];
+    }
+    const int dhi = min(t, Dmax - 1);
+    // delta[t, l] = max_d M[t - 1 - d, l] + seg[t, d, l]: a lane's first
+    // maximum over its ascending d, then the group's by take_better
+    float best[D];
+    int bestd[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      best[k] = -INFINITY;
+      bestd[k] = INT_MAX;
+      for (int c = 0; c <= dhi; c += kWinPass)
+#pragma unroll
+        for (int i = 0; i < kWin; ++i) {
+          const int d = c + g + kGroup * i;
+          if (!ok[k] || d > dhi) continue;
+          float q = 0.0f, cs = 0.0f;
+          if (d < t) {
+            const int s = source_slot(r, d, Dmax);
+            q = mw[s * ws + l[k]];
+            cs = csw[s * ws + l[k]];
+          }
+          const float bv = c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
+          const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
+          const float w =
+              __fadd_rn(q, __fadd_rn(__fmul_rn(__fsub_rn(cum[k], cs), in),
+                                     bv));
+          if (w > best[k]) {           // ascending d: the shortest
+            best[k] = w;
+            bestd[k] = d;
+          }
+        }
+      for (int o = 1; o < kGroup; o <<= 1)
+        take_better(best[k], bestd[k],
+                    __shfl_xor_sync(0xffffffffu, best[k], o),
+                    __shfl_xor_sync(0xffffffffu, bestd[k], o));
+    }
+    float dv = best[0], cm = cum[0];
+    int dd = bestd[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k)
+      if (g == k) {
+        dv = best[k];
+        dd = bestd[k];
+        cm = cum[k];
+      }
+    float* dt = drow + (t & 1) * Lq;
+    if (own) dt[lo] = dv;
+    __syncthreads();
+    if (prune) {                       // the same for the whole block
+      float m[1];
+      row_max_redux<1, (QV + 1) / 2>(dt, L, m);
+      cut = __fsub_rn(m[0], thr);
+    }
+    // M[t, l] = max_p delta[t, p] + trans[p, l] over the pruned row
+    const float mv = quarter_max(dt, f, g, prune, cut);
+    if (own) {
+      ob[(size_t)t * L + lo] = prune && !(dv >= cut) ? kNegInf : dv;
+      ab[(size_t)t * L + lo] = dd;
+      mw[r * ws + lo] = mv;
+      csw[r * ws + lo] = cm;
+    }
+    __syncwarp();                      // the group's slots, for frame t + 1
+    r = r + 1 == Dmax ? 0 : r + 1;
+#pragma unroll
+    for (int k = 0; k < D; ++k) cur[k] = nxt[k];
+  }
+
+  // the best score of the last (pruned) row and the lowest label reaching
+  // it; an empty row reports NEG_INF and label 0
+  if (tid < 32) {
+    const float* last = drow + ((len - 1) & 1) * Lq;
+    float v = -INFINITY;
+    int i = INT_MAX;
+    for (int k = tid; k < L; k += 32) {
+      const float x = last[k];
+      take_better(v, i, prune && !(x >= cut) ? kNegInf : x, k);
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      take_better(v, i, __shfl_xor_sync(0xffffffffu, v, o),
+                  __shfl_xor_sync(0xffffffffu, i, o));
+    if (tid == 0) {
+      scores[b] = len > 0 ? v : kNegInf;
+      lab0[b] = len > 0 ? i : 0;
+    }
   }
 }
 
@@ -1248,10 +1659,10 @@ seg_traceback_kernel(const float* __restrict__ deltas,
 }
 
 
-// K9's layout at width L: QV, D and whether the factor sits in shared
-// memory (as kernels/fwdbwd.factor_layout, with the shared rows as short as
-// L allows); false above L = 240.
-bool alpha_layout(int L, int& qv, int& D, int& shared) {
+// The frame's layout at width L: QV, D and whether the factor sits in
+// shared memory (as kernels/fwdbwd.factor_layout, with the shared rows as
+// short as L allows); false above L = 240.
+bool frame_layout(int L, int& qv, int& D, int& shared) {
   D = 1;
   shared = 0;
   for (int q : {3, 5, 9})
@@ -1265,16 +1676,16 @@ bool alpha_layout(int L, int& qv, int& D, int& shared) {
   return qv <= 15;
 }
 
-// K9's frame at (L, Dmax): QV of seg_alpha_kernel, 0 for PR 5's frame
-// (seg_forward_kernel<false>), -1 if neither takes it; *bytes, *ws: the
+// The frame of K9, K10 and K12 at (L, Dmax): QV of their own layout, 0 for
+// the three-barrier frame, -1 if neither takes it; *bytes, *ws: the
 // launch's shared memory and slot stride.
-int forward_frame(int L, int Dmax, size_t* bytes, int* ws) {
+int recursion_frame(int L, int Dmax, size_t* bytes, int* ws) {
   const Plan p = make_plan(L, Dmax);
   *bytes = p.bytes;
-  if (!p.ok) return -1;                // K9 takes K10's and K12's widths
+  if (!p.ok) return -1;                // the three-barrier frame's widths
   int qv, D, shared;
-  if (alpha_layout(L, qv, D, shared)) {
-    const size_t n = alpha_bytes(L, Dmax, qv, D, shared, ws);
+  if (frame_layout(L, qv, D, shared)) {
+    const size_t n = frame_bytes(L, Dmax, qv, D, shared, ws);
     if (n) {
       *bytes = n;
       return qv;
@@ -1283,16 +1694,103 @@ int forward_frame(int L, int Dmax, size_t* bytes, int* ws) {
   return 0;
 }
 
+// A launch of K9 (out = alphas, zout = logZ), K10 (out = betas) or K12 (out
+// = deltas, argd, zout = scores, lab0).
+struct SegLaunch {
+  const float* frame;
+  const float* trans;
+  const float* bias;
+  int mean_pool;
+  const int* lengths;
+  float* out;
+  int* argd;
+  float* zout;
+  int* lab0;
+  int B, T, L, Dmax, use_thr;
+  float thr;
+};
+
 template <int QV, int D, bool SHARED>
-int launch_alpha(const float* frame, const float* trans, const float* bias,
-                 int mean_pool, const int* lengths, float* alphas,
-                 float* logZ, int B, int T, int L, int Dmax, int ws,
-                 size_t bytes, cudaStream_t s) {
-  auto kernel = seg_alpha_kernel<QV, D, SHARED>;
-  const cudaError_t err = opt_in(kernel, bytes);
+int launch_frame(Kind kind, const SegLaunch& a, size_t bytes, int ws,
+                 cudaStream_t s) {
+  const int threads = frame_threads(a.L, D);
+  cudaError_t err;
+  if (kind == kForward) {
+    auto kernel = seg_alpha_kernel<QV, D, SHARED>;
+    err = opt_in(kernel, bytes);
+    if (err == cudaSuccess)
+      kernel<<<a.B, threads, bytes, s>>>(a.frame, a.trans, a.bias,
+                                         a.mean_pool, a.lengths, a.out,
+                                         a.zout, a.T, a.L, a.Dmax, ws);
+  } else if (kind == kBackward) {
+    auto kernel = seg_beta_kernel<QV, D, SHARED>;
+    err = opt_in(kernel, bytes);
+    if (err == cudaSuccess)
+      kernel<<<a.B, threads, bytes, s>>>(a.frame, a.trans, a.bias,
+                                         a.mean_pool, a.lengths, a.out, a.T,
+                                         a.L, a.Dmax, ws);
+  } else {
+    auto kernel = seg_delta_kernel<QV, D, SHARED>;
+    err = opt_in(kernel, bytes);
+    if (err == cudaSuccess)
+      kernel<<<a.B, threads, bytes, s>>>(
+          a.frame, a.trans, a.bias, a.mean_pool, a.lengths, a.out, a.argd,
+          a.zout, a.lab0, a.T, a.L, a.Dmax, ws, a.use_thr, a.thr);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, alpha_threads(L, D), bytes, s>>>(
-      frame, trans, bias, mean_pool, lengths, alphas, logZ, T, L, Dmax, ws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9, K10 or K12: on their own frame, which forms the factor and invd from
+// trans and the pooling; else on the three-barrier frame, which takes the
+// factor (K9: P
+// source-major, K10: Pt; K12: trans), its maxima and invd from the caller
+// (null where seg_frame > 0).
+int launch_recursion(Kind kind, const SegLaunch& a, const float* P,
+                     const float* pmax, const float* invd, cudaStream_t s) {
+  size_t bytes = 0;
+  int ws = 0;
+  const int qv = recursion_frame(a.L, a.Dmax, &bytes, &ws);
+#define FRAME(Q, D, SH) \
+  case Q:               \
+    return launch_frame<Q, D, SH>(kind, a, bytes, ws, s)
+  switch (qv) {
+    FRAME(3, 1, false);
+    FRAME(5, 1, false);
+    FRAME(9, 1, false);
+    FRAME(10, 4, true);
+    FRAME(11, 4, true);
+    FRAME(12, 4, true);
+    FRAME(13, 4, true);
+    FRAME(14, 4, true);
+    FRAME(15, 4, true);
+    case 0:
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FRAME
+  const bool vit = kind == kViterbi;
+  if (!invd || (!vit && (!P || !pmax)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = make_plan(a.L, a.Dmax);
+  const int threads = threads_for(a.L);
+  cudaError_t err;
+  if (kind == kBackward) {
+    err = opt_in(seg_backward_kernel, p.bytes);
+    if (err == cudaSuccess)
+      seg_backward_kernel<<<a.B, threads, p.bytes, s>>>(
+          a.frame, P, pmax, a.bias, invd, a.lengths, a.out, a.T, a.L,
+          a.Dmax, p.ps);
+  } else {
+    auto kernel = vit ? seg_forward_kernel<true> : seg_forward_kernel<false>;
+    err = opt_in(kernel, p.bytes);
+    if (err == cudaSuccess)
+      kernel<<<a.B, threads, p.bytes, s>>>(
+          a.frame, vit ? a.trans : P, pmax, a.bias, invd, a.lengths, a.out,
+          a.argd, a.zout, a.lab0, a.T, a.L, a.Dmax, p.ps, a.use_thr, a.thr);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1319,24 +1817,21 @@ extern "C" {
 
 // A kernel's dynamic shared memory at (L, Dmax) in bytes, for the wrapper's
 // check and the tests; 0: the kernel does not take them.  kind: 0 K9, 1 K12,
-// 2 K10, 3 K11 (the larger of its message and xi passes').
+// 2 K10 (their frame's, seg_frame), 3 K11 (the larger of its message and xi
+// passes').
 size_t seg_smem_bytes(int kind, int L, int Dmax) {
-  if (kind == kForward) {
-    size_t bytes = 0;
-    int ws;
-    return forward_frame(L, Dmax, &bytes, &ws) >= 0 ? bytes : 0;
-  }
   if (kind == kGrad) return grad_bytes(L, Dmax);
-  const Plan p = make_plan(L, Dmax);
-  return p.ok ? p.bytes : 0;
+  size_t bytes = 0;
+  int ws;
+  return recursion_frame(L, Dmax, &bytes, &ws) >= 0 ? bytes : 0;
 }
 
-// K9's frame at (L, Dmax): the QV of its layout, 0 for PR 5's frame, -1 if
-// K9 does not take them.
-int seg_forward_frame(int L, int Dmax) {
+// The frame of K9, K10 and K12 at (L, Dmax): the QV of their own layout, 0
+// for the three-barrier frame, -1 if they do not take them.
+int seg_frame(int L, int Dmax) {
   size_t bytes;
   int ws;
-  return forward_frame(L, Dmax, &bytes, &ws);
+  return recursion_frame(L, Dmax, &bytes, &ws);
 }
 
 // The start frames a block of K11's xi pass takes at (L, Dmax); its gd
@@ -1345,75 +1840,44 @@ int seg_grad_chunk(int L, int Dmax) {
   return grad_bytes(L, Dmax) ? xi_plan(L, Dmax).tx : 0;
 }
 
-// K9: alphas (B, T, L), logZ (B,).  Its own frame forms the factor and
-// invd from trans and mean_pool; PR 5's takes P (L, L) source-major, tmax
-// and invd from the caller (null where seg_forward_frame > 0).
+// K9: alphas (B, T, L), logZ (B,).  the three-barrier frame takes P (L, L)
+// source-major, tmax and invd from the caller.
 int seg_forward(const float* frame, const float* trans, const float* P,
                 const float* tmax, const float* bias, const float* invd,
                 int mean_pool, const int* lengths, float* alphas,
                 float* logZ, int B, int T, int L, int Dmax, void* stream) {
-  size_t bytes = 0;
-  int ws = 0;
-  const int qv = forward_frame(L, Dmax, &bytes, &ws);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ALPHA(Q, D, SH)                                                    \
-  case Q:                                                                  \
-    return launch_alpha<Q, D, SH>(frame, trans, bias, mean_pool, lengths,  \
-                                  alphas, logZ, B, T, L, Dmax, ws, bytes, s)
-  switch (qv) {
-    ALPHA(3, 1, false);
-    ALPHA(5, 1, false);
-    ALPHA(9, 1, false);
-    ALPHA(10, 4, true);
-    ALPHA(11, 4, true);
-    ALPHA(12, 4, true);
-    ALPHA(13, 4, true);
-    ALPHA(14, 4, true);
-    ALPHA(15, 4, true);
-    case 0: {
-      if (!P || !tmax || !invd) return static_cast<int>(cudaErrorInvalidValue);
-      const Plan p = make_plan(L, Dmax);
-      auto kernel = seg_forward_kernel<false>;
-      const cudaError_t err = opt_in(kernel, p.bytes);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<B, threads_for(L), p.bytes, s>>>(
-          frame, P, tmax, bias, invd, lengths, alphas, nullptr, logZ,
-          nullptr, T, L, Dmax, p.ps, 0, 0.0f);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-#undef ALPHA
-  return static_cast<int>(cudaErrorInvalidValue);
+  const SegLaunch a{frame,  trans,   bias, mean_pool, lengths, alphas,
+                    nullptr, logZ,  nullptr, B,       T,       L,
+                    Dmax,   0,       0.0f};
+  return launch_recursion(kForward, a, P, tmax, invd,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// K12: deltas, arg_d (B, T, L), scores, lab0 (B,).
+// K12: deltas, arg_d (B, T, L), scores, lab0 (B,).  The three-barrier frame
+// takes invd from the caller.
 int seg_viterbi(const float* frame, const float* trans, const float* bias,
-                const float* invd, const int* lengths, float* deltas,
-                int* argd, float* scores, int* lab0, int B, int T, int L,
-                int Dmax, int use_thr, float thr, void* stream) {
-  const Plan p = make_plan(L, Dmax);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = seg_forward_kernel<true>;
-  cudaError_t err = opt_in(kernel, p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, threads_for(L), p.bytes, static_cast<cudaStream_t>(stream)>>>(
-      frame, trans, nullptr, bias, invd, lengths, deltas, argd, scores, lab0,
-      T, L, Dmax, p.ps, use_thr, thr);
-  return static_cast<int>(cudaGetLastError());
+                const float* invd, int mean_pool, const int* lengths,
+                float* deltas, int* argd, float* scores, int* lab0, int B,
+                int T, int L, int Dmax, int use_thr, float thr,
+                void* stream) {
+  const SegLaunch a{frame, trans,  bias, mean_pool, lengths, deltas,
+                    argd,  scores, lab0, B,         T,       L,
+                    Dmax,  use_thr, thr};
+  return launch_recursion(kViterbi, a, nullptr, nullptr, invd,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// K10: betas (B, T, L).
-int seg_backward(const float* frame, const float* Pt, const float* tmax_r,
-                 const float* bias, const float* invd, const int* lengths,
-                 float* betas, int B, int T, int L, int Dmax, void* stream) {
-  const Plan p = make_plan(L, Dmax);
-  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = opt_in(seg_backward_kernel, p.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_backward_kernel<<<B, threads_for(L), p.bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      frame, Pt, tmax_r, bias, invd, lengths, betas, T, L, Dmax, p.ps);
-  return static_cast<int>(cudaGetLastError());
+// K10: betas (B, T, L).  The three-barrier frame takes Pt (L, L), tmax_r
+// and invd from the caller.
+int seg_backward(const float* frame, const float* trans, const float* Pt,
+                 const float* tmax_r, const float* bias, const float* invd,
+                 int mean_pool, const int* lengths, float* betas, int B,
+                 int T, int L, int Dmax, void* stream) {
+  const SegLaunch a{frame,  trans,   bias, mean_pool, lengths, betas,
+                    nullptr, nullptr, nullptr, B,     T,       L,
+                    Dmax,   0,       0.0f};
+  return launch_recursion(kBackward, a, Pt, tmax_r, invd,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K11's message pass: E (B, T, L4), q, cs (B, T, L), m (B, T) from alphas,

@@ -48,7 +48,11 @@ Where the port's outputs differ from the JAX functions':
 A kernel takes the ``(L, Dmax)`` at which the transition factor and the
 Dmax-slot windows fit a block's shared memory (at ``Dmax = 16``: ``L <=
 205``, K11 included; :func:`smem_bytes` says which); the wrappers raise
-beyond.  K11's message and xi passes hold ~50 MB of temporaries at config 4
+beyond.  K9, K10 and K12 run on one frame (:func:`recursion_frame`: their
+own, which forms the transition factor and ``invd`` inside the kernel, so
+each wrapper launches its kernel alone; the three-barrier frame, which
+takes them from the wrapper, at the few widths only its smaller footprint
+fits).  K11's message and xi passes hold ~50 MB of temporaries at config 4
 (``E``, ``F`` (B, T, L4), ``q``, ``cs`` (B, T, L), ``m`` (B, T)).
 
 The dispatchers follow :func:`asr_craft_tpu_torch.kernels.use_kernel`: a
@@ -386,17 +390,19 @@ def _library():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.seg_forward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3 + [i32] * 4
                                     + [ptr])
-        lib.seg_viterbi.argtypes = [ptr] * 9 + [i32] * 5 + [f32, ptr]
-        lib.seg_backward.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.seg_viterbi.argtypes = ([ptr] * 4 + [i32] + [ptr] * 5 + [i32] * 5
+                                    + [f32, ptr])
+        lib.seg_backward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2
+                                     + [i32] * 4 + [ptr])
         lib.seg_grad_message.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.seg_grad_xi.argtypes = ([ptr] * 7 + [i32] + [ptr] * 6 + [i32] * 4
                                     + [ptr])
         lib.seg_traceback.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
         for name in ("seg_forward", "seg_viterbi", "seg_backward",
                      "seg_grad_message", "seg_grad_xi", "seg_traceback",
-                     "seg_forward_frame", "seg_grad_chunk"):
+                     "seg_frame", "seg_grad_chunk"):
             getattr(lib, name).restype = i32
-        lib.seg_forward_frame.argtypes = [i32] * 2
+        lib.seg_frame.argtypes = [i32] * 2
         lib.seg_grad_chunk.argtypes = [i32] * 2
         lib.seg_smem_bytes.argtypes = [i32] * 3
         lib.seg_smem_bytes.restype = ctypes.c_size_t
@@ -411,12 +417,13 @@ def smem_bytes(name: str, L: int, max_dur: int) -> int:
     return _library().seg_smem_bytes(KINDS[name], L, max_dur)
 
 
-def forward_frame(L: int, max_dur: int) -> int:
-    """K9's frame at ``(L, Dmax)``: the ``QV`` of its own layout (3, 5, 9:
-    the factor in registers; 10-15: in shared memory), 0 where only PR 5's
-    frame (``seg_forward_kernel<false>``, a smaller footprint) fits its
-    windows, -1 where K9 does not take them."""
-    return _library().seg_forward_frame(L, max_dur)
+def recursion_frame(L: int, max_dur: int) -> int:
+    """The frame of K9, K10 and K12 at ``(L, Dmax)``: the ``QV`` of their
+    own layout (3, 5, 9: the factor in registers; 10-15: in shared memory),
+    0 where only the three-barrier frame (``seg_forward_kernel``,
+    ``seg_backward_kernel``: a smaller footprint) fits their windows, -1
+    where they do not take them."""
+    return _library().seg_frame(L, max_dur)
 
 
 def _check(name, frame, trans, bias, lengths):
@@ -447,6 +454,16 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _old_invd(old: bool, max_dur: int, mean_pool: bool, dev):
+    """invd for the three-barrier frame, which takes it formed (K9's frame
+    forms it from the pooling); the caller holds it until the launch."""
+    return pool_weights(max_dur, mean_pool, dev) if old else None
+
+
 def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True):
     """K9 on the card: ``(alphas (B, T, L), logZ (B,))``, as
     :func:`segmental_forward_plain` returns."""
@@ -455,17 +472,13 @@ def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True):
     alphas = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     logZ = torch.empty((B,), dtype=torch.float32, device=dev)
     if B:
-        # K9's own frame forms its factor and invd from trans and the
-        # pooling; PR 5's frame takes them formed (referenced until the
-        # launch)
-        old = forward_frame(L, Dmax) == 0
+        old = recursion_frame(L, Dmax) == 0
         tmax, P = forward_factors(trans) if old else (None, None)
-        invd = pool_weights(Dmax, mean_pool, dev) if old else None
-        ptr = lambda x: None if x is None else x.data_ptr()
+        invd = _old_invd(old, Dmax, mean_pool, dev)
         with torch.cuda.device(dev):
             code = _library().seg_forward(
-                frame.data_ptr(), trans.data_ptr(), ptr(P), ptr(tmax),
-                bias.data_ptr(), ptr(invd), int(mean_pool),
+                frame.data_ptr(), trans.data_ptr(), _ptr(P), _ptr(tmax),
+                bias.data_ptr(), _ptr(invd), int(mean_pool),
                 lengths.data_ptr(), alphas.data_ptr(), logZ.data_ptr(), B, T,
                 L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental forward launch")
@@ -484,13 +497,14 @@ def segmental_viterbi_cuda(frame, trans, bias, lengths, mean_pool=True,
     lab0 = torch.empty((B,), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     if B:
-        invd = pool_weights(Dmax, mean_pool, dev)
+        invd = _old_invd(recursion_frame(L, Dmax) == 0, Dmax, mean_pool, dev)
         with torch.cuda.device(dev):
             code = _library().seg_viterbi(
                 frame.data_ptr(), trans.data_ptr(), bias.data_ptr(),
-                invd.data_ptr(), lengths.data_ptr(), deltas.data_ptr(),
-                arg_d.data_ptr(), scores.data_ptr(), lab0.data_ptr(), B, T,
-                L, Dmax, int(beam_threshold is not None),
+                _ptr(invd), int(mean_pool), lengths.data_ptr(),
+                deltas.data_ptr(), arg_d.data_ptr(), scores.data_ptr(),
+                lab0.data_ptr(), B, T, L, Dmax,
+                int(beam_threshold is not None),
                 float(beam_threshold or 0.0), _stream(dev))
         _build.raise_on_error(code, "segmental viterbi launch")
         launches["segmental_viterbi"] += 1
@@ -504,13 +518,15 @@ def segmental_backward_cuda(frame, trans, bias, lengths, mean_pool=True):
     dev = frame.device
     betas = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     if B:
-        tmax_r, Pt = backward_factors(trans)
-        invd = pool_weights(Dmax, mean_pool, dev)
+        old = recursion_frame(L, Dmax) == 0
+        tmax_r, Pt = backward_factors(trans) if old else (None, None)
+        invd = _old_invd(old, Dmax, mean_pool, dev)
         with torch.cuda.device(dev):
             code = _library().seg_backward(
-                frame.data_ptr(), Pt.data_ptr(), tmax_r.data_ptr(),
-                bias.data_ptr(), invd.data_ptr(), lengths.data_ptr(),
-                betas.data_ptr(), B, T, L, Dmax, _stream(dev))
+                frame.data_ptr(), trans.data_ptr(), _ptr(Pt), _ptr(tmax_r),
+                bias.data_ptr(), _ptr(invd), int(mean_pool),
+                lengths.data_ptr(), betas.data_ptr(), B, T, L, Dmax,
+                _stream(dev))
         _build.raise_on_error(code, "segmental backward launch")
         launches["segmental_backward"] += 1
     return betas

@@ -18,11 +18,13 @@ minimum of two runs of a few calls each:
   train step at configs 1 and 5, and K6a, K6b, K14 at config 5;
 - the segmental CRF (config 4) at B=128, T=512: K9, K10, K11 (whole), K12,
   K13, one train step (``scrf_loss_fused``, backward, SGD) and
-  ``scrf_decode``.
-It prints one JSON line a turn and, last, the card and every turn's times;
-``--out`` also writes them there.  Only the two checkouts' own APIs in
-common are called, so a checkout from before a change of a wrapper's
-return value runs too.
+  ``scrf_decode``; and, from a ``torch.profiler`` trace of five calls
+  (``bench.device_busy``), the step's and the decode's device-busy ms and
+  share a call and the kernels a call launches.
+It prints one JSON line a turn and, last, the card and every turn's times
+and traces; ``--out`` also writes them there.  Only the two checkouts' own
+APIs in common are called, so a checkout from before a change of a
+wrapper's return value runs too.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
          "K4 config5", "K5 config5", "shared step config5",
          "K6a config5", "K6b config5", "K14 config5",
          "K9", "K10", "K11", "K12", "K13", "scrf step", "scrf_decode")
+TRACED = ("scrf step", "scrf_decode")
 
 
 def _ms(torch, fn, reps):
@@ -98,6 +101,7 @@ def _shared(torch, dev) -> dict:
 def _segmental(torch, dev) -> dict:
     """K9-K13, a train step and scrf_decode at config 4."""
     from asr_craft_tpu_torch import flagship
+    from asr_craft_tpu_torch.bench import device_busy
     from asr_craft_tpu_torch.kernels import segmental as K
     from asr_craft_tpu_torch.models.segmental import (_frame_scores_and_bias,
                                                       scrf_decode,
@@ -126,7 +130,16 @@ def _segmental(torch, dev) -> dict:
         loss.backward()
         opt.step()
 
+    def decode():
+        return scrf_decode(cfg, p, batch["feats"], lengths)
+
+    traces = {}
+    for name, fn in zip(TRACED, (step, decode)):
+        rec = device_busy(fn, dev, 5)
+        traces[name] = None if rec is None else {
+            k: rec[k] for k in ("wall_ms", "busy_ms", "pct", "kernels")}
     return {
+        "_traces": traces,
         "K9": _ms(torch, lambda: K.segmental_forward_cuda(*args), 10),
         "K10": _ms(torch, lambda: K.segmental_backward_cuda(*args), 10),
         "K11": _ms(torch, lambda: K.segmental_grad_cuda(*args, *grad_in),
@@ -135,8 +148,7 @@ def _segmental(torch, dev) -> dict:
         "K13": _ms(torch, lambda: K.segmental_viterbi_traceback_cuda(*tb_in),
                    10),
         "scrf step": _ms(torch, step, 5),
-        "scrf_decode": _ms(torch, lambda: scrf_decode(
-            cfg, p, batch["feats"], lengths), 10),
+        "scrf_decode": _ms(torch, decode, 10),
     }
 
 
@@ -216,10 +228,14 @@ def main(argv=None) -> int:
             print(run.stdout + run.stderr, file=sys.stderr)
             return run.returncode
         times = json.loads(run.stdout.strip().splitlines()[-1])
-        turns.append({"tree": label, "dir": tree, "ms": times})
+        traces = times.pop("_traces")
+        turns.append({"tree": label, "dir": tree, "ms": times,
+                      "traces": traces})
         print(json.dumps(turns[-1]), flush=True)
     result = {"card": card, "order": "a, b, b, a",
-              "ms": {name: [t["ms"][name] for t in turns] for name in NAMES}}
+              "ms": {name: [t["ms"][name] for t in turns] for name in NAMES},
+              "traces": {name: [t["traces"][name] for t in turns]
+                         for name in TRACED}}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "turns": turns}, f, indent=1)

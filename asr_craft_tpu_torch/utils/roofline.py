@@ -395,17 +395,20 @@ _SCRF_PASSES = {
     # shuffles and two operations each: 8), the floor, logf and add of
     # alpha (3), its share of the redux row max (1), its product's
     # reduce-scatter (a partial-sum add, two shuffles and two adds: 5) and
-    # the message m + tmax + log(max(dot, floor)) (4): 22.  Two products:
-    # the multiply-adds, and the quarters' exponentials (every group
-    # exponentiates the whole row, a subtract and an expf an entry: L / D
-    # groups x Lq entries, ~L^2 at D = 2).
-    "fwd": (7.0, 22.0, 2),
-    # K10, seg_backward_kernel.  The window is walked twice: the term and a
-    # max (4), then the term again, a subtract, an expf and an add (6): 10.
-    # A label: the running sum, two group merges (4), logf + floor + add
-    # (3), the row max (2), a subtract and an expf (2), the message with
-    # its two merges (6): 18.
-    "bwd": (10.0, 18.0, 1),
+    # the message m + tmax + log(max(dot, floor)) (4): 22.  Per (p, l): the
+    # product's multiply-add, and the quarters' exponentials: a group a
+    # destination (D = 1 up to L = 144) exponentiates the whole row it
+    # reads, a subtract and an ex2 an entry: 3.
+    "fwd": (7.0, 22.0, 3),
+    # K10, seg_beta_kernel: K9 mirrored, the same inventory.
+    # The term ((R[t + 1] - R[v + 1]) invd + bias) + beta[v] (a subtract, a
+    # multiply-add, an add: 3) and a max, then the exp-sum's subtract, expf
+    # and add: 7.  A label: the running suffix sum (1), the group's max and
+    # sum merges (8), z's floor, logf and add (3), the redux row max (1),
+    # the product's reduce-scatter (5) and beta = zm + tmax_r +
+    # log(max(dot, floor)) (4): 22.  Per (p, l): the multiply-add and the
+    # quarters' exponentials (2): 3.
+    "bwd": (7.0, 22.0, 3),
     # K11's xi pass, seg_xi16_kernel / seg_xi_kernel (since PR 10), by
     # window term: the term (a subtract, a multiply-add and the add of beta
     # - logZ, staged once a frame: 3), exp(q + x) (an add, the log2(e)
@@ -413,13 +416,16 @@ _SCRF_PASSES = {
     # (3), F's exp(x + m) (3) and its add (1): 14; g multiplies each sum
     # once.  It walks no frame chain: its row work is the message pass's.
     "grad": (14.0, 0.0, 0),
-    # K12, seg_forward_kernel<true>.  The window is walked once: four single
-    # IEEE operations for the term, a compare and a select (6).  A label:
-    # the running sum, the group's argmax merges (4), the row max (2), the
-    # beam (2), the group max of the predecessor pass (2), the stores (1):
-    # 12.  Its product is the max-plus predecessor pass, an add and a max
-    # per (p, l).
-    "vit": (6.0, 12.0, 1),
+    # K12, seg_delta_kernel, without a beam (scrf_decode's
+    # default).  The window is walked once: four single IEEE operations for
+    # the term, a compare and the two selects of the lane's first argmax:
+    # 7.  A label: the running sum (1), the group's two argmax merges (two
+    # shuffles, take_better's three compares and two selects: 7 each) and
+    # the group max of the predecessor pass (two shuffles, two maxima): 19.
+    # Per (p, l): the max-plus pass's add and max: 2.  A beam adds the redux
+    # row max and the cut (2) and the owner's prune (2) a label, and a
+    # compare and a select per (p, l) (each lane prunes its quarter on read).
+    "vit": (7.0, 19.0, 2),
 }
 # K11's message pass, seg_message_kernel, a label of a frame: its share of
 # the row max (1), E's subtract and exp (2), the running sum (1) and the

@@ -332,8 +332,8 @@ CAL_ATOL = 2e-6
 # Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: the
 # config-2 decode (the plane kernel and K3's recursion) is 3.206 us a frame
 # at B=64; the segmental decode at one segment a frame (the bench's zero
-# model) is K12 at 1.5 us and K13 at 0.9.
-FDT_FRAME_US, SCRF_FRAME_US = 3.206, 2.4
+# model), K12 on K9's frame and K13, is 1.835 us.
+FDT_FRAME_US, SCRF_FRAME_US = 3.206, 1.835
 # The JAX package's recipes on the CPU at their own sizes (python
 # recipes/<name>.py --platform cpu): per-epoch mean_loss, the final CV PER
 # and the decode's (errors, tokens); swbd_multihost does not decode.

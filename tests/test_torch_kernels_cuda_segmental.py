@@ -150,12 +150,32 @@ def test_ties_fall_as_in_the_plain_version(dev, seed):
     assert torch.equal(tb[0], rtb[0]) and torch.equal(tb[1], rtb[1])
 
 
+@pytest.mark.parametrize("L", [5, 150])
+@pytest.mark.parametrize("seed", [0, 1, "flat"])
+def test_ties_fall_as_in_the_plain_version_in_deep_windows(dev, seed, L):
+    """Dmax = 20, so a lane holds several durations over two passes: integer
+    and flat potentials (every candidate ties), sum pooling, exact and under
+    a beam: the shortest duration among equal candidates within a lane,
+    across the group and across passes, the lowest final label."""
+    flat = seed == "flat"
+    args = _problem(dev, 16, 40, 20, L, seed=0 if flat else seed,
+                    integer=True)
+    if flat:
+        args = tuple(torch.zeros_like(a) for a in args[:3]) + args[3:]
+    for thr in (None, 1.0):
+        got = K.segmental_viterbi_cuda(*args, False, thr)
+        want = K.segmental_viterbi_plain(*args, False, thr)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), thr
+    if flat:
+        assert int(got[1].max()) == 0 and int(got[2].max()) == 0
+
+
 def _ps(L):
     return L + ((8 - L % 32) + 32) % 32
 
 
 def _frame5_ok(L, Dmax):
-    """PR 5's frame (K10, K12): the factor, two windows and the bias."""
+    """The three-barrier frame: the factor, two windows and the bias."""
     return 4 * (L * _ps(L) + 3 * Dmax * L + Dmax + 3 * L) <= 232448
 
 
@@ -171,16 +191,15 @@ def _old_grad_ok(L, Dmax):
                                     (232, 5), (25, 321), (1, 6000)])
 def test_kernels_take_the_widths_they_state(dev, L, Dmax):
     """At Dmax = 16: K9-K12 up to L = 205 (the factor and the windows fit
-    shared memory), K11 included; a window too deep is refused as well.  K9
-    takes every width K10 and K12 take (its own frame, or PR 5's where only
-    that fits), K11 every width it took before it was split."""
-    small = 4 * (L * _ps(L) + 3 * Dmax * L + Dmax + 3 * L)
+    shared memory), K11 included; a window too deep is refused as well.  K9,
+    K10 and K12 take every width the three-barrier frame took (their own
+    frame, or that one where only it fits), K11 every width it took before
+    it was split."""
     for name in ("segmental_viterbi", "segmental_backward"):
-        assert K.smem_bytes(name, L, Dmax) == (small if small <= 232448
-                                               else 0)
+        assert (K.smem_bytes(name, L, Dmax) > 0) == _frame5_ok(L, Dmax)
     fwd = K.smem_bytes("segmental_forward", L, Dmax)
     assert (fwd > 0) == _frame5_ok(L, Dmax)
-    assert (K.forward_frame(L, Dmax) >= 0) == _frame5_ok(L, Dmax)
+    assert (K.recursion_frame(L, Dmax) >= 0) == _frame5_ok(L, Dmax)
     grad = K.smem_bytes("segmental_grad", L, Dmax)
     assert 0 <= grad <= 232448
     if _old_grad_ok(L, Dmax):
@@ -191,20 +210,61 @@ def test_kernels_take_the_widths_they_state(dev, L, Dmax):
         assert (grad > 0) == (L <= 205)
 
 
+WIDTHS = [(L, Dmax) for L in list(range(1, 240, 7)) + [144, 145, 205, 229,
+                                                      232]
+          for Dmax in (1, 2, 5, 16, 17, 40, 100, 333, 1000, 4000)]
+
+
 def test_every_width_taken_before_is_taken(dev):
-    """Over a grid of widths: K9 wherever PR 5's frame fits, K11 wherever
-    its old kernel did."""
-    for L in list(range(1, 240, 7)) + [144, 145, 205, 229, 232]:
-        for Dmax in (1, 2, 5, 16, 17, 40, 100, 333, 1000, 4000):
-            if _frame5_ok(L, Dmax):
-                assert K.smem_bytes("segmental_forward", L, Dmax) > 0
-            if _old_grad_ok(L, Dmax):
-                assert K.smem_bytes("segmental_grad", L, Dmax) > 0, (L, Dmax)
+    """Over a grid of widths: K9, K10 and K12 wherever the three-barrier
+    frame fits, K11 wherever its old kernel did."""
+    for L, Dmax in WIDTHS:
+        if _frame5_ok(L, Dmax):
+            for name in ("segmental_forward", "segmental_backward",
+                         "segmental_viterbi"):
+                assert K.smem_bytes(name, L, Dmax) > 0, (name, L, Dmax)
+        if _old_grad_ok(L, Dmax):
+            assert K.smem_bytes("segmental_grad", L, Dmax) > 0, (L, Dmax)
+
+
+def _frame_bytes(L, Dmax, qv):
+    """K9's frame's shared memory in layout qv: [the factor (L, 16 qv) and
+    its maxima (L), if shared][the shared row by parity (2, 16 qv)][two
+    slots (Dmax, ws)], ws the padded stride where that fits, else L; 0 if
+    neither fits."""
+    Lq = 16 * qv
+    fixed = (L * (Lq + 1) if qv >= 10 else 0) + 2 * Lq
+    for ws in (_ps(L), L):
+        if 4 * (fixed + 2 * Dmax * ws) <= 232448:
+            return 4 * (fixed + 2 * Dmax * ws)
+    return 0
+
+
+def test_frame_choice_matches_smem_bytes(dev):
+    """recursion_frame, the one choice of K9, K10 and K12, against each
+    one's shared memory over the same grid: their own frame in the layout
+    of L (the factor in registers up to L = 144, shared beyond) where its
+    rows and windows fit, the three-barrier frame (its bytes) where only
+    that fits, none where neither does."""
+    for L, Dmax in WIDTHS:
+        frame = K.recursion_frame(L, Dmax)
+        qv = next((q for q in (3, 5, 9) if 16 * q >= L), -(-L // 16))
+        if not _frame5_ok(L, Dmax):
+            want, expect = 0, -1
+        elif _frame_bytes(L, Dmax, qv):
+            want, expect = _frame_bytes(L, Dmax, qv), qv
+        else:
+            want = 4 * (L * _ps(L) + 3 * Dmax * L + Dmax + 3 * L)
+            expect = 0
+        assert frame == expect, (L, Dmax, frame)
+        for name in ("segmental_forward", "segmental_backward",
+                     "segmental_viterbi"):
+            assert K.smem_bytes(name, L, Dmax) == want, (name, L, Dmax)
 
 
 def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     args = _problem(dev, 3, 20, 16, 205, seed=3)
-    assert K.forward_frame(205, 16) == 13          # the factor shared
+    assert K.recursion_frame(205, 16) == 13        # the factor shared
     alphas, logZ = K.segmental_forward_cuda(*args)
     ra, rz = K.segmental_forward_plain(*args)
     _close(alphas, ra, **Z_TOL)
@@ -233,13 +293,15 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     assert K.launches == before
 
 
-@pytest.mark.parametrize("L,Dmax,frame", [(48, 16, 3), (80, 16, 5),
-                                          (150, 16, 10), (205, 16, 13),
-                                          (229, 6, 0)])
+FRAMES = [(48, 16, 3), (80, 16, 5), (150, 16, 10), (205, 16, 13),
+          (229, 6, 0)]
+
+
+@pytest.mark.parametrize("L,Dmax,frame", FRAMES)
 def test_forward_frames_match_plain(dev, L, Dmax, frame):
     """K9 in each layout: the factor in registers, in shared memory, and
-    PR 5's frame where only its footprint fits."""
-    assert K.forward_frame(L, Dmax) == frame
+    the three-barrier frame where only its footprint fits."""
+    assert K.recursion_frame(L, Dmax) == frame
     args = _problem(dev, 4, 33, Dmax, L, seed=5)
     for mean_pool in (True, False):
         alphas, logZ = K.segmental_forward_cuda(*args, mean_pool)
@@ -247,6 +309,49 @@ def test_forward_frames_match_plain(dev, L, Dmax, frame):
         _close(alphas, ra, **Z_TOL)
         _close(logZ, rz, **Z_TOL)
         assert float(logZ[-1]) <= -1e29          # the empty row
+
+
+@pytest.mark.parametrize("L,Dmax,frame", FRAMES + [(48, 40, 3),
+                                                   (150, 40, 10)])
+def test_backward_frames_match_plain(dev, L, Dmax, frame):
+    """K10 in each layout (and windows deeper than one pass of 16): betas
+    within Z_TOL, 0 at length - 1, NEG_INF at and past the length and in
+    the empty row, the same bits on two runs."""
+    assert K.recursion_frame(L, Dmax) == frame
+    args = _problem(dev, 4, 45, Dmax, L, seed=6)
+    lengths = args[3].long()
+    for mean_pool in (True, False):
+        betas = K.segmental_backward_cuda(*args, mean_pool)
+        again = K.segmental_backward_cuda(*args, mean_pool)
+        _close(betas, K.segmental_backward_plain(*args, mean_pool), **Z_TOL)
+        assert torch.equal(betas, again)
+        for row, n in enumerate(lengths.tolist()):
+            if n:
+                assert float(betas[row, n - 1].abs().max()) == 0.0
+            if n < betas.shape[1]:
+                assert float(betas[row, n:].max()) <= -1e29
+
+
+@pytest.mark.parametrize("L,Dmax,frame", FRAMES + [(48, 64, 3),
+                                                   (150, 40, 10)])
+def test_viterbi_frames_match_plain(dev, L, Dmax, frame):
+    """K12 in each layout (and windows deeper than one pass of 16): deltas,
+    arg_d, lab0 and scores equal to the plain version, exact and under two
+    beams, both poolings; then K13's markers on them."""
+    assert K.recursion_frame(L, Dmax) == frame
+    args = _problem(dev, 4, 70, Dmax, L, seed=7)
+    for mean_pool in (True, False):
+        for thr in (None, 8.0, 1.0):
+            got = K.segmental_viterbi_cuda(*args, mean_pool, thr)
+            want = K.segmental_viterbi_plain(*args, mean_pool, thr)
+            for x, y in zip(got, want):
+                assert x.dtype == y.dtype and torch.equal(x, y), thr
+            tb = K.segmental_viterbi_traceback_cuda(got[0], got[1], args[1],
+                                                    got[2], args[3])
+            rtb = K.segmental_viterbi_traceback_plain(
+                want[0], want[1], args[1], want[2], args[3])
+            assert torch.equal(tb[0], rtb[0]) and torch.equal(tb[1], rtb[1])
+    assert float(got[3][-1]) <= -1e29 and int(got[2][-1]) == 0
 
 
 def _config4(dev, pooling, seed=0):
@@ -288,6 +393,35 @@ def test_grad_parts_match_plain_at_config4(dev, pooling):
     _rel(gt, K.segmental_grad_contract_plain(rE, rF, 48))
     assert float(A[-1].abs().max()) == float(S[-1].abs().max()) == 0.0
     assert float(F[-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("pooling", ["mean", "sum"])
+def test_backward_matches_plain_at_config4(dev, pooling):
+    """K10 at B=128, T=512, L=48, Dmax=16 (ragged, an empty row): one launch
+    a call, betas within Z_TOL of the plain version, the same bits on two
+    runs."""
+    args, mean_pool, (_, rb, _, _) = _config4(dev, pooling, seed=2)
+    before = K.launches["segmental_backward"]
+    betas = K.segmental_backward_cuda(*args, mean_pool)
+    again = K.segmental_backward_cuda(*args, mean_pool)
+    assert K.launches["segmental_backward"] == before + 2
+    _close(betas, rb, **Z_TOL)
+    assert torch.equal(betas, again)
+
+
+@pytest.mark.parametrize("L,Dmax", [(48, 16), (229, 6)])
+def test_wrappers_launch_their_kernel_alone(dev, L, Dmax):
+    """K9's frame forms the factor and invd inside K9, K10 and K12: each
+    wrapper launches one kernel (a torch.profiler trace of its call); PR
+    5's frame, at the widths only it fits, takes them from the wrapper."""
+    from asr_craft_tpu_torch.bench import device_busy
+    args = _problem(dev, 8, 64, Dmax, L, seed=8)
+    own = K.recursion_frame(L, Dmax) > 0
+    for fn in (K.segmental_forward_cuda, K.segmental_backward_cuda,
+               K.segmental_viterbi_cuda):
+        rec = device_busy(lambda: fn(*args), dev, 2)
+        assert rec is not None, "the trace holds no device time"
+        assert (rec["kernels"] == 1) == own, (fn.__name__, rec["top"])
 
 
 @pytest.mark.parametrize("pooling", ["mean", "sum"])

@@ -369,12 +369,13 @@ def test_k11_is_three_frame_parallel_parts():
 
 
 @pytest.mark.parametrize("name,per_term,per_label,products", [
-    ("fwd", 7.0, 22.0, 2), ("bwd", 10.0, 18.0, 1), ("grad", 14.0, 0.0, 0),
-    ("vit", 6.0, 12.0, 1)])
+    ("fwd", 7.0, 22.0, 3), ("bwd", 7.0, 22.0, 3), ("grad", 14.0, 0.0, 0),
+    ("vit", 7.0, 19.0, 2)])
 def test_scrf_passes_are_the_recount(name, per_term, per_label, products):
-    """The segmental inventories a frame: K9 walks its window once (since
-    PR 10) and exponentiates the row in every group; K11's xi pass has no
-    row work; K10 and K12 keep PR 5's frame."""
+    """The segmental inventories a frame: K9 and K10 (its mirror) walk
+    their window once and exponentiate the row in every group of one
+    destination; K12 takes its lane's first argmax in one pass and a
+    max-plus product; K11's xi pass has no row work."""
     assert rl._SCRF_PASSES[name] == (per_term, per_label, products)
     key = {"fwd": "segmental_forward", "bwd": "segmental_backward",
            "vit": "segmental_viterbi", "grad": "segmental_grad"}[name]
