@@ -208,7 +208,8 @@ class Trainer:
     """Epoch-loop runner (the ``CRF_SGTrainer::train()`` analogue).
 
     ``params``: a dict of tensors (copied into leaves that require grad),
-    or None for the reference's zero start on ``device``."""
+    or None for the reference's zero start on ``device``, the card unless
+    asked for the CPU (it raises without one)."""
 
     def __init__(self, cfg: CrfConfig, tc: TrainConfig,
                  params: Optional[dict] = None, label_kind: str = "phone",
@@ -216,7 +217,12 @@ class Trainer:
         self.cfg, self.tc = cfg, tc
         self.label_kind = label_kind
         if params is None:
-            params = cfg.init_params(device=device or "cpu")
+            device = torch.device(device or "cuda")
+            if device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"Trainer(device={device}): no CUDA "
+                                   "device is available; pass device='cpu' "
+                                   "to train on the CPU")
+            params = cfg.init_params(device=device)
         self.params = {k: v.detach().clone().to(device or v.device)
                        .requires_grad_(True) for k, v in params.items()}
         self.device = next(iter(self.params.values())).device

@@ -2,6 +2,7 @@
 card, in turns: A, B, B, A.
 
     python asr_craft_tpu_torch/utils/ab_timing.py DIR_A DIR_B [--out FILE]
+        [--only GROUP[,GROUP...]]
 
 Each turn is its own process, started in that checkout with its package
 first on the path, so two versions of ``asr_craft_tpu_torch`` never meet in
@@ -13,16 +14,24 @@ minimum of two runs of a few calls each:
   returns them, as its train step does), one train step (loss, backward,
   SGD) at B=128, T=512, K3's forward (``viterbi_forward_cuda``) and
   ``decode()`` at B=64, T=512;
+- the shared-transition decode at B=64, T=512, all rows full: K7
+  (``viterbi_dense_fwd``) at configs 1 and 3 and on config 5's n-state
+  problem, K8 (``viterbi_nstate_fwd``) at config 5, each exact and with
+  ``beam_threshold=8`` (config 3's recipe flag), at config 1 (K7) and 5
+  (K8) with ``beam_width=16`` too, and ``decode()`` at configs
+  1, 3 and 5, with its trace as below;
 - the shared-transition path at B=128, T=512, all rows full: K4
   (``forward_dual_cuda``), K5 whole (``backward_dual_grad_cuda``) and one
   train step at configs 1 and 5, and K6a, K6b, K14 at config 5;
 - the segmental CRF (config 4) at B=128, T=512: K9, K10, K11 (whole), K12,
   K13, one train step (``scrf_loss_fused``, backward, SGD) and
   ``scrf_decode``; and, from a ``torch.profiler`` trace of five calls
-  (``bench.device_busy``), the step's and the decode's device-busy ms and
+  (``bench.device_busy``), the step's and the decodes' device-busy ms and
   share a call and the kernels a call launches.
-It prints one JSON line a turn and, last, the card and every turn's times
-and traces; ``--out`` also writes them there.  Only the two checkouts' own
+``--only`` times the groups named (``fdt``, ``viterbi``, ``shared``,
+``segmental``: the four items above, in order) and no other.  It prints one
+JSON line a turn and, last, the card and every turn's times and traces;
+``--out`` also writes them there.  Only the two checkouts' own
 APIs in common are called, so a checkout from before a change of a
 wrapper's return value runs too.
 """
@@ -35,11 +44,24 @@ import subprocess
 import sys
 
 NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
+         "K7 config1", "K7 config1 thr8", "K7 config1 bw16", "K7 config3",
+         "K7 config3 thr8", "K7 config5", "K8 config5", "K8 config5 thr8",
+         "K8 config5 bw16",
+         "decode config1", "decode config3", "decode config5",
          "K4 config1", "K5 config1", "shared step config1",
          "K4 config5", "K5 config5", "shared step config5",
          "K6a config5", "K6b config5", "K14 config5",
          "K9", "K10", "K11", "K12", "K13", "scrf step", "scrf_decode")
-TRACED = ("scrf step", "scrf_decode")
+# (name, beam_threshold, beam_width) of the shared-transition forwards
+VITERBI_RUNS = {
+    "config1": (("K7 config1", None, None), ("K7 config1 thr8", 8.0, None),
+                ("K7 config1 bw16", None, 16)),
+    "config3": (("K7 config3", None, None), ("K7 config3 thr8", 8.0, None)),
+    "config5": (("K7 config5", None, None), ("K8 config5", None, None),
+                ("K8 config5 thr8", 8.0, None), ("K8 config5 bw16", None, 16)),
+}
+TRACED = ("decode config1", "decode config3", "decode config5",
+          "scrf step", "scrf_decode")
 
 
 def _ms(torch, fn, reps):
@@ -56,6 +78,50 @@ def _ms(torch, fn, reps):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
+
+
+def _trace(dev, fn) -> dict | None:
+    from asr_craft_tpu_torch.bench import device_busy
+    rec = device_busy(fn, dev, 5)
+    return None if rec is None else {
+        k: rec[k] for k in ("wall_ms", "busy_ms", "pct", "kernels")}
+
+
+def _viterbi(torch, dev) -> dict:
+    """K7, K8 and decode() at configs 1, 3 and 5, B=64, T=512."""
+    from asr_craft_tpu_torch import flagship
+    from asr_craft_tpu_torch.kernels import viterbi as KV
+    from asr_craft_tpu_torch.models.crf import (apply_boundaries, decode,
+                                                potentials)
+
+    out, traces = {}, {}
+    for key, cfg in (("config1", flagship.timit_mono()),
+                     ("config3", flagship.wsj_crandem()),
+                     ("config5", flagship.swbd())):
+        params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+        feats = flagship.tiny_batch(cfg, 64, 512, 0, dev)["feats"]
+        lengths = torch.full((64,), 512, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            state, trans = potentials(cfg, params, feats)
+            state = apply_boundaries(cfg, state, lengths).contiguous()
+        trans = trans.contiguous()
+        ns = cfg.num_states
+        for name, thr, bw in VITERBI_RUNS[key]:
+            if name.startswith("K8"):
+                fn = lambda: KV.viterbi_nstate_fwd(state, trans, lengths, ns,
+                                                   thr, bw)
+            else:
+                fn = lambda: KV.viterbi_dense_fwd(state, trans, lengths, thr,
+                                                  bw)
+            out[name] = _ms(torch, fn, 10)
+
+        def dec():
+            return decode(cfg, params, feats, lengths)
+
+        out[f"decode {key}"] = _ms(torch, dec, 10)
+        traces[f"decode {key}"] = _trace(dev, dec)
+    out["_traces"] = traces
+    return out
 
 
 def _shared(torch, dev) -> dict:
@@ -101,7 +167,6 @@ def _shared(torch, dev) -> dict:
 def _segmental(torch, dev) -> dict:
     """K9-K13, a train step and scrf_decode at config 4."""
     from asr_craft_tpu_torch import flagship
-    from asr_craft_tpu_torch.bench import device_busy
     from asr_craft_tpu_torch.kernels import segmental as K
     from asr_craft_tpu_torch.models.segmental import (_frame_scores_and_bias,
                                                       scrf_decode,
@@ -133,13 +198,9 @@ def _segmental(torch, dev) -> dict:
     def decode():
         return scrf_decode(cfg, p, batch["feats"], lengths)
 
-    traces = {}
-    for name, fn in zip(TRACED, (step, decode)):
-        rec = device_busy(fn, dev, 5)
-        traces[name] = None if rec is None else {
-            k: rec[k] for k in ("wall_ms", "busy_ms", "pct", "kernels")}
     return {
-        "_traces": traces,
+        "_traces": {"scrf step": _trace(dev, step),
+                    "scrf_decode": _trace(dev, decode)},
         "K9": _ms(torch, lambda: K.segmental_forward_cuda(*args), 10),
         "K10": _ms(torch, lambda: K.segmental_backward_cuda(*args), 10),
         "K11": _ms(torch, lambda: K.segmental_grad_cuda(*args, *grad_in),
@@ -152,10 +213,9 @@ def _segmental(torch, dev) -> dict:
     }
 
 
-def _child() -> dict:
+def _fdt(torch, dev) -> dict:
+    """K1, K2, a train step at config 2; K3's forward and decode()."""
     import inspect
-
-    import torch
 
     from asr_craft_tpu_torch.flagship import flagship, tiny_batch
     from asr_craft_tpu_torch.kernels import fdt_train as K1
@@ -164,10 +224,7 @@ def _child() -> dict:
     from asr_craft_tpu_torch.models.crf import decode
     from asr_craft_tpu_torch.train import TrainConfig, Trainer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
     cfg = flagship()
-
     params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, dev)
     batch = tiny_batch(cfg, 128, 512, 0, dev)
     feats, labels, lengths = batch["feats"], batch["labels"], \
@@ -196,9 +253,24 @@ def _child() -> dict:
             Wall, dec_feats, dec_len, **vkw), 10),
         "decode": _ms(torch, lambda: decode(cfg, params, dec_feats, dec_len),
                       10),
-        **_shared(torch, dev),
-        **_segmental(torch, dev),
     }
+
+
+GROUPS = {"fdt": _fdt, "viterbi": _viterbi, "shared": _shared,
+          "segmental": _segmental}
+
+
+def _child(groups) -> dict:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"_traces": {}}
+    for name in groups:
+        got = GROUPS[name](torch, dev)
+        out["_traces"].update(got.pop("_traces", {}))
+        out.update(got)
+    return out
 
 
 def main(argv=None) -> int:
@@ -206,10 +278,15 @@ def main(argv=None) -> int:
     p.add_argument("a", help="the first checkout (timed first and last)")
     p.add_argument("b", help="the second checkout")
     p.add_argument("--out", help="also write the result here (JSON)")
+    p.add_argument("--only", default=",".join(GROUPS),
+                   help="comma-separated groups to time (default: all)")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    groups = [g for g in args.only.split(",") if g]
+    if any(g not in GROUPS for g in groups):
+        p.error(f"--only takes groups of {sorted(GROUPS)}")
     if args.child:
-        print(json.dumps(_child()), flush=True)
+        print(json.dumps(_child(groups)), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -222,7 +299,8 @@ def main(argv=None) -> int:
         # the checkout's package first on the path, not this file's
         env = dict(os.environ, PYTHONPATH=tree, PYTHONSAFEPATH="1")
         run = subprocess.run([sys.executable, "-P", os.path.abspath(__file__),
-                              args.a, args.b, "--child"], cwd=tree, env=env,
+                              args.a, args.b, "--only", ",".join(groups),
+                              "--child"], cwd=tree, env=env,
                              capture_output=True, text=True, timeout=1200)
         if run.returncode != 0:
             print(run.stdout + run.stderr, file=sys.stderr)
@@ -233,9 +311,10 @@ def main(argv=None) -> int:
                       "traces": traces})
         print(json.dumps(turns[-1]), flush=True)
     result = {"card": card, "order": "a, b, b, a",
-              "ms": {name: [t["ms"][name] for t in turns] for name in NAMES},
+              "ms": {name: [t["ms"][name] for t in turns] for name in NAMES
+                     if name in turns[0]["ms"]},
               "traces": {name: [t["traces"][name] for t in turns]
-                         for name in TRACED}}
+                         for name in TRACED if name in turns[0]["traces"]}}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "turns": turns}, f, indent=1)

@@ -325,18 +325,31 @@ def _shared_io(B, T, L):
     return _F32 * (2 * B * T * L + L * L + 3 * B)
 
 
-def _k_viterbi_dense_fwd(B, T, L, frames=None, **_):
-    """K7: an add and a compare per (predecessor, destination) a frame."""
+def _beam_select(frames, L, beam_width):
+    """The beam width's cut a frame: the radix select of the bw-th largest
+    of the row (csrc/viterbi.cu kth_largest), 32 rounds of a compare and an
+    add per entry (one warp's share; the others repeat it)."""
+    return frames * 32 * 2.0 * L if beam_width and beam_width < L else 0.0
+
+
+def _k_viterbi_dense_fwd(B, T, L, frames=None, beam_width=None, **_):
+    """K7: an add and a compare per (predecessor, destination) a frame,
+    and the beam width's selection."""
     frames = B * T if frames is None else frames
-    return Phase("viterbi_dense_fwd", _shared_io(B, T, L),
-                 frames * 2.0 * L * L, frames * 2.0 * L * L)
+    ops = frames * 2.0 * L * L + _beam_select(frames, L, beam_width)
+    return Phase("viterbi_dense_fwd", _shared_io(B, T, L), ops, ops)
 
 
-def _k_viterbi_nstate_fwd(B, T, L, ns, frames=None, **_):
-    """K8: self and advance terms per state, cross terms per phone pair."""
+def _k_viterbi_nstate_fwd(B, T, L, ns, frames=None, rescans=0,
+                          beam_width=None, **_):
+    """K8: self and advance terms per state, cross terms per phone pair;
+    ``rescans`` dense columns of L' predecessors (the dead destinations of
+    this run's data: kernels.viterbi.nstate_rescans) and the beam width's
+    selection."""
     frames = B * T if frames is None else frames
     P = L // ns
-    ops = frames * 2.0 * (2 * L + P * P)
+    ops = (frames * 2.0 * (2 * L + P * P) + rescans * 2.0 * L
+           + _beam_select(frames, L, beam_width))
     return Phase("viterbi_nstate_fwd", _shared_io(B, T, L), ops, ops)
 
 

@@ -55,15 +55,20 @@ in phases:
     traceback kernel (``viterbi_traceback``) against their plain version
     (``ops/viterbi``) on the potentials of random models at B=64, T=512
     (ragged lengths, an empty row), exact, ``beam_threshold=8`` and
-    ``beam_width=16``, and K7 at P=130, ns=3 (L'=390) at small B, T;
+    ``beam_width=16``, and K7 at P=130, ns=3 (L'=390, the wide kernel) at
+    small B, T: backpointers, final labels, scores and paths EQUAL;
 (h) shared-transition end to end — ``cli.decode.main`` for configs 1, 3
     (``--normalize utt --beam_threshold 8``) and 5 on a synthetic corpus
     with the hand-set posterior model, through the kernels and with
     ``--kernel_backend torch`` (same PER, same MLF, the JAX CPU counts),
     and the ``--lexicon`` word decode of the word fixture (the JAX CLI's
     words and WER);
-(i) shared-transition timing — K7, K8, the traceback and ``decode()``
-    against the plain version at B=64, T=512 for configs 1, 3 and 5;
+(i) shared-transition timing — K7, K8 (each exact, with
+    ``beam_threshold=8`` and with ``beam_width=16``, and us a frame), the
+    traceback and ``decode()`` against the plain version at B=64, T=512 for
+    configs 1, 3 and 5, K7 also on config 5's n-state problem; K8's
+    re-scans of dead destinations on this data (its bound counts them) and
+    the device-busy share of ``decode()`` (a ``torch.profiler`` trace);
 (j) shared-transition training parity — the K6a / K6b kernels (``forward``,
     ``backward``), K4 / K14 (``forward_dual``, ``backward_dual``) and K5, its
     recursion (``backward_dual_grad``: g_state and the rows U, V of the
@@ -1149,14 +1154,21 @@ class Smoke:
         if tb_err:
             raise AssertionError(f"{label}: traceback kernel differs on the "
                                  "plain backpointers")
-        bp_same = bool(torch.equal(bp, rbp))
+        # the kernels do the plain version's fp32 adds and maxes in its
+        # order and break ties as it does: its bits, paths included
+        for what, got, want in (("backpointers", bp, rbp),
+                                ("final labels", last, rlast),
+                                ("scores", scores, rscores),
+                                ("paths", paths, ref_paths)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: {name} {what} differ from "
+                                     "the plain version's")
         self.err[name] = max(self.err[name], err)
         self.err["viterbi_traceback"] = max(self.err["viterbi_traceback"],
                                             tb_err)
-        log(f"shared parity {label}: {name} max |score - plain| {err:.3e}, "
-            f"paths differing {n_diff}/{len(paths)} (near-ties), "
-            f"backpointers {'equal' if bp_same else 'differ'}; traceback "
-            "exact")
+        log(f"shared parity {label}: {name} backpointers, final labels, "
+            f"scores and paths equal the plain version's (max |score - "
+            f"plain| {err:.3e}); traceback exact")
 
     def phase_shared_parity(self):
         from asr_craft_tpu_torch.models.crf import CrfConfig
@@ -1268,13 +1280,26 @@ class Smoke:
                 cfg, B, T, seed=0, ragged=False)
             ns = cfg.num_states
             name = ("viterbi_nstate_fwd" if ns > 1 else "viterbi_dense_fwd")
-            fwd = {"viterbi_nstate_fwd": lambda: KV.viterbi_nstate_fwd(
-                       state, trans, lengths, ns),
-                   "viterbi_dense_fwd": lambda: KV.viterbi_dense_fwd(
-                       state, trans, lengths)}
+
+            def kern(kname, thr=None, bw=None):
+                if kname == "viterbi_nstate_fwd":
+                    return lambda: KV.viterbi_nstate_fwd(state, trans,
+                                                         lengths, ns, thr, bw)
+                return lambda: KV.viterbi_dense_fwd(state, trans, lengths,
+                                                    thr, bw)
+
+            def plain(thr=None, bw=None):
+                return lambda: V.viterbi_forward(state, trans, lengths, bw,
+                                                 thr)
+
             bp, last, _ = V.viterbi_forward(state, trans, lengths)
-            fns = {name: (fwd[name],
-                          lambda: V.viterbi_forward(state, trans, lengths)),
+            # the main kernel exact and under each beam, K7 beside K8 on the
+            # n-state problem
+            fns = {name: (kern(name), plain()),
+                   f"{name} beam_threshold=8": (kern(name, 8.0),
+                                                plain(8.0)),
+                   f"{name} beam_width=16": (kern(name, None, 16),
+                                             plain(None, 16)),
                    "viterbi_traceback": (
                        lambda: KV.viterbi_traceback(bp, last, lengths),
                        lambda: fdt.fdt_viterbi_traceback(bp, last, lengths)),
@@ -1282,27 +1307,38 @@ class Smoke:
                        lambda: decode(cfg, params, feats, lengths),
                        lambda: self._plain_decode(cfg, params, feats,
                                                   lengths))}
-            if ns > 1:     # K7 on the same n-state problem, for comparison
-                fns["viterbi_dense_fwd"] = (
-                    fwd["viterbi_dense_fwd"],
-                    lambda: V.viterbi_forward(state, trans, lengths))
+            if ns > 1:
+                fns["viterbi_dense_fwd"] = (kern("viterbi_dense_fwd"),
+                                            plain())
             shape = dict(B=B, T=T, L=state.shape[-1], ns=ns,
                          frames=int(lengths.sum()))
-            for kname in ("viterbi_dense_fwd", "viterbi_nstate_fwd",
-                          "viterbi_traceback"):
+            for kname in ("viterbi_dense_fwd", "viterbi_traceback"):
                 self.bounds[f"{key} {kname}"] = self.bound(kname, **shape)
-            for fn_name, (kern, plain) in fns.items():
-                p1 = self.cuda_ms(plain, 2)
-                k1 = self.cuda_ms(kern, 10)
-                k2 = self.cuda_ms(kern, 10)
-                p2 = self.cuda_ms(plain, 2)
+            if ns > 1:     # the dead destinations this run's data re-scans
+                rescans = KV.nstate_rescans(state, trans, lengths, ns)
+                beam = KV.nstate_rescans(state, trans, lengths, ns, 8.0)
+                width = KV.nstate_rescans(state, trans, lengths, ns, None,
+                                          16)
+                self.bounds[f"{key} viterbi_nstate_fwd"] = self.bound(
+                    "viterbi_nstate_fwd", rescans=rescans, **shape)
+                log(f"timing {key}: K8 re-scans {rescans} dead destinations "
+                    f"exact, {beam} under beam_threshold=8, {width} under "
+                    "beam_width=16")
+            for fn_name, (k_fn, p_fn) in fns.items():
+                p1 = self.cuda_ms(p_fn, 2)
+                k1 = self.cuda_ms(k_fn, 10)
+                k2 = self.cuda_ms(k_fn, 10)
+                p2 = self.cuda_ms(p_fn, 2)
                 ms, plain_ms = min(k1, k2), min(p1, p2)
                 self.times[f"{key} {fn_name}"] = (ms, plain_ms)
                 log(f"timing {key} {fn_name} B={B} T={T}: kernel "
-                    f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                    f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}; "
+                    f"{ms * 1e3 / T:.4f} us a frame), plain "
                     f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
                     f"{audio_s / ms * 1e3:.1f} vs "
                     f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
+            self.device_share(f"{key} decode B={B} T={T}",
+                              lambda: decode(cfg, params, feats, lengths))
 
     # -- (j) shared-transition training parity ---------------------------------
     def fb_problem(self, cfg, B, T, seed, state_labels=False, ragged=True):

@@ -263,6 +263,23 @@ def test_flagship_entry_runs_on_the_card_unless_asked():
     assert torch.isfinite(fn(*args))
 
 
+def test_trainer_starts_on_the_card_unless_asked():
+    """A Trainer with no parameters makes the reference's zero start on the
+    card by default (it raises without one) and on the CPU only when
+    asked."""
+    from asr_craft_tpu_torch.models.crf import CrfConfig
+    from asr_craft_tpu_torch.train import TrainConfig, Trainer
+    from asr_craft_tpu_torch.utils.logging import MetricsLogger
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard is for hosts "
+                    "without one")
+    cfg, quiet = CrfConfig(num_labels=3, feat_dim=4), MetricsLogger(quiet=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(), logger=quiet)
+    t = Trainer(cfg, TrainConfig(), logger=quiet, device="cpu")
+    assert all(p.device.type == "cpu" for p in t.params.values())
+
+
 def test_bench_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the guard is for hosts "

@@ -85,7 +85,7 @@ def test_dense_kernel_matches_plain(dev, P, ns, kind, mode):
 
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("kind", ["normal", "zero", "integer"])
-@pytest.mark.parametrize("P,ns", [(4, 2), (5, 3), (46, 3), (128, 3)])
+@pytest.mark.parametrize("P,ns", [(4, 2), (5, 3), (46, 3), (128, 3), (7, 5)])
 def test_nstate_kernel_matches_plain(dev, P, ns, kind, mode):
     thr, bw = MODES[mode]
     state, trans, lengths = _problem(dev, P, ns, seed=P * ns, kind=kind)
@@ -102,6 +102,58 @@ def test_dense_kernel_above_shared_memory(dev, mode):
     state, trans, lengths = _problem(dev, 130, 3, B=3, T=12, seed=7)
     _compare(lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w),
              state, trans, lengths, thr, bw, "viterbi_dense_fwd")
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("L", [144, 145, 232, 233])
+def test_dense_kernel_at_the_layout_boundaries(dev, L, mode):
+    """The widest register layout (L = 144), the shared-memory one (145,
+    232) and the wide kernel (233)."""
+    thr, bw = MODES[mode]
+    state, trans, lengths = _problem(dev, L, 1, B=4, T=16, seed=L)
+    _compare(lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w),
+             state, trans, lengths, thr, bw, "viterbi_dense_fwd")
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("P", [48, 49, 80, 81, 128])
+def test_nstate_kernel_at_the_layout_boundaries(dev, P, mode):
+    """The cross column's register layouts end at P = 48, 80, 128."""
+    thr, bw = MODES[mode]
+    state, trans, lengths = _problem(dev, P, 3, B=4, T=16, seed=P)
+    _compare(lambda t, w: KV.viterbi_nstate_fwd(state, trans, lengths, 3, t,
+                                                w),
+             state, trans, lengths, thr, bw, "viterbi_nstate_fwd")
+
+
+@pytest.mark.parametrize("beams", [(None, None), (8.0, None), (None, 16)],
+                         ids=["exact", "threshold8", "width16"])
+@pytest.mark.parametrize("P,ns", [(48, 1), (46, 3)])
+def test_kernels_on_a_ragged_decode_batch(dev, P, ns, beams):
+    """B = 64, T = 512 with ragged lengths (a full row, a row of 2, an
+    empty row): K7 at config 1's width, K8 at config 5's."""
+    thr, bw = beams
+    state, trans, lengths = _problem(dev, P, ns, B=64, T=512, seed=P + 64)
+    if ns > 1:
+        fwd = lambda t, w: KV.viterbi_nstate_fwd(state, trans, lengths, ns,
+                                                 t, w)
+    else:
+        fwd = lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w)
+    _compare(fwd, state, trans, lengths, thr, bw,
+             "viterbi_nstate_fwd" if ns > 1 else "viterbi_dense_fwd")
+
+
+def test_many_states_a_phone_go_to_the_dense_kernel(dev):
+    """K8 takes at most 8 states a phone; the dispatch sends more to K7."""
+    state, trans, lengths = _problem(dev, 3, 9, B=3, T=10)
+    with pytest.raises(ValueError, match="at most 8"):
+        KV.viterbi_nstate_fwd(state, trans, lengths, 9)
+    KV.reset_launches()
+    paths, scores = KV.viterbi_shared(state, trans, lengths, 9)
+    assert KV.launches["viterbi_dense_fwd"] == 1
+    assert KV.launches["viterbi_nstate_fwd"] == 0
+    want, wscores = V.viterbi(state, trans, lengths)
+    assert torch.equal(paths, want) and torch.equal(scores, wscores)
 
 
 def test_empty_batch_launches_nothing(dev):

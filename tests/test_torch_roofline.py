@@ -382,3 +382,26 @@ def test_scrf_passes_are_the_recount(name, per_term, per_label, products):
     ph = rl.kernel_phase(key, B=2, T=8, L=6, Dmax=3)
     assert ph.vpu_elems == 16 * (per_term * 3 * 6 + per_label * 6
                                  + products * 36)
+
+
+def test_viterbi_counts_the_rescans_and_the_beam_selection():
+    """K8's dead destinations each take a dense column of L' adds and
+    compares; a beam width adds its cut's radix select a frame (32 rounds
+    over the row), to K7 and K8 alike; neither moves the exact bounds."""
+    shape = dict(B=64, T=512, L=138, ns=3)
+    frames = 64 * 512
+    base = rl.kernel_phase("viterbi_nstate_fwd", **shape)
+    res = rl.kernel_phase("viterbi_nstate_fwd", rescans=2944, **shape)
+    assert res.flops - base.flops == 2944 * 2.0 * 138
+    assert res.bytes == base.bytes
+    sel = rl.kernel_phase("viterbi_nstate_fwd", beam_width=16, **shape)
+    assert sel.flops - base.flops == frames * 32 * 2.0 * 138
+    dense = rl.kernel_phase("viterbi_dense_fwd", B=64, T=512, L=48)
+    dsel = rl.kernel_phase("viterbi_dense_fwd", B=64, T=512, L=48,
+                           beam_width=16)
+    assert dsel.flops - dense.flops == frames * 32 * 2.0 * 48
+    # a beam as wide as the row selects nothing
+    assert rl.kernel_phase("viterbi_dense_fwd", B=64, T=512, L=48,
+                           beam_width=48).flops == dense.flops
+    assert rl.bound(res) == rl.bound(base)
+    assert rl.bound(base)[1] == "bytes"

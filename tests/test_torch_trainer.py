@@ -52,7 +52,8 @@ def _trainers(**opts):
     j = JaxTrainer(JaxCrfConfig(**CFG), JaxTrainConfig(log_every=1000,
                                                        **opts), logger=quiet)
     t = Trainer(CrfConfig(**CFG), TrainConfig(log_every=1000, prefetch=0,
-                                              **opts), logger=quiet)
+                                              **opts), logger=quiet,
+                device="cpu")
     return j, t
 
 

@@ -28,13 +28,13 @@ def test_checkpoint_resume_is_exact(tmp_path, opts):
     loader, _, _ = _loaders(seed=4)
     quiet = MetricsLogger(quiet=True)
     cfg, tc = CrfConfig(**CFG), TrainConfig(log_every=1000, **opts)
-    t1 = Trainer(cfg, tc, logger=quiet)
+    t1 = Trainer(cfg, tc, logger=quiet, device="cpu")
     t1.train_epoch(loader)
     save_checkpoint(str(tmp_path / "ckpt"), t1, loader.state())
     save_checkpoint(str(tmp_path / "ckpt"), t1, loader.state())  # replace
     assert sorted(p.name for p in tmp_path.iterdir()) == ["ckpt"]
 
-    t2 = Trainer(cfg, tc, logger=quiet)
+    t2 = Trainer(cfg, tc, logger=quiet, device="cpu")
     lstate = load_checkpoint(str(tmp_path / "ckpt"), t2)
     assert (t2.step, t2.epoch) == (t1.step, t1.epoch)
     loader2, _, _ = _loaders(seed=4)
@@ -51,9 +51,9 @@ def test_unported_options_raise(tmp_path):
     utilities were ported, makes ``fit`` write a trace."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(CrfConfig(**CFG), TrainConfig(optimizer="lbfgs"),
-                logger=MetricsLogger(quiet=True))
+                logger=MetricsLogger(quiet=True), device="cpu")
     t = Trainer(CrfConfig(**CFG),
                 TrainConfig(profile_dir=str(tmp_path / "prof"), epochs=1),
-                logger=MetricsLogger(quiet=True))
+                logger=MetricsLogger(quiet=True), device="cpu")
     t.fit(_loaders()[0])
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
