@@ -10,7 +10,9 @@
 // and, at the end, the pieces of the recursions over one (L, L) transition
 // factor: held in shared memory and read a strided column a lane (K10, K12),
 // or held a contiguous quarter a lane, in registers or in shared memory (the
-// forward-backward kernels and K9).
+// forward-backward kernels and K9); and the tracebacks' stream of rows
+// through a ring of shared-memory slots (K3's traceback, which K7 and K8
+// share, and K13).
 //
 // No kernel forms a plane of the fdt lattice inside its recursion: the
 // planes Wall @ [x_t; 1] of every frame come from fdt_mma.cu's plane
@@ -152,6 +154,23 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
         : "=r"(done)
         : "r"(smem_addr(bar)), "r"(parity)
         : "memory");
+}
+
+// one arrival of this thread on `bar`; it releases the thread's earlier
+// reads of what the barrier guards
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// one arrival of this thread on `bar` once every cp.async it has issued so
+// far has landed (.noinc: the arrival is one of those the barrier was
+// initialised to expect)
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -452,6 +471,74 @@ __device__ __forceinline__ void quarter_dot(
       out[j] = (hi1 ? w[j][1] : w[j][0]) +
                __shfl_xor_sync(kAll, hi1 ? w[j][0] : w[j][1], 1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The tracebacks' stream (fdt_viterbi.cu: the traceback of K3, K7 and K8;
+// segmental.cu: K13).  A block walks one utterance: warp 0 follows the path
+// in shared memory while warps 1-3 copy the utterance's rows there, blocks
+// of C frames in descending frame order, into a ring of kTbRing slots.
+// Stream block i goes to slot i % kTbRing; full[s] completes a phase when a
+// block has landed in slot s (one arrival a producer thread, by
+// cp_async_mbar_arrive), empty[s] when the walker is done with it (one
+// arrival), so the copies run up to kTbRing - 1 blocks ahead of the walk.
+// A block of rows starts anywhere in memory: it is copied in 16-byte pieces
+// from the 16-byte boundary at or below its first element (0-3 elements of
+// the row before it, never before the tensor's own aligned allocation), the
+// last piece cut to the bytes that belong to the block (cp.async reads no
+// further and zero-fills the rest), and its rows sit tb_align(src) elements
+// into the slot.
+// ---------------------------------------------------------------------------
+
+constexpr int kTbRing = 3;
+constexpr int kTbProducers = 96;           // warps 1-3 copy
+constexpr int kTbThreads = 32 + kTbProducers;
+constexpr int kTbMaxFrames = 128;          // frames a block, at most
+constexpr int kTbSlotBytes = 32768;        // what a slot aims at
+
+// 4-byte elements between the 16-byte boundary at or below p and p
+template <typename E>
+__device__ __forceinline__ int tb_align(const E* p) {
+  return static_cast<int>((reinterpret_cast<size_t>(p) & 15) >> 2);
+}
+
+// Producer p (0 <= p < kTbProducers): its share of the copy of n 4-byte
+// elements from src into slot (16-byte aligned), the rows landing at
+// slot + tb_align(src).
+template <typename E>
+__device__ __forceinline__ void tb_stream(E* slot, const E* src, int n,
+                                          int p) {
+  const int off = tb_align(src);
+  const float* s = reinterpret_cast<const float*>(src - off);
+  float* d = reinterpret_cast<float*>(slot);
+  const int nel = off + n;
+  for (int c = 4 * p; c < nel; c += 4 * kTbProducers)
+    cp_async16(d + c, s + c, 4 * min(4, nel - c));
+}
+
+// The elements of a slot of C frames of `row` elements: room for the
+// alignment offset, a whole number of 16-byte pieces.
+__host__ __device__ inline size_t tb_slot(int C, int row) {
+  return ((size_t)C * row + 3 + 3) & ~(size_t)3;
+}
+
+// The shared memory of a traceback block: the ring (`streams` arrays of
+// `row` elements a frame, C frames a slot), `extra` bytes (a multiple of
+// 16) and the 2 kTbRing barriers.
+inline size_t tb_bytes(int C, int row, int streams, size_t extra) {
+  return 4 * (size_t)kTbRing * streams * tb_slot(C, row) + extra +
+         16 * kTbRing;
+}
+
+// The frames of a stream block: as many as fill kTbSlotBytes, 1 to
+// kTbMaxFrames, fewer where the block would pass the shared memory a block
+// can use; 0 where one frame does not fit.
+inline int tb_frames(int row, int streams, size_t extra) {
+  const long fill = kTbSlotBytes / (4L * row * streams);
+  int C = fill < 1 ? 1 : (fill > kTbMaxFrames ? kTbMaxFrames : (int)fill);
+  for (; C >= 1; --C)
+    if (tb_bytes(C, row, streams, extra) <= kSmemLimit) return C;
+  return 0;
 }
 
 template <typename Kernel>

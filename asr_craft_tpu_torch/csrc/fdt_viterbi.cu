@@ -9,7 +9,8 @@
 // tensor-core plane kernel, launched first):
 //   fdt_vit_fwd_kernel  <- _fdt_vit_fwd_kernel (max-plus forward, pruning,
 //                          backpointers)
-//   fdt_vit_tb_kernel   <- _fdt_vit_bwd_kernel (backpointer traceback)
+//   fdt_vit_tb_kernel   <- _fdt_vit_bwd_kernel (backpointer traceback;
+//                          also the traceback of viterbi.cu's K7 and K8)
 //
 // Layouts.  planes (B, T, R4) f32, every frame's plane row Wall @ [x_t; 1]
 // (fdt_mma.cu fdt_train_plane_kernel), rows r in [state L' | self L' | adv
@@ -47,6 +48,20 @@
 // largest, ties kept), on the initial frame too; boundaries restrict frame
 // 0 to first states and frame length-1 to last states; frames t >= length
 // keep the carry with identity backpointers.  All arithmetic is IEEE fp32.
+//
+// The traceback.  Its work is one dependent read a frame: the label of
+// frame t indexes row t + 1 of the backpointers.  Read from device memory,
+// each step would wait a load's latency (~0.2 us from L2, ~0.5 us from HBM
+// inside a decode, where the planes stream through L2 while the forward
+// writes bp).  So, as the TPU kernel streams blocks of frames into VMEM in
+// descending order, one block an utterance streams its rows into a ring of
+// shared-memory slots, blocks of C frames (as many as fill 32 KB, at most
+// 128; C = 56 at L' = 144), top block first, by cp.async on mbarriers from
+// three producer warps, up to two blocks ahead of the walk; one lane
+// follows the path through the landed rows (a shared load and a clamp a
+// frame), and its warp writes each block's labels out as one coalesced
+// row.  The walk, not the stream, is the chain: ~30 ns a frame on an H100;
+// slots of 16 KB, half the bytes in flight, were only 3-8% slower (PERF.md).
 
 #include <climits>
 #include <cmath>
@@ -64,7 +79,11 @@ using fdtk::round_up4;
 using fdtk::take_better;
 
 constexpr int kFwdThreads = 768;    // 48 groups of kCrossLanes lanes
-constexpr int kTbThreads = 128;
+using fdtk::kTbMaxFrames;
+using fdtk::kTbProducers;
+using fdtk::kTbRing;
+using fdtk::kTbThreads;
+constexpr size_t kTbLabBytes = 4 * kTbMaxFrames;   // a block's labels
 constexpr int kCrossLanes = 16;     // lanes a destination phone
 constexpr int kMaxP = 128;          // the wrapper's phone cap
 
@@ -232,26 +251,72 @@ fdt_vit_fwd_kernel(const float* __restrict__ planes,
   }
 }
 
-// One thread per utterance follows the backpointers from T-1 down to 0;
-// frames t >= length-1 carry the final label.
-__global__ void fdt_vit_tb_kernel(const int* __restrict__ bp,
-                                  const int* __restrict__ last,
-                                  const int* __restrict__ lengths,
-                                  int* __restrict__ paths, int B, int T,
-                                  int Lp) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int* bpb = bp + (size_t)b * T * Lp;
-  int* pb = paths + (size_t)b * T;
+// The traceback: one block an utterance (fdt_common.cuh's stream).  The
+// label of frame t is clamp(bp[t + 1][label of t + 1]), frames t >= end =
+// min(length, T) - 1 carry the final label and read no row, so the stream
+// holds rows 1..end, in blocks of C frames: block k the rows of frames
+// [kC, min(kC + C, end)), i.e. rows kC + 1 .. min(kC + C, end).  Lane 0 of
+// warp 0 walks a landed block in shared memory, its labels go to a shared
+// row, and the warp writes them out as one coalesced row of the path.
+__global__ void __launch_bounds__(kTbThreads)
+fdt_vit_tb_kernel(const int* __restrict__ bp, const int* __restrict__ last,
+                  const int* __restrict__ lengths, int* __restrict__ paths,
+                  int T, int Lp, int C) {
+  extern __shared__ float4 tb_smem4[];
+  const size_t slot = fdtk::tb_slot(C, Lp);
+  int* ring = reinterpret_cast<int*>(tb_smem4);           // (kTbRing, slot)
+  int* lab = ring + kTbRing * slot;                       // (kTbMaxFrames)
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(lab + kTbMaxFrames);
+  unsigned long long* empty = full + kTbRing;
+
+  const int b = blockIdx.x, tid = threadIdx.x;
   // A lattice of NaN scores wins no comparison, so its argmaxes may hold any
-  // value: every label is clamped into range before it indexes bp.
+  // value: every label is clamped into range before it indexes a row.
   const int lst = min(max(last[b], 0), Lp - 1);
   const int end = min(lengths[b], T) - 1;
+  const int nblk = end > 0 ? (end + C - 1) / C : 0;
+  const int* bpb = bp + (size_t)b * T * Lp;
+  if (tid == 0)
+    for (int s = 0; s < kTbRing; ++s) {
+      fdtk::mbar_init(&full[s], kTbProducers);
+      fdtk::mbar_init(&empty[s], 1);
+    }
+  __syncthreads();                      // the barriers initialised
+
+  if (tid >= 32) {                      // the stream, top block first
+    for (int i = 0; i < nblk; ++i) {
+      const int f0 = (nblk - 1 - i) * C, n = min(f0 + C, end) - f0;
+      const int s = i % kTbRing;
+      if (i >= kTbRing) fdtk::mbar_wait(&empty[s], (i / kTbRing - 1) & 1);
+      fdtk::tb_stream(ring + s * slot, bpb + (size_t)(f0 + 1) * Lp, n * Lp,
+                      tid - 32);
+      fdtk::cp_async_mbar_arrive(&full[s]);
+    }
+    fdtk::cp_async_wait<0>();
+    return;
+  }
+
+  int* pb = paths + (size_t)b * T;
+  for (int t = max(end, 0) + tid; t < T; t += 32) pb[t] = lst;
   int cur = lst;
-  for (int t = T - 1; t >= 0; --t) {
-    cur = t >= end ? lst
-                   : min(max(bpb[(size_t)(t + 1) * Lp + cur], 0), Lp - 1);
-    pb[t] = cur;
+  for (int i = 0; i < nblk; ++i) {
+    const int f0 = (nblk - 1 - i) * C, n = min(f0 + C, end) - f0;
+    const int s = i % kTbRing;
+    const int* src = bpb + (size_t)(f0 + 1) * Lp;
+    fdtk::mbar_wait(&full[s], (i / kTbRing) & 1);
+    if (tid == 0) {
+      const int* row = ring + s * slot + fdtk::tb_align(src) + n * Lp;
+      for (int j = n - 1; j >= 0; --j) {  // frame f0 + j reads row f0 + j + 1
+        row -= Lp;
+        cur = __vimin_s32_relu(row[cur], Lp - 1);  // max(min(., Lp-1), 0)
+        lab[j] = cur;
+      }
+      fdtk::mbar_arrive(&empty[s]);
+    }
+    __syncwarp();
+    for (int j = tid; j < n; j += 32) pb[f0 + j] = lab[j];
+    __syncwarp();                       // lab read before the next block
   }
 }
 
@@ -284,12 +349,24 @@ int fdt_viterbi_fwd(const float* planes, const int* lengths, int* bp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The frames C of a traceback stream block at L' = Lp (0: one frame does
+// not fit a block's shared memory).
+int fdt_viterbi_traceback_frames(int Lp) {
+  return fdtk::tb_frames(Lp, 1, kTbLabBytes);
+}
+
+// paths (B, T) from bp (B, T, L'), last and lengths (B,): one block an
+// utterance
 int fdt_viterbi_traceback(const int* bp, const int* last, const int* lengths,
                           int* paths, int B, int T, int Lp, void* stream) {
-  const int blocks = (B + kTbThreads - 1) / kTbThreads;
-  fdt_vit_tb_kernel<<<blocks, kTbThreads, 0,
+  const int C = fdt_viterbi_traceback_frames(Lp);
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fdtk::tb_bytes(C, Lp, 1, kTbLabBytes);
+  cudaError_t err = fdtk::opt_in(fdt_vit_tb_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fdt_vit_tb_kernel<<<B, kTbThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      bp, last, lengths, paths, B, T, Lp);
+      bp, last, lengths, paths, T, Lp, C);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -150,7 +150,15 @@
 //   and gt are the same bits on every run.  Each exponential of the xi pass
 //   is one ex2.approx of its (small, non-positive) exponent; g multiplies
 //   each sum once.
-// K13 is one warp per utterance: a serial walk of one (L) argmax per segment.
+// K13 walks a chain of segments, one (L) argmax each (~242 an utterance at
+// config 4), each a few dependent reads that would wait on device memory:
+// as the TPU kernel streams descending blocks of frames into VMEM and
+// resolves a segment's predecessor once frame start - 1 is resident, one
+// block an utterance streams its deltas and arg_d rows into a ring of
+// shared-memory slots (fdt_common.cuh's stream, shared with the fdt
+// traceback) and warp 0 walks them there, trans^T beside them in shared
+// memory where it fits (L <= 237).  A segment costs ~0.17 us on an H100:
+// two dependent shared loads, the lanes' selects and two redux.sync.
 // Widths.  K9, K10 and K12 take the (L, Dmax) at which the three-barrier
 // frame fits a block's shared memory (227 KB; L <= 205 at Dmax = 16): their
 // own frame where its rows and windows fit, the three-barrier frame at the
@@ -194,7 +202,14 @@ using fdtk::take_better;
 using fdtk::threads_for;
 
 enum Kind { kForward = 0, kViterbi = 1, kBackward = 2, kGrad = 3 };
-constexpr int kTracebackThreads = 128;     // four utterances per block
+using fdtk::kTbProducers;
+using fdtk::kTbRing;
+using fdtk::kTbThreads;
+
+// K13's staged trans^T: L^2 floats, a whole number of 16-byte pieces
+__host__ __device__ inline size_t seg_tb_trans_floats(int L) {
+  return ((size_t)L * L + 3) & ~(size_t)3;
+}
 
 // A launch's shared memory.  ps: the row stride of the transition factor;
 // ok false: the kernel does not take this (L, Dmax).
@@ -1613,51 +1628,149 @@ seg_xi16_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
     }
 }
 
-// K13: one warp per utterance.  From (length - 1, lab0): the segment ending
-// at t with label lab starts at t - arg_d[t, lab]; its predecessor is the
-// lowest p that maximises deltas[start - 1, p] + trans[p, lab].
-__global__ void __launch_bounds__(kTracebackThreads)
+// K13: one block an utterance (fdt_common.cuh's stream).  From (length -
+// 1, lab0): the segment ending at t with label lab starts at t - arg_d[t,
+// lab]; its predecessor, the label of the segment ending at start - 1, is
+// the lowest p that maximises deltas[start - 1, p] + trans[p, lab].  Both
+// reads of the next step (deltas and arg_d) lie in frame start - 1, so the
+// walk holds one stream block at a time: frames [kC, min(kC + C, length)),
+// deltas' rows then arg_d's in a slot, top block first.  Warp 0 walks: it
+// takes the predecessor's argmax (two redux.sync on order keys) once the
+// block holding start - 1 has landed, releasing each block it leaves or
+// jumps over; the warp writes the markers (every lane the same word, one
+// store).  trans^T (destination-major, so a lane's reads of a column are
+// consecutive) is staged by the producers with the first block where it
+// fits beside the ring (TS), else read from device memory, a column a
+// segment.  NQ = 2: a lane takes its two labels unrolled (L <= 64); 0: a
+// loop over the lane's labels.
+template <bool TS, int NQ>
+__global__ void __launch_bounds__(kTbThreads)
 seg_traceback_kernel(const float* __restrict__ deltas,
                      const int* __restrict__ argd,
                      const float* __restrict__ trans,
                      const int* __restrict__ lab0,
                      const int* __restrict__ lengths,
                      int* __restrict__ end_lab, int* __restrict__ end_start,
-                     int B, int T, int L) {
-  const int b = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (b >= B) return;
+                     int T, int L, int C) {
+  extern __shared__ float4 tb_smem4[];
+  const size_t slot = fdtk::tb_slot(C, L);
+  float* ring = reinterpret_cast<float*>(tb_smem4);     // (kTbRing, 2, slot)
+  float* trT = ring + 2 * kTbRing * slot;                // (L, L) if TS
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      trT + (TS ? seg_tb_trans_floats(L) : 0));
+  unsigned long long* empty = full + kTbRing;
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int t0 = min(max(lengths[b], 0), T) - 1;       // the last frame
+  const int nblk = (t0 + C) / C;                        // 0 for t0 = -1
+  const float* db = deltas + (size_t)b * T * L;
+  const int* ab = argd + (size_t)b * T * L;
+  if (tid == 0)
+    for (int s = 0; s < kTbRing; ++s) {
+      fdtk::mbar_init(&full[s], kTbProducers);
+      fdtk::mbar_init(&empty[s], 1);
+    }
+  __syncthreads();                      // the barriers initialised
+
+  if (tid >= 32) {                      // the stream, top block first
+    const int p = tid - 32;
+    if (TS && nblk > 0)                 // trT[l][q] = trans[q][l]
+      for (int o = p; o < L * L; o += kTbProducers)
+        fdtk::cp_async4(trT + (o % L) * L + o / L, trans + o);
+    for (int i = 0; i < nblk; ++i) {
+      const int f0 = (nblk - 1 - i) * C, n = (min(f0 + C, t0 + 1) - f0) * L;
+      const int s = i % kTbRing;
+      if (i >= kTbRing) fdtk::mbar_wait(&empty[s], (i / kTbRing - 1) & 1);
+      float* sl = ring + 2 * s * slot;
+      fdtk::tb_stream(sl, db + (size_t)f0 * L, n, p);
+      fdtk::tb_stream(reinterpret_cast<int*>(sl + slot), ab + (size_t)f0 * L,
+                      n, p);
+      fdtk::cp_async_mbar_arrive(&full[s]);
+    }
+    fdtk::cp_async_wait<0>();
+    return;
+  }
+
+  const int lane = tid;
   int* el = end_lab + (size_t)b * T;
   int* es = end_start + (size_t)b * T;
   for (int i = lane; i < T; i += 32) {
     el[i] = -1;
     es[i] = 0;
   }
-  __syncwarp();
-  const float* db = deltas + (size_t)b * T * L;
-  const int* ab = argd + (size_t)b * T * L;
-  int t = min(max(lengths[b], 0), T) - 1;
-  int lab = min(max(lab0[b], 0), L - 1);
-  while (t >= 0) {
-    const int start = t - ab[(size_t)t * L + lab];
-    if (lane == 0) {
-      el[t] = lab;
-      es[t] = start;
+  __syncwarp();                         // the lanes' stores before the walk's
+  // the held stream block `held` and where frame f0 of it sits in its slot
+  int held = -1, f0 = 0;
+  const float* drow = nullptr;
+  const int* arow = nullptr;
+  // hold the stream block of frame u: release the held one, then wait for
+  // (and release) every block down to it
+  auto hold = [&](int u) {
+    const int want = nblk - 1 - u / C;
+    while (held < want) {
+      if (held >= 0 && lane == 0) fdtk::mbar_arrive(&empty[held % kTbRing]);
+      ++held;
+      fdtk::mbar_wait(&full[held % kTbRing], (held / kTbRing) & 1);
     }
+    f0 = (nblk - 1 - held) * C;
+    const float* sl = ring + 2 * (held % kTbRing) * slot;
+    drow = sl + fdtk::tb_align(db + (size_t)f0 * L) - (size_t)f0 * L;
+    arow = reinterpret_cast<const int*>(sl + slot) +
+           fdtk::tb_align(ab + (size_t)f0 * L) - (size_t)f0 * L;
+  };
+  // NQ = 2: the lane's labels lane and lane + 32 (L <= 64), read at an
+  // index kept in range and dropped past L (a NaN candidate wins nothing)
+  const int q0 = min(lane, L - 1), q1 = min(lane + 32, L - 1);
+  const float nan = __int_as_float(0x7fc00000);
+  const float off0 = lane < L ? 0.0f : nan, off1 = lane + 32 < L ? 0.0f : nan;
+  int t = t0;
+  int lab = min(max(lab0[b], 0), L - 1);
+  if (t >= 0) hold(t);
+  while (t >= 0) {
+    // trans[., lab] for the predecessor's argmax, read before the chain's
+    // loads (a barrier's wait in hold() would keep them behind it)
+    float c0 = 0.0f, c1 = 0.0f;
+    if constexpr (NQ == 2) {
+      c0 = trT[lab * L + q0];
+      c1 = trT[lab * L + q1];
+    }
+    const int start = t - max(arow[(size_t)t * L + lab], 0);
+    el[t] = lab;                        // every lane: one store
+    es[t] = start;
     if (start <= 0) break;
-    const float* row = db + (size_t)(start - 1) * L;
+    t = start - 1;
+    if (t < f0) hold(t);
+    // the lowest p maximising deltas[t, p] + trans[p, lab]: each lane's
+    // first maximum over its ascending p, then the warp's largest order
+    // key (zeros made +0, so equal sums give equal keys) and the lowest
+    // index holding it
+    const float* dr = drow + (size_t)t * L;
     float v = -INFINITY;
     int i = INT_MAX;
-    for (int p = lane; p < L; p += 32)
-      take_better(v, i, __fadd_rn(row[p], trans[(size_t)p * L + lab]), p);
-    for (int o = 16; o > 0; o >>= 1)
-      take_better(v, i, __shfl_xor_sync(0xffffffffu, v, o),
-                  __shfl_xor_sync(0xffffffffu, i, o));
-    lab = i;
-    t = start - 1;
+    if constexpr (NQ == 2) {
+      const float s0 = __fadd_rn(dr[q0], c0) + off0;
+      const float s1 = __fadd_rn(dr[q1], c1) + off1;
+      take_better(v, i, s0, lane);
+      take_better(v, i, s1, lane + 32);
+    } else {
+      for (int q = lane; q < L; q += 32)
+        take_better(v, i,
+                    __fadd_rn(dr[q], TS ? trT[lab * L + q]
+                                        : trans[(size_t)q * L + lab]),
+                    q);
+    }
+    const int key = fdtk::order_key(__fadd_rn(v, 0.0f));
+    const int top = __reduce_max_sync(0xffffffffu, key);
+    const unsigned who = __reduce_min_sync(
+        0xffffffffu, key == top ? static_cast<unsigned>(i) : UINT_MAX);
+    lab = min(static_cast<int>(who), L - 1);
+  }
+  // release what is left, so the stream ends
+  for (int i = max(held, 0); i < nblk; ++i) {
+    if (i > held) fdtk::mbar_wait(&full[i % kTbRing], (i / kTbRing) & 1);
+    if (lane == 0) fdtk::mbar_arrive(&empty[i % kTbRing]);
   }
 }
-
 
 // The frame's layout at width L: QV, D and whether the factor sits in
 // shared memory (as kernels/fwdbwd.factor_layout, with the shared rows as
@@ -1927,14 +2040,32 @@ int seg_grad_xi(const float* q, const float* cs, const float* m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K13: end_lab (B, T) (-1 where no segment ends), end_start (B, T).
+// K13's stream block: its frames C (the return; 0 where one frame does not
+// fit a block's shared memory) and whether trans^T is staged beside the
+// ring (*trans_shared).
+int seg_traceback_frames(int L, int* trans_shared) {
+  const int C = fdtk::tb_frames(L, 2, 4 * seg_tb_trans_floats(L));
+  *trans_shared = C > 0;
+  return C > 0 ? C : fdtk::tb_frames(L, 2, 0);
+}
+
+// K13: end_lab (B, T) (-1 where no segment ends), end_start (B, T); one
+// block an utterance.
 int seg_traceback(const float* deltas, const int* argd, const float* trans,
                   const int* lab0, const int* lengths, int* end_lab,
                   int* end_start, int B, int T, int L, void* stream) {
-  const int per_block = kTracebackThreads / 32;
-  seg_traceback_kernel<<<(B + per_block - 1) / per_block, kTracebackThreads,
-                         0, static_cast<cudaStream_t>(stream)>>>(
-      deltas, argd, trans, lab0, lengths, end_lab, end_start, B, T, L);
+  int ts;
+  const int C = seg_traceback_frames(L, &ts);
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      fdtk::tb_bytes(C, L, 2, ts ? 4 * seg_tb_trans_floats(L) : 0);
+  const auto kernel = !ts     ? seg_traceback_kernel<false, 0>
+                      : L <= 64 ? seg_traceback_kernel<true, 2>
+                                : seg_traceback_kernel<true, 0>;
+  cudaError_t err = opt_in(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, kTbThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      deltas, argd, trans, lab0, lengths, end_lab, end_start, T, L, C);
   return static_cast<int>(cudaGetLastError());
 }
 

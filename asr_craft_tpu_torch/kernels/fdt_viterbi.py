@@ -41,6 +41,11 @@ from asr_craft_tpu_torch.ops import fdt
 
 launches = {"fdt_viterbi_plane": 0, "fdt_viterbi_fwd": 0,
             "fdt_viterbi_traceback": 0}
+# The tracebacks' stream (csrc/fdt_common.cuh; K13 shares it): a ring of
+# TB_RING shared-memory slots, each a block of C frames of rows, C as many
+# as fill TB_SLOT_BYTES, at most TB_MAX_FRAMES, fewer where the block would
+# pass SMEM_LIMIT.
+TB_RING, TB_MAX_FRAMES, TB_SLOT_BYTES = 3, 128, 32768
 # The most bytes of planes a decode holds at once: the batch is decoded in
 # sub-batches of utterances whose (b, T, R4) planes fit (191 utterances at
 # the flagship's T = 512, R4 = 2736), at least one at a time.
@@ -79,6 +84,32 @@ def fdt_viterbi_wall_torch(Wall, feats, lengths, *, u0: int, u1: int,
         beam_width=beam_width)
 
 
+def stream_bytes(C: int, row: int, streams: int, extra: int) -> int:
+    """The shared memory of a traceback block: the ring of ``streams``
+    arrays of ``row`` 4-byte elements a frame, C frames a slot (each slot
+    with room for a block's 16-byte alignment offset), ``extra`` bytes and
+    the ring's barriers (``tb_bytes``)."""
+    slot = (C * row + 3 + 3) // 4 * 4
+    return 4 * TB_RING * streams * slot + extra + 16 * TB_RING
+
+
+def stream_frames(row: int, streams: int, extra: int) -> int:
+    """The frames C of a stream block (``tb_frames``); 0 where one frame
+    does not fit a block's shared memory."""
+    C = max(1, min(TB_MAX_FRAMES, TB_SLOT_BYTES // (4 * row * streams)))
+    while C >= 1 and stream_bytes(C, row, streams, extra) > SMEM_LIMIT:
+        C -= 1
+    return C
+
+
+def traceback_frames(Lp: int) -> int:
+    """The frames C of the traceback's stream blocks at L' = ``Lp`` (the
+    kernel's ``fdt_viterbi_traceback_frames``; its labels take
+    ``TB_MAX_FRAMES`` ints beside the ring); 0 where one frame does not
+    fit."""
+    return stream_frames(Lp, 1, 4 * TB_MAX_FRAMES)
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -89,6 +120,8 @@ def _library():
         lib.fdt_viterbi_fwd.restype = i32
         lib.fdt_viterbi_traceback.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         lib.fdt_viterbi_traceback.restype = i32
+        lib.fdt_viterbi_traceback_frames.argtypes = [i32]
+        lib.fdt_viterbi_traceback_frames.restype = i32
         lib.fdt_viterbi_fwd_smem_bytes.argtypes = [i32] * 2
         lib.fdt_viterbi_fwd_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
@@ -182,10 +215,12 @@ def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
 
 
 def launch_traceback(bp, last, lengths, counts: dict, key: str):
-    """Launch the traceback kernel: (B, T) int32 paths, as
-    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback` returns.
-    Each decode counts its launches in its own ``counts[key]`` (here and in
-    ``kernels/viterbi.py``)."""
+    """Launch the traceback kernel (one block an utterance, its rows
+    streamed through shared memory in blocks of :func:`traceback_frames`
+    frames): (B, T) int32 paths, as
+    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback` returns on
+    labels clamped into ``[0, L')``.  Each decode counts its launches in
+    its own ``counts[key]`` (here and in ``kernels/viterbi.py``)."""
     dev = bp.device
     _build.check_tensor("bp", bp, torch.int32, 3, dev)
     _build.check_tensor("last", last, torch.int32, 1, dev)
@@ -193,6 +228,10 @@ def launch_traceback(bp, last, lengths, counts: dict, key: str):
     B, T, Lp = bp.shape
     if last.shape[0] != B or lengths.shape[0] != B:
         raise ValueError("bp, last and lengths disagree on the batch size")
+    if not traceback_frames(Lp):
+        raise ValueError(f"the traceback kernel's stream does not fit one "
+                         f"frame of L' = {Lp} labels in the {SMEM_LIMIT} B "
+                         "of shared memory a block can use")
     paths = torch.empty((B, T), dtype=torch.int32, device=dev)
     if B == 0:
         return paths

@@ -73,6 +73,7 @@ import torch
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
 from asr_craft_tpu_torch.kernels import fwdbwd
+from asr_craft_tpu_torch.kernels.fdt_viterbi import stream_frames
 from asr_craft_tpu_torch.kernels.fwdbwd import (backward_dual_contract_plain,
                                                 backward_factors,
                                                 forward_factors, row_max,
@@ -398,6 +399,8 @@ def _library():
         lib.seg_grad_xi.argtypes = ([ptr] * 7 + [i32] + [ptr] * 6 + [i32] * 4
                                     + [ptr])
         lib.seg_traceback.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+        lib.seg_traceback_frames.argtypes = [i32, ctypes.POINTER(i32)]
+        lib.seg_traceback_frames.restype = i32
         for name in ("seg_forward", "seg_viterbi", "seg_backward",
                      "seg_grad_message", "seg_grad_xi", "seg_traceback",
                      "seg_frame", "seg_grad_chunk"):
@@ -408,6 +411,17 @@ def _library():
         lib.seg_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
+
+
+def traceback_plan(L: int):
+    """``(C, trans_shared)`` of K13 at width L (the kernel's
+    ``seg_traceback_frames``): the frames of its stream blocks, each slot
+    holding C frames of deltas and of arg_d (:func:`asr_craft_tpu_torch.
+    kernels.fdt_viterbi.stream_frames`), and whether trans^T (L^2 floats)
+    is staged beside the ring; C = 0 where one frame does not fit."""
+    trans = 4 * ((L * L + 3) // 4 * 4)
+    C = stream_frames(L, 2, trans)
+    return (C, True) if C else (stream_frames(L, 2, 0), False)
 
 
 def smem_bytes(name: str, L: int, max_dur: int) -> int:
@@ -647,7 +661,9 @@ def segmental_grad_cuda(frame, trans, bias, lengths, alphas, betas, logZ, g,
 
 
 def segmental_viterbi_traceback_cuda(deltas, arg_d, trans, lab0, lengths):
-    """K13 on the card: ``(end_lab, end_start)``, as
+    """K13 on the card (one block an utterance, its deltas and arg_d rows
+    streamed through shared memory in blocks of :func:`traceback_plan`'s C
+    frames): ``(end_lab, end_start)``, as
     :func:`segmental_viterbi_traceback_plain` returns."""
     dev = deltas.device
     _build.check_tensor("deltas", deltas, torch.float32, 3, dev)
@@ -662,6 +678,10 @@ def segmental_viterbi_traceback_cuda(deltas, arg_d, trans, lab0, lengths):
                          f"{tuple(trans.shape)}, lab0 {tuple(lab0.shape)}, "
                          f"lengths {tuple(lengths.shape)} vs deltas "
                          f"{tuple(deltas.shape)}")
+    if not traceback_plan(L)[0]:
+        raise ValueError(f"the segmental traceback's stream does not fit "
+                         f"one frame of L = {L} labels in a block's shared "
+                         "memory")
     end_lab = torch.empty((B, T), dtype=torch.int32, device=dev)
     end_start = torch.empty((B, T), dtype=torch.int32, device=dev)
     if B:

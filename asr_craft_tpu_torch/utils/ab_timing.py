@@ -13,21 +13,27 @@ minimum of two runs of a few calls each:
   (``fdt_backward_grad_cuda``, handed K1's planes where the checkout's K1
   returns them, as its train step does), one train step (loss, backward,
   SGD) at B=128, T=512, K3's forward (``viterbi_forward_cuda``) and
-  ``decode()`` at B=64, T=512;
+  ``decode()`` at B=64, T=512, with its trace; the traceback
+  (``fdt_vit_tb_kernel``) by its own device time in a trace (events would
+  read its wrapper's host time): alone on L2-resident backpointers, right
+  after the forward has written them and inside ``decode()``;
 - the shared-transition decode at B=64, T=512, all rows full: K7
   (``viterbi_dense_fwd``) at configs 1 and 3 and on config 5's n-state
   problem, K8 (``viterbi_nstate_fwd``) at config 5, each exact and with
   ``beam_threshold=8`` (config 3's recipe flag), at config 1 (K7) and 5
   (K8) with ``beam_width=16`` too, and ``decode()`` at configs
-  1, 3 and 5, with its trace as below;
+  1, 3 and 5, with its trace as below; the traceback's device time alone
+  and inside ``decode()`` at each config;
 - the shared-transition path at B=128, T=512, all rows full: K4
   (``forward_dual_cuda``), K5 whole (``backward_dual_grad_cuda``) and one
   train step at configs 1 and 5, and K6a, K6b, K14 at config 5;
 - the segmental CRF (config 4) at B=128, T=512: K9, K10, K11 (whole), K12,
-  K13, one train step (``scrf_loss_fused``, backward, SGD) and
-  ``scrf_decode``; and, from a ``torch.profiler`` trace of five calls
-  (``bench.device_busy``), the step's and the decodes' device-busy ms and
-  share a call and the kernels a call launches.
+  K13 (and its device time, alone and inside ``scrf_decode``), one train
+  step (``scrf_loss_fused``, backward, SGD) and ``scrf_decode``; and, from
+  a ``torch.profiler`` trace of five calls (``bench.device_busy``), the
+  step's and the decodes' device-busy ms and share a call and the kernels
+  a call launches.  Names ending in "device" are a kernel's device ms from
+  a trace of ten calls (``launch_ms``).
 ``--only`` times the groups named (``fdt``, ``viterbi``, ``shared``,
 ``segmental``: the four items above, in order) and no other.  It prints one
 JSON line a turn and, last, the card and every turn's times and traces;
@@ -44,6 +50,11 @@ import subprocess
 import sys
 
 NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
+         "K3 traceback device", "K3 traceback after fwd device",
+         "K3 traceback in decode device",
+         "traceback config1 device", "traceback config1 in decode device",
+         "traceback config3 device", "traceback config3 in decode device",
+         "traceback config5 device", "traceback config5 in decode device",
          "K7 config1", "K7 config1 thr8", "K7 config1 bw16", "K7 config3",
          "K7 config3 thr8", "K7 config5", "K8 config5", "K8 config5 thr8",
          "K8 config5 bw16",
@@ -51,7 +62,8 @@ NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
          "K4 config1", "K5 config1", "shared step config1",
          "K4 config5", "K5 config5", "shared step config5",
          "K6a config5", "K6b config5", "K14 config5",
-         "K9", "K10", "K11", "K12", "K13", "scrf step", "scrf_decode")
+         "K9", "K10", "K11", "K12", "K13", "K13 device",
+         "K13 in scrf_decode device", "scrf step", "scrf_decode")
 # (name, beam_threshold, beam_width) of the shared-transition forwards
 VITERBI_RUNS = {
     "config1": (("K7 config1", None, None), ("K7 config1 thr8", 8.0, None),
@@ -60,8 +72,9 @@ VITERBI_RUNS = {
     "config5": (("K7 config5", None, None), ("K8 config5", None, None),
                 ("K8 config5 thr8", 8.0, None), ("K8 config5 bw16", None, 16)),
 }
-TRACED = ("decode config1", "decode config3", "decode config5",
+TRACED = ("decode", "decode config1", "decode config3", "decode config5",
           "scrf step", "scrf_decode")
+FDT_TB, SEG_TB = "fdt_vit_tb_kernel", "seg_traceback_kernel"
 
 
 def _ms(torch, fn, reps):
@@ -78,6 +91,31 @@ def _ms(torch, fn, reps):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / reps)
     return best
+
+
+def launch_ms(dev, fn, match, reps=10):
+    """Device ms a launch of the kernel whose name holds ``match`` (one
+    launch a call of ``fn``), from a ``torch.profiler`` trace of ``reps``
+    calls: its summed device time over the launches the trace recorded,
+    which may be fewer than the calls (a trace now and then drops kernel
+    records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+        rows = [e for e in prof.key_averages() if match in e.key
+                and e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count and e.device_time_total > 0]
+        if rows:
+            return (sum(e.device_time_total for e in rows)
+                    / sum(e.count for e in rows) / 1e3)
+    raise RuntimeError(f"three traces hold no launch of {match}")
 
 
 def _trace(dev, fn) -> dict | None:
@@ -120,6 +158,13 @@ def _viterbi(torch, dev) -> dict:
 
         out[f"decode {key}"] = _ms(torch, dec, 10)
         traces[f"decode {key}"] = _trace(dev, dec)
+        bp, last, _ = (KV.viterbi_nstate_fwd(state, trans, lengths, ns)
+                       if ns > 1 else
+                       KV.viterbi_dense_fwd(state, trans, lengths))
+        out[f"traceback {key} device"] = launch_ms(
+            dev, lambda: KV.viterbi_traceback(bp, last, lengths), FDT_TB)
+        out[f"traceback {key} in decode device"] = launch_ms(dev, dec,
+                                                              FDT_TB)
     out["_traces"] = traces
     return out
 
@@ -208,6 +253,9 @@ def _segmental(torch, dev) -> dict:
         "K12": _ms(torch, lambda: K.segmental_viterbi_cuda(*args), 10),
         "K13": _ms(torch, lambda: K.segmental_viterbi_traceback_cuda(*tb_in),
                    10),
+        "K13 device": launch_ms(
+            dev, lambda: K.segmental_viterbi_traceback_cuda(*tb_in), SEG_TB),
+        "K13 in scrf_decode device": launch_ms(dev, decode, SEG_TB),
         "scrf step": _ms(torch, step, 5),
         "scrf_decode": _ms(torch, decode, 10),
     }
@@ -244,15 +292,27 @@ def _fdt(torch, dev) -> dict:
     dec_feats = feats[:64].contiguous()
     dec_len = torch.full((64,), 512, dtype=torch.int32, device=dev)
     vkw = {k: v for k, v in kw.items() if k != "clamp_ns"}
+    bp, last, _ = K3.viterbi_forward_cuda(Wall, dec_feats, dec_len, **vkw)
+
+    def dec():
+        return decode(cfg, params, dec_feats, dec_len)
+
     return {
+        "_traces": {"decode": _trace(dev, dec)},
+        "K3 traceback device": launch_ms(
+            dev, lambda: K3.viterbi_traceback_cuda(bp, last, dec_len),
+            FDT_TB),
+        "K3 traceback after fwd device": launch_ms(
+            dev, lambda: K3.viterbi_traceback_cuda(*K3.viterbi_forward_cuda(
+                Wall, dec_feats, dec_len, **vkw)[:2], dec_len), FDT_TB),
+        "K3 traceback in decode device": launch_ms(dev, dec, FDT_TB),
         "K1": _ms(torch, lambda: K1.fdt_forward_cuda(*args, **kw), 5),
         "K2": _ms(torch, lambda: K1.fdt_backward_grad_cuda(
             *grad_args, **k2_kw), 5),
         "train step": _ms(torch, lambda: trainer.train_step(batch, 0.5), 5),
         "K3 forward": _ms(torch, lambda: K3.viterbi_forward_cuda(
             Wall, dec_feats, dec_len, **vkw), 10),
-        "decode": _ms(torch, lambda: decode(cfg, params, dec_feats, dec_len),
-                      10),
+        "decode": _ms(torch, dec, 10),
     }
 
 

@@ -24,7 +24,11 @@ in phases:
 (c) timing — the decode's planes (beside one cuBLAS fp32 ``mm`` of the
     same product), K3's recursion (exact, and once with ``beam_width=16``),
     K3's forward whole, the traceback and ``decode()``, kernels against the
-    plain version at B=64, T=512 (CUDA events);
+    plain version at B=64, T=512 (CUDA events); the traceback's own device
+    time from a ``torch.profiler`` trace (events around its calls read the
+    wrapper's host time) and us a dependent step (ms / T): on L2-resident
+    backpointers (its time in the ``kernels`` line), right after the
+    forward has written them and inside ``decode()``;
 (d) training parity — the plane kernel (``fdt_train_plane``, every frame's
     plane on the tensor cores, formed once a step by K1's wrapper), K1's
     recursion (``fdt_train_fwd``, which reads them; whole K1 against the
@@ -67,8 +71,10 @@ in phases:
     ``beam_threshold=8`` and with ``beam_width=16``, and us a frame), the
     traceback and ``decode()`` against the plain version at B=64, T=512 for
     configs 1, 3 and 5, K7 also on config 5's n-state problem; K8's
-    re-scans of dead destinations on this data (its bound counts them) and
-    the device-busy share of ``decode()`` (a ``torch.profiler`` trace);
+    re-scans of dead destinations on this data (its bound counts them), the
+    traceback's own device time alone and inside ``decode()`` (traced, us a
+    dependent step) and the device-busy share of ``decode()`` (a
+    ``torch.profiler`` trace);
 (j) shared-transition training parity — the K6a / K6b kernels (``forward``,
     ``backward``), K4 / K14 (``forward_dual``, ``backward_dual``) and K5, its
     recursion (``backward_dual_grad``: g_state and the rows U, V of the
@@ -116,7 +122,9 @@ in phases:
     whole, its contraction beside one cuBLAS fp32 ``E.T @ F`` of the same
     rows), one train step (``scrf_loss_fused``, backward, SGD) and one
     ``scrf_decode`` against the plain version at B=128, T=512, L=48, D=144,
-    Dmax=16, all rows full, and the device-busy share and kernel count of
+    Dmax=16, all rows full, K13's own device time alone and inside
+    ``scrf_decode`` (traced; us a dependent step: ms / the segments of an
+    utterance's best path), and the device-busy share and kernel count of
     the step and the decode;
 (p) calibration parity — the K15 kernel (``calibrate``) against its plain
     version at a short chain (2 steps, where nothing has settled) and at 64
@@ -335,10 +343,11 @@ CAL_SRC = "asr_craft_tpu/utils/roofline.py:519"   # the inner `kernel`
 # so the gap stays at a few 1e-8 relative on values in (0, 1].
 CAL_ATOL = 2e-6
 # Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: the
-# config-2 decode (the plane kernel and K3's recursion) is 3.206 us a frame
-# at B=64; the segmental decode at one segment a frame (the bench's zero
-# model), K12 on K9's frame and K13, is 1.835 us.
-FDT_FRAME_US, SCRF_FRAME_US = 3.206, 1.835
+# config-2 decode (the plane kernel, K3's recursion and the traceback, its
+# rows streamed through shared memory) is 2.683 us a frame at B=64; the
+# segmental decode at one segment a frame (the bench's zero model), K12 on
+# K9's frame and K13 on the traceback's stream, is 0.852 us.
+FDT_FRAME_US, SCRF_FRAME_US = 2.683, 0.852
 # The JAX package's recipes on the CPU at their own sizes (python
 # recipes/<name>.py --platform cpu): per-epoch mean_loss, the final CV PER
 # and the decode's (errors, tokens); swbd_multihost does not decode.
@@ -591,6 +600,15 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def kernel_ms(self, fn, match):
+        """Device ms of the one launch a call of ``fn`` makes of the kernel
+        whose name holds ``match``, from a ``torch.profiler`` trace
+        (``utils/ab_timing.launch_ms``): a kernel's own time where events
+        around back-to-back calls would read its wrapper's host time (the
+        tracebacks: ~0.02 ms of device work, more of Python)."""
+        from asr_craft_tpu_torch.utils.ab_timing import launch_ms
+        return launch_ms(self.dev, fn, match)
+
     def device_share(self, label, fn, reps=5):
         """Trace ``reps`` calls of ``fn`` with torch.profiler
         (``bench.device_busy``) and log the wall time per call, the time
@@ -694,6 +712,26 @@ class Smoke:
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                 f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
+        # The traceback's own device time (its events read the wrapper's
+        # host time): on L2-resident backpointers, right after the forward
+        # has written them, and inside decode(); and us a dependent step.
+        tb = "fdt_vit_tb_kernel"
+        resident = self.kernel_ms(
+            lambda: K.viterbi_traceback_cuda(bp, last, lengths), tb)
+        fresh = self.kernel_ms(lambda: K.viterbi_traceback_cuda(
+            *K.viterbi_forward_cuda(Wall, feats, lengths, **kw)[:2],
+            lengths), tb)
+        in_decode = self.kernel_ms(
+            lambda: decode(cfg, params, feats, lengths), tb)
+        self.times["fdt_viterbi_traceback"] = (
+            resident, self.times["fdt_viterbi_traceback"][1])
+        log(f"timing fdt_viterbi_traceback B={B} T={T} L'={ns * P} (trace, "
+            f"C = {K.traceback_frames(ns * P)} frames a stream block): "
+            f"{resident:.4f} ms on L2-resident backpointers "
+            f"({resident * 1e3 / T:.4f} us a dependent step), {fresh:.4f} "
+            f"ms right after the forward wrote them ({fresh * 1e3 / T:.4f} "
+            f"us a step), {in_decode:.4f} ms inside decode() "
+            f"({in_decode * 1e3 / T:.4f} us a step)")
 
     def _plain_decode(self, cfg, params, feats, lengths):
         from asr_craft_tpu_torch import kernels
@@ -1337,6 +1375,20 @@ class Smoke:
                     f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
                     f"{audio_s / ms * 1e3:.1f} vs "
                     f"{audio_s / plain_ms * 1e3:.1f} audio-s/s")
+            # the traceback's own device time (its events read the
+            # wrapper's host time), alone and inside decode()
+            tb = "fdt_vit_tb_kernel"
+            resident = self.kernel_ms(
+                lambda: KV.viterbi_traceback(bp, last, lengths), tb)
+            in_decode = self.kernel_ms(
+                lambda: decode(cfg, params, feats, lengths), tb)
+            self.times[f"{key} viterbi_traceback"] = (
+                resident, self.times[f"{key} viterbi_traceback"][1])
+            log(f"timing {key} viterbi_traceback B={B} T={T} "
+                f"L'={state.shape[-1]} (trace): {resident:.4f} ms alone "
+                f"({resident * 1e3 / T:.4f} us a dependent step), "
+                f"{in_decode:.4f} ms inside decode() "
+                f"({in_decode * 1e3 / T:.4f} us a step)")
             self.device_share(f"{key} decode B={B} T={T}",
                               lambda: decode(cfg, params, feats, lengths))
 
@@ -2156,6 +2208,21 @@ class Smoke:
                 f"({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                 f"({p1:.4f}, {p2:.4f}); {audio_s / ms * 1e3:.1f} vs "
                 f"{audio_s / plain_ms * 1e3:.1f} audio-s/s{tail}")
+        # K13's own device time (its events read the wrapper's host time)
+        # and us a dependent step: a segment of the best path
+        tb = "seg_traceback_kernel"
+        resident = self.kernel_ms(lambda: K.segmental_viterbi_traceback_cuda(
+            deltas, arg_d, trans, lab0, lengths), tb)
+        in_decode = self.kernel_ms(lambda: decode("auto"), tb)
+        self.times["segmental_viterbi_traceback"] = (
+            resident, self.times["segmental_viterbi_traceback"][1])
+        per_utt = segments / B
+        log(f"timing segmental_viterbi_traceback B={B} T={T} (trace, C = "
+            f"{K.traceback_plan(trans.shape[0])[0]} frames a stream block): "
+            f"{resident:.4f} ms alone ({resident * 1e3 / per_utt:.4f} us a "
+            f"dependent step: {per_utt:.1f} segments an utterance), "
+            f"{in_decode:.4f} ms inside scrf_decode "
+            f"({in_decode * 1e3 / per_utt:.4f} us a segment)")
         t = {k: v[0] for k, v in self.times.items()}
         rest_step = (t["scrf train step (loss, backward, SGD)"]
                      - t["segmental_forward"] - t["segmental_backward"]

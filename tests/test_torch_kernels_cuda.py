@@ -159,6 +159,66 @@ def test_traceback_kernel_exact_on_plain_backpointers(dev):
     assert torch.equal(got, fdt.fdt_viterbi_traceback(bp, last, lengths))
 
 
+def _backpointers(dev, B, T, Lp, seed, garbage=False):
+    """Random backpointers and final labels (garbage: out of range too),
+    lengths 0, 1, T, T + 3 and ragged."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-7, Lp + 7) if garbage else (0, Lp)
+    bp = rng.integers(lo, hi, size=(B, T, Lp)).astype(np.int32)
+    last = rng.integers(lo, hi, size=B).astype(np.int32)
+    lengths = rng.integers(0, T + 4, size=B).astype(np.int32)
+    lengths[:4] = [0, 1, T, T + 3]
+    return tuple(torch.from_numpy(x).to(dev) for x in (bp, last, lengths))
+
+
+@pytest.mark.parametrize("garbage", [False, True], ids=["walk", "garbage"])
+@pytest.mark.parametrize("dT", ["C-1", "C", "C+1", "2C+1"])
+@pytest.mark.parametrize("Lp", [42, 138, 144, 390])
+def test_traceback_stream_borders(dev, Lp, dT, garbage):
+    """The traceback's stream blocks of C frames (56 at L' = 144): T just
+    below, at and above one block and two, lengths 0, 1, T, T + 3; out of
+    range backpointers and final labels are clamped (the plain version on
+    the clamped entries).  One launch, paths EQUAL."""
+    C = V.traceback_frames(Lp)
+    T = {"C-1": max(C - 1, 1), "C": C, "C+1": C + 1, "2C+1": 2 * C + 1}[dT]
+    bp, last, lengths = _backpointers(dev, 9, T, Lp, seed=Lp + T,
+                                      garbage=garbage)
+    before = launches["fdt_viterbi_traceback"]
+    got = V.viterbi_traceback_cuda(bp, last, lengths)
+    want = fdt.fdt_viterbi_traceback(bp.clamp(0, Lp - 1),
+                                     last.clamp(0, Lp - 1), lengths)
+    torch.cuda.synchronize()
+    assert launches["fdt_viterbi_traceback"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_traceback_of_rows_off_a_16_byte_boundary(dev, skip):
+    """Backpointers that start 4, 8 or 12 bytes past a 16-byte boundary (a
+    view into a larger buffer): every block copied from the boundary below
+    it, the last piece cut to the block."""
+    Lp, T = 137, 61
+    bp, last, lengths = _backpointers(dev, 6, T, Lp, seed=skip)
+    buf = torch.empty(bp.numel() + skip, dtype=torch.int32, device=dev)
+    view = buf[skip:].view(bp.shape)
+    view.copy_(bp)
+    assert view.data_ptr() % 16 == 4 * skip
+    got = V.viterbi_traceback_cuda(view, last, lengths)
+    assert torch.equal(got, fdt.fdt_viterbi_traceback(bp, last, lengths))
+
+
+def test_traceback_frames_agree_with_the_kernel_and_raise_beyond(dev):
+    lib = V._library()
+    for Lp in (1, 3, 42, 138, 144, 390, 4096, 5000, 19300, 19400):
+        assert lib.fdt_viterbi_traceback_frames(Lp) == V.traceback_frames(Lp)
+    bp, last, lengths = _backpointers(dev, 4, 2, 19400, seed=0)
+    with pytest.raises(ValueError, match="does not fit"):
+        V.viterbi_traceback_cuda(bp, last, lengths)
+    bp, last, lengths = _backpointers(dev, 4, 5, 19300, seed=0)
+    assert torch.equal(V.viterbi_traceback_cuda(bp, last, lengths),
+                       fdt.fdt_viterbi_traceback(bp, last, lengths))
+
+
 def test_kernel_refuses_what_it_does_not_take(dev):
     Wall, feats, lengths, kw = _problem(dev, 5, 3)
     with pytest.raises(ValueError, match="P <= 128"):

@@ -19,6 +19,8 @@ sums cs equal (the same adds in the same order), F as gt.  The max-plus kernel c
 operations in the plain version's order: deltas, duration argmaxes, scores,
 labels and segment markers are equal bit for bit.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -291,6 +293,80 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     with pytest.raises(ValueError, match="L <= 205"):
         K.segmental_grad_cuda(*wide, w, w, w[:, 0, 0], w[:, 0, 0])
     assert K.launches == before
+
+
+def _segments(dev, B, T, L, Dmax, seed, kind):
+    """Tied integer deltas (zeros of either sign), integer trans, durations
+    at random below Dmax, all one frame or all Dmax frames (each at most
+    its frame); lengths 0, 1, T, T + 3 and ragged."""
+    rng = np.random.default_rng(seed)
+
+    def ints(lo, hi, shape):
+        x = rng.integers(lo, hi, size=shape).astype(np.float32)
+        x[x == 0] = np.where(rng.random(int((x == 0).sum())) < 0.5,
+                             np.float32(-0.0), np.float32(0.0))
+        return x
+
+    deltas, trans = ints(-2, 3, (B, T, L)), ints(-1, 2, (L, L))
+    d = {"random": rng.integers(0, Dmax, size=(B, T, L)),
+         "one": np.zeros((B, T, L), np.int64),
+         "long": np.full((B, T, L), Dmax - 1)}[kind]
+    arg_d = np.minimum(d, np.arange(T)[None, :, None]).astype(np.int32)
+    lab0 = rng.integers(0, L, size=B).astype(np.int32)
+    lengths = rng.integers(0, T + 4, size=B).astype(np.int32)
+    lengths[:4] = [0, 1, T, T + 3]
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (deltas, arg_d, trans, lab0, lengths))
+
+
+@pytest.mark.parametrize("kind", ["random", "one", "long"])
+@pytest.mark.parametrize("dT", ["C-1", "C", "C+1", "2C+1"])
+@pytest.mark.parametrize("L", [48, 205, 238])
+def test_traceback_stream_borders(dev, L, dT, kind):
+    """K13's stream blocks of C frames (85 at L = 48, 13 at L = 205; trans^T
+    read from device memory at 238): T just below, at and above one block
+    and two, one-frame segments and Dmax = 16 frames crossing the borders,
+    ties, lengths 0, 1, T, T + 3.  One launch; markers EQUAL."""
+    C = K.traceback_plan(L)[0]
+    T = {"C-1": max(C - 1, 1), "C": C, "C+1": C + 1, "2C+1": 2 * C + 1}[dT]
+    args = _segments(dev, 7, T, L, 16, seed=L + T, kind=kind)
+    before = K.launches["segmental_viterbi_traceback"]
+    got = K.segmental_viterbi_traceback_cuda(*args)
+    want = K.segmental_viterbi_traceback_plain(*args)
+    torch.cuda.synchronize()
+    assert K.launches["segmental_viterbi_traceback"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_traceback_of_rows_off_a_16_byte_boundary(dev, skip):
+    """deltas and arg_d that start 4, 8 or 12 bytes past a 16-byte
+    boundary (views into larger buffers)."""
+    args = _segments(dev, 6, 45, 23, 8, seed=skip, kind="random")
+    views = []
+    for x in args[:2]:
+        buf = torch.empty(x.numel() + skip, dtype=x.dtype, device=dev)
+        views.append(buf[skip:].view(x.shape))
+        views[-1].copy_(x)
+        assert views[-1].data_ptr() % 16 == 4 * skip
+    got = K.segmental_viterbi_traceback_cuda(*views, *args[2:])
+    want = K.segmental_viterbi_traceback_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_traceback_plan_agrees_with_the_kernel(dev):
+    lib = K._library()
+    staged = ctypes.c_int()
+    for L in (1, 3, 48, 205, 229, 237, 238, 300, 5000, 9670, 9680):
+        C = lib.seg_traceback_frames(L, ctypes.byref(staged))
+        assert (C, bool(staged.value) if C else False) == \
+            K.traceback_plan(L), L
+    L = 9680                            # one frame of the ring: 232,464 B
+    z = torch.zeros((2, 3, L), device=dev)
+    i = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        K.segmental_viterbi_traceback_cuda(
+            z, z.int(), torch.zeros((L, L), device=dev), i, i)
 
 
 FRAMES = [(48, 16, 3), (80, 16, 5), (150, 16, 10), (205, 16, 13),

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.kernels import fdt_viterbi
 from asr_craft_tpu_torch.kernels import viterbi as KV
 from asr_craft_tpu_torch.models import crf
 from asr_craft_tpu_torch.models.topology import Topology
@@ -141,6 +142,50 @@ def test_kernels_on_a_ragged_decode_batch(dev, P, ns, beams):
         fwd = lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w)
     _compare(fwd, state, trans, lengths, thr, bw,
              "viterbi_nstate_fwd" if ns > 1 else "viterbi_dense_fwd")
+
+
+@pytest.mark.parametrize("beams", [(None, None), (8.0, None), (None, 16)],
+                         ids=["exact", "threshold8", "width16"])
+@pytest.mark.parametrize("dT", ["C-1", "C", "C+1", "2C+1"])
+@pytest.mark.parametrize("P,ns", [(48, 1), (46, 3), (130, 3)])
+def test_traceback_stream_borders_after_each_forward(dev, P, ns, dT, beams):
+    """The traceback (K3's, one block an utterance, blocks of C frames
+    streamed through shared memory) on K7's backpointers at config 1's
+    width and at L' = 390 (the wide kernel), K8's at config 5's: T just
+    below, at and above one block and two; paths EQUAL."""
+    thr, bw = beams
+    C = fdt_viterbi.traceback_frames(P * ns)
+    T = {"C-1": max(C - 1, 1), "C": C, "C+1": C + 1, "2C+1": 2 * C + 1}[dT]
+    state, trans, lengths = _problem(dev, P, ns, B=5, T=T, seed=T + P)
+    if ns > 1 and P <= 128:
+        fwd = lambda t, w: KV.viterbi_nstate_fwd(state, trans, lengths, ns,
+                                                 t, w)
+        name = "viterbi_nstate_fwd"
+    else:
+        fwd = lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w)
+        name = "viterbi_dense_fwd"
+    before = KV.launches["viterbi_traceback"]
+    _compare(fwd, state, trans, lengths, thr, bw, name)
+    assert KV.launches["viterbi_traceback"] == before + 1
+
+
+@pytest.mark.parametrize("L", [48, 138, 390])
+def test_traceback_clamps_garbage_backpointers(dev, L):
+    """Out-of-range backpointers and final labels, as a lattice of NaN
+    scores leaves them: the plain traceback on the same entries clamped
+    into [0, L')."""
+    rng = np.random.default_rng(L)
+    B, T = 6, 2 * fdt_viterbi.traceback_frames(L) + 1
+    bp = torch.from_numpy(rng.integers(-L, 2 * L, size=(B, T, L)).astype(
+        np.int32)).to(dev)
+    last = torch.tensor([-5, L, 2 * L, 0, L - 1, 3], dtype=torch.int32,
+                        device=dev)
+    lengths = torch.tensor([T, T + 3, 1, 0, T - 1, 7], dtype=torch.int32,
+                           device=dev)
+    got = KV.viterbi_traceback(bp, last, lengths)
+    want = fdt.fdt_viterbi_traceback(bp.clamp(0, L - 1), last.clamp(0, L - 1),
+                                     lengths)
+    assert torch.equal(got, want)
 
 
 def test_many_states_a_phone_go_to_the_dense_kernel(dev):
