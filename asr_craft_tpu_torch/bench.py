@@ -27,11 +27,13 @@ Where it differs from the JAX script, and why:
   summed from a ``torch.profiler`` trace): at T=64 a decode takes the host
   longer to launch than the device to run, and a span of events would time
   the host's launch rate, not the frame chain.
-- ``steps_per_call=8`` fuses eight steps into one dispatch there; the port's
-  trainer runs them one by one, so the host's launch rate is in every step
-  time.  The ``device_busy`` line says how much of each timed call the
-  device worked (``torch.profiler``): a step far above its busy time is
-  waiting for the host, not for a kernel.
+- ``steps_per_call=8`` fuses eight steps into one dispatch there, a
+  ``lax.scan`` under ``jax.jit``; here ``Trainer.multi_step`` runs them as
+  one CUDA graph replay (``train.make_train_step``), and the decodes and
+  the segmental step are captured too (``train.graphs.Graphed``, the
+  counterpart of the ``jax.jit`` there).  The ``device_busy`` line says how
+  much of each timed call the device worked (``torch.profiler``): a call
+  far above its busy time is waiting for the host, not for a kernel.
 - Precision: the JAX script trains at ``bf16x3`` and reports fp32 beside it.
   The CUDA kernels are IEEE fp32 (``highest``) only, so there is one train
   run; ``train_fp32_audio_s_per_s`` repeats it and
@@ -57,8 +59,10 @@ import torch
 from asr_craft_tpu_torch import data, flagship
 from asr_craft_tpu_torch.kernels import calibrate
 from asr_craft_tpu_torch.models.crf import decode
-from asr_craft_tpu_torch.models.segmental import scrf_decode, scrf_loss_fused
-from asr_craft_tpu_torch.train import TrainConfig, Trainer
+from asr_craft_tpu_torch.models.segmental import scrf_decode
+from asr_craft_tpu_torch.train import (TrainConfig, Trainer, graphs,
+                                       make_train_step)
+from asr_craft_tpu_torch.train.trainer import scrf_loss_fn
 from asr_craft_tpu_torch.utils import roofline as rl
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
@@ -151,9 +155,13 @@ def device_busy(fn, device, reps: int = 5):
             "top": [[k[:48], round(ms, 4), n] for k, ms, n in top]}
 
 
-def _note_busy(busy, name, fn, device):
+def _note_busy(busy, name, fn, device, steps=1):
+    """``busy[name]``: :func:`device_busy` of a call of ``fn`` that runs
+    ``steps`` steps."""
     if busy is not None:
         busy[name] = device_busy(fn, device)
+        if busy[name] is not None and steps > 1:
+            busy[name]["steps_per_call"] = steps
 
 
 def measure_calibration(device, Dmax: int = 16, Ls: int = 48, n_mb: int = 256,
@@ -170,9 +178,10 @@ def measure_calibration(device, Dmax: int = 16, Ls: int = 48, n_mb: int = 256,
 def bench_train_step(calls=6, spc=8, warmup=1, B=B, T=T, precision=None,
                      device="cuda", busy=None):
     """The production loop: ``TrainConfig.steps_per_call = spc`` steps a
-    call, which the port's trainer runs one by one.  ``calls * spc`` steps
-    are timed after ``warmup * spc``.  Returns ``(audio-s/s, seconds a
-    step, the loss of the last warm-up step)``."""
+    call, one ``Trainer.multi_step`` on ``spc`` copies of a resident batch
+    (one CUDA graph replay on the card).  ``calls`` calls are timed after
+    ``warmup``.  Returns ``(audio-s/s, seconds a step, the loss of the last
+    warm-up step)``."""
     import dataclasses
     device = _device(device)
     cfg = flagship.flagship()
@@ -182,16 +191,16 @@ def bench_train_step(calls=6, spc=8, warmup=1, B=B, T=T, precision=None,
     params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, device)
     trainer = Trainer(cfg, tc, params=params,
                       logger=MetricsLogger(quiet=True), device=device)
-    batch = flagship.tiny_batch(cfg, B, T, 0, device)
+    batches = [flagship.tiny_batch(cfg, B, T, 0, device)] * spc
     m = None
-    for _ in range(max(warmup, 1) * spc):
-        m = trainer.train_step(batch, tc.lr)
+    for _ in range(max(warmup, 1)):
+        m = trainer.multi_step(batches, tc.lr)
     # the loss after the warm-up steps is at the same training point
     # however many timed steps follow
-    loss_w = float(m["loss"])
-    step = lambda: trainer.train_step(batch, tc.lr)
-    dt = _seconds_per_call(step, calls * spc, device)
-    _note_busy(busy, "train_step", step, device)
+    loss_w = float(m["loss"][-1])
+    call = lambda: trainer.multi_step(batches, tc.lr)
+    dt = _seconds_per_call(call, calls, device) / spc
+    _note_busy(busy, "train_step", call, device, spc)
     return B * T * FRAME_S / dt, dt, loss_w
 
 
@@ -221,10 +230,20 @@ def bench_train_epoch_loader(n_utts=512, precision=TRAIN_PRECISION, B=B,
     return rec["frames"] * FRAME_S / dt
 
 
+def captured_decode(cfg):
+    """``fn(params, batch)``: ``decode()`` of ``cfg`` captured per batch
+    shape (``train.graphs.Graphed``; eager on the CPU)."""
+    return graphs.Graphed(
+        lambda p, b: decode(cfg, p, b["feats"], b["lengths"]),
+        name="decode")
+
+
 def _decode_step(cfg, B, T, device):
     params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, device)
     batch = flagship.tiny_batch(cfg, B, T, 0, device)
-    return lambda: decode(cfg, params, batch["feats"], batch["lengths"])
+    inputs = {"feats": batch["feats"], "lengths": batch["lengths"]}
+    dec = captured_decode(cfg)
+    return lambda: dec(params, inputs)
 
 
 def bench_decode(steps=30, warmup=3, B=DECODE_B, T=T, device="cuda",
@@ -294,22 +313,25 @@ def bench_scrf(steps=6, Bs=128, Ts=512, L=48, D=144, Dmax=16,
         batch["lengths"]
     params = cfg.init_params(device=device)           # the zero start
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    opt = torch.optim.SGD(p.values(), lr=0.05)
+    step, opt = make_train_step(cfg, TrainConfig(lr=0.05),
+                                loss_fn=scrf_loss_fn(cfg))
+    opt_state = opt.init(p)
 
     def train():
-        opt.zero_grad(set_to_none=True)
-        loss, _ = scrf_loss_fused(cfg, p, feats0, labels, lengths)
-        loss.backward()
-        opt.step()
+        step(p, opt_state, {}, batch, 0.05)
 
     SPC = 8
     for _ in range(SPC):
         train()
     train_dt = _seconds_per_call(train, steps * SPC, device)
     _note_busy(busy, "scrf_train", train, device)
+    dec_graph = graphs.Graphed(
+        lambda q, b: scrf_decode(cfg, q, b["feats"], b["lengths"]),
+        name="scrf_decode")
 
     def decoder(f, lx):
-        return lambda: scrf_decode(cfg, params, f, lx)
+        inputs = {"feats": f, "lengths": lx}
+        return lambda: dec_graph(params, inputs)
 
     dec = decoder(feats0, lengths)
     segments = int(dec()[2].sum())        # K13 works per segment

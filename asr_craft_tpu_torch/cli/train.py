@@ -21,6 +21,11 @@ hands the flag to ``TrainConfig`` but opens its profiler only in
 ``Trainer.fit``, which the CLI does not call; here the CLI opens the session
 around its own epoch loop, as the flag's help says); ``--debug_nans`` and
 ``--check_sync_every`` are :mod:`asr_craft_tpu_torch.utils.diagnostics`.
+
+On the card the steps and the CV pass are CUDA graphs, one a batch shape
+(``train.make_train_step``, ``train.make_eval_step``); ``--debug_nans`` and
+``--check_sync_every`` run them eagerly, as does a caller inside
+``train.graphs.disabled()``.
 """
 from __future__ import annotations
 
@@ -101,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--accum_steps", type=int, default=1,
                    help="gradient accumulation micro-batches per update")
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="optimizer steps per call (run one by one here)")
+                   help="optimizer steps per call (one CUDA graph replay "
+                        "on the card)")
     p.add_argument("--bucket_sizes", default="128,256,512,1024,2048")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out_dir", default="./crf_out")

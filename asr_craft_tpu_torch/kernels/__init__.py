@@ -29,6 +29,11 @@ def set_backend(name: str) -> None:
     _BACKEND = name
 
 
+def backend() -> str:
+    """The selected backend: one of ``BACKENDS``."""
+    return _BACKEND
+
+
 def use_kernel(tensor) -> bool:
     """Whether the kernel (True) or the plain version (False) serves
     ``tensor`` under the selected backend."""

@@ -29,8 +29,8 @@ from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels.segmental import segment_bias
 from asr_craft_tpu_torch.ops import segmental as seg_ops
 from asr_craft_tpu_torch.ops.segmental_stream import (
-    nstate_cuts, seg_log_partition_stream, seg_log_partition_stream_ns,
-    seg_viterbi_stream)
+    cuts_on, nstate_cuts, seg_log_partition_stream,
+    seg_log_partition_stream_ns, seg_viterbi_stream)
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 __all__ = ["SegCrfConfig", "nstate_cuts", "seg_potentials",
@@ -123,7 +123,7 @@ def seg_potentials(cfg: SegCrfConfig, params, feats):
             seg = seg / (ds + 1.0)[None, None, :, None]
     else:
         ns = frame.shape[2]
-        cuts = torch.from_numpy(nstate_cuts(cfg.max_dur, ns)).to(dev).long()
+        cuts = cuts_on(cfg.max_dur, ns, dev)
         seg = 0.0
         for s in range(ns):
             lo = (start + cuts[None, :, s]).clamp(0, T)          # (T, Dmax)

@@ -21,6 +21,7 @@ differentiated by autograd, and :func:`fdt_posteriors`).  The CUDA kernels
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -34,6 +35,15 @@ def _adv_valid(Lp: int, ns: int) -> np.ndarray:
     """(L',) 1.0 where state-major label l has an advance edge (st < ns-1)."""
     st = np.arange(Lp) % ns
     return (st < ns - 1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def adv_mask(Lp: int, ns: int, device: torch.device):
+    """:func:`_adv_valid` on ``device``, copied there once: a copy from
+    pageable host memory in every call would wait for the device's queue
+    to drain, and a CUDA graph cannot capture it.  Shared by every caller:
+    read it, never write it."""
+    return torch.from_numpy(_adv_valid(Lp, ns)).to(device)
 
 
 def factored_trans_weights(params: dict, Lp: int, ns: int):
@@ -56,12 +66,12 @@ def factored_trans_weights(params: dict, Lp: int, ns: int):
         zb = torch.zeros((Lp,), dtype=w.dtype, device=dev)
         return z, zb, z, zb, w, b
     lab = torch.arange(Lp, device=dev)
-    adv_mask = torch.from_numpy(_adv_valid(Lp, ns)).to(dev)
+    adv = adv_mask(Lp, ns, dev)
     w_self = torch.diagonal(w, dim1=1, dim2=2)             # (Dt, L')
     b_self = torch.diagonal(b)
     nxt = torch.clamp(lab + 1, max=Lp - 1)                 # dummy at last col
-    w_adv = w[:, lab, nxt] * adv_mask
-    b_adv = b[lab, nxt] * adv_mask
+    w_adv = w[:, lab, nxt] * adv
+    b_adv = b[lab, nxt] * adv
     last = torch.arange(P, device=dev) * ns + (ns - 1)
     first = torch.arange(P, device=dev) * ns
     w_cross = w[:, last][:, :, first]                      # (Dt, P, P)
@@ -89,7 +99,7 @@ def factored_planes(params: dict, feats, Lp: int, ns: int, state_range,
     selfp = xt @ w_self + b_self
     advp = xt @ w_adv + b_adv
     # keep illegal advance slots at the semiring zero regardless of bias
-    adv_ok = torch.from_numpy(_adv_valid(Lp, ns)).to(feats.device) > 0
+    adv_ok = adv_mask(Lp, ns, feats.device) > 0
     advp = torch.where(adv_ok, advp, NEG_INF)
     return state, selfp, advp, crossp
 

@@ -37,6 +37,8 @@ are frame loops on whichever device the tensors are on.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -267,6 +269,24 @@ def nstate_pool_matrices(max_dur: int, ns: int, mean_pool: bool):
     return Ef, Eb
 
 
+@functools.lru_cache(maxsize=None)
+def pool_matrices_on(max_dur: int, ns: int, mean_pool: bool,
+                     device: torch.device):
+    """:func:`nstate_pool_matrices` as tensors on ``device``, copied there
+    once (no call copies from pageable host memory, which waits for the
+    device's queue and which a CUDA graph cannot capture).  Shared by
+    every caller: read them, never write them."""
+    return tuple(torch.from_numpy(E).to(device)
+                 for E in nstate_pool_matrices(max_dur, ns, mean_pool))
+
+
+@functools.lru_cache(maxsize=None)
+def cuts_on(max_dur: int, ns: int, device: torch.device):
+    """:func:`nstate_cuts` as an int64 tensor on ``device``, copied there
+    once, as :func:`pool_matrices_on`."""
+    return torch.from_numpy(nstate_cuts(max_dur, ns)).to(device).long()
+
+
 def seg_forward_stream_ns(cums, bias, trans, lengths, E):
     """Alpha pass with n-state sub-segment pooling.  ``cums (B, T, ns, L)``:
     inclusive cumsums per sub-state stream.  Returns (alphas, logZ)."""
@@ -326,9 +346,8 @@ class _LogPartitionStreamNs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, frame, bias, trans, lengths, max_dur, ns, mean_pool):
         cums = frame.cumsum(dim=1)
-        Ef, _ = nstate_pool_matrices(max_dur, ns, mean_pool)
-        alphas, logZ = seg_forward_stream_ns(
-            cums, bias, trans, lengths, torch.from_numpy(Ef).to(frame.device))
+        Ef, _ = pool_matrices_on(max_dur, ns, mean_pool, frame.device)
+        alphas, logZ = seg_forward_stream_ns(cums, bias, trans, lengths, Ef)
         ctx.save_for_backward(cums, bias, trans, lengths, alphas, logZ)
         ctx.static = (max_dur, ns, mean_pool)
         return logZ
@@ -336,8 +355,7 @@ class _LogPartitionStreamNs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         cums, bias, trans, lengths, alphas, logZ = ctx.saved_tensors
-        Ef, Eb = (torch.from_numpy(E).to(cums.device)
-                  for E in nstate_pool_matrices(*ctx.static))
+        Ef, Eb = pool_matrices_on(*ctx.static, cums.device)
         betas = seg_backward_stream_ns(cums, bias, trans, lengths, Eb)
         dcs_emit, acc_fin, gd, gt = _grad_scan_ns(
             cums, bias, trans, lengths, Ef, alphas, betas, logZ, g)
@@ -415,8 +433,8 @@ def seg_viterbi_stream(frame, bias, trans, lengths, max_dur: int, ns: int = 1,
     dev = frame.device
     lengths = lengths.to(dev)
     Dmax = bias.shape[0]
-    Ef, _ = nstate_pool_matrices(max_dur, ns, mean_pool)
-    window = _window_ns(bias, torch.from_numpy(Ef).to(dev))
+    Ef, _ = pool_matrices_on(max_dur, ns, mean_pool, dev)
+    window = _window_ns(bias, Ef)
     cums = frame.cumsum(dim=1)
     ds = torch.arange(Dmax, device=dev)[:, None]
 

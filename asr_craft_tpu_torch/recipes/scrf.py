@@ -6,7 +6,9 @@ transitions), trained full-batch with Adam on the segmental log-likelihood
 with the gold segmentation as numerator, decoded with the segmental
 Viterbi.  The same seeded synthetic corpus, flags, ``metrics.jsonl`` lines
 and ``scrf_weights.npz`` as the JAX recipe, so the two runs compare line by
-line and each decodes the other's weights (``--decode_only``).
+line and each decodes the other's weights (``--decode_only``).  The Adam
+step is ``train.make_train_step``'s: one CUDA graph on the card (K9, K10
+and K11's five launches), as the JAX recipe jits it.
 
 Run:  python -m asr_craft_tpu_torch.recipes.scrf [--utts 100] [--epochs 30]
           [--device cpu]
@@ -16,6 +18,7 @@ Run:  python -m asr_craft_tpu_torch.recipes.scrf [--utts 100] [--epochs 30]
 (``auto``: kernels for CUDA tensors).
 """
 import argparse
+import contextlib
 import os
 import sys
 
@@ -26,8 +29,9 @@ from asr_craft_tpu_torch import data, kernels
 from asr_craft_tpu_torch.decode.scorer import ErrorRateScorer, score_batch
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.segmental import (SegCrfConfig,
-                                                  scrf_frame_labels,
-                                                  scrf_loss, scrf_loss_fused)
+                                                  scrf_frame_labels)
+from asr_craft_tpu_torch.train import TrainConfig, graphs, make_train_step
+from asr_craft_tpu_torch.train.trainer import scrf_loss_fn
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -110,19 +114,21 @@ def main(argv=None):
         evaluate(weights_mod.load_npz(args.decode_only, device))
         return 0
 
-    # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the root
+    # optax.adam's update (train.Optimizer), the step one CUDA graph on the
+    # card as the JAX recipe jits it; the dense oracle and the n-state
+    # numerator read lengths on the host, so they run eagerly
     params = {k: v.requires_grad_(True) for k, v in params.items()}
-    opt = torch.optim.Adam(params.values(), lr=args.lr, betas=(0.9, 0.999),
-                           eps=1e-8)
-    loss_fn = scrf_loss if args.dense_loss else scrf_loss_fused
-
-    for epoch in range(args.epochs):
-        opt.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(cfg, params, feats, labels, lengths)
-        loss.backward()
-        opt.step()
-        if epoch % 25 == 0 or epoch == args.epochs - 1:
-            logger.log("train_epoch", epoch=epoch, loss=loss.item())
+    step, opt = make_train_step(cfg, TrainConfig(optimizer="adam"),
+                                loss_fn=scrf_loss_fn(cfg, args.dense_loss))
+    opt_state = opt.init(params)
+    batch = {"feats": feats, "labels": labels, "lengths": lengths}
+    eager = args.dense_loss or args.seg_states > 1
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        for epoch in range(args.epochs):
+            *_, m = step(params, opt_state, {}, batch, args.lr)
+            if epoch % 25 == 0 or epoch == args.epochs - 1:
+                logger.log("train_epoch", epoch=epoch,
+                           loss=float(m["loss"]))
 
     params = {k: v.detach() for k, v in params.items()}
     evaluate(params)

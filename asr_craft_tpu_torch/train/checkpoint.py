@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`asr_craft_tpu.train.checkpoint`: a checkpoint is a
 directory holding ``state.pt`` (``torch.save`` of ``{params, optimizer
-state, averaged params}``) and ``meta.json`` (``step``, ``epoch``,
-``loader_state``), so ``--resume`` continues mid-training exactly.  The
+state, averaged params}``, restored in place) and ``meta.json``
+(``step``, ``epoch``, ``loader_state``), so ``--resume`` continues
+mid-training exactly.  The
 directory is replaced atomically: it is written beside the target and
 renamed into place.
 """
@@ -16,6 +17,8 @@ from typing import Dict, Optional
 
 import torch
 
+from asr_craft_tpu_torch.train.graphs import leaves, tree_map
+
 
 def save_checkpoint(path: str, trainer, loader_state: Optional[Dict] = None
                     ) -> None:
@@ -26,7 +29,8 @@ def save_checkpoint(path: str, trainer, loader_state: Optional[Dict] = None
     os.makedirs(tmp)
     torch.save({"params": {k: v.detach().cpu()
                            for k, v in trainer.params.items()},
-                "opt_state": trainer.opt.state_dict(),
+                "opt_state": tree_map(lambda t: t.detach().cpu(),
+                                      trainer.opt_state),
                 "avg_params": {k: v.detach().cpu()
                                for k, v in trainer.avg_params.items()}},
                os.path.join(tmp, "state.pt"))
@@ -45,12 +49,12 @@ def load_checkpoint(path: str, trainer) -> Dict:
         meta = json.load(f)
     state = torch.load(os.path.join(path, "state.pt"),
                        map_location=trainer.device, weights_only=True)
+    # in place: the trainer's CUDA graphs read and write these tensors
     with torch.no_grad():
-        for k, v in state["params"].items():
-            trainer.params[k].copy_(v)
-        for k, v in state["avg_params"].items():
-            trainer.avg_params[k].copy_(v)
-    trainer.opt.load_state_dict(state["opt_state"])
+        for key in ("params", "avg_params", "opt_state"):
+            for dst, src in zip(leaves(getattr(trainer, key)),
+                                leaves(state[key]), strict=True):
+                dst.copy_(src)
     trainer.step = int(meta["step"])
     trainer.epoch = int(meta["epoch"])
     return meta.get("loader_state", {})

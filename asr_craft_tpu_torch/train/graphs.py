@@ -1,0 +1,236 @@
+"""CUDA graphs of the port's steps: the counterpart of ``jax.jit``.
+
+JAX compiles a step once per input shape and runs it as one program.  Here
+a :class:`Graphed` function is captured into a ``torch.cuda.CUDAGraph`` once
+per shape and replayed, so a train step, a K-step call or a decode goes out
+as one launch instead of one launch per kernel.  The capture records the
+same Python code that runs eagerly, so the two give the same bits.
+
+- ``Graphed(fn)(bound, inputs)`` calls ``fn(bound, inputs)``.  ``bound``
+  holds the tensors the graph reads and writes where they lie (parameters,
+  optimizer state, a learning-rate tensor); ``inputs`` the tensors that
+  change from call to call (a batch), copied on the device into the graph's
+  own buffers before each replay.  Both are trees of dicts, lists and
+  tuples; a leaf that is not a tensor is a static argument.
+- The cache is keyed by the inputs' shapes and dtypes, the static leaves'
+  values, the bound tensors' addresses (so a graph only ever runs on the
+  tensors it was captured with) and the settings that choose what the
+  code launches: the kernel backend, grad mode, TF32.  It keeps
+  ``MAX_SHAPES`` graphs a function and drops the least recently used.
+- The first call of a key is the warm-up PyTorch's capture recipe asks for:
+  it runs eagerly on a side stream and returns its result.  That builds and
+  loads the kernels' library, launches every kernel of the path once (so the
+  module that the library's own CUDA runtime loads lazily is loaded outside
+  capture), fills the ``lru_cache``s and creates the optimizer's state.
+  Then the graph is captured, and later calls replay it.
+- One memory pool per owner (:class:`Pool`), shared by the owner's graphs:
+  they replay one at a time on one stream, so they may share what each
+  frees inside its own run.
+- The kernels' launch counts stay true: what a capture added to them is
+  taken back, and added again at every replay.
+- :func:`disabled`, the counterpart of ``jax.disable_jit()``: inside it
+  every Graphed function runs its eager code.  Calls on CPU tensors are
+  eager too.  Nothing else is: a capture or a replay that fails on a CUDA
+  tensor raises.
+
+Capture runs in the ``thread_local`` error mode: a trainer's prefetch thread
+pins host memory and copies batches to the card while the main thread
+captures, and the ``global`` mode would count that against the capture.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import gc
+from collections import OrderedDict
+from typing import Callable, Iterator, Optional
+
+import torch
+
+from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.kernels import (fdt_train, fdt_viterbi, fwdbwd,
+                                         segmental, viterbi)
+
+# every kernel family's launch counts (kernels/*.py ``launches``)
+COUNTS = (fdt_train.launches, fdt_viterbi.launches, viterbi.launches,
+          fwdbwd.launches, segmental.launches)
+MAX_SHAPES = 8               # the train CLI's five default buckets fit
+
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disabled() -> Iterator[None]:
+    """Run every :class:`Graphed` function eagerly inside the context (the
+    counterpart of ``jax.disable_jit()``); the contexts nest."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+def enabled() -> bool:
+    """Whether Graphed functions capture and replay (outside
+    :func:`disabled`)."""
+    return _disabled == 0
+
+
+def leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree):
+    """``tree`` with every leaf ``x`` replaced by ``fn(x)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _structure(tree):
+    """The tree's keys and nesting, without its leaves."""
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_structure(v) for v in tree)
+    return None
+
+
+def _key(bound, inputs) -> tuple:
+    def leaf(x, by_address):
+        if not isinstance(x, torch.Tensor):
+            return x
+        where = (x.data_ptr(),) if by_address else ()
+        return where + (tuple(x.shape), x.dtype, x.device)
+    # and the process-wide settings that choose what the code launches
+    return (kernels.backend(), torch.is_grad_enabled(),
+            torch.backends.cuda.matmul.allow_tf32,
+            _structure(bound), _structure(inputs),
+            tuple(leaf(x, True) for x in leaves(bound)),
+            tuple(leaf(x, False) for x in leaves(inputs)))
+
+
+def on_cuda(*trees) -> bool:
+    """Whether any tensor leaf of ``trees`` lies on a CUDA device."""
+    return any(isinstance(x, torch.Tensor) and x.is_cuda
+               for t in trees for x in leaves(t))
+
+
+class Pool:
+    """The memory pool one owner's graphs share, made at first use."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
+class _Entry:
+    __slots__ = ("graph", "inputs", "outputs", "launches")
+
+    def __init__(self, graph, inputs, outputs, launches):
+        self.graph, self.inputs = graph, inputs
+        self.outputs, self.launches = outputs, launches
+
+
+def _counts() -> list:
+    return [dict(c) for c in COUNTS]
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device):
+    """The warm-ups' stream on ``device``: one for every graph, since each
+    stream a cuBLAS call meets keeps a workspace of its own."""
+    return torch.cuda.Stream(device)
+
+
+class Graphed:
+    """``fn(bound, inputs)`` captured once per key and replayed (see the
+    module's docstring).  The result is the caller's own: tensors copied
+    out of the graph's outputs, which the next replay overwrites."""
+
+    def __init__(self, fn: Callable, pool: Optional[Pool] = None,
+                 name: Optional[str] = None):
+        self.fn = fn
+        self.pool = pool if pool is not None else Pool()
+        self.name = name or getattr(fn, "__name__", "graph")
+        self._cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    def __call__(self, bound, inputs):
+        if not enabled() or not on_cuda(bound, inputs):
+            return self.fn(bound, inputs)
+        key = _key(bound, inputs)
+        entry = self._cache.get(key)
+        if entry is None:
+            return self._warm_up_and_capture(key, bound, inputs)
+        self._cache.move_to_end(key)
+        src = [x for x in leaves(inputs) if isinstance(x, torch.Tensor)]
+        for dst, x in zip(entry.inputs, src):
+            dst.copy_(x)
+        entry.graph.replay()
+        for counts, name, n in entry.launches:
+            counts[name] += n
+        return tree_map(_clone, entry.outputs)
+
+    def _warm_up_and_capture(self, key, bound, inputs):
+        device = next(x.device for x in leaves((bound, inputs))
+                      if isinstance(x, torch.Tensor) and x.is_cuda)
+        here = torch.cuda.current_stream(device)
+        side = _side_stream(device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            result = self.fn(bound, inputs)
+        here.wait_stream(side)
+        static = tree_map(_clone, inputs)
+        graph = torch.cuda.CUDAGraph()
+        before = _counts()
+        # Dead graphs (a step and its graphs form a reference cycle) are
+        # destroyed now and not by a collection inside the capture, where
+        # destroying a graph invalidates the capture.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # torch.cuda.graph synchronises the device before it captures,
+            # so the warm-up's tensors are no longer in use on ``side``
+            with torch.cuda.graph(graph, pool=self.pool.handle(),
+                                  capture_error_mode="thread_local"):
+                outputs = self.fn(bound, static)
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of {self.name} failed (no eager "
+                "fallback: run it inside graphs.disabled() to take the "
+                f"eager path): {exc}") from exc
+        finally:
+            if collecting:
+                gc.enable()
+            after = _counts()
+            for counts, old in zip(COUNTS, before):
+                counts.update(old)
+        launches = [(counts, k, after[i][k] - before[i][k])
+                    for i, counts in enumerate(COUNTS) for k in counts
+                    if after[i][k] != before[i][k]]
+        self._cache[key] = _Entry(
+            graph, [x for x in leaves(static) if isinstance(x, torch.Tensor)],
+            outputs, launches)
+        while len(self._cache) > MAX_SHAPES:
+            self._cache.popitem(last=False)
+        return result

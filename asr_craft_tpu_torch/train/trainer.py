@@ -10,12 +10,18 @@ norm of the gradient; per-epoch weight files and CV evaluation (frame
 accuracy and PER).  Step metrics stay device tensors and are fetched once
 at epoch end, so the host never waits on the card inside an epoch.
 
-PyTorch runs eagerly, so ``steps_per_call > 1`` runs its K steps one by
-one: the same numbers as the JAX package's fused ``lax.scan`` (a CUDA graph
-of K steps is later work).
+:func:`make_train_step` is the counterpart of the JAX package's jitted
+steps: the step, ``grad_step`` / ``apply_step`` and ``multi_step`` (K
+steps in one call, ``lax.scan``'s counterpart) are CUDA graphs on the card
+(:mod:`asr_craft_tpu_torch.train.graphs`), one a batch shape, replayed;
+the same code runs eagerly on the CPU, under :func:`graphs.disabled`,
+``--debug_nans`` and ``check_sync_every``.  ``steps_per_call`` groups
+same-shape batches into one ``multi_step`` replay, as the JAX trainer
+groups them into one ``lax.scan``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -26,8 +32,10 @@ import torch
 
 from asr_craft_tpu_torch.decode.scorer import ErrorRateScorer, score_batch
 from asr_craft_tpu_torch.models import crf as crf_mod
+from asr_craft_tpu_torch.models import segmental as seg_mod
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.train import graphs
 from asr_craft_tpu_torch.utils import diagnostics
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
@@ -46,7 +54,7 @@ class TrainConfig:
     weight_avg: bool = False        # Polyak averaging of lambdas
     avg_decay: float = 0.999
     accum_steps: int = 1            # micro-batches summed per update
-    steps_per_call: int = 1         # run one by one (see the module doc)
+    steps_per_call: int = 1         # steps a multi_step call (one graph)
     log_every: int = 50
     frame_shift_s: float = 0.01     # 10ms frames: audio-seconds metric
     out_dir: Optional[str] = None   # per-epoch weight files + metrics.jsonl
@@ -55,54 +63,85 @@ class TrainConfig:
     prefetch: int = 2               # background batch-assembly depth
 
 
-class Adagrad(torch.optim.Optimizer):
-    """``optax.adagrad``'s update, which ``torch.optim.Adagrad`` does not
-    give: the accumulator starts at ``initial_accumulator_value`` (0.1) and
-    ``eps`` sits inside the root, ``p -= lr * g / sqrt(acc + g^2 + eps)``."""
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8       # optax.adam's defaults
+ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7               # optax.adagrad's
 
-    def __init__(self, params, lr: float = 1.0,
-                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
-        super().__init__(params, dict(
-            lr=lr, initial_accumulator_value=initial_accumulator_value,
-            eps=eps))
+
+class Optimizer:
+    """One optimizer update over device tensors, the same for the eager
+    step and its CUDA graph, so the two give the same bits.  The updates
+    are optax's: ``sgd`` (``momentum``: ``optax.trace``), ``adam`` (b1 0.9,
+    b2 0.999, eps 1e-8 outside the root; the step count a device tensor)
+    and ``adagrad`` (``optax.scale_by_rss``: the accumulator starts at 0.1,
+    eps 1e-7 inside the root), ``l2`` added to the gradient first
+    (``optax.add_decayed_weights``), then ``params -= lr * update``.
+
+    ``torch.optim`` is not used: ``SGD`` with a tensor lr reads it back to
+    the host, ``Adam`` captures only with ``capturable=True``, and an
+    lr kept in ``param_groups`` is a Python float baked into a graph."""
+
+    def __init__(self, kind: str, lr: float = 1.0, momentum: float = 0.0,
+                 l2: float = 0.0):
+        if kind not in ("sgd", "adam", "adagrad"):
+            raise ValueError(f"unknown optimizer {kind!r}")
+        self.kind, self.lr, self.momentum, self.l2 = kind, lr, momentum, l2
+
+    def init(self, params: dict) -> dict:
+        """The optimizer's state for ``params``: a dict of tensors beside
+        them (empty for plain SGD)."""
+        zeros = lambda: {k: torch.zeros_like(p.detach())
+                         for k, p in params.items()}
+        if self.kind == "adam":
+            dev = next(iter(params.values())).device
+            return {"mu": zeros(), "nu": zeros(),
+                    "count": torch.zeros((), device=dev)}
+        if self.kind == "adagrad":
+            return {"sum": {k: torch.full_like(p.detach(), ADAGRAD_INIT)
+                            for k, p in params.items()}}
+        return {"trace": zeros()} if self.momentum else {}
 
     @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["sum"] = torch.full_like(
-                        p, group["initial_accumulator_value"])
-                acc = state["sum"]
-                acc.add_(p.grad * p.grad)
-                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
-                                    0.0)
-                p.sub_(group["lr"] * p.grad * scale)
+    def update(self, grads: dict, state: dict, params: dict,
+               lr=None) -> None:
+        """Apply one update to ``params`` and ``state`` in place; ``lr``: a
+        number or a 0-d tensor on the params' device (default: the
+        optimizer's own)."""
+        lr = self.lr if lr is None else lr
+        if self.kind == "adam":
+            state["count"].add_(1.0)
+            bc1 = 1.0 - ADAM_B1 ** state["count"]
+            bc2 = 1.0 - ADAM_B2 ** state["count"]
+        for k, p in params.items():
+            g = grads[k]
+            if self.l2:
+                g = g + self.l2 * p
+            if self.kind == "adam":
+                mu, nu = state["mu"][k], state["nu"][k]
+                mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+                nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+                u = (mu / bc1) / ((nu / bc2).sqrt() + ADAM_EPS)
+            elif self.kind == "adagrad":
+                acc = state["sum"][k]
+                acc.addcmul_(g, g)
+                u = torch.where(acc > 0, torch.rsqrt(acc + ADAGRAD_EPS),
+                                0.0) * g
+            elif self.momentum:
+                u = state["trace"][k].mul_(self.momentum).add_(g)
+            else:
+                u = g
+            p.sub_(u * lr)
 
 
-def make_optimizer(tc: TrainConfig, params, epoch: int = 0):
-    """The optimizer of ``tc`` over ``params`` (a dict of leaf tensors) at
-    the schedule value of ``epoch``.  ``sgd`` / momentum and ``adam`` are
-    ``torch.optim``'s (the same updates as ``optax.sgd`` / ``optax.adam``);
-    ``adagrad`` is :class:`Adagrad`.  ``l2`` is added to the gradient by
-    the trainer (``optax.add_decayed_weights`` before the optimizer)."""
-    lr = tc.lr * (tc.lr_decay ** epoch)
-    leaves = list(params.values())
-    if tc.optimizer == "sgd":
-        return torch.optim.SGD(leaves, lr=lr, momentum=tc.momentum)
-    if tc.optimizer == "adam":
-        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    if tc.optimizer == "adagrad":
-        return Adagrad(leaves, lr=lr)
+def make_optimizer(tc: TrainConfig, epoch: int = 0) -> Optimizer:
+    """The optimizer of ``tc`` at the schedule value of ``epoch``, as the
+    JAX ``make_optimizer`` builds it (``l2`` included)."""
     if tc.optimizer == "lbfgs":
         raise NotImplementedError(
             "optimizer 'lbfgs' (optax.scale_by_lbfgs without line search) "
             "has no torch.optim counterpart with the same numbers; it is "
             "not ported yet (ROADMAP.md Queue 1, slice 2, still open)")
-    raise ValueError(f"unknown optimizer {tc.optimizer!r}")
+    return Optimizer(tc.optimizer, tc.lr * (tc.lr_decay ** epoch),
+                     tc.momentum, tc.l2)
 
 
 # batch dict keys moved to the device for the steps
@@ -181,9 +220,164 @@ def _batch_sparse(batch):
     return None
 
 
-def make_eval_step(cfg: CrfConfig, label_kind: str = "phone") -> Callable:
+def crf_loss_fn(cfg: CrfConfig, label_kind: str = "phone") -> Callable:
+    """``loss_fn(params, batch) -> (loss, aux)``: :func:`crf_loss` of a
+    loader batch, the criterion :func:`make_train_step` takes by
+    default."""
+    def loss_fn(params, batch):
+        return crf_mod.crf_loss(cfg, params, batch.get("feats"),
+                                batch["labels"], batch["lengths"],
+                                sparse=_batch_sparse(batch),
+                                label_kind=label_kind)
+    return loss_fn
+
+
+def scrf_loss_fn(cfg: seg_mod.SegCrfConfig, dense: bool = False
+                 ) -> Callable:
+    """``loss_fn(params, batch) -> (loss, aux)`` of the segmental CRF
+    (``models.segmental.scrf_loss_fused``; ``dense``: the materialized
+    oracle ``scrf_loss``, whose numerator reads lengths on the host and so
+    runs only eagerly), with the frames the step's metrics count."""
+    loss = seg_mod.scrf_loss if dense else seg_mod.scrf_loss_fused
+
+    def loss_fn(params, batch):
+        value, aux = loss(cfg, params, batch["feats"], batch["labels"],
+                          batch["lengths"])
+        return value, {"logZ": aux["logZ"],
+                       "frames": batch["lengths"].sum().clamp(min=1)}
+    return loss_fn
+
+
+def _global_norm(grads: dict):
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads.values()]))
+
+
+class TrainStep:
+    """The compiled step of :func:`make_train_step`, with the JAX
+    ``_StepFns``' names.  Each function updates the tensors it is given in
+    place and returns them, and each is a :class:`graphs.Graphed` on the
+    card: one CUDA graph a batch shape, replayed; the eager code on the CPU
+    and inside :func:`graphs.disabled`.
+
+    - ``step(params, opt_state, avg_params, batch, lr) -> (params,
+      opt_state, avg_params, metrics)``: loss, gradient, update, average;
+      metrics ``loss``, ``grad_norm``, ``mean_logZ``, ``frames``.
+    - ``grad_step(params, grad_acc, batch) -> (grad_acc, metrics)``: adds
+      one micro-batch's gradient into ``grad_acc`` (``accum_steps``).
+    - ``apply_step(params, opt_state, avg_params, grad_acc, lr) -> (params,
+      opt_state, avg_params)``: applies ``grad_acc`` and zeroes it in
+      place, ready for the next accumulation.
+    - ``multi_step(params, opt_state, avg_params, batches, lr)``: K steps on
+      a list of K same-shape batches in one graph, the counterpart of
+      ``lax.scan``; metrics with a leading (K,) axis.
+
+    ``params`` are leaf tensors that require grad.  ``lr`` is a number,
+    held on the device in a 0-d tensor that is refilled when it changes,
+    so the graphs read the schedule's value without being captured
+    again."""
+
+    def __init__(self, loss_fn: Callable, opt: Optimizer, tc: TrainConfig):
+        self.loss_fn, self.opt, self.tc = loss_fn, opt, tc
+        pool = graphs.Pool()
+        self._step = graphs.Graphed(self._step_impl, pool, "train step")
+        self._grad = graphs.Graphed(self._grad_impl, pool, "grad_step")
+        self._apply = graphs.Graphed(self._apply_impl, pool, "apply_step")
+        self._multi = graphs.Graphed(self._multi_impl, pool, "multi_step")
+        self._lr = {}                       # device -> (0-d tensor, value)
+
+    def _lr_tensor(self, lr: float, params: dict):
+        dev = next(iter(params.values())).device
+        t, value = self._lr.get(dev, (None, None))
+        if t is None:
+            t = torch.zeros((), device=dev)
+        if value != lr:
+            t.fill_(lr)
+            self._lr[dev] = (t, lr)
+        return t
+
+    def _grads(self, params: dict, batch: dict):
+        loss, aux = self.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
+        return loss.detach(), aux, dict(zip(params, grads))
+
+    def _average(self, avg_params: dict, params: dict) -> None:
+        if self.tc.weight_avg:
+            d = self.tc.avg_decay
+            for k, p in params.items():
+                avg_params[k].mul_(d).add_(p, alpha=1 - d)
+
+    def _step_impl(self, bound, batch):
+        params, opt_state, avg_params, lr = bound
+        loss, aux, grads = self._grads(params, batch)
+        with torch.no_grad():
+            grad_norm = _global_norm(grads)
+            self.opt.update(grads, opt_state, params, lr)
+            self._average(avg_params, params)
+        return {"loss": loss, "grad_norm": grad_norm,
+                "mean_logZ": aux["logZ"].detach().mean(),
+                "frames": aux["frames"]}
+
+    def _grad_impl(self, bound, batch):
+        params, grad_acc = bound
+        loss, aux, grads = self._grads(params, batch)
+        with torch.no_grad():
+            for k, g in grads.items():
+                grad_acc[k].add_(g)
+        return {"loss": loss, "frames": aux["frames"],
+                "mean_logZ": aux["logZ"].detach().mean()}
+
+    @torch.no_grad()
+    def _apply_impl(self, bound, _):
+        params, opt_state, avg_params, grad_acc, lr = bound
+        self.opt.update(grad_acc, opt_state, params, lr)
+        self._average(avg_params, params)
+        for g in grad_acc.values():
+            g.zero_()
+        return {}
+
+    def _multi_impl(self, bound, batches):
+        ms = [self._step_impl(bound, b) for b in batches]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    def __call__(self, params, opt_state, avg_params, batch, lr):
+        m = self._step((params, opt_state, avg_params,
+                        self._lr_tensor(lr, params)), batch)
+        return params, opt_state, avg_params, m
+
+    def grad_step(self, params, grad_acc, batch):
+        return grad_acc, self._grad((params, grad_acc), batch)
+
+    def apply_step(self, params, opt_state, avg_params, grad_acc, lr):
+        self._apply((params, opt_state, avg_params, grad_acc,
+                     self._lr_tensor(lr, params)), None)
+        return params, opt_state, avg_params
+
+    def multi_step(self, params, opt_state, avg_params, batches, lr):
+        m = self._multi((params, opt_state, avg_params,
+                         self._lr_tensor(lr, params)), list(batches))
+        return params, opt_state, avg_params, m
+
+
+def make_train_step(cfg: CrfConfig, tc: TrainConfig,
+                    label_kind: str = "phone",
+                    loss_fn: Optional[Callable] = None):
+    """``(step, opt)``: the compiled :class:`TrainStep` of ``tc`` and its
+    optimizer built at lr 1 (``opt.init(params)`` makes the state), as the
+    JAX ``make_train_step`` returns them.  The step's updates are scaled by
+    the ``lr`` of each call (the epoch's schedule value).  ``loss_fn(params,
+    batch) -> (loss, aux)`` with ``aux["logZ"]`` and ``aux["frames"]``
+    replaces ``cfg``'s criterion (the segmental recipe passes its own)."""
+    opt = make_optimizer(dataclasses.replace(tc, lr=1.0))
+    return TrainStep(loss_fn or crf_loss_fn(cfg, label_kind), opt, tc), opt
+
+
+def make_eval_step(cfg: CrfConfig, label_kind: str = "phone"):
     """``eval_step(params, batch)``: loss, correct / valid frame counts and
-    the decoded phones, all device tensors."""
+    the decoded phones, all device tensors; one CUDA graph a batch shape on
+    the card (:class:`graphs.Graphed`: the loss and the decode, K1 and K3
+    at config 2, K4, K7 or K8 and the traceback at configs 1, 3, 5)."""
     @torch.no_grad()
     def eval_step(params, batch):
         sparse = _batch_sparse(batch)
@@ -201,7 +395,7 @@ def make_eval_step(cfg: CrfConfig, label_kind: str = "phone") -> Callable:
         return {"loss": loss, "correct": ((phones == ref) & valid).sum(),
                 "valid": valid.sum(), "phones": phones,
                 "frames": aux["frames"]}
-    return eval_step
+    return graphs.Graphed(eval_step, name="eval step")
 
 
 class Trainer:
@@ -209,7 +403,10 @@ class Trainer:
 
     ``params``: a dict of tensors (copied into leaves that require grad),
     or None for the reference's zero start on ``device``, the card unless
-    asked for the CPU (it raises without one)."""
+    asked for the CPU (it raises without one).  The steps run through
+    :func:`make_train_step` and :func:`make_eval_step`: CUDA graphs on the
+    card, eager under ``--debug_nans`` (its checks read the device) and
+    ``check_sync_every``, and on the CPU."""
 
     def __init__(self, cfg: CrfConfig, tc: TrainConfig,
                  params: Optional[dict] = None, label_kind: str = "phone",
@@ -226,10 +423,12 @@ class Trainer:
         self.params = {k: v.detach().clone().to(device or v.device)
                        .requires_grad_(True) for k, v in params.items()}
         self.device = next(iter(self.params.values())).device
-        self.opt = make_optimizer(tc, self.params)
+        self.step_fn, self.opt = make_train_step(cfg, tc, label_kind)
+        self.opt_state = self.opt.init(self.params)
         self.eval_fn = make_eval_step(cfg, label_kind)
         self.avg_params = {k: v.detach().clone()
                            for k, v in self.params.items()}
+        self.grad_acc = None              # made at the first grad_step
         self.step = 0
         self.epoch = 0
         self.logger = logger or MetricsLogger(
@@ -238,73 +437,120 @@ class Trainer:
     def current_lr(self) -> float:
         return self.tc.lr * (self.tc.lr_decay ** self.epoch)
 
-    def loss(self, batch: dict):
-        return crf_mod.crf_loss(self.cfg, self.params, batch.get("feats"),
-                                batch["labels"], batch["lengths"],
-                                sparse=_batch_sparse(batch),
-                                label_kind=self.label_kind)
+    def _eager(self):
+        """Eager steps where the run reads the device between them:
+        ``--debug_nans`` and ``check_sync_every``; else the graphs."""
+        if diagnostics.debug_nans_enabled() or self.tc.check_sync_every:
+            return graphs.disabled()
+        return contextlib.nullcontext()
 
-    def grad_step(self, batch: dict) -> dict:
-        """Add one micro-batch's gradient into the params' ``.grad``."""
-        loss, aux = self.loss(batch)
-        if diagnostics.debug_nans_enabled():
-            diagnostics.check_finite("train step", self.step, loss=loss)
+    def _checked(self, fn, *args):
+        """``fn(*args)``; under ``--debug_nans`` autograd's anomaly error
+        becomes a ``FloatingPointError`` naming the step."""
+        with self._eager():
+            if not diagnostics.debug_nans_enabled():
+                return fn(*args)
             try:
-                loss.backward()
+                return fn(*args)
             except RuntimeError as e:      # autograd's anomaly detection
                 if "nan" not in str(e).lower():
                     raise
                 raise FloatingPointError(
                     f"train step: {e} at step {self.step} "
                     "(--debug_nans)") from e
-        else:
-            loss.backward()
-        return {"loss": loss.detach(), "frames": aux["frames"],
-                "mean_logZ": aux["logZ"].detach().mean()}
 
-    @torch.no_grad()
+    def _check_finite(self, m: dict) -> None:
+        """Under ``--debug_nans``: raise naming the step unless the loss,
+        the gradient norm (where ``m`` has one) and, after an update, the
+        parameters are finite (a kernel's guards can swallow a NaN)."""
+        if not diagnostics.debug_nans_enabled():
+            return
+        values = {k: m[k] for k in ("loss", "grad_norm") if k in m}
+        if "grad_norm" in m:
+            values["params"] = torch.stack([
+                torch.linalg.vector_norm(p.detach())
+                for p in self.params.values()])
+        diagnostics.check_finite("train step", self.step, **values)
+
+    def grad_step(self, batch: dict) -> dict:
+        """Add one micro-batch's gradient into ``grad_acc``."""
+        if self.grad_acc is None:
+            self.grad_acc = {k: torch.zeros_like(p.detach())
+                             for k, p in self.params.items()}
+        _, m = self._checked(self.step_fn.grad_step, self.params,
+                             self.grad_acc, batch)
+        self._check_finite(m)
+        return m
+
     def apply_step(self, lr: float) -> None:
-        """Apply the gradient in ``.grad`` scaled by ``lr`` (``l2`` added
-        first), update the average, and clear the gradient."""
-        if self.tc.l2:
-            for p in self.params.values():
-                p.grad.add_(p, alpha=self.tc.l2)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
-        if self.tc.weight_avg:
-            d = self.tc.avg_decay
-            for k, p in self.params.items():
-                self.avg_params[k].mul_(d).add_(p, alpha=1 - d)
-        for p in self.params.values():
-            p.grad = None
+        """Apply ``grad_acc`` scaled by ``lr`` (``l2`` added first), update
+        the average, and zero ``grad_acc``."""
+        self._checked(self.step_fn.apply_step, self.params, self.opt_state,
+                      self.avg_params, self.grad_acc, lr)
 
     def train_step(self, batch: dict, lr: float) -> dict:
         """One optimizer step on one batch; metrics as device tensors."""
-        m = self.grad_step(batch)
-        grads = [p.grad for p in self.params.values()]
-        m["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        if diagnostics.debug_nans_enabled():
-            diagnostics.check_finite(
-                "train step", self.step, grad_norm=m["grad_norm"],
-                params=torch.stack([torch.linalg.vector_norm(p.detach())
-                                    for p in self.params.values()]))
-        self.apply_step(lr)
+        *_, m = self._checked(self.step_fn, self.params, self.opt_state,
+                              self.avg_params, batch, lr)
+        self._check_finite(m)
+        return m
+
+    def multi_step(self, batches: list, lr: float) -> dict:
+        """``len(batches)`` optimizer steps in one call (one graph on the
+        card); metrics with a leading (K,) axis."""
+        *_, m = self._checked(self.step_fn.multi_step, self.params,
+                              self.opt_state, self.avg_params, batches, lr)
+        self._check_finite(m)
         return m
 
     def train_epoch(self, loader, put: Optional[Callable] = None) -> Dict:
         """One epoch over ``loader.epoch_batches()``.  ``put``: optional
         batch placement (default: :func:`to_device` on the params'
-        device)."""
+        device).  With ``steps_per_call`` K > 1 (and no accumulation),
+        same-shape batches go K at a time through :meth:`multi_step`; a
+        shape change and the epoch's end flush a shorter group, as the JAX
+        trainer does."""
         t_start = time.time()
         losses, frame_counts = [], []    # device tensors; fetched at the end
         lr = self.current_lr()
         accum = max(1, self.tc.accum_steps)
+        spc = max(1, self.tc.steps_per_call)
         n_acc = 0
+        pending = []                     # same-shape batches for one call
+
+        def flush_pending():
+            nonlocal pending
+            if not pending:
+                return
+            with diagnostics.step_annotation("train", self.step):
+                if len(pending) == 1:
+                    m = self.train_step(pending[0], lr)
+                    ms = {k: v.reshape(1) for k, v in m.items()}
+                else:
+                    ms = self.multi_step(pending, lr)
+            k, pending = len(pending), []
+            losses.append(ms["loss"])
+            frame_counts.append(ms["frames"])
+            for i in range(k):
+                self.step += 1
+                if self.step % self.tc.log_every == 0:
+                    self.logger.log(
+                        "train_step", step=self.step, epoch=self.epoch,
+                        loss=float(ms["loss"][i]),
+                        grad_norm=float(ms["grad_norm"][i]),
+                        mean_logZ=float(ms["mean_logZ"][i]))
+
         convert = put or (lambda b: to_device(b, self.device))
         for batch in _prefetch(loader.epoch_batches(self.epoch), convert,
                                self.tc.prefetch):
+            if spc > 1 and accum == 1:
+                if pending and pending[-1]["feats"].shape != \
+                        batch["feats"].shape:
+                    flush_pending()       # bucket boundary: a new shape
+                pending.append(batch)
+                if len(pending) == spc:
+                    flush_pending()
+                continue
             with diagnostics.step_annotation("train", self.step):
                 if accum == 1:
                     m = self.train_step(batch, lr)
@@ -325,6 +571,7 @@ class Trainer:
                                 epoch=self.epoch, loss=float(m["loss"]),
                                 grad_norm=float(m.get("grad_norm", 0.0)),
                                 mean_logZ=float(m["mean_logZ"]))
+        flush_pending()                   # the epoch's last, shorter group
         if n_acc:
             # trailing partial accumulation at epoch end
             self.apply_step(lr / n_acc)
@@ -358,7 +605,8 @@ class Trainer:
         losses, correct, valid = [], 0, 0
         scorer = ErrorRateScorer()
         for batch in loader.epoch_batches(0):
-            m = self.eval_fn(self.params, to_device(batch, self.device))
+            with self._eager():
+                m = self.eval_fn(self.params, to_device(batch, self.device))
             losses.append(float(m["loss"]))
             correct += int(m["correct"])
             valid += int(m["valid"])

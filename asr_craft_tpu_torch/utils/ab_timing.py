@@ -34,6 +34,14 @@ minimum of two runs of a few calls each:
   step's and the decodes' device-busy ms and share a call and the kernels
   a call launches.  Names ending in "device" are a kernel's device ms from
   a trace of ten calls (``launch_ms``).
+Each path (the config-2 step, its 8 steps in one call, ``decode()`` at
+configs 2, 1, 3, 5, the shared steps at configs 1, 3, 5, the config-4
+step and ``scrf_decode``) is timed as the checkout runs it (CUDA graphs
+where it has ``train.graphs``) and again eagerly (inside
+``graphs.disabled()``; the same code in a checkout without graphs), each
+with its trace (:func:`trace`: wall and device-busy ms a call, the busy
+share, kernels a call and host launches a call); "x8" rows are a call of
+eight steps (``Trainer.multi_step``, or eight ``train_step`` calls).
 ``--only`` times the groups named (``fdt``, ``viterbi``, ``shared``,
 ``segmental``: the four items above, in order) and no other.  It prints one
 JSON line a turn and, last, the card and every turn's times and traces;
@@ -44,11 +52,16 @@ wrapper's return value runs too.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 
+PATHS = ("train step", "train step x8", "decode", "decode config1",
+         "decode config3", "decode config5", "shared step config1",
+         "shared step config3", "shared step config5", "scrf step",
+         "scrf_decode")
 NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
          "K3 traceback device", "K3 traceback after fwd device",
          "K3 traceback in decode device",
@@ -63,7 +76,10 @@ NAMES = ("K1", "K2", "train step", "K3 forward", "decode",
          "K4 config5", "K5 config5", "shared step config5",
          "K6a config5", "K6b config5", "K14 config5",
          "K9", "K10", "K11", "K12", "K13", "K13 device",
-         "K13 in scrf_decode device", "scrf step", "scrf_decode")
+         "K13 in scrf_decode device", "scrf step", "scrf_decode",
+         "train step x8", "K4 config3", "K5 config3",
+         "shared step config3") + tuple(
+             f"{p} eager" for p in PATHS)
 # (name, beam_threshold, beam_width) of the shared-transition forwards
 VITERBI_RUNS = {
     "config1": (("K7 config1", None, None), ("K7 config1 thr8", 8.0, None),
@@ -72,8 +88,12 @@ VITERBI_RUNS = {
     "config5": (("K7 config5", None, None), ("K8 config5", None, None),
                 ("K8 config5 thr8", 8.0, None), ("K8 config5 bw16", None, 16)),
 }
-TRACED = ("decode", "decode config1", "decode config3", "decode config5",
-          "scrf step", "scrf_decode")
+TRACED = PATHS + tuple(f"{p} eager" for p in PATHS)
+# the host's calls that put work on the device, as a trace names them
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync", "cuMemcpyAsync",
+               "cuMemsetD8Async", "cuMemsetD32Async")
 FDT_TB, SEG_TB = "fdt_vit_tb_kernel", "seg_traceback_kernel"
 
 
@@ -118,11 +138,69 @@ def launch_ms(dev, fn, match, reps=10):
     raise RuntimeError(f"three traces hold no launch of {match}")
 
 
-def _trace(dev, fn) -> dict | None:
-    from asr_craft_tpu_torch.bench import device_busy
-    rec = device_busy(fn, dev, 5)
-    return None if rec is None else {
-        k: rec[k] for k in ("wall_ms", "busy_ms", "pct", "kernels")}
+def trace(dev, fn, reps=5) -> dict | None:
+    """``{"wall_ms", "busy_ms", "pct", "kernels", "host_launches"}`` a
+    call of ``fn``: ``reps`` calls traced with ``torch.profiler`` after
+    one untraced call; the wall time, the device's busy time and share,
+    the kernels the device ran and the launch calls the host made
+    (``LAUNCH_APIS``: one ``cudaGraphLaunch`` for a captured call).  None
+    where the trace holds no device time.  Its own, not the checkout's
+    ``bench.device_busy``: it times checkouts from before host launches
+    were counted."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.device_time_total > 0]
+    if not kernels:
+        return None
+    busy = sum(e.device_time_total for e in kernels) / reps / 1e3
+    return {"wall_ms": round(wall, 4), "busy_ms": round(busy, 4),
+            "pct": round(100.0 * busy / wall, 1),
+            "kernels": sum(e.count for e in kernels) / reps,
+            "host_launches": sum(e.count for e in events
+                                 if e.key in LAUNCH_APIS) / reps}
+
+
+def _eager():
+    """``graphs.disabled()`` where the checkout has the graphs; nothing in
+    a checkout that runs every path eagerly."""
+    try:
+        from asr_craft_tpu_torch.train import graphs
+    except ImportError:
+        return contextlib.nullcontext()
+    return graphs.disabled()
+
+
+def _captured(fn, name):
+    """``fn(bound, inputs)`` as the checkout captures it
+    (``graphs.Graphed``), or ``fn`` itself in a checkout without graphs."""
+    try:
+        from asr_craft_tpu_torch.train import graphs
+    except ImportError:
+        return fn
+    return graphs.Graphed(fn, name=name)
+
+
+def _path(torch, dev, out, traces, name, fn, reps):
+    """Time and trace ``fn`` as the checkout runs it, then eagerly."""
+    out[name] = _ms(torch, fn, reps)
+    traces[name] = trace(dev, fn)
+    with _eager():
+        out[f"{name} eager"] = _ms(torch, fn, reps)
+        traces[f"{name} eager"] = trace(dev, fn)
 
 
 def _viterbi(torch, dev) -> dict:
@@ -156,8 +234,11 @@ def _viterbi(torch, dev) -> dict:
         def dec():
             return decode(cfg, params, feats, lengths)
 
-        out[f"decode {key}"] = _ms(torch, dec, 10)
-        traces[f"decode {key}"] = _trace(dev, dec)
+        captured = _captured(
+            lambda p, b: decode(cfg, p, b["feats"], b["lengths"]), "decode")
+        inputs = {"feats": feats, "lengths": lengths}
+        _path(torch, dev, out, traces, f"decode {key}",
+              lambda: captured(params, inputs), 10)
         bp, last, _ = (KV.viterbi_nstate_fwd(state, trans, lengths, ns)
                        if ns > 1 else
                        KV.viterbi_dense_fwd(state, trans, lengths))
@@ -170,14 +251,16 @@ def _viterbi(torch, dev) -> dict:
 
 
 def _shared(torch, dev) -> dict:
-    """K4, K5 and a train step at configs 1 and 5; K6a, K6b, K14 at 5."""
+    """K4, K5 and a train step at configs 1, 3 and 5; K6a, K6b, K14 at
+    5."""
     from asr_craft_tpu_torch import flagship
     from asr_craft_tpu_torch.kernels import fwdbwd as K
     from asr_craft_tpu_torch.models.crf import apply_boundaries, potentials
     from asr_craft_tpu_torch.train import TrainConfig, Trainer
 
-    out = {}
+    out, traces = {}, {}
     for key, cfg in (("config1", flagship.timit_mono()),
+                     ("config3", flagship.wsj_crandem()),
                      ("config5", flagship.swbd())):
         params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
         batch = flagship.tiny_batch(cfg, 128, 512, 0, dev)
@@ -196,8 +279,8 @@ def _shared(torch, dev) -> dict:
                                10)
         out[f"K5 {key}"] = _ms(
             torch, lambda: K.backward_dual_grad_cuda(*dual, *grad_in, ns), 10)
-        out[f"shared step {key}"] = _ms(
-            torch, lambda: trainer.train_step(batch, 0.03), 5)
+        _path(torch, dev, out, traces, f"shared step {key}",
+              lambda: trainer.train_step(batch, 0.03), 5)
         if key == "config5":
             single = (state, trans, lengths)
             out["K6a config5"] = _ms(torch, lambda: K.forward_cuda(*single),
@@ -206,6 +289,7 @@ def _shared(torch, dev) -> dict:
                                      10)
             out["K14 config5"] = _ms(
                 torch, lambda: K.backward_dual_cuda(*dual, ns), 10)
+    out["_traces"] = traces
     return out
 
 
@@ -231,21 +315,39 @@ def _segmental(torch, dev) -> dict:
     deltas, arg_d, lab0, _ = K.segmental_viterbi_cuda(*args)
     tb_in = (deltas, arg_d, args[1], lab0, lengths)
     p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    opt = torch.optim.SGD(p.values(), lr=0.05)
+    try:                        # the checkout's compiled step, SGD at 0.05
+        from asr_craft_tpu_torch.train import TrainConfig, make_train_step
+        from asr_craft_tpu_torch.train.trainer import scrf_loss_fn
+    except ImportError:
+        opt = torch.optim.SGD(p.values(), lr=0.05)
 
-    def step():
-        opt.zero_grad(set_to_none=True)
-        loss, _ = scrf_loss_fused(cfg, p, batch["feats"], batch["labels"],
-                                  lengths)
-        loss.backward()
-        opt.step()
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss, _ = scrf_loss_fused(cfg, p, batch["feats"],
+                                      batch["labels"], lengths)
+            loss.backward()
+            opt.step()
+    else:
+        train, opt = make_train_step(cfg, TrainConfig(lr=0.05),
+                                     loss_fn=scrf_loss_fn(cfg))
+        opt_state = opt.init(p)
+
+        def step():
+            train(p, opt_state, {}, batch, 0.05)
 
     def decode():
         return scrf_decode(cfg, p, batch["feats"], lengths)
 
+    captured = _captured(lambda q, b: scrf_decode(cfg, q, b["feats"],
+                                                  b["lengths"]),
+                         "scrf_decode")
+    inputs = {"feats": batch["feats"], "lengths": lengths}
+    out, traces = {}, {}
+    _path(torch, dev, out, traces, "scrf step", step, 5)
+    _path(torch, dev, out, traces, "scrf_decode",
+          lambda: captured(p, inputs), 10)
     return {
-        "_traces": {"scrf step": _trace(dev, step),
-                    "scrf_decode": _trace(dev, decode)},
+        **out, "_traces": traces,
         "K9": _ms(torch, lambda: K.segmental_forward_cuda(*args), 10),
         "K10": _ms(torch, lambda: K.segmental_backward_cuda(*args), 10),
         "K11": _ms(torch, lambda: K.segmental_grad_cuda(*args, *grad_in),
@@ -256,8 +358,6 @@ def _segmental(torch, dev) -> dict:
         "K13 device": launch_ms(
             dev, lambda: K.segmental_viterbi_traceback_cuda(*tb_in), SEG_TB),
         "K13 in scrf_decode device": launch_ms(dev, decode, SEG_TB),
-        "scrf step": _ms(torch, step, 5),
-        "scrf_decode": _ms(torch, decode, 10),
     }
 
 
@@ -297,8 +397,22 @@ def _fdt(torch, dev) -> dict:
     def dec():
         return decode(cfg, params, dec_feats, dec_len)
 
+    captured = _captured(
+        lambda p, b: decode(cfg, p, b["feats"], b["lengths"]), "decode")
+    inputs = {"feats": dec_feats, "lengths": dec_len}
+    batches = [batch] * 8
+    if hasattr(trainer, "multi_step"):
+        steps8 = lambda: trainer.multi_step(batches, 0.5)
+    else:
+        steps8 = lambda: [trainer.train_step(b, 0.5) for b in batches]
+    out, traces = {}, {}
+    _path(torch, dev, out, traces, "train step",
+          lambda: trainer.train_step(batch, 0.5), 5)
+    _path(torch, dev, out, traces, "train step x8", steps8, 2)
+    _path(torch, dev, out, traces, "decode",
+          lambda: captured(params, inputs), 10)
     return {
-        "_traces": {"decode": _trace(dev, dec)},
+        **out, "_traces": traces,
         "K3 traceback device": launch_ms(
             dev, lambda: K3.viterbi_traceback_cuda(bp, last, dec_len),
             FDT_TB),
@@ -309,10 +423,8 @@ def _fdt(torch, dev) -> dict:
         "K1": _ms(torch, lambda: K1.fdt_forward_cuda(*args, **kw), 5),
         "K2": _ms(torch, lambda: K1.fdt_backward_grad_cuda(
             *grad_args, **k2_kw), 5),
-        "train step": _ms(torch, lambda: trainer.train_step(batch, 0.5), 5),
         "K3 forward": _ms(torch, lambda: K3.viterbi_forward_cuda(
             Wall, dec_feats, dec_len, **vkw), 10),
-        "decode": _ms(torch, dec, 10),
     }
 
 

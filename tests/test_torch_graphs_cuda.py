@@ -1,0 +1,201 @@
+"""The compiled step and decodes on the card: each path's CUDA graph
+against its eager code, bit for bit (the graph replays the same kernels on
+the same inputs in the same order), the kernels' launch counts on every
+replay, and a capture that fails.
+
+Marked ``cuda``: CUDA graphs need the card, so these tests skip on a host
+without an NVIDIA GPU.  On one, from the repository root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_graphs_cuda.py -q
+
+The paths are chip_smoke.py phase (s)'s, at smaller batches: the config-2
+step alone and 8 steps in one call, the shared steps at configs 1, 3 and 5,
+the config-4 (segmental) step with the recipe's Adam, ``decode()`` at
+configs 2, 1, 3 and 5 and ``scrf_decode``; and a trainer's graphs freed
+with it.
+"""
+import contextlib
+import gc
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from asr_craft_tpu_torch import flagship
+from asr_craft_tpu_torch.models.crf import decode
+from asr_craft_tpu_torch.models.segmental import scrf_decode
+from asr_craft_tpu_torch.train import (TrainConfig, Trainer, graphs,
+                                       make_train_step)
+from asr_craft_tpu_torch.train.trainer import scrf_loss_fn
+from asr_craft_tpu_torch.utils.logging import MetricsLogger
+
+pytestmark = pytest.mark.cuda
+B, T, STEPS = 16, 128, 8
+CONFIGS = {"config2": flagship.flagship, "config1": flagship.timit_mono,
+           "config3": flagship.wsj_crandem, "config5": flagship.swbd}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _counts():
+    return [dict(c) for c in graphs.COUNTS]
+
+
+def _moved(before):
+    return {k: c[k] - b[k] for c, b in zip(graphs.COUNTS, before)
+            for k in c if c[k] != b[k]}
+
+
+def _same(got, want, what):
+    assert torch.equal(got, want), (
+        f"{what}: max abs diff {(got.double() - want.double()).abs().max()}"
+        f" at {int((got != want).sum())} of {got.numel()} entries")
+
+
+def _train(dev, cfg, spc, eager):
+    """Eight steps on eight batches: one ``train_step`` each (spc 1; the
+    first the graph's warm-up, seven replays) or one ``multi_step`` after
+    a first, warm-up call; the metrics and the parameters after them."""
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, dev)
+    tr = Trainer(cfg, TrainConfig(lr=0.3, momentum=0.9), params=params,
+                 logger=MetricsLogger(quiet=True))
+    batches = [flagship.tiny_batch(cfg, B, T, s, dev) for s in range(STEPS)]
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        if spc == 1:
+            ms = [tr.train_step(b, 0.3) for b in batches]
+            m = {k: torch.stack([x[k] for x in ms]) for k in ms[0]}
+        else:
+            tr.multi_step(batches, 0.3)
+            m = tr.multi_step(batches, 0.3)
+    return m, tr.params
+
+
+@pytest.mark.parametrize("spc", [1, STEPS])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_train_steps_graph_equals_eager(dev, name, spc):
+    cfg = CONFIGS[name]()
+    m_e, p_e = _train(dev, cfg, spc, eager=True)
+    m_g, p_g = _train(dev, cfg, spc, eager=False)
+    for k in ("loss", "grad_norm", "mean_logZ", "frames"):
+        _same(m_g[k], m_e[k], k)
+    for k in p_e:
+        _same(p_g[k].detach(), p_e[k].detach(), k)
+
+
+def test_segmental_step_graph_equals_eager(dev):
+    cfg = flagship.scrf()
+    batch = flagship.scrf_batch(cfg, B, T, 0, dev)
+    out = []
+    for eager in (True, False):
+        params = {k: v.requires_grad_(True) for k, v in cfg.init_params(
+            torch.Generator().manual_seed(0), 0.1, dev).items()}
+        step, opt = make_train_step(cfg, TrainConfig(optimizer="adam"),
+                                    loss_fn=scrf_loss_fn(cfg))
+        state = opt.init(params)
+        with graphs.disabled() if eager else contextlib.nullcontext():
+            ms = [step(params, state, {}, batch, 0.05)[3]
+                  for _ in range(STEPS)]
+        out.append((torch.stack([m["loss"] for m in ms]),
+                    torch.stack([m["grad_norm"] for m in ms]), params,
+                    state["count"]))
+    (le, ge, pe, ce), (lg, gg, pg, cg) = out
+    assert torch.equal(lg, le) and torch.equal(gg, ge)
+    assert float(cg) == float(ce) == STEPS
+    for k in pe:
+        assert torch.equal(pg[k], pe[k]), k
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_decode_graph_equals_eager_and_counts_launches(dev, name):
+    cfg = CONFIGS[name]()
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+    batch = flagship.tiny_batch(cfg, B, T, 0, dev)
+    inputs = {"feats": batch["feats"], "lengths": batch["lengths"]}
+    dec = graphs.Graphed(
+        lambda p, b: decode(cfg, p, b["feats"], b["lengths"]), name="decode")
+    before = _counts()
+    with graphs.disabled():
+        want = dec(params, inputs)
+    eager_launches = _moved(before)
+    assert eager_launches and len(dec) == 0
+    for i in range(3):                  # warm-up and capture, then replays
+        before = _counts()
+        got = dec(params, inputs)
+        assert _moved(before) == eager_launches, i
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), i
+    assert len(dec) == 1
+    # a new batch of the same shape replays the same graph on its values
+    other = flagship.tiny_batch(cfg, B, T, 1, dev)
+    inputs2 = {"feats": other["feats"], "lengths": other["lengths"]}
+    with graphs.disabled():
+        want2 = dec(params, inputs2)
+    for g, w in zip(dec(params, inputs2), want2):
+        assert torch.equal(g, w)
+    assert len(dec) == 1
+
+
+def test_scrf_decode_graph_equals_eager(dev):
+    cfg = flagship.scrf()
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+    batch = flagship.scrf_batch(cfg, B, T, 0, dev)
+    inputs = {"feats": batch["feats"], "lengths": batch["lengths"]}
+    dec = graphs.Graphed(
+        lambda p, b: scrf_decode(cfg, p, b["feats"], b["lengths"]),
+        name="scrf_decode")
+    with graphs.disabled():
+        want = dec(params, inputs)
+    for _ in range(3):
+        for g, w in zip(dec(params, inputs), want):
+            assert torch.equal(g, w)
+
+
+def test_graphs_are_freed_with_their_owner(dev):
+    """A trainer's graphs, their buffers and their pool go with it: the
+    device memory allocated returns to what it was before the trainer.
+    (The first trainer's run leaves what a process keeps for good: the
+    cuBLAS workspaces of the warm-up and capture streams.)"""
+    cfg = flagship.timit_mono()
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+    batch = flagship.tiny_batch(cfg, B, T, 0, dev)
+    allocated = []
+    for _ in range(3):
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(dev))
+        tr = Trainer(cfg, TrainConfig(lr=0.03), params=params,
+                     logger=MetricsLogger(quiet=True))
+        for _ in range(3):
+            m = tr.train_step(batch, 0.03)
+        assert len(tr.step_fn._step) == 1
+        del tr, m
+    gc.collect()
+    torch.cuda.synchronize()
+    assert allocated[1] == allocated[2] == torch.cuda.memory_allocated(dev)
+
+
+def test_a_failed_capture_raises(dev):
+    """A host read inside a captured function: the first call (the eager
+    warm-up) runs, then the capture raises; nothing falls back.  In its own
+    process, so the failed capture leaves no state to the other tests."""
+    code = (
+        "import torch\n"
+        "from asr_craft_tpu_torch.train import graphs\n"
+        "g = graphs.Graphed(lambda b, x: x['x'] * float(x['x'].sum()),"
+        " name='host read')\n"
+        "x = {'x': torch.ones(4, device='cuda')}\n"
+        "try:\n"
+        "    g({}, x)\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', e)\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    assert "RAISED CUDA graph capture of host read failed" in run.stdout
