@@ -10,6 +10,7 @@ and the measured in-kernel elementwise rate (K15).
 
     python -m asr_craft_tpu_torch.bench              # one CUDA device
     python -m asr_craft_tpu_torch.bench --device cpu # plain versions: slow
+    python -m asr_craft_tpu_torch.bench --scaling [--check]  # every GPU
 
 Prints one JSON object a line: ``calibration``, ``device_busy``,
 ``decode_floor``, ``roofline_train``, ``roofline_decode``, ``scrf``, ``aux``
@@ -44,12 +45,15 @@ Where it differs from the JAX script, and why:
   exists to divide by.
 - One calibration: K15 feeds the flagship's floor and the segmental floor
   alike (``measure_vpu_geps`` is not carried over, see ``utils.roofline``).
-- ``--scaling`` needs the multi-GPU slice (ROADMAP.md Queue 1, slice 5) and
-  raises until it lands.
+- ``--scaling`` runs each world size n > 1 in n spawned processes, one GPU
+  a rank (NCCL; ``--device cpu --ranks N``: N gloo ranks on the CPU, which
+  share its cores, so their efficiency says nothing of speed), and n = 1 in
+  this process, on a group of one rank that still issues the collectives.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -405,13 +409,134 @@ def bench_roofline(train_dt, decode_dt, B=B, T=T, decode_B=DECODE_B,
     return train, dec
 
 
-def bench_scaling(*args, **kwargs):
-    """The weak-scaling harness of the JAX script (``--scaling [--check]``):
-    it shards the flagship step over a device mesh."""
-    raise NotImplementedError(
-        "bench --scaling needs the data-parallel path (parallel/, "
-        "torch.distributed), which is not ported yet (ROADMAP.md Queue 1, "
-        "slice 5)")
+def _max_rel(a, b) -> float:
+    """``|a - b|_inf`` over ``|a|_inf``: relative to the tensor's own
+    magnitude (an elementwise ratio on near-zero entries measures the
+    reordered sums, not a fault)."""
+    return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+
+
+def _check_numerics(cfg, mesh, hb, step_fn):
+    """The data-parallel loss and gradients of the global batch ``hb``
+    against one process's on the same rows (the JAX ``_check_numerics``):
+    loss rel < 1e-5, gradients max-relative < 1e-4."""
+    from asr_craft_tpu_torch.models.crf import crf_loss
+    from asr_craft_tpu_torch.parallel import make_batch_put
+
+    def fresh():     # each side its own leaves: no autograd graph shared
+        return {k: v.requires_grad_(True) for k, v in cfg.init_params(
+            torch.Generator().manual_seed(0), 0.01, mesh.device).items()}
+
+    p_n = fresh()
+    acc = {k: torch.zeros_like(v.detach()) for k, v in p_n.items()}
+    _, m = step_fn.grad_step(p_n, acc, make_batch_put(mesh)(
+        hb, global_batch=True))
+    p_1 = fresh()
+    full = {k: torch.as_tensor(v).to(mesh.device) for k, v in hb.items()}
+    loss_1 = crf_loss(cfg, p_1, full["feats"], full["labels"],
+                      full["lengths"])[0]
+    g_1 = torch.autograd.grad(loss_1, list(p_1.values()))
+    loss_1 = loss_1.detach()
+    loss_rel = abs(float(m["loss"]) - float(loss_1)) / max(
+        abs(float(loss_1)), 1e-30)
+    gmax = max(_max_rel(a, acc[k]) for k, a in zip(p_1, g_1))
+    return {"loss_rel": float(f"{loss_rel:.3g}"),
+            "grad_max_rel": float(f"{gmax:.3g}"),
+            "ok": bool(loss_rel < 1e-5 and gmax < 1e-4)}
+
+
+def _scaling_rank(per_device_batch, T, steps, check) -> dict:
+    """One rank's row of :func:`bench_scaling` at the world's size."""
+    from asr_craft_tpu_torch.parallel import make_batch_put, make_mesh
+    mesh = make_mesh()
+    n = mesh.size
+    cfg = flagship.flagship()
+    tc = TrainConfig(lr=0.1, steps_per_call=4)
+    params = {k: v.requires_grad_(True) for k, v in cfg.init_params(
+        torch.Generator().manual_seed(0), 0.01, mesh.device).items()}
+    step_fn, opt = make_train_step(cfg, tc, mesh=mesh)
+    opt_state = opt.init(params)
+    B = per_device_batch * n
+    hb = {k: v.numpy() for k, v in flagship.tiny_batch(cfg, B, T).items()}
+    batches = [make_batch_put(mesh)(hb, global_batch=True)] * 4
+
+    def run(k):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            *_, ms = step_fn.multi_step(params, opt_state, {}, batches,
+                                        tc.lr)
+        float(ms["loss"][-1])           # waits for the device
+        return time.perf_counter() - t0
+
+    run(1)                              # warm-up and capture
+    lo = min(run(max(steps // 3, 1)) for _ in range(2))
+    hi = min(run(steps) for _ in range(2))
+    dt = max(hi - lo, 1e-9) / ((steps - max(steps // 3, 1)) * 4)
+    row = {"audio_s_per_s": B * T * FRAME_S / dt, "ms_per_step": dt * 1e3}
+    if check:
+        row["check"] = _check_numerics(cfg, mesh, hb, step_fn)
+    return row
+
+
+@contextlib.contextmanager
+def _one_rank_group(device):
+    """A group of one rank for n = 1: the caller's own where it has one of
+    one rank, else a fresh one (``FileStore``), destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+    from asr_craft_tpu_torch.parallel import initialize_distributed
+    if dist.is_initialized():
+        if dist.get_world_size() != 1:
+            raise RuntimeError("bench --scaling spawns its own ranks: run it "
+                               "outside a group of several")
+        yield
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0, device.type)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def bench_scaling(per_device_batch=16, T=T, steps=6, check=False,
+                  device="cuda", ranks=None) -> dict:
+    """Weak scaling of the flagship's data-parallel train step (the JAX
+    ``bench_scaling``): audio-s/s at world sizes n = 1, 2, 4, ... up to
+    ``ranks`` (default: the GPUs visible; on the CPU a number of gloo ranks
+    to state), the batch a rank held fixed; ``efficiency = tput(n) / (n *
+    tput(1))``.  n = 1 runs here, each n > 1 in n spawned processes; each
+    step is a ``multi_step`` of 4 (CUDA graphs on the card).  ``check``:
+    per n, the data-parallel loss and gradients against one process's on
+    the same global batch (loss rel < 1e-5, gradients max-relative <
+    1e-4).  The times are rank 0's."""
+    from asr_craft_tpu_torch.parallel.mesh import run_ranks
+    device = _device(device)
+    if ranks is None:
+        if device.type != "cuda":
+            raise ValueError("bench_scaling on the CPU: state the number "
+                             "of gloo ranks (ranks=)")
+        ranks = torch.cuda.device_count()
+    ns = [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= ranks]
+    args = (per_device_batch, T, steps, check)
+    rows, base = {}, None
+    for n in ns:
+        if n == 1:
+            with _one_rank_group(device):
+                row = _scaling_rank(*args)
+        else:
+            row = run_ranks(_scaling_rank, n, *args, device=device.type)[0]
+        base = base or row["audio_s_per_s"]
+        row["efficiency"] = round(row["audio_s_per_s"] / (n * base), 3)
+        row["audio_s_per_s"] = round(row["audio_s_per_s"], 1)
+        row["ms_per_step"] = round(row["ms_per_step"], 3)
+        rows[n] = row
+    if check:
+        rows["check_ok"] = all(rows[n]["check"]["ok"] for n in ns)
+    rows["device"] = (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu")
+    return rows
 
 
 def bench_records(device="cuda", train=None, loader=None, dec=None,
@@ -466,14 +591,20 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu)")
     p.add_argument("--scaling", action="store_true",
-                   help="weak scaling over devices (not ported yet)")
+                   help="weak scaling of the data-parallel step over 1, 2, "
+                        "4, ... ranks")
     p.add_argument("--check", action="store_true",
                    help="with --scaling: check the sharded numerics")
+    p.add_argument("--ranks", type=int, default=None,
+                   help="with --scaling: the most ranks (default: every "
+                        "GPU; give it for gloo ranks with --device cpu)")
     args = p.parse_args(argv)
     device = _device(args.device)
     if args.scaling:
-        print(json.dumps({"scaling": bench_scaling(check=args.check)}))
-        return 0
+        rows = bench_scaling(check=args.check, device=device,
+                             ranks=args.ranks)
+        print(json.dumps({"scaling": rows}))
+        return 0 if rows.get("check_ok", True) else 1
     for rec in bench_records(device):
         print(json.dumps(rec))
     return 0

@@ -15,7 +15,10 @@ decoders are the port's host modules (``data``, ``decode``, ``cli.common``,
 
 ``--device`` defaults to ``cuda`` and raises if no GPU is present;
 ``--kernel_backend`` picks the CUDA kernels or the plain PyTorch version
-(``auto``: kernels for CUDA tensors).
+(``auto``: kernels for CUDA tensors).  ``--time_shard N
+[--shard_beam_labels K]`` decodes shared-transition models through
+:func:`asr_craft_tpu_torch.parallel.timeshard.sharded_decode`: the time
+axis in N chunks on the one device (layout (i)).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from asr_craft_tpu_torch.decode.scorer import (ErrorRateScorer,
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import (CrfConfig, apply_boundaries,
                                             decode, potentials)
+from asr_craft_tpu_torch.parallel.timeshard import sharded_decode
 from asr_craft_tpu_torch.train.trainer import to_device
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
@@ -73,7 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beam_threshold", type=float, default=None,
                    help="score-margin pruning")
     p.add_argument("--time_shard", type=int, default=0,
-                   help="time-sharded decode (not ported yet)")
+                   help="cut the time axis of the Viterbi lattice into N "
+                        "chunks (associative max-plus products, boundary "
+                        "state exchanged between chunks); 0/1 = off")
+    p.add_argument("--shard_beam_labels", type=int, default=None,
+                   help="with --time_shard: per-chunk top-K label "
+                        "survivor pruning (None = exact)")
     # --- FST word decode (the reference CRFFstDecode mode) ---
     p.add_argument("--lexicon", help="pronunciation lexicon: one "
                    "'word ph1 ph2 ...' per line (phone names resolved via "
@@ -124,15 +133,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_supported(args) -> None:
-    if args.time_shard and args.time_shard > 1:
-        raise NotImplementedError("--time_shard is not ported yet "
-                                  "(ROADMAP.md Queue 1, slice 5)")
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_supported(args)
+    sharded = bool(args.time_shard and args.time_shard > 1)
+    if args.shard_beam_labels is not None and not sharded:
+        raise SystemExit("--shard_beam_labels applies only with "
+                         "--time_shard N > 1")
+    if sharded and args.lexicon:
+        raise SystemExit("--time_shard shards the phone decode; the word "
+                         "decode (--lexicon) does not shard")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
@@ -174,6 +183,10 @@ def main(argv=None) -> int:
     if args.lexicon:
         return _word_decode(args, cfg, params, loader, names, logger, device)
 
+    if sharded and (args.beam_width or args.beam_threshold):
+        raise SystemExit("--time_shard prunes via --shard_beam_labels; "
+                         "--beam_width/--beam_threshold do not apply")
+
     fold = timit_fold_indices() if args.timit_fold else None
     scorer = ErrorRateScorer()
     hyp_mlf = {}
@@ -182,9 +195,16 @@ def main(argv=None) -> int:
         tb = to_device(batch, device)
         sparse = (None if "sparse_idx" not in tb else
                   (tb["sparse_idx"], tb["sparse_val"]))
-        phones, _, _ = decode(
-            cfg, params, tb.get("feats"), tb["lengths"], sparse=sparse,
-            beam_width=args.beam_width, beam_threshold=args.beam_threshold)
+        if sharded:
+            phones, _, _ = sharded_decode(
+                cfg, params, tb.get("feats"), tb["lengths"], args.time_shard,
+                beam_labels=args.shard_beam_labels, sparse=sparse,
+                device=device)
+        else:
+            phones, _, _ = decode(
+                cfg, params, tb.get("feats"), tb["lengths"], sparse=sparse,
+                beam_width=args.beam_width,
+                beam_threshold=args.beam_threshold)
         phones = phones.cpu().numpy()
         if have_refs:
             refs = []

@@ -1,7 +1,7 @@
 """``crf-train`` twin: train a CRF (frame-dependent or shared transitions) on
 a GPU (or the CPU).
 
-Counterpart of :mod:`asr_craft_tpu.cli.train` for the single-device path:
+Counterpart of :mod:`asr_craft_tpu.cli.train`:
 flags -> corpus + transforms -> loaders -> model init (zeros, or a weight
 file) -> SGD epochs with per-epoch weight files ``weights.i*.dat``, CV
 evaluation (frame accuracy and PER), ``metrics.jsonl``, a full-state
@@ -26,6 +26,18 @@ On the card the steps and the CV pass are CUDA graphs, one a batch shape
 (``train.make_train_step``, ``train.make_eval_step``); ``--debug_nans`` and
 ``--check_sync_every`` run them eagerly, as does a caller inside
 ``train.graphs.disabled()``.
+
+Data parallel under torchrun, one process a GPU (NCCL), or with
+``--device cpu`` gloo ranks on the CPU:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m asr_craft_tpu_torch.cli.train ... --device cpu
+
+Each rank loads its shard of the train and CV sets
+(``parallel.data_shard_info``) and runs the data-parallel step
+(``train.trainer``); only rank 0 writes weights, checkpoints and
+``metrics.jsonl``; ``--check_sync_every N`` asserts the ranks' parameters
+identical every N steps.
 """
 from __future__ import annotations
 
@@ -41,6 +53,8 @@ from asr_craft_tpu_torch.data import (LoaderConfig, UtteranceLoader,
 from asr_craft_tpu_torch.decode.scorer import collapse_frames
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.parallel import (data_shard_info,
+                                          initialize_distributed, make_mesh)
 from asr_craft_tpu_torch.train import (TrainConfig, Trainer, load_checkpoint,
                                        save_checkpoint)
 from asr_craft_tpu_torch.utils import diagnostics
@@ -129,20 +143,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "loss, gradient or parameters are not finite "
                         "(autograd anomaly detection; a sync a step)")
     p.add_argument("--check_sync_every", type=int, default=0,
-                   help="assert the replicas identical every N steps "
-                        "(compares nothing on one device)")
+                   help="assert the data-parallel ranks' parameters "
+                        "identical every N steps (compares nothing on one "
+                        "process)")
     return p
-
-
-def _check_supported(args) -> None:
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training on more than one device is not "
-                                  "ported yet (ROADMAP.md Queue 1, slice 5)")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_supported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
@@ -150,6 +158,17 @@ def main(argv=None) -> int:
     kernels.set_backend(args.kernel_backend)
     # always set, so that one process can run with the flag and then without
     diagnostics.enable_debug_nans(args.debug_nans)
+    ranked = initialize_distributed(device=device.type)
+    try:
+        return _train(args, ranked or device, ranked is not None)
+    finally:
+        if ranked is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device, distributed: bool) -> int:
+    shard = data_shard_info()
+    chief = shard["shard_id"] == 0
 
     feats, labels, _ = build_corpus(args)
     transform, feat_dim = make_transform(args, feats)
@@ -165,12 +184,12 @@ def main(argv=None) -> int:
     train_loader = UtteranceLoader(
         [feats[i] for i in tr_idx], [labels[i] for i in tr_idx],
         LoaderConfig(batch_size=args.batch_size, buckets=buckets,
-                     seed=args.seed, sparse_k=sparse_k),
+                     seed=args.seed, sparse_k=sparse_k, **shard),
         transform=transform, feat_dim=feat_dim)
     cv_loader = UtteranceLoader(
         [feats[i] for i in cv_idx], [labels[i] for i in cv_idx],
         LoaderConfig(batch_size=args.batch_size, buckets=buckets,
-                     shuffle=False, sparse_k=sparse_k),
+                     shuffle=False, sparse_k=sparse_k, **shard),
         transform=transform, feat_dim=feat_dim)
 
     state_rng = ((args.crf_stateftr_start, args.crf_stateftr_end)
@@ -195,9 +214,11 @@ def main(argv=None) -> int:
         accum_steps=args.accum_steps, steps_per_call=args.steps_per_call,
         out_dir=args.out_dir, profile_dir=args.profile_dir,
         check_sync_every=args.check_sync_every)
-    logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
+    logger = (MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
+              if chief else MetricsLogger(quiet=True))
     trainer = Trainer(cfg, tc, params=params, label_kind=args.label_kind,
-                      logger=logger, device=device)
+                      logger=logger, device=device,
+                      mesh=make_mesh() if distributed else None)
 
     ckpt_dir = os.path.join(args.out_dir, "ckpt")
     if args.resume and os.path.exists(os.path.join(ckpt_dir, "meta.json")):
@@ -212,15 +233,17 @@ def main(argv=None) -> int:
                                       len(labels[cv_idx[i]]))
                    for i in range(len(cv_idx))}
 
-    with diagnostics.profiler_session(args.profile_dir):
+    with diagnostics.profiler_session(args.profile_dir if chief else None):
         for _ in range(trainer.epoch, tc.epochs):
             trainer.train_epoch(train_loader)
-            if len(cv_loader):
+            if len(cv_idx):
                 trainer.evaluate(cv_loader, ref_phone_seqs=cv_refs)
-            save_checkpoint(ckpt_dir, trainer, train_loader.state())
+            if chief:
+                save_checkpoint(ckpt_dir, trainer, train_loader.state())
 
-    weights_mod.save_raw(os.path.join(args.out_dir, "weights.final.dat"),
-                         cfg.fmap, trainer.inference_params)
+    if chief:
+        weights_mod.save_raw(os.path.join(args.out_dir, "weights.final.dat"),
+                             cfg.fmap, trainer.inference_params)
     logger.log("done", step=trainer.step)
     return 0
 

@@ -2,7 +2,7 @@
 inputs, shared by tests and chip_smoke.
 
 Counterpart of ``__graft_entry__._flagship`` / ``_tiny_batch`` /
-``entry``: BASELINE
+``entry`` / ``dryrun_multichip``: BASELINE
 config 2, a TIMIT-shaped triphone-state CRF — 48 phones x 3 states over
 MLP-posterior features with a +/-1 context window (144 dims), and
 frame-dependent transition features over all dims.  Beside it, the
@@ -101,6 +101,54 @@ def entry(device="cuda"):
         return loss
 
     return fn, (params, batch["feats"], batch["labels"], batch["lengths"])
+
+
+def _dryrun_rank() -> float:
+    """One rank of :func:`dryrun_multichip`."""
+    from asr_craft_tpu_torch.parallel import make_batch_put, make_mesh
+    from asr_craft_tpu_torch.train import TrainConfig, make_train_step
+    from asr_craft_tpu_torch.utils.diagnostics import assert_replicated
+    mesh = make_mesh()
+    cfg = flagship()
+    tc = TrainConfig(lr=0.1)
+    params = {k: v.requires_grad_(True) for k, v in cfg.init_params(
+        torch.Generator().manual_seed(0), 0.01, mesh.device).items()}
+    before = {k: v.detach().clone() for k, v in params.items()}
+    step_fn, opt = make_train_step(cfg, tc, mesh=mesh)
+    batch = make_batch_put(mesh)(tiny_batch(cfg, B=2 * mesh.size, T=32),
+                                 global_batch=True)
+    _, _, _, metrics = step_fn(params, opt.init(params), {}, batch, tc.lr)
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise FloatingPointError(f"dryrun_multichip: loss {loss}")
+    if all(torch.equal(v, before[k]) for k, v in params.items()):
+        raise AssertionError("dryrun_multichip: the step changed no "
+                             "parameter")
+    assert_replicated(params)
+    return loss
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> float:
+    """One full data-parallel training step of the flagship over
+    ``n_devices`` ranks, the twin of ``__graft_entry__.dryrun_multichip``:
+    ``n_devices`` spawned processes, one GPU a rank (NCCL) unless
+    ``device`` asks for gloo ranks on the CPU; a global batch of 2 rows a
+    rank at T=32.  Each rank asserts a finite loss, changed parameters and
+    parameters equal on every rank (``assert_replicated``).  Returns the
+    loss; raises where a rank failed or there are too few GPUs."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"dryrun_multichip(device={device}): no CUDA "
+                           "device is available (pass device='cpu' for "
+                           "gloo ranks on the CPU)")
+    from asr_craft_tpu_torch.parallel.mesh import run_ranks
+    losses = run_ranks(_dryrun_rank, n_devices, device=device.type,
+                       timeout=600.0)
+    if len(set(losses)) != 1:
+        raise AssertionError(f"dryrun_multichip: the ranks' losses differ "
+                             f"{losses}")
+    print(f"dryrun_multichip({n_devices}): loss={losses[0]:.4f} ok")
+    return losses[0]
 
 
 def ragged_lengths(B: int, T: int, seed: int = 0) -> np.ndarray:

@@ -15,12 +15,14 @@ Conventions (the reference's):
   ``(T, L, L)`` form has no caller in the port).
 - Ties: the shortest duration among equal candidates, then the lowest
   predecessor label, the lowest final label.
+- ``segmental_forward(semiring=)``: ``LOG`` (the default) sums over
+  segmentations, ``TROPICAL`` gives the best one's score.
 """
 from __future__ import annotations
 
 import torch
 
-from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.ops.semiring import LOG, NEG_INF, get_semiring
 
 __all__ = ["segmental_forward", "segmental_viterbi",
            "segmental_forward_batch", "segmental_viterbi_batch",
@@ -70,18 +72,22 @@ def _last_row(alphas, lengths):
     return alphas[torch.arange(alphas.shape[0], device=alphas.device), idx]
 
 
-def segmental_forward_batch(seg_score, trans, lengths):
+def segmental_forward_batch(seg_score, trans, lengths, semiring=LOG):
     """``(alphas (B, T, L), logZ (B,))`` over all segmentations and
-    labelings of the first ``lengths[b]`` frames."""
+    labelings of the first ``lengths[b]`` frames (``LOG``), or the best
+    one's alphas and score (``TROPICAL``)."""
+    if get_semiring(semiring).name == "tropical":
+        alphas = _alpha_scan(seg_score, trans, tropical=True)[0]
+        return alphas, _last_row(alphas, lengths).amax(dim=-1)
     alphas = _alpha_scan(seg_score, trans, tropical=False)
     return alphas, torch.logsumexp(_last_row(alphas, lengths), dim=-1)
 
 
-def segmental_forward(seg_score, trans, length):
+def segmental_forward(seg_score, trans, length, semiring=LOG):
     """Single sequence: ``seg_score (T, Dmax, L)``.  Returns ``(alphas (T,
     L), logZ)``."""
     alphas, logZ = segmental_forward_batch(
-        seg_score[None], trans, torch.as_tensor([int(length)]))
+        seg_score[None], trans, torch.as_tensor([int(length)]), semiring)
     return alphas[0], logZ[0]
 
 

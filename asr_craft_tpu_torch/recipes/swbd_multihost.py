@@ -6,11 +6,16 @@ batches (K4, K5 in training; K8 and the traceback kernel in the CV decode).
 Twin of ``recipes/swbd_multihost.py``: the same ``TRAIN_ARGS``, handed to
 the port's train CLI with the extra flags appended (``--device cpu`` runs
 the plain PyTorch versions on the CPU; the default is the GPU and its CUDA
-kernels).  The JAX recipe trains data-parallel over every device it finds
-and decodes time-sharded; the port runs on ONE device: a world of more than
-one rank, and ``--time_shard`` in the decode CLI, raise until the multi-GPU
-slice lands (ROADMAP.md Queue 1, slice 5), as does ``python -m
-asr_craft_tpu_torch.bench --scaling``.
+kernels).  As the JAX recipe trains data-parallel over every device, this
+one trains data-parallel over the ranks torchrun starts, one GPU a rank
+(``--device cpu``: gloo ranks on the CPU), each on its shard of the corpus:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m asr_craft_tpu_torch.recipes.swbd_multihost [--ftr1_file ...]
+
+The time-sharded decode is a flag of the decode CLI (``--time_shard N
+[--shard_beam_labels K]``), and the weak-scaling measurement ``python -m
+asr_craft_tpu_torch.bench --scaling --check``.
 
 Run:  python -m asr_craft_tpu_torch.recipes.swbd_multihost [--ftr1_file
           swbd.pfile ...]

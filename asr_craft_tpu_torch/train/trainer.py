@@ -18,7 +18,20 @@ the same code runs eagerly on the CPU, under :func:`graphs.disabled`,
 ``--debug_nans`` and ``check_sync_every``.  ``steps_per_call`` groups
 same-shape batches into one ``multi_step`` replay, as the JAX trainer
 groups them into one ``lax.scan``.
-"""
+
+Data parallelism (a :class:`asr_craft_tpu_torch.parallel.Mesh` given to
+:func:`make_train_step` or :class:`Trainer`): each rank runs the same
+compiled step on its own rows, and the step itself issues the collectives,
+inside the CUDA graph (NCCL collectives capture), so ``multi_step`` stays
+one replay: first the sum of the frame and row counts over the ranks, then
+the gradient of the rank's summed NLL over the GLOBAL frame count, summed
+over the ranks tensor by tensor, and the metrics' sums.  That is the
+gradient of the global batch's mean, as XLA's psum over a sharded batch
+gives it; the mean of the ranks' means (``DistributedDataParallel``'s
+average) differs whenever the ranks hold different frame counts.  Every
+rank applies the same reduced gradient, so parameters, optimizer state and
+averages stay bit-identical; ``loss``, ``grad_norm`` and ``mean_logZ`` are
+the global batch's."""
 from __future__ import annotations
 
 import contextlib
@@ -29,12 +42,14 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asr_craft_tpu_torch.decode.scorer import ErrorRateScorer, score_batch
 from asr_craft_tpu_torch.models import crf as crf_mod
 from asr_craft_tpu_torch.models import segmental as seg_mod
 from asr_craft_tpu_torch.models import weights as weights_mod
 from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.parallel import mesh as mesh_mod
 from asr_craft_tpu_torch.train import graphs
 from asr_craft_tpu_torch.utils import diagnostics
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
@@ -145,7 +160,7 @@ def make_optimizer(tc: TrainConfig, epoch: int = 0) -> Optimizer:
 
 
 # batch dict keys moved to the device for the steps
-BATCH_KEYS = ("feats", "labels", "lengths", "sparse_idx", "sparse_val")
+BATCH_KEYS = mesh_mod.BATCH_KEYS
 
 
 def to_device(batch: dict, device) -> dict:
@@ -213,6 +228,37 @@ def _prefetch(batches, convert, depth: int):
         stop.set()
 
 
+def _epoch_len(loader) -> int:
+    """The number of batches ``loader.epoch_batches()`` yields (an
+    :class:`asr_craft_tpu_torch.data.UtteranceLoader`), from its bucket
+    sizes alone: no batch is assembled."""
+    bs = loader.cfg.batch_size
+    sizes = {}
+    for i in range(len(loader)):
+        b = loader._bucket_of(loader._num_frames(i))
+        sizes[b] = sizes.get(b, 0) + 1
+    if loader.cfg.drop_remainder:
+        return sum(n // bs for n in sizes.values())
+    return sum(-(-n // bs) for n in sizes.values())
+
+
+def _even_epoch(batches, n: int):
+    """``batches``, then empty batches (the last one's shapes, every length
+    0) up to ``n`` in all, the longest shard's count, so that every rank
+    runs as many steps and so issues as many collectives."""
+    last, seen = None, 0
+    for last in batches:
+        seen += 1
+        yield last
+    if n > seen and last is None:
+        raise ValueError("this rank holds no utterance of the epoch: fewer "
+                         "utterances than ranks")
+    for _ in range(n - seen):
+        yield {k: (np.zeros_like(v) if k == "lengths" else
+                   np.full_like(v, -1) if k == "uids" else v)
+               for k, v in last.items()}
+
+
 def _batch_sparse(batch):
     """(indices, values) from a sparse batch, else None (dense)."""
     if "sparse_idx" in batch:
@@ -243,7 +289,7 @@ def scrf_loss_fn(cfg: seg_mod.SegCrfConfig, dense: bool = False
     def loss_fn(params, batch):
         value, aux = loss(cfg, params, batch["feats"], batch["labels"],
                           batch["lengths"])
-        return value, {"logZ": aux["logZ"],
+        return value, {"logZ": aux["logZ"], "nll": aux["nll"],
                        "frames": batch["lengths"].sum().clamp(min=1)}
     return loss_fn
 
@@ -275,10 +321,14 @@ class TrainStep:
     ``params`` are leaf tensors that require grad.  ``lr`` is a number,
     held on the device in a 0-d tensor that is refilled when it changes,
     so the graphs read the schedule's value without being captured
-    again."""
+    again.
 
-    def __init__(self, loss_fn: Callable, opt: Optimizer, tc: TrainConfig):
-        self.loss_fn, self.opt, self.tc = loss_fn, opt, tc
+    ``mesh``: data parallelism over its ranks (the module's docstring);
+    the loss's ``aux`` must then hold the per-utterance ``nll``."""
+
+    def __init__(self, loss_fn: Callable, opt: Optimizer, tc: TrainConfig,
+                 mesh: Optional[mesh_mod.Mesh] = None):
+        self.loss_fn, self.opt, self.tc, self.mesh = loss_fn, opt, tc, mesh
         pool = graphs.Pool()
         self._step = graphs.Graphed(self._step_impl, pool, "train step")
         self._grad = graphs.Graphed(self._grad_impl, pool, "grad_step")
@@ -297,10 +347,47 @@ class TrainStep:
         return t
 
     def _grads(self, params: dict, batch: dict):
+        """``(loss, aux, grads)`` of the batch; under data parallelism of
+        the global batch (``aux``'s ``frames`` and ``logZ_mean`` then
+        global too)."""
         loss, aux = self.loss_fn(params, batch)
+        if self.mesh is not None:
+            return self._global_grads(params, batch, aux)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True, materialize_grads=True)
+        aux = dict(aux, logZ_mean=aux["logZ"].detach().mean())
         return loss.detach(), aux, dict(zip(params, grads))
+
+    def _global_grads(self, params: dict, batch: dict, aux: dict):
+        if "nll" not in aux:
+            raise ValueError("data-parallel training needs the loss's "
+                             "per-utterance nll in aux['nll']")
+        lengths = batch["lengths"]
+        # the global batch's frames and rows, before the backward: the
+        # rank's share of the global mean is its NLL sum over them
+        counts = torch.stack([lengths.sum(), torch.full_like(
+            lengths.sum(), lengths.shape[0])])
+        dist.all_reduce(counts)
+        frames = counts[0].clamp(min=1)
+        nll = aux["nll"].sum()
+        grads = torch.autograd.grad(nll / frames, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
+        # each gradient reduced where autograd left it, in its own layout: a
+        # view into one flat buffer would sit at another alignment, and
+        # CUDA's reductions (the gradient norm) vectorize by alignment, so
+        # they would not give one process's bits; a strided gradient (the
+        # fdt weights') is reduced as a contiguous copy and written back
+        for g in grads:
+            if g.is_contiguous():
+                dist.all_reduce(g)
+            else:
+                c = g.contiguous()
+                dist.all_reduce(c)
+                g.copy_(c)
+        sums = torch.stack([nll.detach(), aux["logZ"].detach().sum()])
+        dist.all_reduce(sums)
+        aux = dict(aux, frames=frames, logZ_mean=sums[1] / counts[1])
+        return sums[0] / frames, aux, dict(zip(params, grads))
 
     def _average(self, avg_params: dict, params: dict) -> None:
         if self.tc.weight_avg:
@@ -316,8 +403,7 @@ class TrainStep:
             self.opt.update(grads, opt_state, params, lr)
             self._average(avg_params, params)
         return {"loss": loss, "grad_norm": grad_norm,
-                "mean_logZ": aux["logZ"].detach().mean(),
-                "frames": aux["frames"]}
+                "mean_logZ": aux["logZ_mean"], "frames": aux["frames"]}
 
     def _grad_impl(self, bound, batch):
         params, grad_acc = bound
@@ -326,7 +412,7 @@ class TrainStep:
             for k, g in grads.items():
                 grad_acc[k].add_(g)
         return {"loss": loss, "frames": aux["frames"],
-                "mean_logZ": aux["logZ"].detach().mean()}
+                "mean_logZ": aux["logZ_mean"]}
 
     @torch.no_grad()
     def _apply_impl(self, bound, _):
@@ -362,15 +448,18 @@ class TrainStep:
 
 def make_train_step(cfg: CrfConfig, tc: TrainConfig,
                     label_kind: str = "phone",
-                    loss_fn: Optional[Callable] = None):
+                    loss_fn: Optional[Callable] = None,
+                    mesh: Optional[mesh_mod.Mesh] = None):
     """``(step, opt)``: the compiled :class:`TrainStep` of ``tc`` and its
     optimizer built at lr 1 (``opt.init(params)`` makes the state), as the
     JAX ``make_train_step`` returns them.  The step's updates are scaled by
     the ``lr`` of each call (the epoch's schedule value).  ``loss_fn(params,
     batch) -> (loss, aux)`` with ``aux["logZ"]`` and ``aux["frames"]``
-    replaces ``cfg``'s criterion (the segmental recipe passes its own)."""
+    replaces ``cfg``'s criterion (the segmental recipe passes its own).
+    ``mesh``: the step is data-parallel over its ranks."""
     opt = make_optimizer(dataclasses.replace(tc, lr=1.0))
-    return TrainStep(loss_fn or crf_loss_fn(cfg, label_kind), opt, tc), opt
+    return TrainStep(loss_fn or crf_loss_fn(cfg, label_kind), opt, tc,
+                     mesh), opt
 
 
 def make_eval_step(cfg: CrfConfig, label_kind: str = "phone"):
@@ -406,13 +495,24 @@ class Trainer:
     asked for the CPU (it raises without one).  The steps run through
     :func:`make_train_step` and :func:`make_eval_step`: CUDA graphs on the
     card, eager under ``--debug_nans`` (its checks read the device) and
-    ``check_sync_every``, and on the CPU."""
+    ``check_sync_every``, and on the CPU.
+
+    ``mesh``: data-parallel training over its ranks, each on its own
+    loader shard and device (``mesh.device``).  Rank 0's parameters are
+    broadcast at the start; every epoch runs as many steps on every rank
+    (a rank whose shard ends first steps on an empty batch, which adds no
+    frame and no gradient); the CV pass sums its counts over the ranks;
+    only rank 0 writes weight files."""
 
     def __init__(self, cfg: CrfConfig, tc: TrainConfig,
                  params: Optional[dict] = None, label_kind: str = "phone",
-                 logger: Optional[MetricsLogger] = None, device=None):
+                 logger: Optional[MetricsLogger] = None, device=None,
+                 mesh: Optional[mesh_mod.Mesh] = None):
         self.cfg, self.tc = cfg, tc
         self.label_kind = label_kind
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         if params is None:
             device = torch.device(device or "cuda")
             if device.type == "cuda" and not torch.cuda.is_available():
@@ -423,7 +523,10 @@ class Trainer:
         self.params = {k: v.detach().clone().to(device or v.device)
                        .requires_grad_(True) for k, v in params.items()}
         self.device = next(iter(self.params.values())).device
-        self.step_fn, self.opt = make_train_step(cfg, tc, label_kind)
+        if mesh is not None:
+            mesh_mod.replicate_tree(mesh, self.params)
+        self.step_fn, self.opt = make_train_step(cfg, tc, label_kind,
+                                                 mesh=mesh)
         self.opt_state = self.opt.init(self.params)
         self.eval_fn = make_eval_step(cfg, label_kind)
         self.avg_params = {k: v.detach().clone()
@@ -433,6 +536,11 @@ class Trainer:
         self.epoch = 0
         self.logger = logger or MetricsLogger(
             os.path.join(tc.out_dir, "metrics.jsonl") if tc.out_dir else None)
+
+    @property
+    def is_chief(self) -> bool:
+        """Whether this process writes files: rank 0, or the only one."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def current_lr(self) -> float:
         return self.tc.lr * (self.tc.lr_decay ** self.epoch)
@@ -541,8 +649,12 @@ class Trainer:
                         mean_logZ=float(ms["mean_logZ"][i]))
 
         convert = put or (lambda b: to_device(b, self.device))
-        for batch in _prefetch(loader.epoch_batches(self.epoch), convert,
-                               self.tc.prefetch):
+        batches = loader.epoch_batches(self.epoch)
+        if self.mesh is not None:
+            # before the prefetch thread starts: collectives stay in order
+            n = mesh_mod.reduce_host(self.mesh, [_epoch_len(loader)], "max")
+            batches = _even_epoch(batches, int(n[0]))
+        for batch in _prefetch(batches, convert, self.tc.prefetch):
             if spc > 1 and accum == 1:
                 if pending and pending[-1]["feats"].shape != \
                         batch["feats"].shape:
@@ -589,7 +701,7 @@ class Trainer:
                "frames": frames, "wall_s": wall,
                "audio_s_per_s": audio_s / max(wall, 1e-9)}
         self.logger.log("train_epoch", **out)
-        if self.tc.out_dir:
+        if self.tc.out_dir and self.is_chief:
             os.makedirs(self.tc.out_dir, exist_ok=True)
             # reference-style per-epoch flat weight file
             weights_mod.save_raw(
@@ -614,7 +726,16 @@ class Trainer:
                 refs = [ref_phone_seqs.get(int(u)) for u in batch["uids"]]
                 score_batch(scorer, refs, m["phones"].cpu().numpy(),
                             batch["lengths"], fold=fold)
-        out = {"cv_loss": float(np.mean(losses)) if losses else float("nan"),
+        loss_sum, n = float(np.sum(losses)), len(losses)
+        if self.mesh is not None:           # the global CV set's counts
+            counts = mesh_mod.reduce_host(self.mesh, [
+                loss_sum, n, correct, valid, scorer.errors, scorer.tokens,
+                scorer.sub, scorer.ins, scorer.dele])
+            loss_sum, n, correct, valid = counts[0], int(counts[1]), \
+                int(counts[2]), int(counts[3])
+            scorer.errors, scorer.tokens, scorer.sub, scorer.ins, \
+                scorer.dele = (int(c) for c in counts[4:])
+        out = {"cv_loss": loss_sum / n if n else float("nan"),
                "frame_accuracy": correct / max(valid, 1)}
         if ref_phone_seqs is not None:
             out["per"] = scorer.error_rate

@@ -166,7 +166,27 @@ in phases:
     capture, said so), the same launch counts through the graph as
     eagerly (every count 0 before the compared call); then each path's ms
     a call eager and graph, and from a trace its device-busy share,
-    kernels a call and host launches a call.
+    kernels a call and host launches a call;
+(t) multi-GPU (run last) — data parallelism on a group of ONE NCCL rank
+    (``parallel.initialize_distributed`` with a ``FileStore``: the machine
+    has one card, and NCCL runs one rank a GPU), which still issues every
+    collective inside the step's CUDA graph: the config-2 step (B=128,
+    T=512, rows full) and config 5's (K4, K5), 8 steps one a replay and 8
+    in one ``multi_step``, through the data-parallel ``Trainer`` against the
+    single-process compiled step of phase (s): losses, gradient norms,
+    frame counts and parameters bit-equal, the same launch counts, and the
+    step times beside each other; ``flagship.dryrun_multichip(1)`` (a
+    spawned rank) and ``bench --scaling --check`` at n = 1; then the
+    time-sharded decode at config 5 (``parallel.timeshard``, layout (i),
+    N=8 chunks on the card): ``sharded_decode`` at B=64, T=512 against
+    ``decode()`` (K8 and its traceback), and the long form B=4, T=16384
+    exact and pruned (``beam_labels=12``, against K8 on
+    ``survivor_mask``'s lattice, with the hand-set posterior model on
+    phone-posterior frames: a random model's pruned lattice is dead):
+    scores within rtol 1e-5, paths equal or both within it by rescoring
+    (the near-tie rule); ``sharded_log_partition``
+    against K6a's logZ (rtol 1e-5); the three sharded decodes' times beside
+    ``decode()``'s at the same shapes, with the chunk product's share.
 
 Every kernel's time stands beside its bound on this card: the largest of the
 bytes it must move (each input read once, each output written once) over
@@ -367,6 +387,13 @@ CAL_ATOL = 2e-6
 # segmental decode at one segment a frame (the bench's zero model), K12 on
 # K9's frame and K13 on the traceback's stream, is 0.852 us.
 FDT_FRAME_US, SCRF_FRAME_US = 2.683, 0.852
+# The time-sharded decode's scores against the unsharded decode's (phase
+# (t)): rtol 1e-5 at T=512, as the JAX tests hold them; at T=16384 the two
+# fp32 sums of 16,384 frames, associated chunk by chunk and frame by frame,
+# drift ~sqrt(T) eps relative apart (7.7e-6) with a heavy tail (a 0.334
+# difference seen on an H100 where 1e-5 allowed less): 1e-4.  Paths are held
+# equal, or both within SHARD_RTOL by rescoring.
+SHARD_RTOL, SHARD_LONG_RTOL = 1e-5, 1e-4
 # The JAX package's recipes on the CPU at their own sizes (python
 # recipes/<name>.py --platform cpu): per-epoch mean_loss, the final CV PER
 # and the decode's (errors, tokens); swbd_multihost does not decode.
@@ -431,6 +458,7 @@ class Smoke:
         self.busy = {}              # device-busy ms a call, by device_share
         self.compiled = {}          # phase (s): each path's rows
         self.compiled_counts = {}
+        self.multigpu = {}          # phase (t)'s rows
         self.times = {}
         self.bounds = {}
         self.library_ms = {}
@@ -2760,6 +2788,241 @@ class Smoke:
         log("diagnostics: without --debug_nans the same run ends (mean "
             f"loss {[r['mean_loss'] for r in recs if r['kind'] == 'train_epoch']})")
 
+    # -- (t) multi-GPU ------------------------------------------------------
+    def dp_path(self, mesh, label, cfg, lr):
+        """The data-parallel step against the single-process one (phase
+        (s)'s): 8 steps one a replay, then 8 in one multi_step, each side
+        with every launch count 0 before it; bit-equal metrics and
+        parameters, equal counts; ms a step through the graphs."""
+        from asr_craft_tpu_torch import flagship
+        from asr_craft_tpu_torch.train import TrainConfig, Trainer, graphs
+        from asr_craft_tpu_torch.utils.logging import MetricsLogger
+        torch, dev = self.torch, self.dev
+        B, T, STEPS = 128, 512, 8
+        params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, dev)
+        batches = [flagship.tiny_batch(cfg, B, T, s, dev)
+                   for s in range(STEPS)]
+        out = {}
+        for side in ("dp", "single"):
+            tr = Trainer(cfg, TrainConfig(lr=lr), params=params,
+                         logger=MetricsLogger(quiet=True),
+                         mesh=mesh if side == "dp" else None)
+            tr.train_step(batches[0], lr)           # warm-up and capture
+            tr.multi_step(batches, lr)
+            torch.cuda.synchronize()
+            for c in graphs.COUNTS:
+                c.update({k: 0 for k in c})
+            ms = [tr.train_step(b, lr) for b in batches]
+            multi = tr.multi_step(batches, lr)
+            torch.cuda.synchronize()
+            counts = {k: v for c in graphs.COUNTS for k, v in c.items() if v}
+            step_ms = self.cuda_ms(lambda: tr.train_step(batches[0], lr), 5)
+            multi_ms = self.cuda_ms(lambda: tr.multi_step(batches, lr),
+                                    2) / STEPS
+            got = ({k: torch.stack([m[k] for m in ms]) for k in ms[0]},
+                   multi, {k: v.detach() for k, v in tr.params.items()})
+            out[side] = (got, counts, step_ms, multi_ms)
+        (dp, dcounts, d_ms, d_multi), (one, scounts, s_ms, s_multi) = \
+            out["dp"], out["single"]
+        for part in range(2):
+            for k in ("loss", "grad_norm", "frames"):
+                if not torch.equal(dp[part][k], one[part][k]):
+                    raise AssertionError(f"multi-GPU {label}: {k} "
+                                         f"{dp[part][k]} data-parallel, "
+                                         f"{one[part][k]} single")
+        for k, v in one[2].items():
+            if not torch.equal(dp[2][k], v):
+                raise AssertionError(f"multi-GPU {label}: parameter {k} "
+                                     "differs")
+        if dcounts != scounts or not dcounts:
+            raise AssertionError(f"multi-GPU {label}: launches {dcounts} "
+                                 f"data-parallel, {scounts} single")
+        ref = self.times.get(f"compiled {label} step")
+        self.multigpu[label] = {"dp_step_ms": d_ms, "single_step_ms": s_ms,
+                                "dp_multi_step_ms": d_multi,
+                                "single_multi_step_ms": s_multi,
+                                "phase_s_step_ms": ref and ref[0],
+                                "launches": dcounts}
+        log(f"multi-GPU {label} step (B={B}, T={T}, one NCCL rank): losses, "
+            f"gradient norms, frames and parameters after 8 steps and 8 in "
+            f"one multi_step bit-equal to the single-process step; "
+            f"launches {dcounts}; through the graphs {d_ms:.4f} ms a step "
+            f"data-parallel, {s_ms:.4f} single ("
+            + (f"phase (s): {ref[0]:.4f}" if ref else "phase (s) not run")
+            + f"); in one 8-step replay {d_multi:.4f} / {s_multi:.4f} ms a "
+            "step")
+
+    def posterior_inputs(self, cfg, B, T, seed=0):
+        """Phone-posterior frames (one-hot phones in runs of 4 frames plus
+        N(0, 0.3) noise, a +/-2 window) and ``flagship.posterior_model``
+        at window 2: a model whose pruned lattice stays alive, where a
+        random model's K=12 survivors of 138 states connect no path
+        through the 3-state topology (the lattice dies: every score a sum
+        of NEG_INF terms on both sides, which nothing can compare)."""
+        import numpy as np
+
+        from asr_craft_tpu_torch.flagship import posterior_model
+        from asr_craft_tpu_torch.models.weights import params_from_numpy
+        torch, P = self.torch, cfg.num_labels
+        rng = np.random.default_rng(seed)
+        phones = np.repeat(rng.integers(0, P, size=(B, T // 4 + 1)), 4,
+                           axis=1)[:, :T + 4]
+        onehot = np.eye(P, dtype=np.float32)[phones]        # (B, T+4, P)
+        feats = np.concatenate([onehot[:, w:w + T] for w in range(5)],
+                               axis=-1)
+        feats += rng.normal(0.0, 0.3, size=feats.shape).astype(np.float32)
+        params = params_from_numpy(posterior_model(cfg, 2, seed), self.dev)
+        return params, torch.from_numpy(feats).to(self.dev)
+
+    def sharded_path(self, label, cfg, params, B, T, N, beam_labels,
+                     feats=None):
+        """``sharded_decode`` against the unsharded decode at config 5, by
+        the near-tie rule; its time, decode()'s and the chunk product's.  A
+        row whose reference lattice is dead (score below NEG_INF / 2) must
+        be dead on both sides; every other row is compared."""
+        from asr_craft_tpu_torch.flagship import ragged_lengths, tiny_batch
+        from asr_craft_tpu_torch.kernels.viterbi import viterbi_shared
+        from asr_craft_tpu_torch.models.crf import (apply_boundaries, decode,
+                                                    potentials)
+        from asr_craft_tpu_torch.ops.semiring import NEG_INF, TROPICAL
+        from asr_craft_tpu_torch.ops.viterbi import path_score
+        from asr_craft_tpu_torch.parallel import timeshard as TS
+        torch, dev = self.torch, self.dev
+        if feats is None:
+            feats = tiny_batch(cfg, B, T, 0, dev)["feats"]
+        lengths = torch.from_numpy(ragged_lengths(B, T, 0)).to(dev)
+        # a row that ends mid-way where ragged_lengths leaves one empty:
+        # an empty row scores 0 sharded (and its logZ is 0) where the
+        # unsharded recursions read frame 0 (the JAX package's contract,
+        # parallel.timeshard.sharded_decode)
+        lengths[-1] = T // 3
+        run = lambda: TS.sharded_decode(cfg, params, feats, lengths, N,
+                                        beam_labels=beam_labels)
+        _, path, score = run()
+        state, trans = potentials(cfg, params, feats)
+        state = apply_boundaries(cfg, state, lengths).contiguous()
+        trans = trans.contiguous()
+        base = state
+        if beam_labels is not None:     # K8 on the survivor-masked lattice
+            mask = TS.survivor_mask(state, lengths, N, beam_labels)
+            base = torch.where(mask, state, NEG_INF).contiguous()
+        rpath, rscore = viterbi_shared(base, trans, lengths, cfg.num_states)
+        ref_run = lambda: decode(cfg, params, feats, lengths)
+        torch.cuda.synchronize()
+        alive = rscore > NEG_INF / 2
+        if not torch.equal(alive, score > NEG_INF / 2) or not bool(
+                alive.any()):
+            raise AssertionError(f"multi-GPU {label}: rows alive "
+                                 f"{alive.tolist()} unsharded, "
+                                 f"{(score > NEG_INF / 2).tolist()} sharded")
+        # the scores are fp32 sums over a row's frames, associated chunk by
+        # chunk on one side and frame by frame on the other: ~sqrt(T) eps
+        # relative apart, 7.7e-6 at T=16384 and heavier in the tail; the
+        # paths, rescored in one order, are held to 1e-5 at any T
+        rtol = SHARD_RTOL if T <= 512 else SHARD_LONG_RTOL
+        self.close(f"multi-GPU {label} scores", score[alive], rscore[alive],
+                   rtol, 0.0)
+        rel = float(((score - rscore).abs() / rscore.abs())[alive].max())
+        differ = (path != rpath).any(dim=1) & alive
+        if bool(differ.any()):
+            a = path_score(base, trans, path, lengths)[differ]
+            b = path_score(base, trans, rpath, lengths)[differ]
+            self.close(f"multi-GPU {label} near ties", a, b, SHARD_RTOL, 0.0)
+        ms = self.cuda_ms(run, 1)
+        ref_ms = self.cuda_ms(ref_run, 3)
+        # the chunk product alone, on the same chunks
+        mesh = TS.time_mesh(N, "cuda")
+        st, tr, ln = TS._inputs(state, trans, lengths, mesh)
+        state_c, offsets = TS._chunks(st, mesh)
+        if beam_labels is None:
+            prod = lambda: TS._local_chunk_product(state_c, tr, ln, offsets,
+                                                   TROPICAL)
+        else:
+            surv = TS._chunk_survivors(state_c, ln, offsets, beam_labels)
+            prod = lambda: TS._pruned_chunk_product(state_c, tr, ln, offsets,
+                                                    TROPICAL, surv)
+        prod_ms = self.cuda_ms(prod, 1)
+        n_alive = int(alive.sum())
+        self.multigpu[label] = {
+            "sharded_ms": ms, "decode_ms": ref_ms, "chunk_product_ms": prod_ms,
+            "chunk_product_share": prod_ms / ms, "rows_alive": n_alive,
+            "rows_differing": int(differ.sum()), "score_max_rel": rel}
+        log(f"multi-GPU {label} (config 5, B={B}, T={T}, N={N}, "
+            f"beam_labels={beam_labels}): {n_alive} of {B} rows alive, their "
+            f"scores within rtol {rtol:g} of K8's (max {rel:.3e})"
+            + (" on survivor_mask's lattice" if beam_labels else "")
+            + f", {int(differ.sum())} paths differ (near ties, rescored "
+            f"within rtol 1e-5); sharded_decode {ms:.3f} ms, decode() "
+            f"{ref_ms:.3f} ms; the chunk product {prod_ms:.3f} ms "
+            f"({100 * prod_ms / ms:.1f}% of the sharded decode)")
+
+    def phase_multigpu(self):
+        import tempfile
+
+        import torch.distributed as dist
+        from asr_craft_tpu_torch import bench, flagship
+        from asr_craft_tpu_torch.kernels import fwdbwd as KF
+        from asr_craft_tpu_torch.models.crf import (apply_boundaries,
+                                                    potentials)
+        from asr_craft_tpu_torch.parallel import (initialize_distributed,
+                                                  make_mesh)
+        from asr_craft_tpu_torch.parallel import timeshard as TS
+        torch, dev = self.torch, self.dev
+        self.multigpu = {}
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            initialize_distributed(f"file://{tmp}/store", 1, 0, "cuda")
+            try:
+                mesh = make_mesh(1)
+                if dist.get_backend() != "nccl" or \
+                        mesh.device.type != "cuda":
+                    raise AssertionError(f"multi-GPU: backend "
+                                         f"{dist.get_backend()}, device "
+                                         f"{mesh.device}")
+                self.dp_path(mesh, "config2", self.cfg, 0.5)
+                self.dp_path(mesh, "config5", flagship.swbd(), 0.03)
+                t1 = time.perf_counter()
+                loss = flagship.dryrun_multichip(1)
+                log(f"multi-GPU dryrun_multichip(1): loss {loss:.6f}, "
+                    f"{time.perf_counter() - t1:.3f} s with its spawned rank")
+                buf = io.StringIO()
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = bench.main(["--scaling", "--check"])
+                rows = json.loads(buf.getvalue().splitlines()[-1])["scaling"]
+                if rc != 0 or not rows.get("check_ok") or "1" not in rows:
+                    raise AssertionError(f"bench --scaling --check: rc {rc}, "
+                                         f"{rows}")
+                self.multigpu["scaling"] = rows
+                log(f"multi-GPU bench --scaling --check: "
+                    f"{json.dumps(rows)} ({time.perf_counter() - t1:.3f} s)")
+            finally:
+                dist.destroy_process_group()
+        cfg = flagship.swbd()
+        params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+        self.sharded_path("sharded decode", cfg, params, 64, 512, 8, None)
+        self.sharded_path("sharded decode long", cfg, params, 4, 16384, 8,
+                          None)
+        pparams, pfeats = self.posterior_inputs(cfg, 4, 16384)
+        self.sharded_path("sharded decode long pruned", cfg, pparams, 4,
+                          16384, 8, 12, pfeats)
+        feats = flagship.tiny_batch(cfg, 64, 512, 1, dev)["feats"]
+        lengths = torch.from_numpy(flagship.ragged_lengths(64, 512, 1)).to(
+            dev)
+        lengths[-1] = 512 // 3          # an empty row's logZ: as above
+        state, trans = potentials(cfg, params, feats)
+        state = apply_boundaries(cfg, state, lengths).contiguous()
+        z = TS.sharded_log_partition(state, trans, lengths,
+                                     TS.time_mesh(8, "cuda"))
+        _, rz = KF.forward_cuda(state, trans.contiguous(), lengths)
+        err = self.close("multi-GPU sharded_log_partition", z, rz, 1e-5, 0.0)
+        log(f"multi-GPU sharded_log_partition (config 5, B=64, T=512, N=8): "
+            f"within rtol 1e-5 of K6a's logZ, max abs diff {err:.3e}")
+        secs = time.perf_counter() - t0
+        self.multigpu["seconds"] = secs
+        log(f"multi-GPU: phase (t) took {secs:.3f} s; "
+            + json.dumps(self.multigpu, default=str))
+
     def kernels_line(self):
         out = []
 
@@ -2847,7 +3110,8 @@ def main() -> int:
                          smoke.phase_bench_calibrate),
                         ("bench end to end", smoke.phase_bench),
                         ("bench diagnostics",
-                         smoke.phase_bench_diagnostics)):
+                         smoke.phase_bench_diagnostics),
+                        ("multi-GPU", smoke.phase_multigpu)):
         if only is not None and only not in name:
             continue
         try:

@@ -130,10 +130,13 @@ def test_train_step_and_loader_functions():
 
 
 def test_what_waits_for_another_slice_raises():
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    """``--scaling`` on the CPU needs its number of gloo ranks stated, and on
+    the card a card (no CPU fallback)."""
+    with pytest.raises(ValueError, match="gloo ranks"):
         bench.main(["--device", "cpu", "--scaling"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        bench.bench_scaling(check=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench.bench_scaling(check=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main([])

@@ -96,7 +96,9 @@ def test_cli_backends_agree_on_cpu(tmp_path, weight_file):
 
 @pytest.mark.parametrize("flag", [["--time_shard", "2"]])
 def test_cli_unported_flags_raise(weight_file, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The time-sharded decode refuses this frame-dependent-transition
+    model: its factored planes carry no (L', L') matrix to reduce."""
+    with pytest.raises(ValueError, match="frame-independent"):
         port_cli.main(CORPUS + ["--weight_file", str(weight_file),
                                 "--device", "cpu"] + flag)
 

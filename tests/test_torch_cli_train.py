@@ -133,7 +133,12 @@ def test_cli_unported_flags_raise(tmp_path, flag):
 
 
 def test_cli_more_than_one_device_raises(tmp_path, monkeypatch):
+    """A world of 4 ranks with no rendezvous address raises: the CLI never
+    trains alone where torchrun's environment asks for a group."""
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         port_cli.main(TRAIN + ["--device", "cpu", "--out_dir",
                                str(tmp_path)])

@@ -135,8 +135,14 @@ def test_word_decode_nbest_and_lattices_match_jax_cli(tmp_path, corpus):
 
 
 def test_time_shard_still_raises(corpus):
+    """The word decode does not shard: ``--lexicon`` with ``--time_shard``
+    is refused (the phone decode shards: tests/test_torch_cli_timeshard.py),
+    as is ``--shard_beam_labels`` without ``--time_shard``."""
     d, P = corpus
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port_cli.main(["--ftr1_file", str(d / "test.pf"), "--crf_label_size",
-                       str(P), "--weight_file", str(d / "mono.dat"),
-                       "--device", "cpu", "--time_shard", "2"])
+    argv = ["--ftr1_file", str(d / "test.pf"), "--crf_label_size", str(P),
+            "--weight_file", str(d / "mono.dat"), "--device", "cpu"]
+    with pytest.raises(SystemExit, match="--lexicon"):
+        port_cli.main(argv + ["--lexicon", str(d / "lex.txt"),
+                              "--time_shard", "2"])
+    with pytest.raises(SystemExit, match="--time_shard"):
+        port_cli.main(argv + ["--shard_beam_labels", "4"])

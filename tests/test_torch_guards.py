@@ -41,9 +41,10 @@ for n in ('kernels.wall', 'kernels.fdt_train', 'train.trainer',
           'recipes.scrf', 'bench', 'utils.roofline', 'utils.diagnostics',
           'kernels.calibrate', 'ops.oracle', 'recipes.timit_mono',
           'recipes.timit_triphone', 'recipes.wsj_crandem',
-          'recipes.swbd_multihost'):
+          'recipes.swbd_multihost', 'parallel', 'parallel.mesh',
+          'parallel.timeshard'):
     assert 'asr_craft_tpu_torch.' + n in names, n
-assert len(names) >= 49, names
+assert len(names) >= 52, names
 # the interpreter runs in the repository's root, where `import bench` would
 # find the JAX package's script
 bad = sorted(m for m in sys.modules
