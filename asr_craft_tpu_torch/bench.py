@@ -35,11 +35,13 @@ Where it differs from the JAX script, and why:
   counterpart of the ``jax.jit`` there).  The ``device_busy`` line says how
   much of each timed call the device worked (``torch.profiler``): a call
   far above its busy time is waiting for the host, not for a kernel.
-- Precision: the JAX script trains at ``bf16x3`` and reports fp32 beside it.
-  The CUDA kernels are IEEE fp32 (``highest``) only, so there is one train
-  run; ``train_fp32_audio_s_per_s`` repeats it and
-  ``train_loss_delta_vs_fp32`` is left out (there is no second precision to
-  take a difference with).
+- Precision: as the JAX script, it trains at ``bf16x3`` (the plane and
+  contraction products as three bf16 products of a hi/lo split on the bf16
+  tensor cores, ``csrc/fdt_mma.cu``; the recursions fp32) and runs the same
+  steps again at ``highest`` (3xTF32, fp32 accuracy) for
+  ``train_fp32_audio_s_per_s`` and ``train_loss_delta_vs_fp32``, the
+  difference of the two runs' losses after the warm-up.  The train
+  roofline holds the products to the ``bf16x3`` rate.
 - ``vs_baseline`` is null: the JAX script divides by a figure of its own
   first round on another machine, and no earlier H100 run of this script
   exists to divide by.
@@ -73,7 +75,9 @@ from asr_craft_tpu_torch.utils.logging import MetricsLogger
 B, T = 128, 512      # train bench batch (fixed per-frame cost amortizes)
 DECODE_B = 64
 FRAME_S = 0.01       # 10 ms frames
-TRAIN_PRECISION = "highest"     # IEEE fp32: what the CUDA kernels compute
+# the flagship's train precision, the JAX script's: the products in three
+# bf16 passes of a hi/lo split (~2^-16 relative), the fp32 run beside it
+TRAIN_PRECISION = "bf16x3"
 
 
 def _device(device) -> torch.device:
@@ -384,11 +388,13 @@ def bench_scrf(steps=6, Bs=128, Ts=512, L=48, D=144, Dmax=16,
 
 
 def bench_roofline(train_dt, decode_dt, B=B, T=T, decode_B=DECODE_B,
-                   device="cuda", calib=None):
+                   device="cuda", calib=None, mode="fp32"):
     """Quantified speed of light: modeled device-memory traffic, fp32
-    operations (the products at the tensor cores' 3xTF32 rate) and element
-    operations a step against the card's peaks, the measured stream
-    bandwidth and the measured elementwise rate."""
+    operations (the products at the tensor cores' rate for the precision
+    ``mode`` of the train step, ``utils.roofline._peak_flops``; the decode's
+    at the 3xTF32 rate) and element operations a step against the card's
+    peaks, the measured stream bandwidth and the measured elementwise
+    rate."""
     cfg = flagship.flagship()
     L = cfg.num_labels * cfg.num_states
     D = cfg.feat_dim
@@ -397,12 +403,13 @@ def bench_roofline(train_dt, decode_dt, B=B, T=T, decode_B=DECODE_B,
     train_ph = rl.fdt_train_phases(B, T, L, D, cfg.num_states)
     dec_ph = rl.fdt_decode_phases(decode_B, T, L, D, cfg.num_states)
     train = rl.summarize(train_ph, train_dt, measured_bw_gbps=bw,
-                         vpu_geps=vpu)
+                         mode=mode, vpu_geps=vpu)
     dec = rl.summarize(dec_ph, decode_dt, measured_bw_gbps=bw)
-    # the defended floor: exact products at the 3xTF32 rate, the DP's
+    # the defended floor: exact products at the rate of ``mode``, the DP's
     # multiply-adds at the fp32 rate, plus the recursions' element
     # operations at the measured rate
-    floor = rl.fdt_tile_floor(B, T, L, D, cfg.num_states, vpu_geps=vpu)
+    floor = rl.fdt_tile_floor(B, T, L, D, cfg.num_states, mode=mode,
+                              vpu_geps=vpu)
     train["tile_floor"] = floor
     train["pct_of_tile_floor"] = round(
         100.0 * floor["floor_ms"] / (train_dt * 1e3), 1)
@@ -547,8 +554,12 @@ def bench_records(device="cuda", train=None, loader=None, dec=None,
     of it small."""
     device = _device(device)
     busy = {}
-    train_tput, train_dt, _ = bench_train_step(
+    train_tput, train_dt, loss = bench_train_step(
         precision=TRAIN_PRECISION, device=device, busy=busy, **(train or {}))
+    # the fp32 (highest) reference point: the parity-bar precision, and the
+    # loss delta between the modes at the bench shape
+    f32_tput, _, f32_loss = bench_train_step(
+        precision="highest", device=device, **{"calls": 3, **(train or {})})
     loader_tput = bench_train_epoch_loader(device=device, **(loader or {}))
     decode_tput, decode_dt = bench_decode(device=device, busy=busy,
                                           **(dec or {}))
@@ -557,7 +568,8 @@ def bench_records(device="cuda", train=None, loader=None, dec=None,
     shape = {"B": (train or {}).get("B", B), "T": (train or {}).get("T", T),
              "decode_B": (dec or {}).get("B", DECODE_B)}
     rl_train, rl_dec = bench_roofline(train_dt, decode_dt, device=device,
-                                      calib=calib_rec, **shape)
+                                      calib=calib_rec, mode=TRAIN_PRECISION,
+                                      **shape)
     scrf_rec = bench_scrf(device=device, calib=calib_rec, busy=busy,
                           **(scrf or {}))
     return [
@@ -572,7 +584,8 @@ def bench_records(device="cuda", train=None, loader=None, dec=None,
                  "decode_B": shape["decode_B"],
                  "train_precision": TRAIN_PRECISION,
                  "loader_epoch_audio_s_per_s": round(loader_tput, 1),
-                 "train_fp32_audio_s_per_s": round(train_tput, 1),
+                 "train_fp32_audio_s_per_s": round(f32_tput, 1),
+                 "train_loss_delta_vs_fp32": round(abs(loss - f32_loss), 8),
                  "train_pct_of_sol": rl_train["pct_of_sol"],
                  "decode_pct_of_sol": rl_dec["pct_of_sol"],
                  "scrf_train_pct_of_sol":

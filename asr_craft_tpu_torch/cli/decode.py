@@ -18,7 +18,9 @@ decoders are the port's host modules (``data``, ``decode``, ``cli.common``,
 (``auto``: kernels for CUDA tensors).  ``--time_shard N
 [--shard_beam_labels K]`` decodes shared-transition models through
 :func:`asr_craft_tpu_torch.parallel.timeshard.sharded_decode`: the time
-axis in N chunks on the one device (layout (i)).
+axis in N chunks on the one device (layout (i)).  As in the JAX CLI, the
+word decode (``--lexicon``) does not shard and ignores ``--time_shard``,
+and ``--shard_beam_labels`` without ``--time_shard`` is ignored.
 """
 from __future__ import annotations
 
@@ -135,13 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # as the JAX CLI: the word decode (--lexicon) returns before the time
+    # shard is read, and --shard_beam_labels is read only when sharded
     sharded = bool(args.time_shard and args.time_shard > 1)
-    if args.shard_beam_labels is not None and not sharded:
-        raise SystemExit("--shard_beam_labels applies only with "
-                         "--time_shard N > 1")
-    if sharded and args.lexicon:
-        raise SystemExit("--time_shard shards the phone decode; the word "
-                         "decode (--lexicon) does not shard")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "

@@ -102,8 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crf_use_trans_bias", type=int, default=1)
     p.add_argument("--precision", choices=["highest", "bf16x3", "default"],
                    default="highest",
-                   help="kernel matmul precision (only highest, IEEE fp32, "
-                        "is ported to the CUDA kernels)")
+                   help="the products' precision: highest (fp32 "
+                        "accuracy, 3xTF32 on the card), bf16x3 (three bf16 "
+                        "products of a hi/lo split), default (one TF32 "
+                        "pass); the recursions stay fp32")
     p.add_argument("--label_kind", choices=["phone", "state"],
                    default="phone")
     p.add_argument("--init_weight_file", help="warm-start flat weight file")

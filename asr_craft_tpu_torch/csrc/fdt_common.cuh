@@ -197,6 +197,69 @@ __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---------------------------------------------------------------------------
+// The two other precisions of the fdt products (fdt_mma.cu), the JAX
+// package's CrfConfig.precision:
+//   kDefault: one TF32 pass, each operand rounded by cvt.rna (tf32 below);
+//   kBf16x3:  each operand split as hi = bf16(x) (round to nearest even),
+//             lo = bf16(x - hi), and hi.hi + hi.lo + lo.hi accumulated in
+//             fp32 on the bf16 tensor cores (mma.sync m16n8k16); every
+//             product of two bf16 values is exact in fp32.
+// ---------------------------------------------------------------------------
+
+enum Precision : int { kHighest = 0, kBf16x3 = 1, kDefault = 2 };
+
+// x rounded to TF32 (round to nearest, ties away from zero), as a .b32
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// two bf16 in one register: x0 in the low half (the lower depth of an mma
+// fragment's pair), x1 in the high half; round to nearest even
+__device__ __forceinline__ unsigned pack_bf16(float x0, float x1) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(x1), "f"(x0));
+  return d;
+}
+
+// the hi / lo bf16 pairs of (x0, x1); lo of an infinite or NaN x is NaN,
+// as x - hi is
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// The value one operand x contributes when it meets an exact 1 (a bias
+// column, the column of ones): x itself (kHighest), tf32(x) (kDefault),
+// hi + lo (kBf16x3).
+template <int PREC>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (PREC == kDefault) {
+    return __uint_as_float(tf32(x));
+  } else if constexpr (PREC == kBf16x3) {
+    const float hi = __uint_as_float(pack_bf16(x, 0.0f) << 16);
+    return hi + __uint_as_float(pack_bf16(x - hi, 0.0f) << 16);
+  } else {
+    return x;
+  }
+}
+
+// c += a b on one m16n8k16 bf16 tile, fp32 accumulate (a: row-major
+// fragment, four registers of two bf16; b: col-major, two registers)
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // log(e^a + e^b + e^c) with the reference's guards (fdt_pallas.py _lse3):
 // the max is clamped at NEG_INF and the sum floored at 1e-35.
 __device__ __forceinline__ float lse3(float a, float b, float c) {

@@ -1,6 +1,16 @@
 // The matrix products of the frame-dependent-transition CRF on Hopper's
-// tensor cores (sm_90a), in fp32 accuracy by 3xTF32: the planes of every
-// frame, which K1's, K2's and K3's recursions read, and K2's contractions.
+// tensor cores (sm_90a): the planes of every frame, which K1's, K2's and
+// K3's recursions read, and K2's contractions, in the model's precision
+// (CrfConfig.precision; the recursions stay IEEE fp32 in every mode):
+//   highest: fp32 accuracy by 3xTF32 (m16n8k8 TF32 mma);
+//   bf16x3:  the reference's split (fdt_pallas.py _mm, :67-100): hi =
+//            bf16(x), lo = bf16(x - hi), hi.hi + hi.lo + lo.hi in fp32, on
+//            the bf16 tensor cores (m16n8k16 bf16 mma);
+//   default: one TF32 pass (cvt.rna on each operand, one m16n8k8 mma where
+//            highest issues three).  JAX's Precision.DEFAULT on an fp32 dot
+//            is one TF32 pass on an NVIDIA card, and it is the card's
+//            single-pass product of fp32 operands; a single bf16 pass would
+//            copy the TPU's lowering, not the reference's meaning here.
 // Plain C interface, loaded with ctypes by
 // asr_craft_tpu_torch/kernels/fdt_train.py, whose fdt_planes_torch and
 // contract_wall_torch are the plain versions.
@@ -32,7 +42,10 @@
 // R=2736, Du=144) each product is 52 GFLOP and moves 0.76 GB (the 717 MB
 // plane buffer once, written or read), so the tensor cores bind: 3xTF32
 // issues three TF32 products per fp32 one, 0.31 ms at 495 / 3 TFLOP/s, where
-// the CUDA cores' fp32 rate (67 TFLOP/s) would need 0.78 ms.
+// the CUDA cores' fp32 rate (67 TFLOP/s) would need 0.78 ms.  bf16x3 (three
+// bf16 products, 989 / 3 TFLOP/s: 0.157 ms) and default (one TF32 product:
+// 0.105 ms) fall below the 0.23 ms the bytes take at 3.35 TB/s, so the
+// memory binds them.
 //
 // What this design does about it.  One template runs all three: a block
 // owns a 128 x 160 output tile (8 warps, each 32 x 80: 2 x 10 m16n8k8 TF32
@@ -46,15 +59,18 @@
 // frames, along which both dplane and xu are M- or N-major; mma.sync reads
 // its fragments from tiles staged in either layout (strides padded so a
 // warp's fragment loads hit 32 different banks), so one code path serves
-// all three.  The frames of mode 0 are split into chunks so that ~132
-// blocks (one an SM) each read their share of dplane once; the chunk sums
-// are added by a second kernel in a fixed order: no atomics, dWall the same
-// bits on every run.  The bias column of mode 0 (xu's ones) is a plain
-// fp32 column sum of the staged dplane tile, in frame order.  Not done yet:
-// wgmma for the plane, a persistent grid, TMA tiles.
+// all three; the precision is a template parameter that changes only how a
+// staged tile is split and issued (gemm_tile).  The frames of mode 0 are
+// split into chunks so that ~132 blocks (one an SM) each read their share
+// of dplane once; the chunk sums are added by a second kernel in a fixed
+// order: no atomics, dWall the same bits on every run.  The bias column of
+// mode 0 (xu's ones) is a plain fp32 column sum of the staged dplane tile,
+// in frame order.  Not done yet: wgmma for the plane, a persistent grid,
+// TMA tiles.
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "fdt_common.cuh"
@@ -64,7 +80,10 @@ namespace {
 using fdtk::cp_async16;
 using fdtk::cp_async4;
 using fdtk::mma;
+using fdtk::mma_bf16;
 using fdtk::split;
+using fdtk::split_bf16;
+using fdtk::tf32;
 
 constexpr int kBM = 128, kBN = 160, kBK = 16, kStages = 4, kThreads = 256;
 constexpr int kBlocksPerSM = 2;    // registers capped at 128 a thread
@@ -125,10 +144,17 @@ __device__ __forceinline__ void stage(float* s, const View& v, int o0,
 using Acc = float[kMI][kNI][4];
 
 // acc += A B^T over the depths [kb, ke) of the block's tile (rows m0.. of
-// A, rows n0.. of B).  AK / BK: the operand's view is [row][depth] (depth
-// contiguous) rather than [depth][row].  colsum (mode 0): threads below kBM
-// also add up column threadIdx.x of every staged A tile, in depth order.
-template <bool AK, bool BK, bool VEC>
+// A, rows n0.. of B), in the precision PREC (fdt_common.cuh).  AK / BK: the
+// operand's view is [row][depth] (depth contiguous) rather than [depth][row].
+// colsum (mode 0): threads below kBM also add up column threadIdx.x of every
+// staged A tile, in depth order, each value as it meets a 1 (operand<PREC>).
+//
+// kBf16x3 issues one m16n8k16 step per staged tile.  Its fragments hold
+// depths in pairs (slots 2t, 2t+1 and 2t+8, 2t+9 of lane t); since a
+// product sums over the depth in any order, slot 2t + j carries depth t +
+// 4j and slot 2t + 8 + j depth t + 8 + 4j, in A and B alike: the elements a
+// lane reads are those of TF32's two k8 steps, on the same 32 banks.
+template <int PREC, bool AK, bool BK, bool VEC>
 __device__ __forceinline__ void gemm_tile(float* smem, View a, View b, int m0,
                                           int n0, int kb, int ke, Acc& acc,
                                           bool want_colsum, float& colsum) {
@@ -161,9 +187,58 @@ __device__ __forceinline__ void gemm_tile(float* smem, View a, View b, int m0,
     const float* sa = smem + (it % kStages) * STAGE;
     const float* sb = sa + TA::FLOATS;
     if (want_colsum && threadIdx.x < kBM)
-      for (int k = 0; k < kBK; ++k) colsum += TA::at(sa, threadIdx.x, k);
+      for (int k = 0; k < kBK; ++k)
+        colsum += fdtk::operand<PREC>(TA::at(sa, threadIdx.x, k));
+    if constexpr (PREC == fdtk::kBf16x3) {
+      static_assert(kBK == 16, "one m16n8k16 step a staged tile");
+      uint32_t ah[kMI][4], al[kMI][4];
+#pragma unroll
+      for (int mi = 0; mi < kMI; ++mi) {
+        const int r = wm + mi * 16 + g;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {     // q: row r or r + 8, depth 0 or 8
+          const int row = r + (q & 1) * 8, k = t + (q >> 1) * 8;
+          split_bf16(TA::at(sa, row, k), TA::at(sa, row, k + 4), ah[mi][q],
+                     al[mi][q]);
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni) {
+        const int c = wn + ni * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_bf16(TB::at(sb, c, t), TB::at(sb, c, t + 4), bh0, bl0);
+        split_bf16(TB::at(sb, c, t + 8), TB::at(sb, c, t + 12), bh1, bl1);
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          mma_bf16(acc[mi][ni], al[mi], bh0, bh1);
+          mma_bf16(acc[mi][ni], ah[mi], bl0, bl1);
+          mma_bf16(acc[mi][ni], ah[mi], bh0, bh1);
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 8) {
+      if constexpr (PREC == fdtk::kDefault) {
+        uint32_t ab[kMI][4];
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          const int r = wm + mi * 16 + g;
+          ab[mi][0] = tf32(TA::at(sa, r, kk + t));
+          ab[mi][1] = tf32(TA::at(sa, r + 8, kk + t));
+          ab[mi][2] = tf32(TA::at(sa, r, kk + t + 4));
+          ab[mi][3] = tf32(TA::at(sa, r + 8, kk + t + 4));
+        }
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni) {
+          const int c = wn + ni * 8 + g;
+          const uint32_t bb0 = tf32(TB::at(sb, c, kk + t));
+          const uint32_t bb1 = tf32(TB::at(sb, c, kk + t + 4));
+#pragma unroll
+          for (int mi = 0; mi < kMI; ++mi) mma(acc[mi][ni], ab[mi], bb0, bb1);
+        }
+        continue;
+      }
       uint32_t ab[kMI][4], as[kMI][4];
 #pragma unroll
       for (int mi = 0; mi < kMI; ++mi) {
@@ -202,6 +277,8 @@ struct Out {
   int bias_n;
 };
 
+// The bias meets xu's column of ones, so it enters as operand<PREC>.
+template <int PREC>
 __device__ __forceinline__ void store(const Out& o, const Acc& acc, int m0,
                                       int n0) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -217,14 +294,15 @@ __device__ __forceinline__ void store(const Out& o, const Acc& acc, int m0,
         const int n = n0 + wn + ni * 8 + 2 * t + (e & 1);
         if (m >= o.M || n >= o.N) continue;
         float v = acc[mi][ni][e];
-        if (o.bias && n < o.bias_n) v += o.bias[n * o.bias_ld];
+        if (o.bias && n < o.bias_n)
+          v += fdtk::operand<PREC>(o.bias[n * o.bias_ld]);
         o.p[m * o.ld + o.col0 + n] = v;
       }
 }
 
 // planes (N, R4) = x (N, Du) Wall[:, :Du]^T + Wall[:, Du]; x_n = feats[n,
 // u0:u0+Du], wall_k = Wall[:, :Du] with rows padded to Dk floats.
-template <bool VEC>
+template <int PREC, bool VEC>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fdt_train_plane_kernel(const float* __restrict__ feats,
                        const float* __restrict__ wall_k,
@@ -235,18 +313,19 @@ fdt_train_plane_kernel(const float* __restrict__ feats,
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   Acc acc = {};
   float unused = 0.0f;
-  gemm_tile<true, true, VEC>(reinterpret_cast<float*>(smem4),
+  gemm_tile<PREC, true, true, VEC>(reinterpret_cast<float*>(smem4),
                              View{feats + u0, D, N, Du},
                              View{wall_k, Dk, R, Du}, m0, n0, 0, Du, acc,
                              false, unused);
   // columns R..R4 have zero B rows and no bias: the pad is written 0
-  store(Out{planes, R4, 0, N, R4, wall + Du, Du + 1, R}, acc, m0, n0);
+  store<PREC>(Out{planes, R4, 0, N, R4, wall + Du, Du + 1, R}, acc, m0,
+              n0);
 }
 
 // MODE 0: out + z R (Du+1) = sum over frames [z k_split, (z+1) k_split) of
 //   dplane[n]^T [x_n; 1], src = feats;
 // MODE 1: out[n, u0:u0+Du] = dplane[n] Wall[:, :Du], src = wall_k (R, Dk).
-template <int MODE, bool VEC>
+template <int MODE, int PREC, bool VEC>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 fdt_train_contract_kernel(const float* __restrict__ dplane,
                           const float* __restrict__ src,
@@ -261,20 +340,20 @@ fdt_train_contract_kernel(const float* __restrict__ dplane,
     // A (r, n) = dplane[n, r] and B (d, n) = x_n[d]: both depth-major
     const int kb = blockIdx.z * k_split, ke = min(N, kb + k_split);
     const bool ones = n0 <= Du && Du < n0 + kBN;   // xu's bias column here
-    gemm_tile<false, false, VEC>(smem, View{dplane, R, N, R},
+    gemm_tile<PREC, false, false, VEC>(smem, View{dplane, R, N, R},
                                  View{src + u0, D, N, Du}, m0, n0, kb, ke,
                                  acc, ones, colsum);
     float* o = out + (size_t)blockIdx.z * R * (Du + 1);
-    store(Out{o, Du + 1, 0, R, Du, nullptr, 0, 0}, acc, m0, n0);
+    store<PREC>(Out{o, Du + 1, 0, R, Du, nullptr, 0, 0}, acc, m0, n0);
     const int r = m0 + threadIdx.x;
     if (ones && threadIdx.x < kBM && r < R)
       o[(size_t)r * (Du + 1) + Du] = colsum;
   } else {
     // A (n, r) = dplane[n, r] depth-contiguous, B (d, r) = Wall[r, d]
-    gemm_tile<true, false, VEC>(smem, View{dplane, R, N, R},
+    gemm_tile<PREC, true, false, VEC>(smem, View{dplane, R, N, R},
                                 View{src, Dk, R, Du}, m0, n0, 0, R, acc,
                                 false, colsum);
-    store(Out{out, D, u0, N, Du, nullptr, 0, 0}, acc, m0, n0);
+    store<PREC>(Out{out, D, u0, N, Du, nullptr, 0, 0}, acc, m0, n0);
   }
 }
 
@@ -311,6 +390,23 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
 
 int cdiv(long long a, int b) { return static_cast<int>((a + b - 1) / b); }
 
+
+// kernel<PREC>(...) for the runtime precision: fn is called with a tag
+// whose ::value is the precision (fdtk::Precision)
+template <typename Fn>
+int by_precision(int precision, Fn fn) {
+  switch (precision) {
+    case fdtk::kHighest:
+      return fn(std::integral_constant<int, fdtk::kHighest>{});
+    case fdtk::kBf16x3:
+      return fn(std::integral_constant<int, fdtk::kBf16x3>{});
+    case fdtk::kDefault:
+      return fn(std::integral_constant<int, fdtk::kDefault>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,10 +417,12 @@ int fdt_mma_tile_rows() { return kBM; }
 int fdt_mma_blocks_per_sm() { return kBlocksPerSM; }
 
 // wall_k (R, Dk): Wall[:, :Du] in rows of Dk >= Du floats (Dk % 4 == 0);
-// wall: the packed Wall (R, Du+1), read for its bias column.
+// wall: the packed Wall (R, Du+1), read for its bias column; precision:
+// fdtk::Precision (0 highest, 1 bf16x3, 2 default).
 int fdt_train_plane(const float* feats, const float* wall_k,
                     const float* wall, float* planes, int N, int D, int u0,
-                    int Du, int Dk, int R, int R4, void* stream) {
+                    int Du, int Dk, int R, int R4, int precision,
+                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(cdiv(R4, kBN), cdiv(N, kBM));
   const size_t smem = smem_bytes<true, true>();
@@ -334,18 +432,22 @@ int fdt_train_plane(const float* feats, const float* wall_k,
     return launch(kernel, grid, smem, s, feats, wall_k, wall, planes, N, D,
                   u0, Du, Dk, R, R4);
   };
-  return vec ? args(&fdt_train_plane_kernel<true>)
-             : args(&fdt_train_plane_kernel<false>);
+  return by_precision(precision, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return vec ? args(&fdt_train_plane_kernel<P, true>)
+               : args(&fdt_train_plane_kernel<P, false>);
+  });
 }
 
 // mode 0: out (R, Du+1) = dplane^T [x; 1] from src = feats (B T, D), the
 // frames in `splits` chunks of whole kBK steps summed into part (splits,
 // R, Du+1) and then into out in chunk order (splits <= 1: one chunk, no
 // part).  mode 1: out (N, D) columns u0..u0+Du = dplane Wall[:, :Du] from
-// src = wall_k (R, Dk).
+// src = wall_k (R, Dk).  precision: as fdt_train_plane's.
 int fdt_train_contract(const float* dplane, const float* src, float* out,
                        float* part, int mode, int N, int R, int D, int u0,
-                       int Du, int Dk, int splits, void* stream) {
+                       int Du, int Dk, int splits, int precision,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool dvec = aligned16(dplane) && R % 4 == 0 && aligned16(src);
   if (mode == 1) {
@@ -355,8 +457,12 @@ int fdt_train_contract(const float* dplane, const float* src, float* out,
       return launch(kernel, grid, smem, s, dplane, src, out, N, R, D, u0, Du,
                     Dk, 0);
     };
-    return dvec && Dk % 4 == 0 ? args(&fdt_train_contract_kernel<1, true>)
-                               : args(&fdt_train_contract_kernel<1, false>);
+    return by_precision(precision, [&](auto p) {
+      constexpr int P = decltype(p)::value;
+      return dvec && Dk % 4 == 0
+                 ? args(&fdt_train_contract_kernel<1, P, true>)
+                 : args(&fdt_train_contract_kernel<1, P, false>);
+    });
   }
   if (splits < 1 || part == nullptr) splits = 1;
   const int k_split = cdiv(cdiv(N, splits), kBK) * kBK;
@@ -368,9 +474,12 @@ int fdt_train_contract(const float* dplane, const float* src, float* out,
     return launch(kernel, grid, smem, s, dplane, src, dst, N, R, D, u0, Du,
                   Dk, k_split);
   };
-  const int err = dvec && D % 4 == 0 && u0 % 4 == 0
-                      ? args(&fdt_train_contract_kernel<0, true>)
-                      : args(&fdt_train_contract_kernel<0, false>);
+  const bool vec = dvec && D % 4 == 0 && u0 % 4 == 0;
+  const int err = by_precision(precision, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return vec ? args(&fdt_train_contract_kernel<0, P, true>)
+               : args(&fdt_train_contract_kernel<0, P, false>);
+  });
   if (err != 0 || used <= 1) return err;
   const size_t n = (size_t)R * (Du + 1);
   fdt_train_sum_kernel<<<cdiv((long long)n, 256), 256, 0, s>>>(part, out, n,

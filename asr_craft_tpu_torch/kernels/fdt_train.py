@@ -47,7 +47,7 @@ from asr_craft_tpu_torch.kernels import _build
 from asr_craft_tpu_torch.kernels.wall import (MAX_LABELS, SMEM_LIMIT,
                                               check_inputs, feats_xu, wall_k4,
                                               plane_blocks)
-from asr_craft_tpu_torch.ops import fdt
+from asr_craft_tpu_torch.ops import fdt, precision as prec
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 launches = {"fdt_train_fwd": 0, "fdt_train_plane": 0, "fdt_train_bwd": 0,
@@ -76,10 +76,13 @@ def contract_splits(N: int, R: int, *, tile_rows: int, blocks: int) -> int:
                       N // CONTRACT_CHUNK))
 
 
-def fdt_planes_torch(Wall, feats, *, u0: int, u1: int):
+def fdt_planes_torch(Wall, feats, *, u0: int, u1: int,
+                     precision: str = "highest"):
     """The plain version of :func:`fdt_planes_cuda`: every frame's plane
-    ``[x; 1] @ Wall^T``, (B, T, R), as :func:`wall_planes` forms it."""
-    return feats_xu(feats, u0, u1) @ Wall.T
+    ``[x; 1] @ Wall^T``, (B, T, R), as :func:`wall_planes` forms it, in
+    ``precision`` (:func:`asr_craft_tpu_torch.ops.precision.kernel_matmul`:
+    the bias column meets xu's ones as one more product term)."""
+    return prec.kernel_matmul(feats_xu(feats, u0, u1), Wall.T, precision)
 
 
 def _state2(state, labels, t: int, clamp_ns: int):
@@ -118,18 +121,21 @@ def fdt_forward_planes_torch(planes, labels, lengths, *, ns: int, P: int,
 
 def fdt_forward_wall_torch(Wall, feats, labels, lengths, *, u0: int, u1: int,
                            ns: int, P: int, clamp_ns: int,
-                           boundaries: bool = True):
+                           boundaries: bool = True,
+                           precision: str = "highest"):
     """The plain version of :func:`fdt_forward_cuda`: the planes of
     :func:`fdt_planes_torch`, then :func:`fdt_forward_planes_torch`.
     Returns ``(alphas (B, T, 2, L'), zf (B,), zc (B,))``."""
     return fdt_forward_planes_torch(
-        fdt_planes_torch(Wall, feats, u0=u0, u1=u1), labels, lengths, ns=ns,
-        P=P, clamp_ns=clamp_ns, boundaries=boundaries)
+        fdt_planes_torch(Wall, feats, u0=u0, u1=u1, precision=precision),
+        labels, lengths, ns=ns, P=P, clamp_ns=clamp_ns,
+        boundaries=boundaries)
 
 
 def fdt_dplane_wall_torch(Wall, feats, labels, lengths, alphas, zf, zc,
                           wf, wc, *, u0: int, u1: int, ns: int, P: int,
-                          clamp_ns: int, boundaries: bool = True):
+                          clamp_ns: int, boundaries: bool = True,
+                          precision: str = "highest"):
     """The plain version of :func:`fdt_dplane_cuda`: ``dplane (B, T, R)``,
     the cotangent of ``wf zf + wc zc`` on every plane row of every frame.
 
@@ -144,7 +150,7 @@ def fdt_dplane_wall_torch(Wall, feats, labels, lengths, alphas, zf, zc,
     R = Wall.shape[0]
     dev = feats.device
     lengths = lengths.to(dev)
-    plane = fdt_planes_torch(Wall, feats, u0=u0, u1=u1)
+    plane = fdt_planes_torch(Wall, feats, u0=u0, u1=u1, precision=precision)
     state = fdt._boundary_state(plane[..., :Lp], lengths, ns, boundaries)
     cross = plane[..., 3 * Lp:].reshape(B, T, P, P)
     st = torch.arange(Lp, device=dev) % ns
@@ -197,18 +203,21 @@ def fdt_dplane_wall_torch(Wall, feats, labels, lengths, alphas, zf, zc,
     return dplane
 
 
-def contract_wall_torch(dplane, src, *, mode: int, u0: int, u1: int):
+def contract_wall_torch(dplane, src, *, mode: int, u0: int, u1: int,
+                        precision: str = "highest"):
     """The plain version of :func:`contract_cuda`: mode 0 returns ``dWall
     = dplane^T @ [x; 1]`` from ``src = feats``; mode 1 returns ``dfeats``
     with ``dfeats[..., u0:u1] = dplane @ Wall[:, :Du]`` from ``src =
-    (Wall, feats)``."""
+    (Wall, feats)``; the products in ``precision``."""
     B, T, R = dplane.shape
     if mode == 0:
         xu = feats_xu(src, u0, u1)
-        return dplane.reshape(B * T, R).T @ xu.reshape(B * T, -1)
+        return prec.kernel_matmul(dplane.reshape(B * T, R).T,
+                                  xu.reshape(B * T, -1), precision)
     Wall, feats = src
     dfeats = torch.zeros_like(feats)
-    dfeats[..., u0:u1] = dplane @ Wall[:, :u1 - u0]
+    dfeats[..., u0:u1] = prec.kernel_matmul(dplane, Wall[:, :u1 - u0],
+                                            precision)
     return dfeats
 
 
@@ -216,19 +225,22 @@ def fdt_backward_grad_wall_torch(Wall, feats, labels, lengths, alphas, zf,
                                  zc, wf, wc, *, u0: int, u1: int, ns: int,
                                  P: int, clamp_ns: int,
                                  boundaries: bool = True,
-                                 want_dfeats: bool = False):
+                                 want_dfeats: bool = False,
+                                 precision: str = "highest"):
     """The plain version of :func:`fdt_backward_grad_cuda`:
     :func:`fdt_dplane_wall_torch`, then ``dWall = dplane^T @ [x; 1]`` and,
     with ``want_dfeats``, ``dfeats[..., u0:u1] = dplane @ Wall[:, :Du]``.
     """
     dplane = fdt_dplane_wall_torch(
         Wall, feats, labels, lengths, alphas, zf, zc, wf, wc, u0=u0, u1=u1,
-        ns=ns, P=P, clamp_ns=clamp_ns, boundaries=boundaries)
-    dWall = contract_wall_torch(dplane, feats, mode=0, u0=u0, u1=u1)
+        ns=ns, P=P, clamp_ns=clamp_ns, boundaries=boundaries,
+        precision=precision)
+    dWall = contract_wall_torch(dplane, feats, mode=0, u0=u0, u1=u1,
+                                precision=precision)
     if not want_dfeats:
         return dWall
     return dWall, contract_wall_torch(dplane, (Wall, feats), mode=1, u0=u0,
-                                      u1=u1)
+                                      u1=u1, precision=precision)
 
 
 def _library():
@@ -238,11 +250,11 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fdt_train_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.fdt_train_fwd.restype = i32
-        lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
         lib.fdt_train_plane.restype = i32
         lib.fdt_train_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         lib.fdt_train_bwd.restype = i32
-        lib.fdt_train_contract.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.fdt_train_contract.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         lib.fdt_train_contract.restype = i32
         lib.fdt_mma_tile_rows.restype = i32
         lib.fdt_mma_blocks_per_sm.restype = i32
@@ -328,7 +340,7 @@ def fdt_forward_planes_cuda(planes, labels, lengths, *, ns: int, P: int,
 
 def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
                      ns: int, P: int, clamp_ns: int, boundaries: bool = True,
-                     planes=None):
+                     planes=None, precision: str = "highest"):
     """K1 on the card: the plane kernel forms every frame's plane (unless
     ``planes`` are given, in its (B, T, R4) layout), then the recursion
     kernel reads them.  Returns ``(alphas (B, T, 2, L'), zf (B,), zc (B,),
@@ -339,7 +351,8 @@ def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
     _check_train(Wall, feats, labels, lengths, u0=u0, u1=u1, ns=ns, P=P,
                  clamp_ns=clamp_ns)
     if planes is None:
-        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
+                                 precision=precision)
     alphas, zf, zc = fdt_forward_planes_cuda(
         planes, labels, lengths, ns=ns, P=P, clamp_ns=clamp_ns,
         boundaries=boundaries)
@@ -347,9 +360,11 @@ def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
 
 
 def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
-                    key: str = "fdt_train_plane"):
+                    key: str = "fdt_train_plane", precision: str = "highest"):
     """The plane kernel: every frame's plane ``[x; 1] @ Wall^T`` on the
-    tensor cores (3xTF32), as :func:`fdt_planes_torch` returns it, but in
+    tensor cores in ``precision`` (``highest``: 3xTF32; ``bf16x3``: the
+    split on the bf16 tensor cores; ``default``: one TF32 pass), as
+    :func:`fdt_planes_torch` returns it, but in
     rows of R4 = R rounded up to 4 floats, (B, T, R4), the pad zero: the
     layout the recursions (K1, K2, K3) copy a frame's row from.  Counts its
     launch in ``counts[key]`` (default this module's ``launches``; the
@@ -372,14 +387,16 @@ def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
         code = _library().fdt_train_plane(
             feats.data_ptr(), wall_k.data_ptr(), Wall.data_ptr(),
             planes.data_ptr(), B * T, D, u0, Du, wall_k.shape[1], R, R4,
-            _stream(dev))
+            prec.CODES[prec.check(precision)], _stream(dev))
     _build.raise_on_error(code, f"{key} launch")
     (launches if counts is None else counts)[key] += 1
     return planes
 
 
-def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int):
-    """The contraction kernel, on the tensor cores (3xTF32): ``mode`` 0
+def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int,
+                  precision: str = "highest"):
+    """The contraction kernel, on the tensor cores in ``precision`` (as
+    :func:`fdt_planes_cuda`'s): ``mode`` 0
     writes ``out (R, Du+1) = dplane^T @ [x; 1]`` from ``src = feats`` (the
     frames summed in :func:`contract_splits` chunks, then the chunks in
     order: the same result on every run); mode 1 writes ``out[..., u0:u0+Du]
@@ -406,7 +423,8 @@ def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int):
         code = lib.fdt_train_contract(
             dplane.data_ptr(), src.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), mode, B * T, R, D,
-            u0, Du, Dk, splits, _stream(dev))
+            u0, Du, Dk, splits, prec.CODES[prec.check(precision)],
+            _stream(dev))
     _build.raise_on_error(code, "fdt_train_contract launch")
     launches["fdt_train_contract"] += 1
     return out
@@ -414,7 +432,8 @@ def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int):
 
 def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
                     *, u0: int, u1: int, ns: int, P: int, clamp_ns: int,
-                    boundaries: bool = True, planes=None):
+                    boundaries: bool = True, planes=None,
+                    precision: str = "highest"):
     """K2's recursion kernel: ``dplane (B, T, R)``, as
     :func:`fdt_dplane_wall_torch` returns.  It reads every frame's plane
     from ``planes`` (:func:`fdt_planes_cuda`'s (B, T, R4) layout), which
@@ -434,7 +453,8 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
     _smem(lib, "bwd", ns, P)
     R = Wall.shape[0]
     if planes is None:
-        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+        planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
+                                 precision=precision)
     _check_planes(planes, B, T, R, dev)
     dplane = torch.empty((B, T, R), dtype=torch.float32, device=dev)
     if B:
@@ -452,7 +472,8 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
 def fdt_backward_grad_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf,
                            wc, *, u0: int, u1: int, ns: int, P: int,
                            clamp_ns: int, boundaries: bool = True,
-                           want_dfeats: bool = False, planes=None):
+                           want_dfeats: bool = False, planes=None,
+                           precision: str = "highest"):
     """K2 on the card: the recursion kernel reads every frame's plane
     (``planes``, as :func:`fdt_forward_cuda` returns them; the plane kernel
     forms them first when none are given) and writes ``dplane (B, T, R)``,
@@ -460,21 +481,25 @@ def fdt_backward_grad_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf,
     ``want_dfeats``), as :func:`fdt_backward_grad_wall_torch` returns."""
     dplane = fdt_dplane_cuda(
         Wall, feats, labels, lengths, alphas, zf, zc, wf, wc, u0=u0, u1=u1,
-        ns=ns, P=P, clamp_ns=clamp_ns, boundaries=boundaries, planes=planes)
+        ns=ns, P=P, clamp_ns=clamp_ns, boundaries=boundaries, planes=planes,
+        precision=precision)
     D, Du, dev = feats.shape[2], u1 - u0, feats.device
     dWall = torch.empty((Wall.shape[0], Du + 1), dtype=torch.float32,
                         device=dev)
-    contract_cuda(dplane, feats, dWall, mode=0, D=D, u0=u0, Du=Du)
+    contract_cuda(dplane, feats, dWall, mode=0, D=D, u0=u0, Du=Du,
+                  precision=precision)
     if not want_dfeats:
         return dWall
     dfeats = torch.zeros_like(feats)
-    contract_cuda(dplane, Wall, dfeats, mode=1, D=D, u0=u0, Du=Du)
+    contract_cuda(dplane, Wall, dfeats, mode=1, D=D, u0=u0, Du=Du,
+                  precision=precision)
     return dWall, dfeats
 
 
 class FdtNllDual(torch.autograd.Function):
     """``(zf, zc) = FdtNllDual.apply(Wall, feats, labels, lengths, u0, u1,
-    ns, P, clamp_ns, boundaries, grad_feats)``: K1 forward, K2 backward.
+    ns, P, clamp_ns, boundaries, grad_feats, precision)``: K1 forward, K2
+    backward, their products in ``precision``.
 
     Replaces ``_fdt_core``'s custom VJP.  On the kernel path the forward's
     planes are kept for the backward, so a step forms them once.  The
@@ -484,9 +509,9 @@ class FdtNllDual(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Wall, feats, labels, lengths, u0, u1, ns, P, clamp_ns,
-                boundaries, grad_feats):
+                boundaries, grad_feats, precision="highest"):
         kw = dict(u0=u0, u1=u1, ns=ns, P=P, clamp_ns=clamp_ns,
-                  boundaries=boundaries)
+                  boundaries=boundaries, precision=precision)
         use = kernels.use_kernel(feats)
         if use:
             alphas, zf, zc, planes = fdt_forward_cuda(Wall, feats, labels,
@@ -515,17 +540,19 @@ class FdtNllDual(torch.autograd.Function):
             out = fdt_backward_grad_wall_torch(*args, **ctx.kw,
                                                want_dfeats=want)
         dWall, dfeats = out if want else (out, None)
-        return (dWall, dfeats) + (None,) * 9
+        return (dWall, dfeats) + (None,) * 10
 
 
 def fdt_nll_dual_wall(Wall, feats, labels, lengths, *, u0: int, u1: int,
                       ns: int, P: int, clamp_ns: int, boundaries: bool = True,
-                      grad_feats: bool = False):
-    """``(zf, zc)`` over the packed ``Wall`` through :class:`FdtNllDual`:
+                      grad_feats: bool = False, precision: str = "highest"):
+    """``(zf, zc)`` over the packed ``Wall`` through :class:`FdtNllDual`,
+    the products in ``precision``:
     the kernels for CUDA tensors under ``auto`` (or always under ``cuda``,
     which raises for a CPU tensor), the plain versions otherwise."""
     return FdtNllDual.apply(Wall, feats.contiguous(),
                             labels.to(torch.int32).contiguous(),
                             lengths.to(device=feats.device,
                                        dtype=torch.int32).contiguous(),
-                            u0, u1, ns, P, clamp_ns, boundaries, grad_feats)
+                            u0, u1, ns, P, clamp_ns, boundaries, grad_feats,
+                            prec.check(precision))

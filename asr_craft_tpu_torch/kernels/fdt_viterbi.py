@@ -73,15 +73,16 @@ def fdt_viterbi_planes_torch(planes, lengths, *, ns: int, P: int,
 def fdt_viterbi_wall_torch(Wall, feats, lengths, *, u0: int, u1: int,
                            ns: int, P: int, boundaries: bool = True,
                            beam_threshold: Optional[float] = None,
-                           beam_width: Optional[int] = None):
+                           beam_width: Optional[int] = None,
+                           precision: str = "highest"):
     """The plain version of :func:`fdt_viterbi_cuda`: the planes of
     :func:`asr_craft_tpu_torch.kernels.fdt_train.fdt_planes_torch`, then
     :func:`fdt_viterbi_planes_torch`; same arguments, same (paths (B, T)
     int32 state-major, scores (B,)) results."""
     return fdt_viterbi_planes_torch(
-        fdt_planes_torch(Wall, feats, u0=u0, u1=u1), lengths, ns=ns, P=P,
-        boundaries=boundaries, beam_threshold=beam_threshold,
-        beam_width=beam_width)
+        fdt_planes_torch(Wall, feats, u0=u0, u1=u1, precision=precision),
+        lengths, ns=ns, P=P, boundaries=boundaries,
+        beam_threshold=beam_threshold, beam_width=beam_width)
 
 
 def stream_bytes(C: int, row: int, streams: int, extra: int) -> int:
@@ -187,8 +188,10 @@ def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
 def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
                          P: int, boundaries: bool = True,
                          beam_threshold: Optional[float] = None,
-                         beam_width: Optional[int] = None):
-    """The plane kernel and the recursion kernel: (bp (B, T, L') int32, last
+                         beam_width: Optional[int] = None,
+                         precision: str = "highest"):
+    """The plane kernel (its products in ``precision``) and the recursion
+    kernel: (bp (B, T, L') int32, last
     (B,) int32, scores (B,)), as
     :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns them.
     The utterances run in :func:`sub_batches` of at most ``PLANE_BUDGET``
@@ -206,7 +209,8 @@ def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     for s, e in sub_batches(B, T, Wall.shape[0], PLANE_BUDGET):
         planes = fdt_planes_cuda(Wall, feats[s:e], u0=u0, u1=u1,
-                                 counts=launches, key="fdt_viterbi_plane")
+                                 counts=launches, key="fdt_viterbi_plane",
+                                 precision=precision)
         viterbi_forward_planes_cuda(
             planes, lengths[s:e], bp[s:e], last[s:e], scores[s:e], ns=ns,
             P=P, boundaries=boundaries, beam_threshold=beam_threshold,
@@ -257,25 +261,28 @@ def viterbi_traceback_cuda(bp, last, lengths):
 def fdt_viterbi_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
                      P: int, boundaries: bool = True,
                      beam_threshold: Optional[float] = None,
-                     beam_width: Optional[int] = None):
+                     beam_width: Optional[int] = None,
+                     precision: str = "highest"):
     """Factored max-plus decode on the card: (paths (B, T) int32
-    state-major expanded labels, scores (B,)).  Raises on what the kernels
-    do not take (CPU tensors, P > 128, wrong dtype/shape/layout)."""
+    state-major expanded labels, scores (B,)), the planes' products in
+    ``precision``.  Raises on what the kernels do not take (CPU tensors,
+    P > 128, wrong dtype/shape/layout)."""
     bp, last, scores = viterbi_forward_cuda(
         Wall, feats, lengths, u0=u0, u1=u1, ns=ns, P=P,
         boundaries=boundaries, beam_threshold=beam_threshold,
-        beam_width=beam_width)
+        beam_width=beam_width, precision=precision)
     return viterbi_traceback_cuda(bp, last, lengths), scores
 
 
 def fdt_viterbi_wall(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
                      P: int, boundaries: bool = True,
                      beam_threshold: Optional[float] = None,
-                     beam_width: Optional[int] = None):
+                     beam_width: Optional[int] = None,
+                     precision: str = "highest"):
     """Dispatch by :func:`asr_craft_tpu_torch.kernels.use_kernel`: the
     kernels or :func:`fdt_viterbi_wall_torch`."""
     fn = (fdt_viterbi_cuda if kernels.use_kernel(feats)
           else fdt_viterbi_wall_torch)
     return fn(Wall, feats, lengths, u0=u0, u1=u1, ns=ns, P=P,
               boundaries=boundaries, beam_threshold=beam_threshold,
-              beam_width=beam_width)
+              beam_width=beam_width, precision=precision)

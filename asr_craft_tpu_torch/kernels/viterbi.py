@@ -9,8 +9,8 @@ how their frame is laid out); the traceback is the K3 kernel of
 This module checks and launches, and holds what the kernels are compared
 with:
 
-- :func:`asr_craft_tpu_torch.ops.viterbi.viterbi`: the plain version of
-  both kernels (the n-state one is held to it on the dense masked trans).
+- :func:`asr_craft_tpu_torch.ops.viterbi.viterbi_batch`: the plain version
+  of both kernels (the n-state one is held to it on the dense masked trans).
 - :func:`viterbi_dense_fwd` (K7), :func:`viterbi_nstate_fwd` (K8) and
   :func:`viterbi_traceback`: the kernels.
 - :func:`dense_frame`, :func:`nstate_frame`: the layout each kernel takes
@@ -247,12 +247,12 @@ def viterbi_shared(state, trans, lengths, ns: int = 1,
     states per phone.  By :func:`asr_craft_tpu_torch.kernels.use_kernel`:
     K8 (``2 <= ns <= 8``, at most ``MAX_LABELS`` phones:
     :func:`nstate_frame`) or K7, then the traceback kernel; or
-    :func:`asr_craft_tpu_torch.ops.viterbi.viterbi`.  The JAX
+    :func:`asr_craft_tpu_torch.ops.viterbi.viterbi_batch`.  The JAX
     ``models.crf.decode`` routes between its kernels the same way (it
     takes K8 for any ``ns > 1``)."""
     if not kernels.use_kernel(state):
-        return ops_viterbi.viterbi(state, trans, lengths, beam_width,
-                                   beam_threshold)
+        return ops_viterbi.viterbi_batch(state, trans, lengths, beam_width,
+                                         beam_threshold)
     if ns > 1 and nstate_frame(state.shape[-1] // ns, ns) is not None:
         bp, last, scores = viterbi_nstate_fwd(state, trans, lengths, ns,
                                               beam_threshold, beam_width)

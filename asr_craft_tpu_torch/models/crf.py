@@ -24,7 +24,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels.fdt_viterbi import fdt_viterbi_wall
 from asr_craft_tpu_torch.kernels.viterbi import viterbi_shared
 from asr_craft_tpu_torch.kernels.wall import build_wall
@@ -66,6 +65,7 @@ class CrfConfig:
             trans_range=self.trans_range,
             use_state_bias=self.use_state_bias,
             use_trans_bias=self.use_trans_bias,
+            precision=self.precision,
         )
 
     def init_params(self, generator: Optional[torch.Generator] = None,
@@ -73,29 +73,15 @@ class CrfConfig:
         return self.fmap.init_params(generator, scale, device)
 
 
-def _check_precision(cfg: CrfConfig, tensor) -> None:
-    """Raise for a precision other than ``highest`` where a kernel would
-    serve ``tensor``: the kernels are IEEE fp32 only."""
-    if kernels.use_kernel(tensor) and cfg.precision != "highest":
-        raise NotImplementedError(
-            f"precision {cfg.precision!r} on the CUDA kernels (only "
-            "'highest', IEEE fp32, is ported; ROADMAP.md Queue 2)")
-
-
-def _fdt_feats(cfg: CrfConfig, feats, sparse, on_kernel: bool = True):
+def _fdt_feats(cfg: CrfConfig, feats, sparse):
     """The dense frames of the fdt path: ``feats``, or ``sparse =
-    (indices, values)`` densified exactly with a sparse feature map.
-    Raises, where a kernel would run (``on_kernel``), for a precision other
-    than ``highest``."""
+    (indices, values)`` densified exactly with a sparse feature map."""
     if cfg.featuremap == "sparse":
         if sparse is None:
             raise ValueError(
                 "sparse feature map needs sparse=(indices, values)")
         feats = densify_sparse(sparse[0], sparse[1], cfg.feat_dim)
-    feats = feats.contiguous()
-    if on_kernel:
-        _check_precision(cfg, feats)
-    return feats
+    return feats.contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,8 +97,10 @@ def potentials(cfg: CrfConfig, params: dict, feats, sparse=None):
     """Feature frames -> (state (B, T, L'), trans (L', L') or (B, T, L',
     L')), the n-state structural mask folded into ``trans`` as an additive
     NEG_INF penalty.  ``feats (B, T, D)``, or ``sparse = (indices, values)``
-    (B, T, K) each with a sparse feature map (``feats`` ignored).  fp32
-    matmuls (IEEE: TF32 stays off, the PyTorch default)."""
+    (B, T, K) each with a sparse feature map (``feats`` ignored).  The dense
+    map's products in ``cfg.precision``
+    (:mod:`asr_craft_tpu_torch.ops.precision`; the sparse map is a gather
+    and a weighted sum, fp32 in every mode, as in the JAX package)."""
     if cfg.featuremap == "sparse":
         if sparse is None:
             raise ValueError(
@@ -177,12 +165,9 @@ def crf_loss(cfg: CrfConfig, params: dict, feats, labels, lengths,
 
 def _shared_potentials(cfg: CrfConfig, params: dict, feats, lengths, sparse):
     """The shared-transition path's DP inputs: ``(state (B, T, L') with the
-    boundaries folded in, trans, lengths)`` on the potentials' device.
-    Raises for a precision other than ``highest`` where a kernel would
-    run."""
+    boundaries folded in, trans, lengths)`` on the potentials' device."""
     state, trans = potentials(cfg, params, feats, sparse)
     lengths = lengths.to(device=state.device, dtype=torch.int32)
-    _check_precision(cfg, state)
     return apply_boundaries(cfg, state, lengths), trans, lengths
 
 
@@ -227,7 +212,7 @@ def decode(cfg: CrfConfig, params: dict, feats, lengths, sparse=None,
         Wall, feats, lengths.to(device=feats.device, dtype=torch.int32),
         u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
         boundaries=cfg.enforce_boundaries, beam_threshold=beam_threshold,
-        beam_width=beam_width)
+        beam_width=beam_width, precision=cfg.precision)
     return cfg.topology.path_to_phones(paths), paths, scores
 
 
@@ -256,11 +241,11 @@ def frame_posteriors(cfg: CrfConfig, params: dict, feats, lengths,
         if trans.dim() == 2:
             return mxu.posteriors_mxu(state, trans, lengths)
         return fwdbwd.posteriors_batch(state, trans, lengths)
-    feats = _fdt_feats(cfg, feats, sparse, on_kernel=False)
+    feats = _fdt_feats(cfg, feats, sparse)
     planes = fdt.factored_planes(params, feats, cfg.fmap.num_expanded,
                                  cfg.num_states, cfg.fmap.state_range,
                                  cfg.fmap.trans_range,
-                                 cfg.fmap.use_state_bias)
+                                 cfg.fmap.use_state_bias, cfg.precision)
     return fdt.fdt_posteriors(*planes, lengths, cfg.num_states,
                               cfg.enforce_boundaries)
 

@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from asr_craft_tpu_torch.ops.precision import product
+
 
 @dataclasses.dataclass(frozen=True)
 class FeatureMapConfig:
@@ -33,6 +35,9 @@ class FeatureMapConfig:
     trans_range: Tuple[int, int] = (0, 0)
     use_state_bias: bool = True
     use_trans_bias: bool = True
+    # the potentials' products: "highest" | "bf16x3" | "default"
+    # (asr_craft_tpu_torch.ops.precision)
+    precision: str = "highest"
 
     def __post_init__(self):
         if self.state_range is None:
@@ -89,16 +94,19 @@ class FeatureMapConfig:
 
 def dense_potentials(cfg: FeatureMapConfig, params: dict, feats):
     """feats (..., T, D) -> (state (..., T, L'),
-    trans (L', L') or (..., T, L', L'))."""
+    trans (L', L') or (..., T, L', L')), the products in ``cfg.precision``
+    (:func:`asr_craft_tpu_torch.ops.precision.product`)."""
     L = cfg.num_expanded
     s0, s1 = cfg.state_range
-    state = feats[..., s0:s1] @ params["w_state"]
+    state = product(torch.matmul, feats[..., s0:s1], params["w_state"],
+                    cfg.precision)
     if cfg.use_state_bias:
         state = state + params["b_state"]
     if cfg.frame_dependent_trans:
         t0, t1 = cfg.trans_range
         w = params["w_trans"].reshape(cfg.trans_dim, L * L)
-        trans = (feats[..., t0:t1] @ w).reshape(*feats.shape[:-1], L, L)
+        trans = product(torch.matmul, feats[..., t0:t1], w,
+                        cfg.precision).reshape(*feats.shape[:-1], L, L)
         if cfg.use_trans_bias:
             trans = trans + params["b_trans"]
     else:

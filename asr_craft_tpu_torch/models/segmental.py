@@ -13,9 +13,12 @@ and label-bias features, with segment-level label transitions.  Two tiers:
   (:mod:`asr_craft_tpu_torch.ops.segmental_stream`: the K9-K13 kernels for
   CUDA tensors), with the classical segmental forward-backward gradient.
 
-The frame-score product is ``torch.einsum`` in IEEE fp32 (the caller keeps
-TF32 off, as for ``models.crf.potentials``), outside every kernel as in the
-reference.  The training numerator is the gold segmentation's score, derived
+The frame-score product is ``torch.einsum``, outside every kernel as in the
+reference, in ``SegCrfConfig.precision``: ``highest`` IEEE fp32 (TF32 off,
+the PyTorch default), ``default`` one TF32 pass
+(:func:`asr_craft_tpu_torch.ops.precision.product`); ``bf16x3`` raises
+``ValueError``, as the JAX package's einsum does (``jax.lax.Precision``
+takes no such name: the split is the fdt kernels' own mode).  The training numerator is the gold segmentation's score, derived
 from frame labels by run-length analysis on the device.
 """
 from __future__ import annotations
@@ -25,12 +28,12 @@ from typing import Optional
 
 import torch
 
-from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels.segmental import segment_bias
 from asr_craft_tpu_torch.ops import segmental as seg_ops
 from asr_craft_tpu_torch.ops.segmental_stream import (
     cuts_on, nstate_cuts, seg_log_partition_stream,
     seg_log_partition_stream_ns, seg_viterbi_stream)
+from asr_craft_tpu_torch.ops.precision import product
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 __all__ = ["SegCrfConfig", "nstate_cuts", "seg_potentials",
@@ -79,23 +82,19 @@ class SegCrfConfig:
         return out
 
 
-def _check_precision(cfg: SegCrfConfig, tensor) -> None:
-    """Raise for a precision other than ``highest`` where a kernel would
-    serve ``tensor``: the kernels are IEEE fp32 only."""
-    if kernels.use_kernel(tensor) and cfg.precision != "highest":
-        raise NotImplementedError(
-            f"precision {cfg.precision!r} on the CUDA kernels (only "
-            "'highest', IEEE fp32, is ported; ROADMAP.md Queue 1)")
-
-
 def _frame_scores_and_bias(cfg: SegCrfConfig, params, feats):
     """(frame scores ``(B, T, L)``, or ``(B, T, ns, L)`` for n-state;
     combined ``(Dmax, L)`` segment bias).  Params flow through the bias sum,
-    so autograd routes its gradient back to b_dur / b_seg."""
-    if cfg.num_states == 1:
-        frame = torch.einsum("btd,dl->btl", feats, params["w_frame"])
-    else:
-        frame = torch.einsum("btd,dsl->btsl", feats, params["w_frame"])
+    so autograd routes its gradient back to b_dur / b_seg.  Raises
+    ``ValueError`` for ``precision="bf16x3"``, as the reference does."""
+    if cfg.precision not in ("highest", "default"):
+        raise ValueError(
+            f"SegCrfConfig precision {cfg.precision!r}: the frame scores' "
+            "einsum takes 'highest' or 'default' (the JAX package's einsum "
+            "raises for it too)")
+    eq = "btd,dl->btl" if cfg.num_states == 1 else "btd,dsl->btsl"
+    frame = product(lambda x, w: torch.einsum(eq, x, w), feats,
+                    params["w_frame"], cfg.precision)
     bias = segment_bias(params["b_dur"] if cfg.use_dur_feature else None,
                         params["b_seg"] if cfg.use_seg_bias else None,
                         cfg.max_dur, cfg.num_labels, frame)
@@ -297,7 +296,6 @@ def scrf_loss_fused(cfg: SegCrfConfig, params, feats, labels, lengths):
     tensors) and the numerator scores gold segments from the frame scores.
     ``num_states > 1``: the same streaming recursion with sub-state span
     pooling, as frame loops."""
-    _check_precision(cfg, feats)
     frame, bias = _frame_scores_and_bias(cfg, params, feats)
     mean_pool = cfg.pooling == "mean"
     trans = params["b_trans"]
@@ -324,7 +322,6 @@ def scrf_decode(cfg: SegCrfConfig, params, feats, lengths,
     fixed-size (B, T) segment arrays (see ops.segmental.segmental_viterbi).
     Runs the streaming max-plus lattice (K12 and K13 for CUDA tensors with
     one sub-state and no ``beam_width``); both beam options None = exact."""
-    _check_precision(cfg, feats)
     with torch.no_grad():
         frame, bias = _frame_scores_and_bias(cfg, params, feats)
         return seg_viterbi_stream(
@@ -343,7 +340,6 @@ def scrf_decode_dense(cfg: SegCrfConfig, params, feats, lengths):
 def scrf_log_partition_fused(cfg: SegCrfConfig, params, feats, lengths):
     """SCRF logZ without materializing (B, T, Dmax, L); differentiable
     (the classical segmental forward-backward gradient)."""
-    _check_precision(cfg, feats)
     frame, bias = _frame_scores_and_bias(cfg, params, feats)
     if cfg.num_states > 1:
         return seg_log_partition_stream_ns(

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from asr_craft_tpu_torch import kernels
+from asr_craft_tpu_torch.ops.precision import product
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 
 
@@ -80,24 +81,28 @@ def factored_trans_weights(params: dict, Lp: int, ns: int):
 
 
 def factored_planes(params: dict, feats, Lp: int, ns: int, state_range,
-                    trans_range, use_state_bias: bool = True):
+                    trans_range, use_state_bias: bool = True,
+                    precision: str = "highest"):
     """feats (B, T, D) -> (state (B,T,L'), selfp, advp, crossp (B,T,P,P)).
 
-    fp32 matmuls throughout (the ``highest`` precision of the reference).
-    ``selfp``/``advp`` are None for ``ns == 1``.
+    The products in ``precision``
+    (:func:`asr_craft_tpu_torch.ops.precision.product`; ``highest``: fp32
+    matmuls).  ``selfp``/``advp`` are None for ``ns == 1``.
     """
     xs = feats[..., state_range[0]:state_range[1]]
     xt = feats[..., trans_range[0]:trans_range[1]]
-    state = xs @ params["w_state"]
+    mm = lambda x, w: product(torch.matmul, x, w, precision)
+    state = mm(xs, params["w_state"])
     if use_state_bias and "b_state" in params:
         state = state + params["b_state"]
     w_self, b_self, w_adv, b_adv, w_cross, b_cross = \
         factored_trans_weights(params, Lp, ns)
-    crossp = torch.einsum("...td,dpq->...tpq", xt, w_cross) + b_cross
+    crossp = product(lambda x, w: torch.einsum("...td,dpq->...tpq", x, w),
+                     xt, w_cross, precision) + b_cross
     if ns == 1:
         return state, None, None, crossp
-    selfp = xt @ w_self + b_self
-    advp = xt @ w_adv + b_adv
+    selfp = mm(xt, w_self) + b_self
+    advp = mm(xt, w_adv) + b_adv
     # keep illegal advance slots at the semiring zero regardless of bias
     adv_ok = adv_mask(Lp, ns, feats.device) > 0
     advp = torch.where(adv_ok, advp, NEG_INF)
@@ -364,11 +369,12 @@ def fdt_nll_dual(fmap_cfg, ns: int, params, feats, labels, lengths,
         Wall, u0, u1, dims = build_wall(params, fmap_cfg, ns)
         zf, zc = fdt_nll_dual_wall(
             Wall, feats, labels, lengths, u0=u0, u1=u1, ns=ns, P=dims["P"],
-            clamp_ns=clamp_ns, boundaries=boundaries, grad_feats=grad_feats)
+            clamp_ns=clamp_ns, boundaries=boundaries, grad_feats=grad_feats,
+            precision=fmap_cfg.precision)
     else:
         planes = factored_planes(params, feats, Lp, ns,
                                  fmap_cfg.state_range, fmap_cfg.trans_range,
-                                 fmap_cfg.use_state_bias)
+                                 fmap_cfg.use_state_bias, fmap_cfg.precision)
         zf, zc = fdt_logZ_pair(*planes, labels, lengths, ns, clamp_ns,
                                boundaries)
     return zf - zc, zf, zc

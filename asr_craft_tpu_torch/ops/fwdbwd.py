@@ -9,8 +9,8 @@ functions (``forward``, ``backward``, ``log_partition``, ``posteriors``,
 ``path_score``, ``broadcast_trans``) run it on a batch of one.  The
 recursions take ``semiring=`` (:mod:`asr_craft_tpu_torch.ops.semiring`:
 ``LOG``, the default, or ``TROPICAL``); posteriors are the log semiring's.
-Transitions are shared ``(L, L)`` or per sequence and frame ``(B, T, L,
-L)`` (``(T, L, L)`` for one utterance); ``trans[..., t, p, l]`` scores the
+Transitions are shared ``(L, L)`` or ``(T, L, L)``, or per sequence and
+frame ``(B, T, L, L)``; ``trans[..., t, p, l]`` scores the
 edge from label ``p`` at frame ``t - 1`` to label ``l`` at frame ``t`` (row
 0 is unused).  Gradients come from autograd through the loop.
 
@@ -31,17 +31,23 @@ __all__ = ["broadcast_trans", "forward", "backward", "log_partition",
 
 def _trans_at(trans, t: int):
     """Frame ``t``'s transitions, broadcastable against ``(B, L, L)``."""
-    return trans if trans.dim() == 2 else trans[:, t]
+    if trans.dim() == 2:
+        return trans
+    return trans[t] if trans.dim() == 3 else trans[:, t]
 
 
 def _check(state, trans):
+    """``(B, T, L)`` of ``state``, with ``trans`` shared ``(L, L)`` or
+    ``(T, L, L)``, or per sequence ``(B, T, L, L)``, as the JAX batched
+    functions take them."""
     B, T, L = state.shape
-    if tuple(trans.shape) not in ((L, L), (B, trans.shape[1], L, L)):
+    if tuple(trans.shape) not in ((L, L), (trans.shape[0], L, L),
+                                  (B, trans.shape[1], L, L)):
         raise ValueError(f"trans {tuple(trans.shape)} vs state "
                          f"{tuple(state.shape)}")
-    if trans.dim() == 4 and trans.shape[1] != T:
+    if trans.dim() > 2 and trans.shape[-3] != T:
         raise ValueError(
-            f"frame-dependent transitions have T={trans.shape[1]}, but "
+            f"frame-dependent transitions have T={trans.shape[-3]}, but "
             f"state potentials have T={T}")
     return B, T, L
 
@@ -108,6 +114,9 @@ def path_score_batch(state, trans, labels, lengths):
     prev, nxt = cur[:, :-1], cur[:, 1:]
     if trans.dim() == 2:
         tr = trans[prev, nxt]
+    elif trans.dim() == 3:
+        tr = trans[torch.arange(1, T, device=state.device)[None, :], prev,
+                   nxt]
     else:
         tr = trans[torch.arange(B, device=state.device)[:, None],
                    torch.arange(1, T, device=state.device)[None, :], prev,

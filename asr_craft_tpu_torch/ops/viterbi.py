@@ -1,11 +1,14 @@
-"""Batched Viterbi over a shared transition matrix: the plain path.
+"""Viterbi decoding: the plain path.
 
-Counterpart of :mod:`asr_craft_tpu.ops.viterbi` (``viterbi``,
-``viterbi_batch``) for shared ``(L, L)`` transitions, written batched over
-B instead of through ``vmap``: a Python loop over frames of tensor ops, the
+Counterpart of :mod:`asr_craft_tpu.ops.viterbi`, the same names:
+``viterbi`` decodes one utterance (``state (T, L)``), ``viterbi_batch`` a
+batch (``state (B, T, L)``) over shared ``(L, L)`` or ``(T, L, L)``
+transitions or per-sequence ``(B, T, L, L)`` ones.  Written batched over B
+instead of through ``vmap``: a Python loop over frames of tensor ops, the
 same arithmetic as the JAX ``lax.scan`` version.  The CUDA kernels of
 :mod:`asr_craft_tpu_torch.kernels.viterbi` (K7 dense, K8 n-state) are held
-to it.
+to it for ``(L, L)`` transitions; the other shapes have no TPU kernel in the
+JAX package either, and run here on either device.
 
 The tie order is the XLA path's, and part of the public contract: every
 backpointer and the final label are the FIRST argmax in expanded-state
@@ -22,20 +25,24 @@ import torch
 
 from asr_craft_tpu_torch.ops.fdt import (first_argmax, fdt_viterbi_traceback,
                                          prune)
+from asr_craft_tpu_torch.ops.fwdbwd import _check, _one, _trans_at
+
+__all__ = ["viterbi", "viterbi_batch"]
 
 
 def viterbi_forward(state, trans, lengths,
                     beam_width: Optional[int] = None,
                     beam_threshold: Optional[float] = None):
-    """Max-plus forward: ``state (B, T, L)``, ``trans (L, L)`` (row =
-    predecessor), ``lengths (B,)``.
+    """Max-plus forward: ``state (B, T, L)``, ``trans (L, L)``, ``(T, L,
+    L)`` or ``(B, T, L, L)`` (row = predecessor; frame 0's unused),
+    ``lengths (B,)``.
 
     Returns ``bp (B, T, L) int32`` (the predecessor of each label at each
     frame; identity at frame 0 and at frames ``t >= length``), the final
     first-argmax ``last (B,) int32`` and ``scores (B,)`` — the layout of
     :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward`.
     """
-    B, T, L = state.shape
+    B, T, L = _check(state, trans)
     dev = state.device
     lengths = lengths.to(dev)
     lab = torch.arange(L, device=dev, dtype=torch.int32)
@@ -43,7 +50,8 @@ def viterbi_forward(state, trans, lengths,
     bp[:, 0] = lab
     delta = prune(state[:, 0], beam_threshold, beam_width)
     for t in range(1, T):
-        best, bpt = first_argmax(delta[:, :, None] + trans, dim=1)
+        best, bpt = first_argmax(delta[:, :, None] + _trans_at(trans, t),
+                                 dim=1)
         new = prune(best + state[:, t], beam_threshold, beam_width)
         valid = (t < lengths)[:, None]
         delta = torch.where(valid, new, delta)
@@ -52,14 +60,29 @@ def viterbi_forward(state, trans, lengths,
     return bp, last, scores
 
 
-def viterbi(state, trans, lengths, beam_width: Optional[int] = None,
-            beam_threshold: Optional[float] = None):
-    """Max-plus decode with traceback: (paths (B, T) int32, scores (B,)).
-    Padded frames of a path repeat its label at ``length - 1``; a row of
-    length 0 is its frame-0 argmax throughout."""
+def viterbi_batch(state, trans, lengths, beam_width: Optional[int] = None,
+                  beam_threshold: Optional[float] = None):
+    """Max-plus decode with traceback of a batch: (paths (B, T) int32,
+    scores (B,)).  ``trans``: ``(L, L)``, ``(T, L, L)`` or ``(B, T, L,
+    L)``.  Padded frames of a path repeat its label at ``length - 1`` (the
+    backpointers there are the identity); a row of length 0 is its frame-0
+    argmax throughout."""
     bp, last, scores = viterbi_forward(state, trans, lengths, beam_width,
                                        beam_threshold)
     return fdt_viterbi_traceback(bp, last, lengths), scores
+
+
+def viterbi(log_phi_state, log_phi_trans, length,
+            beam_width: Optional[int] = None,
+            beam_threshold: Optional[float] = None):
+    """Best label path of one utterance: ``(path (T,) int32, score)`` from
+    ``state (T, L)``, ``trans (L, L)`` or ``(T, L, L)`` and a scalar
+    ``length``; :func:`viterbi_batch` on a batch of one, so the tie order
+    and the padding rule are the same."""
+    state, trans, lengths = _one(log_phi_state, log_phi_trans, length)
+    paths, scores = viterbi_batch(state, trans, lengths, beam_width,
+                                  beam_threshold)
+    return paths[0], scores[0]
 
 
 def path_score(state, trans, paths, lengths):

@@ -63,7 +63,7 @@ class TrainConfig:
     lr: float = 0.05
     lr_decay: float = 1.0          # multiplicative per-epoch decay
     momentum: float = 0.0
-    optimizer: str = "sgd"          # "sgd" | "adam" | "adagrad"
+    optimizer: str = "sgd"          # "sgd" | "adam" | "adagrad" | "lbfgs"
     l2: float = 0.0                 # weight decay (reference gaussian prior)
     epochs: int = 5
     weight_avg: bool = False        # Polyak averaging of lambdas
@@ -80,6 +80,7 @@ class TrainConfig:
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8       # optax.adam's defaults
 ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7               # optax.adagrad's
+LBFGS_MEMORY = 10                         # optax.scale_by_lbfgs's memory_size
 
 
 class Optimizer:
@@ -88,8 +89,9 @@ class Optimizer:
     are optax's: ``sgd`` (``momentum``: ``optax.trace``), ``adam`` (b1 0.9,
     b2 0.999, eps 1e-8 outside the root; the step count a device tensor)
     and ``adagrad`` (``optax.scale_by_rss``: the accumulator starts at 0.1,
-    eps 1e-7 inside the root), ``l2`` added to the gradient first
-    (``optax.add_decayed_weights``), then ``params -= lr * update``.
+    eps 1e-7 inside the root), ``lbfgs`` (:meth:`_lbfgs`), ``l2`` added to
+    the gradient first (``optax.add_decayed_weights``), then ``params -= lr
+    * update``.
 
     ``torch.optim`` is not used: ``SGD`` with a tensor lr reads it back to
     the host, ``Adam`` captures only with ``capturable=True``, and an
@@ -97,7 +99,7 @@ class Optimizer:
 
     def __init__(self, kind: str, lr: float = 1.0, momentum: float = 0.0,
                  l2: float = 0.0):
-        if kind not in ("sgd", "adam", "adagrad"):
+        if kind not in ("sgd", "adam", "adagrad", "lbfgs"):
             raise ValueError(f"unknown optimizer {kind!r}")
         self.kind, self.lr, self.momentum, self.l2 = kind, lr, momentum, l2
 
@@ -113,7 +115,78 @@ class Optimizer:
         if self.kind == "adagrad":
             return {"sum": {k: torch.full_like(p.detach(), ADAGRAD_INIT)
                             for k, p in params.items()}}
+        if self.kind == "lbfgs":
+            dev = next(iter(params.values())).device
+            ring = lambda: {k: torch.zeros((LBFGS_MEMORY,) + p.shape,
+                                           dtype=p.dtype, device=dev)
+                            for k, p in params.items()}
+            return {"count": torch.zeros((), dtype=torch.int64, device=dev),
+                    "params": zeros(), "updates": zeros(), "dw": ring(),
+                    "du": ring(),
+                    "rho": torch.zeros((LBFGS_MEMORY,), device=dev)}
         return {"trace": zeros()} if self.momentum else {}
+
+    @staticmethod
+    def _vdot(a: dict, b: dict):
+        """The inner product of two trees, over every tensor: each key's
+        sum, added in sorted key order (optax's ``tree.vdot`` flattens a
+        dict in that order)."""
+        return sum((a[k] * b[k]).sum() for k in sorted(a))
+
+    def _lbfgs(self, grads: dict, state: dict, params: dict) -> dict:
+        """optax 0.2.6 ``scale_by_lbfgs(memory_size=10,
+        scale_init_precond=True)`` (``optax/_src/transform.py``): the
+        memory of the last 10 differences of the parameters (``dw``) and of
+        the updates (``du``), their weights ``rho = 1 / <du, dw>`` and the
+        two-loop recursion over them.  The inner products run over the
+        whole tree, as optax flattens it.  The ring index and the step
+        count are device tensors and nothing branches on a value, so the
+        step captures as one CUDA graph.  Returns the preconditioned
+        updates; ``params`` are those before this step."""
+        m = LBFGS_MEMORY
+        count = state["count"]
+        idx, prev = count % m, ((count - 1) % m).reshape(1)
+        started = count > 0
+        # 1. the memory, from the fresh parameters and updates (zero at the
+        #    first step, where the differences are not defined)
+        dw = {k: torch.where(started, params[k] - state["params"][k], 0.0)
+              for k in params}
+        du = {k: torch.where(started, grads[k] - state["updates"][k], 0.0)
+              for k in params}
+        vdot = self._vdot(du, dw)
+        weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
+        weight = torch.where(started, weight, 0.0)
+        for k in params:
+            state["dw"][k].index_copy_(0, prev, dw[k][None])
+            state["du"][k].index_copy_(0, prev, du[k][None])
+        state["rho"].index_copy_(0, prev, weight.reshape(1))
+        # 2. the initial inverse Hessian: <du, dw> / <du, du>, and at the
+        #    first step the capped reciprocal of the update's norm
+        den = self._vdot(du, du)
+        scale = torch.where(den > 0.0, vdot / den, 1.0)
+        norm = torch.sqrt(self._vdot(grads, grads))
+        scale = torch.where(started, scale, torch.clamp(1.0 / norm, max=1.0))
+        # 3. the two-loop recursion, newest pair first, then oldest first
+        rho, S, Y = state["rho"], state["dw"], state["du"]
+        order = [((idx + j) % m).reshape(1) for j in range(m)]
+        at = lambda ring, i: {k: ring[k].index_select(0, i)[0] for k in ring}
+        v, alphas = dict(grads), {}
+        for j in reversed(range(m)):
+            i = order[j]
+            s_i, y_i = at(S, i), at(Y, i)
+            alphas[j] = rho.index_select(0, i)[0] * self._vdot(s_i, v)
+            v = {k: v[k] + (-alphas[j]) * y_i[k] for k in v}
+        v = {k: scale * x for k, x in v.items()}
+        for j in range(m):
+            i = order[j]
+            s_i, y_i = at(S, i), at(Y, i)
+            beta = rho.index_select(0, i)[0] * self._vdot(y_i, v)
+            v = {k: v[k] + (alphas[j] - beta) * s_i[k] for k in v}
+        for k in params:
+            state["params"][k].copy_(params[k])
+            state["updates"][k].copy_(grads[k])
+        count.add_(1)
+        return v
 
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict,
@@ -126,10 +199,12 @@ class Optimizer:
             state["count"].add_(1.0)
             bc1 = 1.0 - ADAM_B1 ** state["count"]
             bc2 = 1.0 - ADAM_B2 ** state["count"]
+        if self.l2:
+            grads = {k: grads[k] + self.l2 * p for k, p in params.items()}
+        if self.kind == "lbfgs":
+            grads = self._lbfgs(grads, state, params)
         for k, p in params.items():
             g = grads[k]
-            if self.l2:
-                g = g + self.l2 * p
             if self.kind == "adam":
                 mu, nu = state["mu"][k], state["nu"][k]
                 mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
@@ -140,7 +215,7 @@ class Optimizer:
                 acc.addcmul_(g, g)
                 u = torch.where(acc > 0, torch.rsqrt(acc + ADAGRAD_EPS),
                                 0.0) * g
-            elif self.momentum:
+            elif self.kind == "sgd" and self.momentum:
                 u = state["trace"][k].mul_(self.momentum).add_(g)
             else:
                 u = g
@@ -149,12 +224,9 @@ class Optimizer:
 
 def make_optimizer(tc: TrainConfig, epoch: int = 0) -> Optimizer:
     """The optimizer of ``tc`` at the schedule value of ``epoch``, as the
-    JAX ``make_optimizer`` builds it (``l2`` included)."""
-    if tc.optimizer == "lbfgs":
-        raise NotImplementedError(
-            "optimizer 'lbfgs' (optax.scale_by_lbfgs without line search) "
-            "has no torch.optim counterpart with the same numbers; it is "
-            "not ported yet (ROADMAP.md Queue 1, slice 2, still open)")
+    JAX ``make_optimizer`` builds it (``l2`` included; ``lbfgs`` is
+    ``optax.chain(optax.scale_by_lbfgs(), optax.scale(-lr))`` there, with no
+    line search)."""
     return Optimizer(tc.optimizer, tc.lr * (tc.lr_decay ** epoch),
                      tc.momentum, tc.l2)
 
@@ -275,6 +347,7 @@ def crf_loss_fn(cfg: CrfConfig, label_kind: str = "phone") -> Callable:
                                 batch["labels"], batch["lengths"],
                                 sparse=_batch_sparse(batch),
                                 label_kind=label_kind)
+    loss_fn.precision = cfg.precision       # a key of the step's graphs
     return loss_fn
 
 
@@ -291,6 +364,7 @@ def scrf_loss_fn(cfg: seg_mod.SegCrfConfig, dense: bool = False
                           batch["lengths"])
         return value, {"logZ": aux["logZ"], "nll": aux["nll"],
                        "frames": batch["lengths"].sum().clamp(min=1)}
+    loss_fn.precision = cfg.precision
     return loss_fn
 
 
@@ -324,7 +398,12 @@ class TrainStep:
     again.
 
     ``mesh``: data parallelism over its ranks (the module's docstring);
-    the loss's ``aux`` must then hold the per-utterance ``nll``."""
+    the loss's ``aux`` must then hold the per-utterance ``nll``.
+
+    The loss function's ``precision`` (set by :func:`crf_loss_fn` and
+    :func:`scrf_loss_fn`) is a key of every graph: a step whose
+    ``loss_fn`` is replaced by one of another precision captures anew
+    rather than replay the old products."""
 
     def __init__(self, loss_fn: Callable, opt: Optimizer, tc: TrainConfig,
                  mesh: Optional[mesh_mod.Mesh] = None):
@@ -335,6 +414,11 @@ class TrainStep:
         self._apply = graphs.Graphed(self._apply_impl, pool, "apply_step")
         self._multi = graphs.Graphed(self._multi_impl, pool, "multi_step")
         self._lr = {}                       # device -> (0-d tensor, value)
+
+    def _bound(self, *tensors) -> tuple:
+        """The graphs' bound tensors and, as a static leaf, the loss's
+        precision."""
+        return tensors + (getattr(self.loss_fn, "precision", None),)
 
     def _lr_tensor(self, lr: float, params: dict):
         dev = next(iter(params.values())).device
@@ -396,7 +480,7 @@ class TrainStep:
                 avg_params[k].mul_(d).add_(p, alpha=1 - d)
 
     def _step_impl(self, bound, batch):
-        params, opt_state, avg_params, lr = bound
+        params, opt_state, avg_params, lr, _ = bound
         loss, aux, grads = self._grads(params, batch)
         with torch.no_grad():
             grad_norm = _global_norm(grads)
@@ -406,7 +490,7 @@ class TrainStep:
                 "mean_logZ": aux["logZ_mean"], "frames": aux["frames"]}
 
     def _grad_impl(self, bound, batch):
-        params, grad_acc = bound
+        params, grad_acc, _ = bound
         loss, aux, grads = self._grads(params, batch)
         with torch.no_grad():
             for k, g in grads.items():
@@ -416,7 +500,7 @@ class TrainStep:
 
     @torch.no_grad()
     def _apply_impl(self, bound, _):
-        params, opt_state, avg_params, grad_acc, lr = bound
+        params, opt_state, avg_params, grad_acc, lr, _ = bound
         self.opt.update(grad_acc, opt_state, params, lr)
         self._average(avg_params, params)
         for g in grad_acc.values():
@@ -428,21 +512,22 @@ class TrainStep:
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     def __call__(self, params, opt_state, avg_params, batch, lr):
-        m = self._step((params, opt_state, avg_params,
-                        self._lr_tensor(lr, params)), batch)
+        m = self._step(self._bound(params, opt_state, avg_params,
+                                   self._lr_tensor(lr, params)), batch)
         return params, opt_state, avg_params, m
 
     def grad_step(self, params, grad_acc, batch):
-        return grad_acc, self._grad((params, grad_acc), batch)
+        return grad_acc, self._grad(self._bound(params, grad_acc), batch)
 
     def apply_step(self, params, opt_state, avg_params, grad_acc, lr):
-        self._apply((params, opt_state, avg_params, grad_acc,
-                     self._lr_tensor(lr, params)), None)
+        self._apply(self._bound(params, opt_state, avg_params, grad_acc,
+                                self._lr_tensor(lr, params)), None)
         return params, opt_state, avg_params
 
     def multi_step(self, params, opt_state, avg_params, batches, lr):
-        m = self._multi((params, opt_state, avg_params,
-                         self._lr_tensor(lr, params)), list(batches))
+        m = self._multi(self._bound(params, opt_state, avg_params,
+                                    self._lr_tensor(lr, params)),
+                        list(batches))
         return params, opt_state, avg_params, m
 
 

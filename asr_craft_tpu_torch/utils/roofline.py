@@ -22,6 +22,11 @@ speed-of-light time is
               flops / fp32 peak,
               element operations / measured elementwise rate)
 
+at the default ``mode="fp32"`` (the ``highest`` precision); ``mode``
+``bf16x3`` holds the products to a third of the bf16 rate and ``default``
+to the TF32 rate (:func:`_peak_flops`), the rest of the work to the fp32
+rate as before
+
 (the last term only when a measured rate is given), and phases run one after
 another, so a step's SOL is the sum.  The counts follow the port's code, read
 off ``csrc/*.cu`` and the wrappers: batch-major unpadded tensors, the packed
@@ -110,7 +115,7 @@ class ChipSpec:
     name: str
     hbm_gbps: float        # device memory bandwidth, GB/s
     fp32_tflops: float     # fp32 TFLOP/s outside the tensor cores
-    bf16_tflops: float     # tensor cores, dense (no kernel here uses them)
+    bf16_tflops: float     # tensor cores, dense (the bf16x3 products)
     sm_count: int = 0      # streaming multiprocessors
     sm_clock_ghz: float = 0.0      # boost clock
     sfu_per_sm_clk: int = 0        # special-function results / SM / clock
@@ -131,12 +136,24 @@ def _mma_peak(spec: ChipSpec) -> float:
 
 
 def _peak_flops(spec: ChipSpec, mode: str) -> float:
-    if mode != "fp32":
-        raise NotImplementedError(
-            f"roofline mode {mode!r}: every kernel of the port is fp32 on "
-            "the CUDA cores; the 'bf16x3' and 'default' precisions are not "
-            "ported yet (ROADMAP.md Queue 1, the open precision item)")
-    return spec.fp32_tflops * 1e12
+    """FLOP/s of the products (a phase's ``mma_flops``) in the precision
+    ``mode`` (``CrfConfig.precision``): ``fp32`` / ``highest`` the 3xTF32
+    rate (:func:`_mma_peak`), ``bf16x3`` three bf16 products for each
+    (``bf16_tflops / 3``), ``default`` one TF32 pass (``tf32_tflops``).  The
+    rest of a phase's operations (``flops``) run at the fp32 rate in every
+    mode: the recursions stay fp32.  ``bf16``, one bf16 pass, is the TPU's
+    lowering of the reference's ``default``; no precision of the port runs
+    it."""
+    if mode in ("fp32", "highest"):
+        return _mma_peak(spec)
+    if mode == "bf16x3":
+        return spec.bf16_tflops / 3 * 1e12
+    if mode == "default":
+        return (spec.tf32_tflops or spec.fp32_tflops) * 1e12
+    raise NotImplementedError(
+        f"roofline mode {mode!r}: the port's precisions are 'fp32' "
+        "('highest'), 'bf16x3' and 'default' (one TF32 pass); a single bf16 "
+        "pass is the TPU's lowering, which no precision of the port runs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,21 +178,22 @@ class Phase:
         bw = (bw_gbps or spec.hbm_gbps) * 1e9
         mode = mode or ("fp32" if fp32 else "bf16")
         peak = _peak_flops(spec, mode)
-        sol = max(self.bytes / bw, self.flops / peak)
+        sol = max(self.bytes / bw, self.flops / (spec.fp32_tflops * 1e12))
         if self.mma_flops:
-            sol = max(sol, self.mma_flops / _mma_peak(spec))
+            sol = max(sol, self.mma_flops / peak)
         if vpu_geps and self.vpu_elems:
             sol = max(sol, self.vpu_elems / (vpu_geps * 1e9))
         return sol
 
 
-def bound(phase: Phase, spec: ChipSpec = H100):
+def bound(phase: Phase, spec: ChipSpec = H100, mode: str = "fp32"):
     """``(bound_ms, bound_by)``: the least time the card could take for the
-    phase's bytes and operations (its products at the 3xTF32 rate, the rest
-    at the fp32 rate), and which binds."""
+    phase's bytes and operations (its products at the rate of the precision
+    ``mode``, :func:`_peak_flops`: 3xTF32 for ``fp32``; the rest at the fp32
+    rate), and which binds."""
     by_bytes = phase.bytes / (spec.hbm_gbps * 1e9) * 1e3
     by_ops = max(phase.flops / (spec.fp32_tflops * 1e12),
-                 phase.mma_flops / _mma_peak(spec)) * 1e3
+                 phase.mma_flops / _peak_flops(spec, mode)) * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -700,7 +718,8 @@ def fdt_tile_floor(B: int, T: int, L: int, D: int, ns: int,
     ``fma_ms``: the products of plane formation (``Wall @ [x; 1]`` once a
     frame, once a step: the forward forms the planes and K2 reads them
     again) and of the ``dWall`` contraction, exact from the shapes, at the
-    3xTF32 rate of the tensor cores, and the multiply-adds of the two
+    rate of ``mode`` (:func:`_peak_flops`: 3xTF32 at ``fp32``), and the
+    multiply-adds of the two
     recursions' DP at the fp32 rate.  ``vpu_ms`` is, as there, the element
     operations of the two recursions (K1's, K2's) over the measured
     in-kernel rate (K15), serial with the products.  A step within
@@ -708,8 +727,8 @@ def fdt_tile_floor(B: int, T: int, L: int, D: int, ns: int,
     shape."""
     phases = [p for p in fdt_train_phases(B, T, L, D, ns)
               if p.name in ("fdt_forward", "fdt_backward_grad")]
-    fma_s = (sum(p.flops for p in phases) / _peak_flops(spec, mode)
-             + sum(p.mma_flops for p in phases) / _mma_peak(spec))
+    fma_s = (sum(p.flops for p in phases) / (spec.fp32_tflops * 1e12)
+             + sum(p.mma_flops for p in phases) / _peak_flops(spec, mode))
     vpu_el = sum(p.vpu_elems for p in phases)
     vpu_s = vpu_el / ((vpu_geps or 3000.0) * 1e9)
     return {"fma_ms": round(fma_s * 1e3, 3),

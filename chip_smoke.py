@@ -186,7 +186,22 @@ in phases:
     scores within rtol 1e-5, paths equal or both within it by rescoring
     (the near-tie rule); ``sharded_log_partition``
     against K6a's logZ (rtol 1e-5); the three sharded decodes' times beside
-    ``decode()``'s at the same shapes, with the chunk product's share.
+    ``decode()``'s at the same shapes, with the chunk product's share;
+(u) precision (run before (t)) — the ``bf16x3`` and ``default`` modes of
+    ``CrfConfig.precision`` (``bf16x3``: the products of K1-K3 as three
+    bf16 products of a hi/lo split on the bf16 tensor cores; ``default``:
+    one TF32 pass; the recursions fp32): the plane kernel (the flagship
+    step's B=128, T=512 and P=128), the contraction in modes 0 (dWall) and
+    1 (dfeats) on the flagship step's dplane, and K3's planes (the decode,
+    B=64) against their plain versions at each mode; three config-2 train
+    steps (B=128, T=512, a synthetic corpus) and a ``decode()`` at each
+    mode from one start, the losses beside ``highest``'s and the PERs
+    beside its PER; one config-5 shared step at ``bf16x3`` beside
+    ``highest``; the train CLI at ``--optimizer lbfgs`` for 3 epochs, held
+    to the JAX CPU losses and PER; the plane kernel, the contraction and
+    K3's planes timed at each mode beside the plain version and one
+    ``torch.mm`` with TF32 allowed (no single call computes ``bf16x3``),
+    with their bounds at each mode.
 
 Every kernel's time stands beside its bound on this card: the largest of the
 bytes it must move (each input read once, each output written once) over
@@ -194,7 +209,8 @@ the memory rate, its matrix products over the tensor cores' 3xTF32 rate
 (495 / 3 TFLOP/s) and its other operations over the fp32 rate, from this
 run's shapes (``asr_craft_tpu_torch.utils.roofline``: ``kernel_phase``,
 ``bound``; K15: ``calibrate_phase``, multiply-adds over the fp32 rate plus
-exponentials over the special-function rate).
+exponentials over the special-function rate); phase (u)'s products at the
+rate of their mode (``bf16x3``: 989 / 3 TFLOP/s, ``default``: 495).
 
 Prints the card (``nvidia-smi``), the build time, one line per check, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device": ...}``.
@@ -262,6 +278,25 @@ TRAIN_FLAGS = ["--synthetic_utts", "256", "--crf_label_size", "48",
                "--crf_states", "3", "--window_extent", "1",
                "--crf_transftr_end", "144", "--batch_size", "64",
                "--crf_epochs", "3", "--crf_lr", "0.5", "--seed", "0"]
+# The same run with --optimizer lbfgs (optax.scale_by_lbfgs, no line
+# search): the JAX CPU CLI's per-epoch mean_loss and final CV PER (18 errors
+# in 484 tokens).
+JAX_LBFGS_LOSSES = (0.8132341504096985, 0.13798797130584717,
+                    0.05851224064826965)
+JAX_LBFGS_PER = 0.0371900826446281
+# Phase (u): the precisions' kernels against their plain versions on the
+# same inputs.  Both round the operands alike (ops/precision.py), so every
+# product is exact in fp32 and only the order of the fp32 sums differs.
+# The planes (145 terms): each entry within CONTRACT_REL_MAX of the float64
+# sum of its terms' magnitudes.  The contraction over the step's dplane (up
+# to 65,536 frames, 4,096 a chunk, terms of one sign): the bar phase (d)
+# holds the highest contraction to (RTOL, and REL_MAX of the largest entry),
+# since the tensor cores' fp32 accumulation drops low bits at every k-step
+# and, on terms of one sign, the losses add up.
+# The steps' losses
+# at bf16x3 and default against highest: JAX's bar for bf16x3 (nll rtol
+# 2e-3, tests/kernels/test_fdt_pallas.py), the PER within 0.01.
+PREC_LOSS_RTOL, PREC_PER_TOL = 2e-3, 0.01
 # (errors, tokens) of the JAX package's CPU decode of the same hand-set model
 # and corpus (asr_craft_tpu.cli.decode --platform cpu, same flags): PER
 # 568/2420 = 0.2347, byte-identical MLF to the port's.
@@ -2639,7 +2674,9 @@ class Smoke:
         # Against phase (s)'s graph times of the same paths, where it ran:
         # within 1.5x.  Like with like: the bench's train step is a step of
         # its 8-step multi_step replay, its decodes and segmental step are
-        # captured too.
+        # captured too.  (The bench trains at bf16x3, phase (s) at highest:
+        # the precision changes the two products of a step, not its
+        # recursions.)
         pairs = (("train step", recs["roofline_train"]["measured_ms"],
                   "compiled config2 8 steps", 8),
                  ("decode", recs["roofline_decode"]["measured_ms"],
@@ -2787,6 +2824,279 @@ class Smoke:
                                  f"(rc {rc})")
         log("diagnostics: without --debug_nans the same run ends (mean "
             f"loss {[r['mean_loss'] for r in recs if r['kind'] == 'train_epoch']})")
+
+    # -- (u) precision --------------------------------------------------------
+    def precision_batch(self, B, T, seed=0):
+        """A synthetic corpus batch at the flagship's widths: B utterances
+        of T frames of 48 posterior-like dims in a +/-1 window (144 dims),
+        their frame labels and phone sequences (the train CLI's data:
+        phones of at least 3 frames, one a state)."""
+        import numpy as np
+        from asr_craft_tpu_torch import data
+        torch = self.torch
+        scfg = data.SyntheticConfig(num_labels=48, feat_dim=48, min_len=T,
+                                    max_len=T, seed=seed,
+                                    min_dur=self.cfg.num_states)
+        feats, labels, phones = data.generate_corpus(scfg, B)
+        x = np.stack([data.context_window(f, 1) for f in feats])
+        return ({"feats": torch.from_numpy(x.astype(np.float32)).to(self.dev),
+                 "labels": torch.from_numpy(np.stack(labels).astype(
+                     np.int32)).to(self.dev),
+                 "lengths": torch.full((B,), T, dtype=torch.int32,
+                                       device=self.dev)}, phones)
+
+    def phase_precision(self):
+        import dataclasses
+
+        import numpy as np
+        from asr_craft_tpu_torch.decode.scorer import (ErrorRateScorer,
+                                                       score_batch)
+        from asr_craft_tpu_torch.flagship import tiny_batch
+        from asr_craft_tpu_torch.kernels import fdt_train as K
+        from asr_craft_tpu_torch.kernels import fdt_viterbi as KV
+        from asr_craft_tpu_torch.kernels import fwdbwd as KF
+        from asr_craft_tpu_torch.models.crf import decode
+        from asr_craft_tpu_torch.ops import precision as prec
+        from asr_craft_tpu_torch.train import TrainConfig, Trainer
+        torch, cfg = self.torch, self.cfg
+        modes = ("bf16x3", "default")
+        self.precision = {}
+        # 1. the kernels against their plain versions at each mode
+        B, T = 128, 512
+        params = cfg.init_params(torch.Generator().manual_seed(0), 0.01,
+                                 self.dev)
+        batch, _ = self.precision_batch(B, T)
+        feats, labels, lengths = (batch["feats"], batch["labels"],
+                                  batch["lengths"])
+        Wall, u0, u1, dims = self.wall.build_wall(params, cfg.fmap,
+                                                  cfg.num_states)
+        kw = dict(u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
+                  clamp_ns=cfg.num_states, boundaries=True)
+        R, Du, D = Wall.shape[0], u1 - u0, feats.shape[2]
+        small = self.problem(dataclasses.replace(cfg, num_labels=128), 2, 24,
+                             5)
+        a64 = lambda x: x.double().abs()
+
+        def within(label, got, want, mag):
+            err = float((got - want).abs().max())
+            if not bool(torch.isfinite(got).all()) or not bool(
+                    ((got.double() - want).abs()
+                     <= CONTRACT_REL_MAX * mag).all()):
+                raise AssertionError(f"{label}: max abs difference {err} "
+                                     f"(1e-5 of the terms' magnitudes)")
+            return err
+
+        for mode in modes:
+            errs = {}
+            for label, (W, f) in (("flagship", (Wall, feats)),
+                                  ("P=128", small[:2])):
+                got = K.fdt_planes_cuda(W, f, u0=u0, u1=u1, precision=mode)
+                want = K.fdt_planes_torch(W, f, u0=u0, u1=u1,
+                                          precision=mode)
+                mag = K.fdt_planes_torch(a64(W), a64(f), u0=u0, u1=u1)
+                errs[f"planes {label}"] = within(
+                    f"{mode} planes {label}", got[..., :want.shape[-1]],
+                    want, mag)
+                del got, want, mag
+            alphas, zf, zc, planes = K.fdt_forward_cuda(
+                Wall, feats, labels, lengths, **kw, precision=mode)
+            ones = torch.ones_like(zf)
+            dplane = K.fdt_dplane_cuda(Wall, feats, labels, lengths, alphas,
+                                       zf, zc, ones, -ones, **kw,
+                                       planes=planes)
+            dW = torch.empty((R, Du + 1), device=self.dev)
+            dX = torch.zeros_like(feats)
+            for m, out, src, plain_src in ((0, dW, feats, feats),
+                                           (1, dX, Wall, (Wall, feats))):
+                got = K.contract_cuda(dplane, src, out, mode=m, D=D, u0=u0,
+                                      Du=Du, precision=mode)
+                want = K.contract_wall_torch(dplane, plain_src, mode=m,
+                                             u0=u0, u1=u1, precision=mode)
+                errs[f"contract mode {m}"] = self.close(
+                    f"{mode} contraction mode {m}", got, want, RTOL,
+                    REL_MAX * float(want.abs().max()))
+                del want
+            # K3: the decode's planes at this mode, then its recursion and
+            # traceback, against the plain version (near-tie rule)
+            dB = self.B
+            before = KV.launches["fdt_viterbi_plane"]
+            dkw = dict(u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
+                       precision=mode)
+            paths, scores = KV.fdt_viterbi_cuda(Wall, feats[:dB],
+                                                lengths[:dB], **dkw)
+            rpaths, rscores = KV.fdt_viterbi_wall_torch(Wall, feats[:dB],
+                                                        lengths[:dB], **dkw)
+            torch.cuda.synchronize()
+            if KV.launches["fdt_viterbi_plane"] <= before:
+                raise AssertionError("K3 launched no plane kernel")
+            errs["K3 scores"] = self.close(f"{mode} K3 scores", scores,
+                                           rscores, SCORE_TOL["rtol"],
+                                           SCORE_TOL["atol"])
+            diff = (paths != rpaths).any(dim=1)
+            if bool(diff.any()):
+                rplanes = self.wall.plane_blocks(K.fdt_planes_torch(
+                    Wall, feats[:dB], u0=u0, u1=u1, precision=mode),
+                    cfg.num_states, dims["P"])
+                rescored = self.fdt.path_score(*rplanes, paths,
+                                               lengths[:dB], cfg.num_states)
+                self.close(f"{mode} K3 near-ties", rescored[diff],
+                           rscores[diff], SCORE_TOL["rtol"],
+                           SCORE_TOL["atol"])
+            self.precision[f"parity {mode}"] = errs
+            log(f"precision parity {mode}: max |kernel - plain| "
+                + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+                + f"; K3 paths differing {int(diff.sum())}/{dB} "
+                "(near-ties)")
+
+        # 2. three config-2 train steps and a decode at each mode, one
+        #    start, beside highest's
+        scorer_of = {}
+        losses = {}
+        counts = {}
+        tbatch, phones = self.precision_batch(B, T, seed=1)
+        for mode in ("highest",) + modes:
+            mcfg = dataclasses.replace(cfg, precision=mode)
+            for M in (K, KV):
+                M.reset_launches()
+            tr = Trainer(mcfg, TrainConfig(lr=0.5), device=self.dev)
+            ls = [float(tr.train_step(tbatch, 0.5)["loss"])
+                  for _ in range(3)]
+            with torch.no_grad():
+                ph, _, _ = decode(mcfg, tr.params, tbatch["feats"],
+                                  tbatch["lengths"])
+            torch.cuda.synchronize()
+            counts[mode] = {**K.launches, **KV.launches}
+            sc = ErrorRateScorer()
+            score_batch(sc, phones, ph.cpu().numpy(),
+                        tbatch["lengths"].cpu().numpy())
+            losses[mode], scorer_of[mode] = ls, sc.error_rate
+            log(f"precision steps {mode}: losses {ls}, decode PER "
+                f"{sc.error_rate:.6f}; launches {counts[mode]}")
+        for mode in modes:
+            if min(counts[mode].values()) < 1:
+                raise AssertionError(f"{mode}: a kernel never launched: "
+                                     f"{counts[mode]}")
+            delta = [abs(a - b) for a, b in zip(losses[mode],
+                                                losses["highest"])]
+            self.precision[f"steps {mode}"] = {
+                "loss_delta": delta,
+                "per": scorer_of[mode], "per_highest": scorer_of["highest"]}
+            if any(d > PREC_LOSS_RTOL * abs(h)
+                   for d, h in zip(delta, losses["highest"])):
+                raise AssertionError(f"{mode}: losses {losses[mode]} vs "
+                                     f"highest {losses['highest']} (rtol "
+                                     f"{PREC_LOSS_RTOL})")
+            if abs(scorer_of[mode] - scorer_of["highest"]) > PREC_PER_TOL:
+                raise AssertionError(f"{mode}: PER {scorer_of[mode]} vs "
+                                     f"highest {scorer_of['highest']}")
+            log(f"precision steps {mode}: |loss - highest's| {delta} "
+                f"(rtol {PREC_LOSS_RTOL}); PER {scorer_of[mode]:.6f} vs "
+                f"{scorer_of['highest']:.6f} (+-{PREC_PER_TOL})")
+
+        # 3. one shared-config step (config 5) at bf16x3 beside highest
+        shared = self.shared_configs()["config5"]
+        sp = {}
+        for mode in ("highest", "bf16x3"):
+            scfg = dataclasses.replace(shared, precision=mode)
+            KF.reset_launches()
+            sbatch = tiny_batch(scfg, B, T, 3, self.dev)
+            params5 = scfg.init_params(torch.Generator().manual_seed(3), 0.1,
+                                       self.dev)
+            tr = Trainer(scfg, TrainConfig(lr=0.03), params=params5)
+            sp[mode] = float(tr.train_step(sbatch, 0.03)["loss"])
+            if mode == "bf16x3" and min(
+                    KF.launches[k] for k in ("forward_dual",
+                                             "backward_dual_grad")) < 1:
+                raise AssertionError(f"config 5 step: {KF.launches}")
+        d5 = abs(sp["bf16x3"] - sp["highest"])
+        self.precision["config5 step bf16x3 loss_delta"] = d5
+        if d5 > 2e-4 * (1 + abs(sp["highest"])):
+            raise AssertionError(f"config 5 step at bf16x3: loss {sp}")
+        log(f"precision config5 step: loss {sp['bf16x3']} at bf16x3, "
+            f"{sp['highest']} at highest, delta {d5:.3e} (rtol = atol "
+            "2e-4)")
+
+        # 4. the train CLI at --optimizer lbfgs against the JAX CPU run
+        from asr_craft_tpu_torch.cli.train import main
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(TRAIN_FLAGS + ["--device", "cuda", "--optimizer",
+                                     "lbfgs", "--out_dir",
+                                     str(OUT / "train_lbfgs")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        recs = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                if ln.startswith("{")]
+        lb = [r["mean_loss"] for r in recs if r["kind"] == "train_epoch"]
+        per = [r["per"] for r in recs if r["kind"] == "eval"]
+        log(f"precision lbfgs CLI: {secs:.3f} s wall, losses {lb}, final PER "
+            f"{per[-1] if per else None}; JAX CPU {list(JAX_LBFGS_LOSSES)}, "
+            f"{JAX_LBFGS_PER}")
+        if rc != 0 or len(lb) != len(JAX_LBFGS_LOSSES):
+            raise AssertionError(f"lbfgs CLI rc={rc}, {len(lb)} epochs")
+        for got, want in zip(lb, JAX_LBFGS_LOSSES):
+            if abs(got - want) > 1e-3 * want:
+                raise AssertionError(f"lbfgs losses {lb}, JAX reference "
+                                     f"{JAX_LBFGS_LOSSES} (rtol 1e-3)")
+        if abs(per[-1] - JAX_LBFGS_PER) > 0.02:
+            raise AssertionError(f"lbfgs PER {per[-1]}, JAX {JAX_LBFGS_PER}")
+        self.precision["lbfgs"] = {"losses": lb, "per": per[-1]}
+
+        # 5. times: the plane kernel (train and decode batches) and the
+        #    contraction at each mode, the plain version, one torch.mm with
+        #    TF32 allowed, and the bound at the mode
+        xu2 = self.wall.feats_xu(feats, u0, u1).reshape(B * T, Du + 1)
+        dp2 = dplane.reshape(B * T, R)
+        xu_dec = xu2[:self.B * T]
+        shape = dict(T=T, L=cfg.num_states * dims["P"], D=D,
+                     ns=cfg.num_states, Du=Du)
+        for mode in ("highest",) + modes:
+            rows = {
+                "fdt_train_plane": (
+                    lambda: K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
+                                              precision=mode),
+                    lambda: K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1,
+                                               precision=mode),
+                    lambda: torch.mm(xu2, Wall.T), B),
+                "fdt_viterbi_plane": (
+                    lambda: K.fdt_planes_cuda(Wall, feats[:self.B], u0=u0,
+                                              u1=u1, precision=mode),
+                    lambda: K.fdt_planes_torch(Wall, feats[:self.B], u0=u0,
+                                               u1=u1, precision=mode),
+                    lambda: torch.mm(xu_dec, Wall.T), self.B),
+                "fdt_train_contract": (
+                    lambda: K.contract_cuda(dplane, feats, dW, mode=0, D=D,
+                                            u0=u0, Du=Du, precision=mode),
+                    lambda: K.contract_wall_torch(dplane, feats, mode=0,
+                                                  u0=u0, u1=u1,
+                                                  precision=mode),
+                    lambda: torch.mm(dp2.T, xu2), B),
+            }
+            for name, (kern, plain, lib, nb) in rows.items():
+                p1 = self.cuda_ms(plain, 1)
+                k1, k2 = self.cuda_ms(kern, 10), self.cuda_ms(kern, 10)
+                p2 = self.cuda_ms(plain, 1)
+                lib_ms = None
+                if mode != "bf16x3":
+                    # the library call of the same function: cuBLAS in
+                    # fp32 (highest) or with TF32 allowed (default)
+                    with prec.tf32(mode == "default"):
+                        lib_ms = min(self.cuda_ms(lib, 10),
+                                     self.cuda_ms(lib, 10))
+                bound_ms, bound_by = self.rl.bound(
+                    self.rl.kernel_phase(name, B=nb, **shape), mode=mode)
+                row = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "library_ms": lib_ms}
+                self.precision[f"time {name} {mode}"] = row
+                log(f"precision timing {name} {mode} B={nb} T={T}: kernel "
+                    f"{row['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                    f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                    f"({bound_by}), torch.mm "
+                    + (f"{lib_ms:.4f} ms" if lib_ms is not None else
+                       "none (no single call computes bf16x3)"))
+        log("precision: " + json.dumps(self.precision))
 
     # -- (t) multi-GPU ------------------------------------------------------
     def dp_path(self, mesh, label, cfg, lr):
@@ -3111,6 +3421,7 @@ def main() -> int:
                         ("bench end to end", smoke.phase_bench),
                         ("bench diagnostics",
                          smoke.phase_bench_diagnostics),
+                        ("precision", smoke.phase_precision),
                         ("multi-GPU", smoke.phase_multigpu)):
         if only is not None and only not in name:
             continue

@@ -1,9 +1,9 @@
 """The port's bench (``asr_craft_tpu_torch.bench``, the twin of the root
 ``bench.py``) on the CPU at small shapes (B=4, T=32): every function runs,
-the records carry the keys of the dict literals in the root script (minus
-``train_loss_delta_vs_fp32``, which needs a second precision; with
-``fma_ms`` where the tile floor had its matrix-unit passes), the floors are
-positive, and what waits for another slice raises.
+the records carry the keys of the dict literals in the root script (with
+``fma_ms`` where the tile floor had its matrix-unit passes; the train run at
+``bf16x3`` and its ``highest`` twin, as there), the floors are positive,
+and what waits for another slice raises.
 """
 import ast
 import json
@@ -86,12 +86,13 @@ def test_aux_and_metric_keys(records):
     lits = _literal_keys("main")
     aux = next(k for k in lits if "decode_B" in k)
     metric = next(k for k in lits if "vs_baseline" in k)
-    assert tuple(records["aux"]) == tuple(
-        k for k in aux if k != "train_loss_delta_vs_fp32")
+    assert tuple(records["aux"]) == tuple(aux)
     assert tuple(records["_metric"]) == metric
     assert records["_metric"]["vs_baseline"] is None
     assert records["_metric"]["value"] > 0
-    assert records["aux"]["train_precision"] == "highest"
+    assert records["aux"]["train_precision"] == "bf16x3"
+    assert 0.0 <= records["aux"]["train_loss_delta_vs_fp32"] < 1e-3
+    assert records["aux"]["train_fp32_audio_s_per_s"] > 0
     assert (records["aux"]["B"], records["aux"]["T"],
             records["aux"]["decode_B"]) == (4, 32, 4)
 
@@ -142,5 +143,5 @@ def test_what_waits_for_another_slice_raises():
             bench.main([])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.bench_decode(steps=1, B=2, T=8)
-    assert bench.TRAIN_PRECISION == "highest"
+    assert bench.TRAIN_PRECISION == "bf16x3"        # the root script's
     assert not hasattr(bench, "BASELINE_AUDIO_S_PER_S")

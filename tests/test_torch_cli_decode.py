@@ -103,13 +103,27 @@ def test_cli_unported_flags_raise(weight_file, flag):
                                 "--device", "cpu"] + flag)
 
 
-def test_cli_precision_on_kernel_path_raises(weight_file):
-    """A non-highest precision is refused where the kernel would run (here
-    the 'cuda' backend, checked before the kernel sees the CPU tensor)."""
-    try:
-        with pytest.raises(NotImplementedError, match="precision"):
-            port_cli.main(CORPUS + ["--weight_file", str(weight_file),
-                                    "--device", "cpu", "--kernel_backend",
-                                    "cuda", "--precision", "bf16x3"])
-    finally:
-        kernels.set_backend("auto")
+def test_cli_precision_on_kernel_path_raises(tmp_path, weight_file):
+    """``--precision bf16x3`` and ``default``, refused until the kernels
+    took them, decode as the JAX CLI does (the same PER and a
+    byte-identical MLF: its products on the CPU are fp32, the port's the
+    split ones, close enough not to move a path here); under the 'cuda'
+    backend a CPU tensor still raises (no drop to the plain version)."""
+    for precision in ("bf16x3", "default"):
+        common = CORPUS + ["--weight_file", str(weight_file), "--precision",
+                           precision]
+        mlf = {who: tmp_path / f"{who}_{precision}.mlf"
+               for who in ("port", "jax")}
+        try:
+            port = _run(port_cli.main, common + [
+                "--device", "cpu", "--out_mlf", str(mlf["port"])])
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                port_cli.main(common + ["--device", "cpu",
+                                        "--kernel_backend", "cuda"])
+        finally:
+            kernels.set_backend("auto")
+        ref = _run(jax_cli.main, common + [
+            "--platform", "cpu", "--out_mlf", str(mlf["jax"])])
+        assert port["per"] == ref["per"]
+        assert port["tokens"] == ref["tokens"]
+        assert mlf["port"].read_bytes() == mlf["jax"].read_bytes()

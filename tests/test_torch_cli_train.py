@@ -3,8 +3,8 @@
 flagship's topology and features (3 states, a +/-1 window, frame-dependent
 transitions over all dims): the same per-epoch mean loss (rtol=1e-4), the
 same CV PER, and weight files that load in both packages.  Also: --resume
-continues a run exactly, the diagnostics flags run, and the flag still to
-port raises.
+continues a run exactly, the diagnostics flags and ``--optimizer lbfgs``
+run.
 """
 import contextlib
 import io
@@ -111,13 +111,23 @@ def test_cli_resume_continues_exactly(tmp_path):
                                   ["--check_sync_every", "2"],
                                   ["--optimizer", "lbfgs"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """``lbfgs`` still raises; the diagnostics flags, which raised until the
-    utilities were ported, now run: the same epoch loss as a run without
-    them, and ``--profile_dir`` leaves a trace."""
+    """Flags that raised until their module was ported now run.
+    ``--optimizer lbfgs`` gives the JAX CLI's per-epoch losses (rtol 1e-4)
+    over two epochs; the diagnostics flags give the same epoch loss as a run
+    without them, and ``--profile_dir`` leaves a trace."""
     argv = TRAIN + ["--device", "cpu", "--crf_epochs", "1"]
     if flag[0] == "--optimizer":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_cli.main(argv + ["--out_dir", str(tmp_path)] + flag)
+        argv = TRAIN + ["--crf_epochs", "2"] + flag
+        port = _run(port_cli.main, argv + ["--device", "cpu", "--out_dir",
+                                           str(tmp_path / "port")])
+        ref = _run(jax_cli.main, argv + ["--platform", "cpu", "--out_dir",
+                                         str(tmp_path / "jax")])
+        pe, je = _kind(port, "train_epoch"), _kind(ref, "train_epoch")
+        assert len(pe) == len(je) == 2
+        np.testing.assert_allclose([r["mean_loss"] for r in pe],
+                                   [r["mean_loss"] for r in je], rtol=1e-4)
+        assert (_kind(port, "eval")[-1]["per"]
+                == _kind(ref, "eval")[-1]["per"])
         return
     flag = [str(tmp_path / a) if a == "prof" else a for a in flag]
     try:

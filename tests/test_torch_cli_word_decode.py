@@ -134,15 +134,31 @@ def test_word_decode_nbest_and_lattices_match_jax_cli(tmp_path, corpus):
     assert len(lats) == 10
 
 
-def test_time_shard_still_raises(corpus):
-    """The word decode does not shard: ``--lexicon`` with ``--time_shard``
-    is refused (the phone decode shards: tests/test_torch_cli_timeshard.py),
-    as is ``--shard_beam_labels`` without ``--time_shard``."""
+def test_time_shard_still_raises(tmp_path, corpus):
+    """The two command lines the port refused until it followed the JAX
+    CLI: ``--lexicon`` with ``--time_shard 2`` runs the word decode (which
+    does not shard: the JAX CLI returns to it before the time shard is
+    read), and ``--shard_beam_labels`` without ``--time_shard`` is ignored
+    by the phone decode.  Each gives the JAX CLI's result: the same
+    decode_done record and byte-identical words and MLF files."""
     d, P = corpus
     argv = ["--ftr1_file", str(d / "test.pf"), "--crf_label_size", str(P),
-            "--weight_file", str(d / "mono.dat"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="--lexicon"):
-        port_cli.main(argv + ["--lexicon", str(d / "lex.txt"),
-                              "--time_shard", "2"])
-    with pytest.raises(SystemExit, match="--time_shard"):
-        port_cli.main(argv + ["--shard_beam_labels", "4"])
+            "--weight_file", str(d / "mono.dat"), "--bucket_sizes", "256"]
+    for tag, extra in (
+            ("words", ["--lexicon", str(d / "lex.txt"), "--ref_words",
+                       str(d / "refs.txt"), "--time_shard", "2"]),
+            ("phones", ["--shard_beam_labels", "4"])):
+        out = {}
+        for who, main, flag in (("port", port_cli.main, ["--device", "cpu"]),
+                                ("jax", jax_cli.main,
+                                 ["--platform", "cpu"])):
+            path = tmp_path / f"{who}_{tag}"
+            dest = (["--out_words", str(path)] if tag == "words"
+                    else ["--out_mlf", str(path)])
+            try:
+                out[who] = _run(main, argv + extra + flag + dest)
+            finally:
+                kernels.set_backend("auto")
+        assert out["port"] == out["jax"], tag
+        assert ((tmp_path / f"port_{tag}").read_bytes()
+                == (tmp_path / f"jax_{tag}").read_bytes()), tag

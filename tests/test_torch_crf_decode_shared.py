@@ -136,21 +136,27 @@ def test_potentials_match_jax(ns):
 
 
 def test_shared_guards():
-    """The decode raises, where a kernel would run, for a non-highest
-    precision, and for a CPU tensor under the 'cuda' backend."""
+    """A CPU tensor under the 'cuda' backend raises, at every precision (no
+    drop to the plain version); bf16x3 and default, refused on the kernel
+    path until the kernels took them, decode on the plain path to the
+    highest precision's paths here."""
     tcfg = crf.CrfConfig(num_labels=3, feat_dim=D, num_states=2)
-    params = tcfg.init_params()
-    feats = torch.zeros((1, 4, D))
-    lengths = torch.tensor([4])
-    low = crf.CrfConfig(num_labels=3, feat_dim=D, num_states=2,
-                        precision="bf16x3")
-    crf.decode(low, params, feats, lengths)            # plain: fp32 on CPU
+    g = torch.Generator().manual_seed(0)
+    params = tcfg.init_params(g, 0.5)
+    feats = torch.randn((2, 9, D), generator=g)
+    lengths = torch.tensor([9, 6])
+    want = crf.decode(tcfg, params, feats, lengths)
+    lows = [crf.CrfConfig(num_labels=3, feat_dim=D, num_states=2,
+                          precision=p) for p in ("bf16x3", "default")]
+    for low in lows:
+        got = crf.decode(low, params, feats, lengths)
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-5)
     kernels.set_backend("cuda")
     try:
-        with pytest.raises(NotImplementedError, match="precision"):
-            crf.decode(low, params, feats, lengths)
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            crf.decode(tcfg, params, feats, lengths)
+        for cfg in [tcfg] + lows:
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                crf.decode(cfg, params, feats, lengths)
     finally:
         kernels.set_backend("auto")
 

@@ -109,8 +109,9 @@ def _plane_stand_in(formed, counts_default):
     kernel's (B, T, R4) layout (pad 0), counted where the wrapper counts."""
 
     def planes_cpu(Wall, feats, *, u0, u1, counts=None,
-                   key="fdt_train_plane"):
-        planes = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1)
+                   key="fdt_train_plane", precision="highest"):
+        planes = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1,
+                                    precision=precision)
         B, T, R = planes.shape
         out = torch.zeros((B, T, (R + 3) // 4 * 4))
         out[..., :R] = planes
@@ -142,10 +143,12 @@ def test_nll_dual_forms_the_planes_once(monkeypatch, grad_feats):
         seen.append(planes)
         return K.fdt_dplane_wall_torch(*args, **kw)
 
-    def contract_cpu(dplane, src, out, *, mode, D, u0, Du):
+    def contract_cpu(dplane, src, out, *, mode, D, u0, Du,
+                     precision="highest"):
         src = src if mode == 0 else (src, out)
         return out.copy_(K.contract_wall_torch(dplane, src, mode=mode,
-                                               u0=u0, u1=u0 + Du))
+                                               u0=u0, u1=u0 + Du,
+                                               precision=precision))
 
     grads = {}
     for path in ("kernel", "plain"):

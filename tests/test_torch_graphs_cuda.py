@@ -199,3 +199,43 @@ def test_a_failed_capture_raises(dev):
                          text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     assert "RAISED CUDA graph capture of host read failed" in run.stdout
+
+
+@pytest.mark.parametrize("spc", [1, 4])
+def test_lbfgs_and_precision_steps_graph_equals_eager(dev, spc):
+    """The config-2 step under lbfgs at bf16x3 through the graphs equals
+    its eager code bit for bit (``multi_step`` of 4 too); then the same
+    step object, its loss function swapped for the highest precision's,
+    captures a new graph (the precision is a key) and again equals its
+    eager code."""
+    import dataclasses
+    from asr_craft_tpu_torch.train.trainer import crf_loss_fn
+    base = dataclasses.replace(flagship.flagship(), precision="bf16x3")
+    batches = [flagship.tiny_batch(base, B, T, s, dev) for s in range(4)]
+
+    def run(eager):
+        step, opt = make_train_step(base, TrainConfig(optimizer="lbfgs"))
+        params = {k: v.requires_grad_(True) for k, v in base.init_params(
+            torch.Generator().manual_seed(0), 0.01, dev).items()}
+        state = opt.init(params)
+        avg = {k: v.detach().clone() for k, v in params.items()}
+        out = []
+        with graphs.disabled() if eager else contextlib.nullcontext():
+            for cfg in (base, dataclasses.replace(base,
+                                                  precision="highest")):
+                step.loss_fn = crf_loss_fn(cfg)
+                if spc == 1:
+                    ms = [step(params, state, avg, b, 0.05)[3]
+                          for b in batches]
+                    out += [m["loss"] for m in ms]
+                else:
+                    out.append(step.multi_step(params, state, avg, batches,
+                                               0.05)[3]["loss"])
+        return out, params, len(step._step) + len(step._multi)
+
+    (le, pe, ne), (lg, pg, ng) = run(True), run(False)
+    assert ne == 0 and ng == 2          # one graph a precision
+    for a, b in zip(lg, le):
+        _same(a, b, "loss")
+    for k in pe:
+        _same(pg[k].detach(), pe[k].detach(), k)

@@ -245,3 +245,145 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         K.fdt_backward_grad_cuda(Wall, feats, labels, lengths,
                                  alphas[:, :-1].contiguous(), zf, zc, zf,
                                  zc, **kw)
+
+
+# --- the bf16x3 and default precisions -------------------------------------
+# The plain versions (ops.precision.kernel_matmul) round the operands as the
+# kernels do, so every product of the two is exact in fp32 and the two
+# differ only in the order of their fp32 sums: each is held to the float64
+# sum of the same rounded products within 1e-5 of the terms' magnitudes.
+
+PRECISIONS = ["bf16x3", "default"]
+
+
+def _rounded(x, precision):
+    """The fp32 operand terms the kernel multiplies: [x] (default: tf32(x)),
+    or for bf16x3 (hi, lo) with the pairs hi.hi + hi.lo + lo.hi."""
+    from asr_craft_tpu_torch.ops import precision as prec
+    if precision == "default":
+        return [prec.round_tf32(x)]
+    return list(prec.split_bf16(x))
+
+
+def _ref64(fn, a, b, precision):
+    """(float64 sum of the rounded products, float64 sum of their
+    magnitudes) of the bilinear ``fn``."""
+    ra, rb = _rounded(a, precision), _rounded(b, precision)
+    pairs = ([(0, 0)] if precision == "default"
+             else [(0, 0), (0, 1), (1, 0)])
+    ref = sum(fn(ra[i].double(), rb[j].double()) for i, j in pairs)
+    mag = sum(fn(ra[i].double().abs(), rb[j].double().abs())
+              for i, j in pairs)
+    return ref, mag
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("B,T,D,u0,u1,P,ns", [
+    (5, 33, 12, 2, 12, 5, 3),       # part tiles; 4-byte copies
+    (3, 50, 20, 4, 17, 8, 3),       # Du = 13: a depth not a multiple of 16
+    (128, 512, 144, 0, 144, 48, 3),     # the flagship step's planes
+    (1, 24, 16, 0, 16, 128, 3)])    # P = 128: R = 17,536
+def test_plane_kernel_precisions_match_plain(dev, precision, B, T, D, u0,
+                                             u1, P, ns):
+    """The plane kernel at bf16x3 (m16n8k16 bf16) and default (one TF32
+    pass) against the same rounded products, and the plain version
+    (fdt_planes_torch) within the same bar."""
+    g = torch.Generator().manual_seed(B * T + P)
+    R = 3 * ns * P + P * P
+    Wall = torch.randn((R, u1 - u0 + 1), generator=g).to(dev)
+    feats = torch.randn((B, T, D), generator=g).to(dev)
+    before = K.launches["fdt_train_plane"]
+    planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
+                               precision=precision)
+    torch.cuda.synchronize()
+    assert K.launches["fdt_train_plane"] == before + 1
+    xu = K.feats_xu(feats, u0, u1)
+    ref, mag = _ref64(lambda a, b: a @ b.T, xu, Wall, precision)
+    assert _within(planes[..., :R], ref, mag)
+    assert not planes[..., R:].any()
+    plain = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1,
+                               precision=precision)
+    assert _within(plain, ref, mag)
+    # the mode changes the numbers: a kernel that ignored it would not
+    # meet both bars
+    high = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+    assert not torch.equal(high[..., :R], planes[..., :R])
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("N,R,D,u0,Du", [
+    (3 * 4096 + 17, 300, 20, 2, 15),
+    (65536, 2736, 144, 0, 144),          # the flagship step's dplane
+    (24, 17536, 16, 0, 16)])             # P = 128
+def test_contraction_precisions_match_plain(dev, precision, mode, N, R, D,
+                                            u0, Du):
+    """dWall (mode 0, the bias column the rounded dplane's column sums) and
+    dfeats (mode 1) at bf16x3 and default, against the same rounded
+    products; the same bits on every run."""
+    g = torch.Generator().manual_seed(N + mode)
+    dplane = torch.randn((1, N, R), generator=g).to(dev)
+    feats = torch.randn((1, N, D), generator=g).to(dev)
+    Wall = torch.randn((R, Du + 1), generator=g).to(dev)
+    outs = []
+    for _ in range(2):
+        out = (torch.full((R, Du + 1), float("nan"), device=dev)
+               if mode == 0 else torch.zeros_like(feats))
+        outs.append(K.contract_cuda(dplane, feats if mode == 0 else Wall,
+                                    out, mode=mode, D=D, u0=u0, Du=Du,
+                                    precision=precision))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    if mode == 0:
+        ref, mag = _ref64(lambda a, b: a.T @ b, dplane[0],
+                          K.feats_xu(feats, u0, u0 + Du)[0], precision)
+        got = outs[0]
+        src = feats
+    else:
+        ref, mag = _ref64(lambda a, b: a @ b, dplane[0], Wall[:, :Du],
+                          precision)
+        got = outs[0][0, :, u0:u0 + Du]
+        src = (Wall, feats)
+    assert _within(got, ref, mag)
+    plain = K.contract_wall_torch(dplane, src, mode=mode, u0=u0,
+                                  u1=u0 + Du, precision=precision)
+    if mode == 1:
+        plain = plain[0, :, u0:u0 + Du]
+    assert _within(plain, ref, mag)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_train_kernels_at_each_precision_match_plain(dev, precision):
+    """K1 and K2 (planes, recursions, contraction) through FdtNllDual at
+    bf16x3 and default against the plain versions at the same precision:
+    the tolerances of the fp32 kernels above, but for dWall at default.
+    There the contraction rounds dplane to TF32, and the kernel's and the
+    plain recursion's dplane differ in their last fp32 bits, so an entry
+    next to a rounding boundary rounds to a neighbouring TF32 value: each
+    term of dWall may move by 2^-10 of its magnitude, which bounds the
+    difference (against the float64 sum of the terms' magnitudes)."""
+    Wall, feats, labels, lengths, kw = _problem(dev, 8, 3, 3, seed=7)
+    W1 = Wall.clone().requires_grad_(True)
+    zf, zc = K.fdt_nll_dual_wall(W1, feats, labels, lengths, **kw,
+                                 precision=precision)
+    (zf.sum() - 0.5 * zc.sum()).backward()
+    rzf, rzc = K.fdt_forward_wall_torch(Wall, feats, labels, lengths, **kw,
+                                        precision=precision)[1:]
+    torch.testing.assert_close(zf, rzf, **Z_TOL)
+    torch.testing.assert_close(zc, rzc, **Z_TOL)
+    alphas = K.fdt_forward_wall_torch(Wall, feats, labels, lengths, **kw,
+                                      precision=precision)[0]
+    ones = torch.ones_like(zf)
+    dWall = K.fdt_backward_grad_wall_torch(
+        Wall, feats, labels, lengths, alphas, rzf, rzc, ones, -0.5 * ones,
+        **kw, precision=precision)
+    if precision == "bf16x3":
+        torch.testing.assert_close(W1.grad, dWall, **G_TOL)
+        return
+    dplane = K.fdt_dplane_wall_torch(Wall, feats, labels, lengths, alphas,
+                                     rzf, rzc, ones, -0.5 * ones, **kw,
+                                     precision=precision)
+    mag = K.contract_wall_torch(dplane.double().abs(), feats.double().abs(),
+                                mode=0, u0=kw["u0"], u1=kw["u1"])
+    assert bool(((W1.grad.double() - dWall.double()).abs()
+                 <= 2.0 ** -10 * mag + 1e-6).all())

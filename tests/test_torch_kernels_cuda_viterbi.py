@@ -197,7 +197,7 @@ def test_many_states_a_phone_go_to_the_dense_kernel(dev):
     paths, scores = KV.viterbi_shared(state, trans, lengths, 9)
     assert KV.launches["viterbi_dense_fwd"] == 1
     assert KV.launches["viterbi_nstate_fwd"] == 0
-    want, wscores = V.viterbi(state, trans, lengths)
+    want, wscores = V.viterbi_batch(state, trans, lengths)
     assert torch.equal(paths, want) and torch.equal(scores, wscores)
 
 
@@ -257,3 +257,47 @@ def test_kernels_refuse_what_they_do_not_take(dev):
             KV.viterbi_shared(state.cpu(), trans.cpu(), lengths.cpu(), 3)
     finally:
         kernels.set_backend("auto")
+
+
+# --- K3's planes at the bf16x3 and default precisions ----------------------
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("P,ns,B,T,D", [(5, 3, 5, 33, 12),
+                                        (48, 3, 64, 512, 144),  # flagship
+                                        (128, 3, 2, 24, 16)])
+def test_fdt_decode_planes_at_each_precision_match_plain(dev, precision, P,
+                                                         ns, B, T, D):
+    """K3 (the plane kernel, counted as fdt_viterbi_plane, then the
+    recursion and the traceback) at bf16x3 and default against
+    fdt_viterbi_wall_torch at the same precision: scores within rtol 1e-5,
+    atol 1e-4; paths equal or, where they differ, the kernel's path scores
+    the plain best under the plain planes (the near-tie rule)."""
+    from asr_craft_tpu_torch.kernels.fdt_train import fdt_planes_torch
+    from asr_craft_tpu_torch.kernels.wall import plane_blocks
+    cfg = crf.CrfConfig(num_labels=P, feat_dim=D, num_states=ns,
+                        trans_range=(0, D), precision=precision)
+    g = np.random.default_rng(P + T)
+    params = {k: torch.from_numpy(g.normal(size=s, scale=0.1).astype(
+        np.float32)).to(dev) for k, s in cfg.fmap.param_shapes().items()}
+    feats = torch.from_numpy(g.normal(size=(B, T, D)).astype(
+        np.float32)).to(dev)
+    lengths = torch.from_numpy(g.integers(1, T + 1, size=B).astype(
+        np.int32)).to(dev)
+    lengths[0] = T
+    from asr_craft_tpu_torch.kernels.wall import build_wall
+    Wall, u0, u1, _ = build_wall(params, cfg.fmap, ns)
+    kw = dict(u0=u0, u1=u1, ns=ns, P=P, precision=precision)
+    before = fdt_viterbi.launches["fdt_viterbi_plane"]
+    paths, scores = fdt_viterbi.fdt_viterbi_cuda(Wall, feats, lengths, **kw)
+    ref_paths, ref_scores = fdt_viterbi.fdt_viterbi_wall_torch(
+        Wall, feats, lengths, **kw)
+    torch.cuda.synchronize()
+    assert fdt_viterbi.launches["fdt_viterbi_plane"] > before
+    torch.testing.assert_close(scores, ref_scores, rtol=1e-5, atol=1e-4)
+    diff = (paths != ref_paths).any(dim=1)
+    if bool(diff.any()):
+        planes = plane_blocks(fdt_planes_torch(Wall, feats, u0=u0, u1=u1,
+                                               precision=precision), ns, P)
+        rescored = fdt.path_score(*planes, paths, lengths, ns)
+        torch.testing.assert_close(rescored[diff], ref_scores[diff],
+                                   rtol=1e-5, atol=1e-4)

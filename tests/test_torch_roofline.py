@@ -50,16 +50,35 @@ def test_summarize_equals_the_jax_module(kw):
 
 
 def test_other_precisions_raise():
+    """The port's precisions set the products' rate: 'bf16x3' a third of
+    the bf16 rate, 'default' the TF32 rate, 'fp32' (highest) a third of
+    the TF32 rate; the rest of the work stays at the fp32 rate.  'bf16',
+    one bf16 pass (the TPU's default lowering), which no precision of the
+    port runs, still raises."""
+    spec = rl.H100
+    mm = rl.Phase("mm", bytes=1.0, flops=0.0, mma_flops=1e12)
+    rates = {"fp32": 495.0 / 3, "highest": 495.0 / 3, "bf16x3": 989.0 / 3,
+             "default": 495.0}
+    for mode, tflops in rates.items():
+        assert mm.sol_s(spec, mode=mode) == pytest.approx(1.0 / tflops)
+        assert rl.bound(mm, spec, mode)[0] == pytest.approx(1e3 / tflops)
+    fp = rl.Phase("fp", bytes=1.0, flops=67e12)
+    assert fp.sol_s(spec, mode="bf16x3") == fp.sol_s(spec) == 1.0
+    plane = rl.kernel_phase("fdt_train_plane", B=128, T=512, L=144, D=144,
+                            ns=3)
+    assert rl.bound(plane)[1] == "operations"
+    assert rl.bound(plane, mode="bf16x3")[1] == "bytes"
+    assert rl.bound(plane, mode="default")[1] == "bytes"
+    floors = [rl.fdt_tile_floor(128, 512, 144, 144, 3, mode=m)["fma_ms"]
+              for m in ("fp32", "bf16x3", "default")]
+    assert floors[0] > floors[1] > floors[2]
     phase = rl.Phase("x", 1.0, 1.0)
-    for mode in ("bf16x3", "bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            phase.sol_s(mode=mode)
-        with pytest.raises(NotImplementedError, match="precision"):
-            rl.summarize([phase], 1.0, mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="bf16"):
+        phase.sol_s(mode="bf16")
+    with pytest.raises(NotImplementedError, match="precision"):
+        rl.summarize([phase], 1.0, mode="bf16")
+    with pytest.raises(NotImplementedError, match="bf16"):
         phase.sol_s(fp32=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rl.fdt_tile_floor(8, 16, 6, 4, 3, mode="bf16x3")
     assert rl.H100.hbm_gbps == 3350.0 and rl.H100.fp32_tflops == 67.0
     assert rl.H100.tf32_tflops == 495.0
     assert not hasattr(rl, "V5E") and not hasattr(rl, "measure_vpu_geps")

@@ -7,6 +7,8 @@ Tolerances: fp32, rtol 1e-5 / atol 1e-4 on potentials, scores and logZ,
 rtol 1e-5 on losses; parameter gradients within 1e-4 of their largest
 entry; segmentations equal (the near-tie rule would apply where one
 differs: both must score within 1e-5 relative)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -287,20 +289,29 @@ def test_npz_weights_cross_packages(tmp_path, ns):
 
 
 def test_non_highest_precision_takes_the_plain_path_on_cpu_only():
-    """precision != 'highest' is a JAX matmul setting: on a CPU tensor the
-    port computes in fp32 anyway; where a kernel would serve the tensor it
-    raises (the kernels are IEEE fp32 only)."""
+    """precision != 'highest' is a matmul setting of the frame scores:
+    'default' (one TF32 pass on the card, fp32 on the CPU, as JAX's
+    DEFAULT) gives the highest loss on a CPU tensor, and where a kernel
+    would serve a CPU tensor (the 'cuda' backend) it raises for the tensor,
+    not for the precision; 'bf16x3' raises ValueError on either device, as
+    the JAX package's einsum does."""
     from asr_craft_tpu_torch import kernels
     _, tcfg, params, feats, labels, lengths = _setup(6, precision="default")
     args = (torch.from_numpy(feats), torch.from_numpy(labels),
             torch.from_numpy(lengths))
     loss, _ = tm.scrf_loss_fused(tcfg, _t(params), *args)
-    assert torch.isfinite(loss)
+    high = dataclasses.replace(tcfg, precision="highest")
+    assert loss == tm.scrf_loss_fused(high, _t(params), *args)[0]
+    split = dataclasses.replace(tcfg, precision="bf16x3")
+    for fn in (lambda c: tm.scrf_loss_fused(c, _t(params), *args),
+               lambda c: tm.scrf_decode(c, _t(params), args[0], args[2])):
+        with pytest.raises(ValueError, match="bf16x3"):
+            fn(split)
     kernels.set_backend("cuda")
     try:
-        with pytest.raises(NotImplementedError, match="precision"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
             tm.scrf_loss_fused(tcfg, _t(params), *args)
-        with pytest.raises(NotImplementedError, match="precision"):
+        with pytest.raises(ValueError, match="CUDA tensor"):
             tm.scrf_decode(tcfg, _t(params), args[0], args[2])
     finally:
         kernels.set_backend("auto")

@@ -223,8 +223,8 @@ def _public(mod):
 
 def test_reexports_match_jax():
     """``ops`` and ``models`` re-export the JAX names; ``ops`` leaves out
-    ``viterbi`` (the name stays the submodule) and carries the batched
-    decode as ``viterbi_batch``."""
+    ``viterbi`` (the name stays the submodule) and carries the submodule's
+    batched decode, ``viterbi_batch``."""
     import asr_craft_tpu_torch.ops.viterbi as viterbi_module
     from asr_craft_tpu_torch.ops import viterbi
 
@@ -235,6 +235,6 @@ def test_reexports_match_jax():
 
     assert exported(tops) == exported(jops) - {"viterbi"}
     assert viterbi is viterbi_module
-    assert tops.viterbi_batch is viterbi_module.viterbi
+    assert tops.viterbi_batch is viterbi_module.viterbi_batch
     assert exported(tmodels) == exported(jmodels)
     assert tmodels.weights.__name__ == "asr_craft_tpu_torch.models.weights"

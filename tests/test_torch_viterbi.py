@@ -57,7 +57,7 @@ def problem(seed, P, ns, B=5, T=13, kind="normal"):
 
 
 def port(state, trans, lengths, thr, bw):
-    paths, scores = V.viterbi(torch.from_numpy(state),
+    paths, scores = V.viterbi_batch(torch.from_numpy(state),
                               torch.from_numpy(trans),
                               torch.from_numpy(lengths), bw, thr)
     return paths.numpy(), scores.numpy()
@@ -123,7 +123,7 @@ def test_forward_layout_and_path_score(P, ns):
     for b, n in enumerate(lengths):
         for t in [0] + list(range(max(int(n), 1), state.shape[1])):
             assert torch.equal(bp[b, t], lab), (b, t)
-    paths, want = V.viterbi(st, tr, ln)
+    paths, want = V.viterbi_batch(st, tr, ln)
     assert torch.equal(paths[:, -1], last)
     live = (want > NEG_INF / 2) & (ln > 0)
     assert int(live.sum()) >= 3
@@ -149,7 +149,7 @@ def test_factored_weights_match_jax(P, ns):
 def test_dispatch_takes_plain_only_for_cpu_tensors():
     state, trans, lengths = problem(2, 4, 3)
     st, tr, ln = (torch.from_numpy(x) for x in (state, trans, lengths))
-    want = V.viterbi(st, tr, ln, 3, 2.0)
+    want = V.viterbi_batch(st, tr, ln, 3, 2.0)
     before = dict(KV.launches)
     for got in (KV.viterbi_shared(st, tr, ln, 1, 2.0, 3),
                 KV.viterbi_shared(st, tr, ln, 3, 2.0, 3)):
