@@ -1,0 +1,9 @@
+"""glue_pct.train: the device time of what is neither the port's own
+kernels (csrc/) nor NCCL's, over the busy time: the potentials' and the
+packing's kernels, the optimizer, the gradient norm, the graphs' copies
+in, PyTorch's elementwise kernels.  Moves train_audio_s_per_s."""
+from crfbench import readers
+
+
+def read(ctx):
+    return readers.glue_pct(ctx)
