@@ -16,7 +16,8 @@ port's host modules (``cli.common``, ``data``, ``utils.logging``).
 ``--device`` defaults to ``cuda`` and raises if no GPU is present;
 ``--kernel_backend`` picks the CUDA kernels or the plain PyTorch version
 (``auto``: kernels for CUDA tensors).  ``--profile_dir DIR`` writes
-``DIR/trace.json``, a ``torch.profiler`` trace of the epochs (the JAX CLI
+``DIR/trace.json``, a ``torch.profiler`` trace of the epochs, and
+``DIR/spans.json``, the spans' and counters' summary (the JAX CLI
 hands the flag to ``TrainConfig`` but opens its profiler only in
 ``Trainer.fit``, which the CLI does not call; here the CLI opens the session
 around its own epoch loop, as the flag's help says); ``--debug_nans`` and
@@ -139,7 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     # observability / sanitizers
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of training "
-                        "(trace.json, Chrome trace format) here")
+                        "(trace.json, Chrome trace format) and the spans' "
+                        "and counters' summary (spans.json) here")
     p.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first step whose "
                         "loss, gradient or parameters are not finite "

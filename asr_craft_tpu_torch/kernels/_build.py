@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from asr_craft_tpu_torch.utils import diagnostics
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -114,16 +116,19 @@ def _build(path: Path) -> None:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if needed."""
+    """The kernels' shared library, built first if needed (the set-up spans
+    ``kernels.load`` and, inside it, ``kernels.build``)."""
     global _lib
     if _lib is None:
-        path = library_path()
-        if not path.exists():
-            _build(path)
-        lib = ctypes.CDLL(str(path))
-        lib.fdt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.fdt_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with diagnostics.span("kernels.load"):
+            path = library_path()
+            if not path.exists():
+                with diagnostics.span("kernels.build"):
+                    _build(path)
+            lib = ctypes.CDLL(str(path))
+            lib.fdt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.fdt_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

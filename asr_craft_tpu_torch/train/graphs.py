@@ -32,6 +32,17 @@ same Python code that runs eagerly, so the two give the same bits.
   every Graphed function runs its eager code.  Calls on CPU tensors are
   eager too.  Nothing else is: a capture or a replay that fails on a CUDA
   tensor raises.
+- Spans and counters (``utils.diagnostics``): a call on the card is the
+  span ``graph.call`` (its self time: the cache key and lookup, the launch
+  counts), with the children ``graph.copy_in``, ``graph.replay`` (the
+  graph's launch) and ``graph.copy_out``; these record while a profiler
+  does.  A first call of a key is the set-up spans ``graph.warm_up`` and
+  ``graph.capture`` (the capture and the graph's instantiation).  Counters,
+  per graph name ``<name>``: ``graph.replays[<name>]``,
+  ``graph.captures[<name>]``, ``graph.evictions[<name>]`` (least recently
+  used graphs dropped past ``MAX_SHAPES``), ``graph.eager_calls[<name>]``;
+  and ``graph.nodes[<name>#<i>]``, the node count of the ``i``-th graph
+  captured, which sets what one launch costs the host.
 
 Capture runs in the ``thread_local`` error mode: a trainer's prefetch thread
 pins host memory and copies batches to the card while the main thread
@@ -40,6 +51,7 @@ captures, and the ``global`` mode would count that against the capture.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import gc
 from collections import OrderedDict
@@ -50,6 +62,7 @@ import torch
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import (fdt_train, fdt_viterbi, fwdbwd,
                                          segmental, viterbi)
+from asr_craft_tpu_torch.utils import diagnostics
 
 # every kernel family's launch counts (kernels/*.py ``launches``)
 COUNTS = (fdt_train.launches, fdt_viterbi.launches, viterbi.launches,
@@ -141,11 +154,12 @@ class Pool:
 
 
 class _Entry:
-    __slots__ = ("graph", "inputs", "outputs", "launches")
+    __slots__ = ("graph", "inputs", "outputs", "launches", "index")
 
-    def __init__(self, graph, inputs, outputs, launches):
+    def __init__(self, graph, inputs, outputs, launches, index):
         self.graph, self.inputs = graph, inputs
         self.outputs, self.launches = outputs, launches
+        self.index = index
 
 
 def _counts() -> list:
@@ -170,37 +184,66 @@ class Graphed:
         self.pool = pool if pool is not None else Pool()
         self.name = name or getattr(fn, "__name__", "graph")
         self._cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
+        self._calls = self._captured = 0
+        self._counter = {k: f"graph.{k}[{self.name}]" for k in (
+            "replays", "captures", "evictions", "eager_calls")}
 
     def __len__(self) -> int:
         return len(self._cache)
 
     def __call__(self, bound, inputs):
         if not enabled() or not on_cuda(bound, inputs):
+            diagnostics.count(self._counter["eager_calls"])
             return self.fn(bound, inputs)
-        key = _key(bound, inputs)
-        entry = self._cache.get(key)
-        if entry is None:
-            return self._warm_up_and_capture(key, bound, inputs)
-        self._cache.move_to_end(key)
-        src = [x for x in leaves(inputs) if isinstance(x, torch.Tensor)]
-        for dst, x in zip(entry.inputs, src):
-            dst.copy_(x)
-        entry.graph.replay()
-        for counts, name, n in entry.launches:
-            counts[name] += n
-        return tree_map(_clone, entry.outputs)
+        self._calls += 1
+        with diagnostics.span("graph.call", graph=self.name,
+                              call=self._calls):
+            key = _key(bound, inputs)
+            entry = self._cache.get(key)
+            if entry is None:
+                return self._warm_up_and_capture(key, bound, inputs)
+            self._cache.move_to_end(key)
+            with diagnostics.span("graph.copy_in"):
+                src = [x for x in leaves(inputs)
+                       if isinstance(x, torch.Tensor)]
+                for dst, x in zip(entry.inputs, src):
+                    dst.copy_(x)
+            with diagnostics.span("graph.replay", shape=entry.index):
+                entry.graph.replay()
+            for counts, name, n in entry.launches:
+                counts[name] += n
+            diagnostics.count(self._counter["replays"])
+            with diagnostics.span("graph.copy_out"):
+                return tree_map(_clone, entry.outputs)
 
     def _warm_up_and_capture(self, key, bound, inputs):
+        index = self._captured
+        attrs = {"graph": self.name, "shape": index}
         device = next(x.device for x in leaves((bound, inputs))
                       if isinstance(x, torch.Tensor) and x.is_cuda)
         here = torch.cuda.current_stream(device)
         side = _side_stream(device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            result = self.fn(bound, inputs)
-        here.wait_stream(side)
+        with diagnostics.span("graph.warm_up", **attrs):
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                result = self.fn(bound, inputs)
+            here.wait_stream(side)
+        with diagnostics.span("graph.capture", **attrs):
+            entry = self._capture(bound, inputs, index)
+            nodes = _node_count(entry.graph)
+        self._captured += 1
+        diagnostics.count(self._counter["captures"])
+        diagnostics.count(f"graph.nodes[{self.name}#{index}]", nodes)
+        self._cache[key] = entry
+        while len(self._cache) > MAX_SHAPES:
+            self._cache.popitem(last=False)
+            diagnostics.count(self._counter["evictions"])
+        return result
+
+    def _capture(self, bound, inputs, index) -> _Entry:
         static = tree_map(_clone, inputs)
-        graph = torch.cuda.CUDAGraph()
+        # kept, so that its nodes can be counted once it is instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _counts()
         # Dead graphs (a step and its graphs form a reference cycle) are
         # destroyed now and not by a collection inside the capture, where
@@ -225,12 +268,31 @@ class Graphed:
             after = _counts()
             for counts, old in zip(COUNTS, before):
                 counts.update(old)
+        graph.instantiate()
         launches = [(counts, k, after[i][k] - before[i][k])
                     for i, counts in enumerate(COUNTS) for k in counts
                     if after[i][k] != before[i][k]]
-        self._cache[key] = _Entry(
+        return _Entry(
             graph, [x for x in leaves(static) if isinstance(x, torch.Tensor)],
-            outputs, launches)
-        while len(self._cache) > MAX_SHAPES:
-            self._cache.popitem(last=False)
-        return result
+            outputs, launches, index)
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_get_nodes():
+    """``cudaGraphGetNodes`` of the CUDA runtime PyTorch loaded."""
+    major = torch.version.cuda.split(".")[0]
+    fn = ctypes.CDLL(f"libcudart.so.{major}").cudaGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _node_count(graph) -> int:
+    """The node count of a captured graph (kept, instantiated)."""
+    n = ctypes.c_size_t(0)
+    code = _graph_get_nodes()(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                              ctypes.byref(n))
+    if code != 0:
+        raise RuntimeError(f"cudaGraphGetNodes failed: CUDA error {code}")
+    return n.value

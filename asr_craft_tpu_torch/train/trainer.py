@@ -715,12 +715,11 @@ class Trainer:
             nonlocal pending
             if not pending:
                 return
-            with diagnostics.step_annotation("train", self.step):
-                if len(pending) == 1:
-                    m = self.train_step(pending[0], lr)
-                    ms = {k: v.reshape(1) for k, v in m.items()}
-                else:
-                    ms = self.multi_step(pending, lr)
+            if len(pending) == 1:
+                m = self.train_step(pending[0], lr)
+                ms = {k: v.reshape(1) for k, v in m.items()}
+            else:
+                ms = self.multi_step(pending, lr)
             k, pending = len(pending), []
             losses.append(ms["loss"])
             frame_counts.append(ms["frames"])
@@ -739,16 +738,25 @@ class Trainer:
             # before the prefetch thread starts: collectives stay in order
             n = mesh_mod.reduce_host(self.mesh, [_epoch_len(loader)], "max")
             batches = _even_epoch(batches, int(n[0]))
-        for batch in _prefetch(batches, convert, self.tc.prefetch):
-            if spc > 1 and accum == 1:
-                if pending and pending[-1]["feats"].shape != \
-                        batch["feats"].shape:
-                    flush_pending()       # bucket boundary: a new shape
-                pending.append(batch)
-                if len(pending) == spc:
-                    flush_pending()
-                continue
-            with diagnostics.step_annotation("train", self.step):
+        stream = _prefetch(batches, convert, self.tc.prefetch)
+        while True:
+            # a trip of the loop: the wait for a batch and what it runs
+            # (a step, or a group's call once the group is whole); the
+            # last trip meets the epoch's end and flushes the last group
+            with diagnostics.span("train.step", step=self.step):
+                with diagnostics.span("train.loader_wait"):
+                    batch = next(stream, None)
+                if batch is None:
+                    flush_pending()       # the epoch's last, shorter group
+                    break
+                if spc > 1 and accum == 1:
+                    if pending and pending[-1]["feats"].shape != \
+                            batch["feats"].shape:
+                        flush_pending()   # bucket boundary: a new shape
+                    pending.append(batch)
+                    if len(pending) == spc:
+                        flush_pending()
+                    continue
                 if accum == 1:
                     m = self.train_step(batch, lr)
                 else:
@@ -768,7 +776,6 @@ class Trainer:
                                 epoch=self.epoch, loss=float(m["loss"]),
                                 grad_norm=float(m.get("grad_norm", 0.0)),
                                 mean_logZ=float(m["mean_logZ"]))
-        flush_pending()                   # the epoch's last, shorter group
         if n_acc:
             # trailing partial accumulation at epoch end
             self.apply_step(lr / n_acc)

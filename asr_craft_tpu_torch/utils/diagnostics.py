@@ -2,10 +2,13 @@
 
 Counterpart of :mod:`asr_craft_tpu.utils.diagnostics`, with PyTorch's tools:
 
-- ``profiler_session`` / ``step_annotation``: a ``torch.profiler`` trace (CPU
-  and CUDA activities) around training, written as a Chrome trace (open it
-  in Perfetto or ``chrome://tracing``) into ``--profile_dir``; the steps
-  appear in it as named ranges.
+- ``span`` / ``count`` / ``summary`` / ``reset``: the port's one recorder of
+  spans and counters (below).
+- ``profiler_session``: a ``torch.profiler`` trace (CPU and CUDA
+  activities) around training, written as a Chrome trace (open it in
+  Perfetto or ``chrome://tracing``) into ``--profile_dir``, with
+  ``spans.json`` (:func:`summary`) beside it; the spans appear in the trace
+  as named ranges, their attrs as the ranges' args.
 - ``enable_debug_nans``: JAX raises ``FloatingPointError`` at the first NaN
   or inf any operation produces.  Here: autograd's anomaly detection (it
   checks what every backward produces, the custom ``autograd.Function``s'
@@ -26,20 +29,143 @@ Counterpart of :mod:`asr_craft_tpu.utils.diagnostics`, with PyTorch's tools:
   it returns without comparing, as the JAX function does with one device;
   under an initialised ``torch.distributed`` world of several ranks it
   gathers every rank's copy and compares.
+
+Spans and counters.  ``with span(name, **attrs):`` times a stretch of host
+code with ``time.perf_counter_ns``; a per-thread stack gives each span its
+parent, and the recorder keeps, per name, the count, the total seconds and
+the self seconds (the total less what its child spans cover).  Two kinds:
+
+- set-up spans (:data:`SETUP_SPANS`: a graph's warm-up and capture, the
+  kernels' library loaded or built) happen once a shape or a process and
+  always record;
+- every other span is a per-call span: it records only while a
+  ``torch.profiler`` is recording.  Its gate is one
+  ``torch.autograd._profiler_enabled()`` check; when that is false nothing
+  else runs, so a span on a hot path costs the check.
+
+While a profiler records, a span of either kind also opens a profiler range
+of its name, with its attrs as the range's args (exported where the
+profiler records shapes), so the span lies in the same trace as the
+device's kernels, on their clock.  The range is an operator-scoped one
+(``_RecordFunctionFast``), not ``record_function``'s user annotation: a
+user annotation gets a twin interval on the device's timeline, over the
+kernels it launched, which a reader of device time would count as work.
+
+``count(name, n)`` adds to a counter (always on: an integer add).
+``summary()`` returns the spans' aggregates, the counters, and the kernel
+wrappers' own launch counts (``kernels/*.py`` ``launches``, read in place).
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
+import time
 from typing import Iterator, Optional
 
 import torch
 
+SETUP_SPANS = frozenset({"graph.warm_up", "graph.capture", "kernels.load",
+                         "kernels.build"})
+
+_lock = threading.Lock()
+_spans: dict = {}          # name -> [count, total ns, self ns]
+_counters: dict = {}       # name -> int
+_local = threading.local()
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` is recording: the per-call spans'
+    gate."""
+    return torch.autograd._profiler_enabled()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "range", "parent", "start", "children")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs, self.range = name, attrs, None
+
+    def __enter__(self):
+        if recording():
+            self.range = torch._C._profiler._RecordFunctionFast(
+                self.name, (), self.attrs)
+            self.range.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self)
+        self.children = 0
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        total = time.perf_counter_ns() - self.start
+        stack = _local.stack
+        stack.pop()
+        if stack:
+            stack[-1].children += total
+        with _lock:
+            agg = _spans.get(self.name)
+            if agg is None:
+                agg = _spans[self.name] = [0, 0, 0]
+            agg[0] += 1
+            agg[1] += total
+            agg[2] += total - self.children
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str, **attrs):
+    """A context that times its body as the span ``name`` and gives the
+    span (its ``parent``: the innermost span open on this thread when it
+    began), or None where a per-call span does not record; ``attrs`` (ints
+    and strings) go to the profiler range's args."""
+    if name in SETUP_SPANS or recording():
+        return _Span(name, attrs)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def summary() -> dict:
+    """``{"spans": {name: {"count", "total_s", "self_s"}}, "counters":
+    {name: n}, "launches": {kernel family: its wrappers' launch counts}}``
+    (plain data, a copy)."""
+    from asr_craft_tpu_torch.kernels import (calibrate, fdt_train,
+                                             fdt_viterbi, fwdbwd, segmental,
+                                             viterbi)
+    with _lock:
+        spans = {k: {"count": c, "total_s": t * 1e-9, "self_s": s * 1e-9}
+                 for k, (c, t, s) in _spans.items()}
+        counters = dict(_counters)
+    launches = {m.__name__.rsplit(".", 1)[-1]: dict(m.launches)
+                for m in (fdt_train, fdt_viterbi, viterbi, fwdbwd,
+                          segmental, calibrate)}
+    return {"spans": spans, "counters": counters, "launches": launches}
+
+
+def reset() -> None:
+    """Forget every span's aggregate and every counter (the kernels'
+    launch counts are theirs to reset)."""
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+
 
 @contextlib.contextmanager
 def profiler_session(profile_dir: Optional[str]) -> Iterator[None]:
-    """Trace everything inside the context into
-    ``profile_dir/trace.json`` (no-op when None)."""
+    """Trace everything inside the context into ``profile_dir/trace.json``
+    and write :func:`summary` to ``profile_dir/spans.json`` (no-op when
+    None)."""
     if not profile_dir:
         yield
         return
@@ -48,14 +174,11 @@ def profiler_session(profile_dir: Optional[str]) -> Iterator[None]:
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-
-
-def step_annotation(name: str, step: int):
-    """Named step marker visible in the trace viewer."""
-    return torch.profiler.record_function(f"{name}#{step}")
+    with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+        json.dump(summary(), f, indent=1)
 
 
 def enable_debug_nans(on: bool = True) -> None:

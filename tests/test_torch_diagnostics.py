@@ -3,10 +3,15 @@
 ``tests/unit/test_diagnostics.py`` for the PyTorch twins, and ``--debug_nans``
 through both packages' train CLIs on the same poisoned weight file: each
 raises ``FloatingPointError``, and each runs to its end without the flag.
+And the port's recorder of spans and counters: nesting and self time, the
+per-call spans' gate, the set-up spans, the export beside the trace, the
+counters, the kernels' launch counts read in place, the spans of the
+kernels' loader, of the epoch loop and of a graph's eager call.
 """
 import json
 import os
 import socket
+import time
 
 import jax
 import numpy as np
@@ -19,6 +24,8 @@ from asr_craft_tpu.models.crf import CrfConfig as JaxCrfConfig
 from asr_craft_tpu.utils import diagnostics as jax_diagnostics
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.cli import train as port_cli
+from asr_craft_tpu_torch.kernels import _build, fdt_viterbi
+from asr_craft_tpu_torch.train import graphs
 from asr_craft_tpu_torch.utils import diagnostics
 
 P = 4
@@ -30,6 +37,7 @@ TRAIN = ["--synthetic_utts", "12", "--crf_label_size", str(P),
 
 @pytest.fixture(autouse=True)
 def _debug_flags_off():
+    diagnostics.reset()
     yield
     diagnostics.enable_debug_nans(False)
     jax_diagnostics.enable_debug_nans(False)
@@ -79,16 +87,174 @@ def test_grad_sync_hook_cadence(monkeypatch):
 
 
 def test_profiler_session_writes_trace(tmp_path):
+    """The session writes the trace and, beside it, ``spans.json``: the
+    recorder's summary.  A span is a range of the trace, its attrs the
+    range's args."""
     d = str(tmp_path / "trace")
     with diagnostics.profiler_session(d):
-        with diagnostics.step_annotation("train", 0):
+        with diagnostics.span("train.step", step=0):
             torch.ones(8, 8).sum().item()
     found = []
     for root, _, files in os.walk(d):
         found.extend(files)
-    assert found == ["trace.json"]
+    assert sorted(found) == ["spans.json", "trace.json"]
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any(e.get("name") == "train#0" for e in trace["traceEvents"])
+    steps = [e for e in trace["traceEvents"] if e.get("name") == "train.step"]
+    assert len(steps) == 1 and steps[0]["args"]["step"] == 0
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert spans == json.loads(json.dumps(diagnostics.summary()))
+    assert spans["spans"]["train.step"]["count"] == 1
+
+
+@pytest.fixture
+def profiler():
+    """A CPU profiler recording around the test's body."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        yield prof
+
+
+def test_spans_nest_with_parents_and_self_time(profiler):
+    """Two levels and a sibling: each span's parent is the span open around
+    it, and a span's self time is its total less its children's totals."""
+    with diagnostics.span("a.outer") as outer:
+        assert outer.parent is None
+        time.sleep(0.004)
+        with diagnostics.span("a.inner", n=1) as inner:
+            assert inner.parent is outer
+            time.sleep(0.006)
+            with diagnostics.span("a.leaf") as leaf:
+                assert leaf.parent is inner
+                time.sleep(0.002)
+        with diagnostics.span("a.inner", n=2) as sibling:
+            assert sibling.parent is outer
+            time.sleep(0.003)
+    got = diagnostics.summary()["spans"]
+    assert {k: v["count"] for k, v in got.items()} == {
+        "a.outer": 1, "a.inner": 2, "a.leaf": 1}
+    o, i, f = got["a.outer"], got["a.inner"], got["a.leaf"]
+    assert o["self_s"] == pytest.approx(o["total_s"] - i["total_s"],
+                                        abs=1e-9)
+    assert i["self_s"] == pytest.approx(i["total_s"] - f["total_s"],
+                                        abs=1e-9)
+    assert f["self_s"] == f["total_s"] >= 0.002
+    assert i["total_s"] >= 0.011 and o["self_s"] >= 0.004
+    assert o["total_s"] >= o["self_s"] + i["total_s"] - 1e-9
+
+
+def _no_ranges(monkeypatch):
+    def fail(*a, **k):
+        raise AssertionError("a profiler range was entered")
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", fail)
+    monkeypatch.setattr(torch.profiler, "record_function", fail)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", fail)
+
+
+def test_a_per_call_span_without_a_profiler_is_the_gate_alone(monkeypatch):
+    """With no profiler recording, a per-call span records nothing, opens
+    no profiler range and hands back one shared do-nothing context."""
+    _no_ranges(monkeypatch)
+    assert not diagnostics.recording()
+    ctx = diagnostics.span("graph.call", graph="g", call=1)
+    assert ctx is diagnostics.span("graph.replay")
+    with ctx as got:
+        assert got is None
+    assert diagnostics.summary()["spans"] == {}
+
+
+def test_setup_spans_record_without_a_profiler(monkeypatch):
+    _no_ranges(monkeypatch)
+    for name in sorted(diagnostics.SETUP_SPANS):
+        with diagnostics.span(name, graph="g", shape=0):
+            pass
+    got = diagnostics.summary()["spans"]
+    assert set(got) == diagnostics.SETUP_SPANS
+    assert all(v["count"] == 1 for v in got.values())
+
+
+def test_counters_add_and_reset():
+    diagnostics.count("graph.replays[x]")
+    diagnostics.count("graph.replays[x]", 4)
+    diagnostics.count("graph.nodes[x#0]", 37)
+    assert diagnostics.summary()["counters"] == {"graph.replays[x]": 5,
+                                                 "graph.nodes[x#0]": 37}
+    with diagnostics.span("graph.capture"):
+        pass
+    diagnostics.reset()
+    got = diagnostics.summary()
+    assert got["counters"] == {} and got["spans"] == {}
+
+
+def test_the_summary_reads_the_kernels_launch_counts_in_place(monkeypatch):
+    before = diagnostics.summary()["launches"]
+    assert set(before) == {"fdt_train", "fdt_viterbi", "viterbi", "fwdbwd",
+                           "segmental", "calibrate"}
+    monkeypatch.setitem(fdt_viterbi.launches, "fdt_viterbi_fwd",
+                        fdt_viterbi.launches["fdt_viterbi_fwd"] + 3)
+    after = diagnostics.summary()["launches"]
+    assert after["fdt_viterbi"]["fdt_viterbi_fwd"] == \
+        before["fdt_viterbi"]["fdt_viterbi_fwd"] + 3
+    assert after["fdt_viterbi"] == fdt_viterbi.launches
+
+
+def test_the_kernels_library_load_and_build_are_setup_spans(monkeypatch,
+                                                            tmp_path):
+    """The first ``load_library()`` opens ``kernels.load``, with
+    ``kernels.build`` inside it when the library has to be built; a second
+    call opens nothing."""
+    class Lib:
+        class fdt_cuda_error_string:
+            pass
+
+    def build(path):
+        time.sleep(0.003)
+        path.write_bytes(b"")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "lib.so")
+    monkeypatch.setattr(_build, "_build", build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Lib())
+    lib = _build.load_library()
+    assert _build.load_library() is lib
+    got = diagnostics.summary()["spans"]
+    assert got["kernels.load"]["count"] == got["kernels.build"]["count"] == 1
+    assert got["kernels.build"]["total_s"] >= 0.003
+    assert got["kernels.load"]["self_s"] == pytest.approx(
+        got["kernels.load"]["total_s"] - got["kernels.build"]["total_s"],
+        abs=1e-9)
+
+
+def test_a_graphed_call_on_cpu_tensors_counts_an_eager_call(profiler):
+    """CPU tensors (and calls under ``graphs.disabled()``) run the eager
+    code: a counter each, and no ``graph.call`` span, even while a profiler
+    records."""
+    g = graphs.Graphed(lambda b, x: x["x"] * 2, name="double")
+    x = {"x": torch.ones(3)}
+    assert torch.equal(g({}, x), torch.full((3,), 2.0))
+    with graphs.disabled():
+        g({}, x)
+    got = diagnostics.summary()
+    assert got["counters"] == {"graph.eager_calls[double]": 2}
+    assert not any(k.startswith("graph.") for k in got["spans"])
+    assert len(g) == 0
+
+
+def test_the_epoch_loop_records_its_steps_and_loader_waits(tmp_path):
+    """``--profile_dir``: a ``train.step`` span a trip of the epoch loop
+    (each batch, and the trip that meets the epoch's end), each holding its
+    wait on the prefetch queue, ``train.loader_wait``."""
+    d = tmp_path / "prof"
+    assert port_cli.main(TRAIN + ["--device", "cpu", "--out_dir",
+                                  str(tmp_path / "out"), "--profile_dir",
+                                  str(d)]) == 0
+    spans = json.loads((d / "spans.json").read_text())["spans"]
+    step, wait = spans["train.step"], spans["train.loader_wait"]
+    assert step["count"] == wait["count"] >= 2
+    assert step["self_s"] == pytest.approx(
+        step["total_s"] - wait["total_s"], abs=1e-6)
+    names = {e.get("name") for e in json.loads(
+        (d / "trace.json").read_text())["traceEvents"]}
+    assert {"train.step", "train.loader_wait"} <= names
 
 
 def test_profiler_session_noop():

@@ -12,7 +12,9 @@ The paths are chip_smoke.py phase (s)'s, at smaller batches: the config-2
 step alone and 8 steps in one call, the shared steps at configs 1, 3 and 5,
 the config-4 (segmental) step with the recipe's Adam, ``decode()`` at
 configs 2, 1, 3 and 5 and ``scrf_decode``; and a trainer's graphs freed
-with it.
+with it.  And the graph runner's spans and counters: captures, replays,
+evictions and node counts, the spans of a replayed call in a profiler's
+trace around the graph's kernels, and a kept graph's bits.
 """
 import contextlib
 import gc
@@ -28,6 +30,7 @@ from asr_craft_tpu_torch.models.segmental import scrf_decode
 from asr_craft_tpu_torch.train import (TrainConfig, Trainer, graphs,
                                        make_train_step)
 from asr_craft_tpu_torch.train.trainer import scrf_loss_fn
+from asr_craft_tpu_torch.utils import diagnostics
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
 
 pytestmark = pytest.mark.cuda
@@ -239,3 +242,106 @@ def test_lbfgs_and_precision_steps_graph_equals_eager(dev, spc):
         _same(a, b, "loss")
     for k in pe:
         _same(pg[k].detach(), pe[k].detach(), k)
+
+
+def _decoder(dev):
+    cfg = flagship.flagship()
+    params = cfg.init_params(torch.Generator().manual_seed(0), 0.1, dev)
+    batch = flagship.tiny_batch(cfg, B, T, 0, dev)
+    inputs = {"feats": batch["feats"], "lengths": batch["lengths"]}
+
+    def fn(p, b):
+        return decode(cfg, p, b["feats"], b["lengths"])
+    return fn, params, inputs
+
+
+def test_captures_replays_evictions_and_nodes_are_counted(dev):
+    """One capture and n replays of a shape; a ninth shape drops the least
+    recently used graph; each captured graph's node count is kept."""
+    diagnostics.reset()
+    g = graphs.Graphed(lambda b, x: (x["x"] * 2.0).sin(), name="twice")
+    x = {"x": torch.ones(8, device=dev)}
+    n = 5
+    for _ in range(1 + n):
+        assert torch.equal(g({}, x), torch.full((8,), 2.0, device=dev).sin())
+    got = diagnostics.summary()["counters"]
+    assert got["graph.captures[twice]"] == 1
+    assert got["graph.replays[twice]"] == n
+    assert got["graph.nodes[twice#0]"] >= 2          # a multiply, a sine
+    for size in range(9, 9 + graphs.MAX_SHAPES):
+        g({}, {"x": torch.ones(size, device=dev)})
+    got = diagnostics.summary()["counters"]
+    assert got["graph.captures[twice]"] == 1 + graphs.MAX_SHAPES
+    assert got["graph.evictions[twice]"] == 1 and len(g) == graphs.MAX_SHAPES
+    assert all(got[f"graph.nodes[twice#{i}]"] > 0
+               for i in range(1 + graphs.MAX_SHAPES))
+    assert "graph.eager_calls[twice]" not in got
+    spans = diagnostics.summary()["spans"]
+    assert spans["graph.warm_up"]["count"] == spans["graph.capture"][
+        "count"] == 1 + graphs.MAX_SHAPES
+    assert "graph.call" not in spans      # no profiler: no per-call span
+    diagnostics.reset()
+
+
+def test_a_replayed_call_is_spans_around_the_graphs_kernels(dev):
+    """Under a profiler, each replayed ``decode()`` call is a ``graph.call``
+    range holding ``graph.copy_in``, ``graph.replay`` and
+    ``graph.copy_out`` in that order; the graph's kernels start after its
+    ``graph.replay`` range starts; and no span has a twin interval on the
+    device's timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn, params, inputs = _decoder(dev)
+    dec = graphs.Graphed(fn, name="decode")
+    dec(params, inputs)                   # warm-up and capture
+    before = _counts()
+    dec(params, inputs)
+    per_call = sum(_moved(before).values())
+    torch.cuda.synchronize()
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            dec(params, inputs)
+            torch.cuda.synchronize()
+    evs = prof.events()
+    assert not any(e.device_type == DeviceType.CUDA
+                   and e.name.startswith("graph.") for e in evs)
+    rng = {k: sorted((e.time_range.start, e.time_range.end) for e in evs
+                     if e.name == k and e.device_type == DeviceType.CPU)
+           for k in ("graph.call", "graph.copy_in", "graph.replay",
+                     "graph.copy_out")}
+    assert all(len(v) == n for v in rng.values()), rng
+    kernels = sorted(e.time_range.start for e in evs
+                     if e.device_type == DeviceType.CUDA
+                     and "fdt_" in e.name)
+    for i, (s, t) in enumerate(rng["graph.call"]):
+        (a, b), (c, d), (f, h) = (rng[k][i] for k in (
+            "graph.copy_in", "graph.replay", "graph.copy_out"))
+        assert s <= a <= b <= c <= d <= f <= h <= t
+        end = rng["graph.call"][i + 1][0] if i + 1 < n else float("inf")
+        mine = [k for k in kernels if s <= k < end]
+        assert len(mine) == per_call and mine[0] >= c, (i, mine, c)
+
+
+def test_a_kept_graph_replays_the_same_bits(dev):
+    """The runner keeps its graphs (``keep_graph=True``, instantiated at
+    capture) to count their nodes; a replay gives the bits of the same
+    function captured into a graph that is not kept."""
+    fn, params, inputs = _decoder(dev)
+    dec = graphs.Graphed(fn, name="decode")
+    dec(params, inputs)
+    got = dec(params, inputs)
+    static = {k: v.clone() for k, v in inputs.items()}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn(params, static)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    plain = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain):
+        out = fn(params, static)
+    plain.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, out):
+        assert torch.equal(g, w)
