@@ -49,9 +49,13 @@ from asr_craft_tpu_torch.kernels.wall import (MAX_LABELS, SMEM_LIMIT,
                                               plane_blocks)
 from asr_craft_tpu_torch.ops import fdt, precision as prec
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
 launches = {"fdt_train_fwd": 0, "fdt_train_plane": 0, "fdt_train_bwd": 0,
             "fdt_train_contract": 0}
+# the deepest Du the plane kernel's wgmma path holds (csrc/fdt_mma.cu
+# kPlaneKP)
+PLANE_WGMMA_DEPTH = 144
 # dWall's split of the frames: chunks of at least CONTRACT_CHUNK frames, at
 # most CONTRACT_SPLITS of them
 CONTRACT_SPLITS, CONTRACT_CHUNK = 16, 4096
@@ -250,7 +254,7 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fdt_train_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.fdt_train_fwd.restype = i32
-        lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         lib.fdt_train_plane.restype = i32
         lib.fdt_train_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
         lib.fdt_train_bwd.restype = i32
@@ -359,6 +363,19 @@ def fdt_forward_cuda(Wall, feats, labels, lengths, *, u0: int, u1: int,
     return alphas, zf, zc, planes
 
 
+def plane_path(feats, *, u0: int, Du: int) -> str:
+    """The design the plane kernel takes for these inputs: ``"wgmma"`` (a
+    persistent block an SM, tiles of frames read and tiles of planes
+    written by TMA, warpgroup products), which needs 16-byte aligned rows
+    of ``Du`` floats (the base of ``feats``, ``D``, ``u0`` and ``Du``
+    multiples of 4) and ``0 < Du <= PLANE_WGMMA_DEPTH``; else
+    ``"mma_sync"``, the tiles the contraction shares."""
+    D = feats.shape[-1]
+    ok = (feats.data_ptr() % 16 == 0 and D % 4 == 0 and u0 % 4 == 0
+          and Du % 4 == 0 and 0 < Du <= PLANE_WGMMA_DEPTH)
+    return "wgmma" if ok else "mma_sync"
+
+
 def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
                     key: str = "fdt_train_plane", precision: str = "highest"):
     """The plane kernel: every frame's plane ``[x; 1] @ Wall^T`` on the
@@ -368,7 +385,9 @@ def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
     rows of R4 = R rounded up to 4 floats, (B, T, R4), the pad zero: the
     layout the recursions (K1, K2, K3) copy a frame's row from.  Counts its
     launch in ``counts[key]`` (default this module's ``launches``; the
-    decode counts its own planes in ``kernels/fdt_viterbi.py``)."""
+    decode counts its own planes in ``kernels/fdt_viterbi.py``) and the
+    design it took (:func:`plane_path`) in the diagnostics counter
+    ``kernels.plane_path[<path>]``."""
     dev = feats.device
     _build.check_tensor("feats", feats, torch.float32, 3, dev)
     _build.check_tensor("Wall", Wall, torch.float32, 2, dev)
@@ -383,13 +402,16 @@ def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
     if B * T == 0:
         return planes
     wall_k = wall_k4(Wall)          # referenced until the launch returns
+    path = plane_path(feats, u0=u0, Du=Du)
     with torch.cuda.device(dev):
         code = _library().fdt_train_plane(
             feats.data_ptr(), wall_k.data_ptr(), Wall.data_ptr(),
             planes.data_ptr(), B * T, D, u0, Du, wall_k.shape[1], R, R4,
-            prec.CODES[prec.check(precision)], _stream(dev))
+            prec.CODES[prec.check(precision)], int(path == "wgmma"),
+            _stream(dev))
     _build.raise_on_error(code, f"{key} launch")
     (launches if counts is None else counts)[key] += 1
+    diagnostics.count(f"kernels.plane_path[{path}]")
     return planes
 
 

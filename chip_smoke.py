@@ -201,7 +201,8 @@ in phases:
     to the JAX CPU losses and PER; the plane kernel, the contraction and
     K3's planes timed at each mode beside the plain version and one
     ``torch.mm`` with TF32 allowed (no single call computes ``bf16x3``),
-    with their bounds at each mode.
+    with their bounds at each mode, and the design each plane launch took
+    (the counter ``kernels.plane_path``: ``wgmma`` at these shapes).
 
 Every kernel's time stands beside its bound on this card: the largest of the
 bytes it must move (each input read once, each output written once) over
@@ -417,11 +418,12 @@ CAL_SRC = "asr_craft_tpu/utils/roofline.py:519"   # the inner `kernel`
 # so the gap stays at a few 1e-8 relative on values in (0, 1].
 CAL_ATOL = 2e-6
 # Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: the
-# config-2 decode (the plane kernel, K3's recursion and the traceback, its
-# rows streamed through shared memory) is 2.683 us a frame at B=64; the
-# segmental decode at one segment a frame (the bench's zero model), K12 on
-# K9's frame and K13 on the traceback's stream, is 0.852 us.
-FDT_FRAME_US, SCRF_FRAME_US = 2.683, 0.852
+# config-2 decode (the plane kernel on its wgmma path, K3's recursion and
+# the traceback, its rows streamed through shared memory) is 1.829 us a
+# frame at B=64; the segmental decode at one segment a frame (the bench's
+# zero model), K12 on K9's frame and K13 on the traceback's stream, is
+# 0.852 us.
+FDT_FRAME_US, SCRF_FRAME_US = 1.829, 0.852
 # The time-sharded decode's scores against the unsharded decode's (phase
 # (t)): rtol 1e-5 at T=512, as the JAX tests hold them; at T=16384 the two
 # fp32 sums of 16,384 frames, associated chunk by chunk and frame by frame,
@@ -2858,6 +2860,7 @@ class Smoke:
         from asr_craft_tpu_torch.models.crf import decode
         from asr_craft_tpu_torch.ops import precision as prec
         from asr_craft_tpu_torch.train import TrainConfig, Trainer
+        from asr_craft_tpu_torch.utils import diagnostics
         torch, cfg = self.torch, self.cfg
         modes = ("bf16x3", "default")
         self.precision = {}
@@ -3075,7 +3078,12 @@ class Smoke:
             }
             for name, (kern, plain, lib, nb) in rows.items():
                 p1 = self.cuda_ms(plain, 1)
+                before = dict(diagnostics.summary()["counters"])
                 k1, k2 = self.cuda_ms(kern, 10), self.cuda_ms(kern, 10)
+                took = [k[len("kernels.plane_path["):-1] for k, v in
+                        diagnostics.summary()["counters"].items()
+                        if k.startswith("kernels.plane_path[")
+                        and v > before.get(k, 0)]
                 p2 = self.cuda_ms(plain, 1)
                 lib_ms = None
                 if mode != "bf16x3":
@@ -3088,10 +3096,11 @@ class Smoke:
                     self.rl.kernel_phase(name, B=nb, **shape), mode=mode)
                 row = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "library_ms": lib_ms}
+                       "library_ms": lib_ms, "path": ",".join(took) or None}
                 self.precision[f"time {name} {mode}"] = row
                 log(f"precision timing {name} {mode} B={nb} T={T}: kernel "
-                    f"{row['ms']:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                    f"{row['ms']:.4f} ms ({k1:.4f}, {k2:.4f}"
+                    + (f"; {row['path']}" if took else "") + "), plain "
                     f"{row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
                     f"({bound_by}), torch.mm "
                     + (f"{lib_ms:.4f} ms" if lib_ms is not None else

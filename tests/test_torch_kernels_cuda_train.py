@@ -25,6 +25,7 @@ import torch
 from asr_craft_tpu_torch.kernels import fdt_train as K
 from asr_craft_tpu_torch.kernels.wall import build_wall
 from asr_craft_tpu_torch.models.crf import CrfConfig
+from asr_craft_tpu_torch.utils import diagnostics
 
 pytestmark = pytest.mark.cuda
 Z_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -257,9 +258,12 @@ PRECISIONS = ["bf16x3", "default"]
 
 
 def _rounded(x, precision):
-    """The fp32 operand terms the kernel multiplies: [x] (default: tf32(x)),
-    or for bf16x3 (hi, lo) with the pairs hi.hi + hi.lo + lo.hi."""
+    """The fp32 operand terms the kernel multiplies: [x] (highest: x itself,
+    3xTF32 keeping fp32's accuracy; default: tf32(x)), or for bf16x3 (hi,
+    lo) with the pairs hi.hi + hi.lo + lo.hi."""
     from asr_craft_tpu_torch.ops import precision as prec
+    if precision == "highest":
+        return [x]
     if precision == "default":
         return [prec.round_tf32(x)]
     return list(prec.split_bf16(x))
@@ -269,7 +273,7 @@ def _ref64(fn, a, b, precision):
     """(float64 sum of the rounded products, float64 sum of their
     magnitudes) of the bilinear ``fn``."""
     ra, rb = _rounded(a, precision), _rounded(b, precision)
-    pairs = ([(0, 0)] if precision == "default"
+    pairs = ([(0, 0)] if precision in ("default", "highest")
              else [(0, 0), (0, 1), (1, 0)])
     ref = sum(fn(ra[i].double(), rb[j].double()) for i, j in pairs)
     mag = sum(fn(ra[i].double().abs(), rb[j].double().abs())
@@ -277,26 +281,50 @@ def _ref64(fn, a, b, precision):
     return ref, mag
 
 
-@pytest.mark.parametrize("precision", PRECISIONS)
+def _plane_paths(since=None):
+    """The plane kernel's ``kernels.plane_path[...]`` counters, or what
+    they gained since ``since``."""
+    now = {k: v for k, v in diagnostics.summary()["counters"].items()
+           if k.startswith("kernels.plane_path[")}
+    if since is None:
+        return now
+    return {k: v - since.get(k, 0) for k, v in now.items()
+            if v != since.get(k, 0)}
+
+
+@pytest.mark.parametrize("precision", ["highest"] + PRECISIONS)
 @pytest.mark.parametrize("B,T,D,u0,u1,P,ns", [
     (5, 33, 12, 2, 12, 5, 3),       # part tiles; 4-byte copies
     (3, 50, 20, 4, 17, 8, 3),       # Du = 13: a depth not a multiple of 16
     (128, 512, 144, 0, 144, 48, 3),     # the flagship step's planes
-    (1, 24, 16, 0, 16, 128, 3)])    # P = 128: R = 17,536
+    (1, 24, 16, 0, 16, 128, 3),     # P = 128: R = 17,536
+    (64, 512, 144, 0, 144, 48, 3),      # the flagship decode's planes
+    (16, 1024, 144, 0, 144, 48, 3),     # T = 1024
+    (5, 41, 144, 0, 144, 48, 3),    # N = 205: a tile's second 64 frames 13
+    (3, 100, 144, 0, 144, 48, 3)])  # N = 300: a tile's second 64 frames 0
 def test_plane_kernel_precisions_match_plain(dev, precision, B, T, D, u0,
                                              u1, P, ns):
-    """The plane kernel at bf16x3 (m16n8k16 bf16) and default (one TF32
-    pass) against the same rounded products, and the plain version
-    (fdt_planes_torch) within the same bar."""
+    """The plane kernel at highest (3xTF32), bf16x3 (bf16 products) and
+    default (one TF32 pass) against the same rounded products, and the
+    plain version (fdt_planes_torch) within the same bar; the same bits on
+    two calls; 16-byte aligned rows of frames take the wgmma path, the
+    others the mma.sync tiles (the counter ``kernels.plane_path``)."""
     g = torch.Generator().manual_seed(B * T + P)
     R = 3 * ns * P + P * P
     Wall = torch.randn((R, u1 - u0 + 1), generator=g).to(dev)
     feats = torch.randn((B, T, D), generator=g).to(dev)
     before = K.launches["fdt_train_plane"]
+    paths = _plane_paths()
     planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
                                precision=precision)
     torch.cuda.synchronize()
     assert K.launches["fdt_train_plane"] == before + 1
+    again = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
+                              precision=precision)
+    assert torch.equal(again, planes)
+    aligned = D % 4 == 0 and u0 % 4 == 0 and (u1 - u0) % 4 == 0
+    path = "wgmma" if aligned else "mma_sync"
+    assert _plane_paths(paths) == {f"kernels.plane_path[{path}]": 2}
     xu = K.feats_xu(feats, u0, u1)
     ref, mag = _ref64(lambda a, b: a @ b.T, xu, Wall, precision)
     assert _within(planes[..., :R], ref, mag)
@@ -304,10 +332,11 @@ def test_plane_kernel_precisions_match_plain(dev, precision, B, T, D, u0,
     plain = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1,
                                precision=precision)
     assert _within(plain, ref, mag)
-    # the mode changes the numbers: a kernel that ignored it would not
-    # meet both bars
-    high = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
-    assert not torch.equal(high[..., :R], planes[..., :R])
+    if precision != "highest":
+        # the mode changes the numbers: a kernel that ignored it would not
+        # meet both bars
+        high = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
+        assert not torch.equal(high[..., :R], planes[..., :R])
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)
