@@ -311,9 +311,9 @@ size_t msg_bytes(int L, int* tc) {
 // The xi pass: TX start frames a block, NJ threads a label, each owning up
 // to NSRC of the block's NS = TX + Dmax - 1 start frames (the chunk and its
 // halo); shared memory holds CS and beta - logZ of the NS end frames from
-// the chunk's first, A of the chunk (TX, L), the bias (Dmax, L), invd and
-// the threads' gd partials of kGdPass durations (kGdPass, NJ, L), summed
-// once a pass, off the barrier of every duration.
+// the chunk's first and their offsets (NS), A of the chunk (TX, L), the
+// bias (Dmax, L), invd and the threads' gd partials of kGdPass durations
+// (kGdPass, NJ, L), summed once a pass, off the barrier of every duration.
 struct XiPlan {
   int tx, nj, nsrc, threads;
   size_t bytes;
@@ -330,7 +330,7 @@ XiPlan xi_plan(int L, int Dmax) {
     const long nj = (NS + nsrc - 1) / nsrc;
     const long threads = (nj * L + 31) / 32 * 32;
     const size_t bytes =
-        sizeof(float) * (2 * (size_t)NS * L + (size_t)Dmax * L + Dmax +
+        sizeof(float) * (2 * (size_t)NS * L + NS + (size_t)Dmax * L + Dmax +
                          (size_t)Dmax * nj * L + (size_t)nj * W * L);
     if (threads <= xi_threads(nsrc) && bytes <= kSmemLimit)
       return {TX, (int)nj, nsrc, (int)threads, bytes, true};
@@ -342,7 +342,7 @@ XiPlan xi_plan(int L, int Dmax) {
       const long threads = (nj * L + 31) / 32 * 32;
       if (threads > xi_threads(nsrc)) continue;
       const size_t bytes =
-          sizeof(float) * (2 * (size_t)NS * L + (size_t)TX * L +
+          sizeof(float) * (2 * (size_t)NS * L + NS + (size_t)TX * L +
                            (size_t)Dmax * L + Dmax +
                            kGdPass * (size_t)nj * L);
       if (bytes <= kSmemLimit)
@@ -359,6 +359,13 @@ size_t grad_bytes(int L, int Dmax) {
   const XiPlan x = xi_plan(L, Dmax);
   if (m == 0 || x.bytes == 0) return 0;
   return m > x.bytes ? m : x.bytes;
+}
+
+// The whole number a rebased recursion (K9's note) takes off its rows at a
+// cycle's first frame: the row maximum of the frame before, rounded (0 for
+// a row of NEG_INF alone).
+__device__ __forceinline__ float rebase_shift(float mrow) {
+  return mrow > 0.5f * kNegInf ? rintf(mrow) : 0.0f;
 }
 
 // The slot of source frame t - 1 - d when frame t sits in slot r = t mod
@@ -431,7 +438,8 @@ __device__ __forceinline__ void stage_bias(const float* __restrict__ bias_g,
   for (int d = threadIdx.x; d < Dmax; d += blockDim.x) invd[d] = invd_g[d];
 }
 
-// K9 (VIT false): out = alphas, zout = logZ; factor = P.
+// K9 (VIT false): out = alphas, zout = logZ, rebased where off is given
+// (off, zhat); factor = P.
 // K12 (VIT true): out = deltas, argd, zout = scores, lab0; factor = trans.
 template <bool VIT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -442,7 +450,8 @@ seg_forward_kernel(const float* __restrict__ frame,
                    const float* __restrict__ invd_g,
                    const int* __restrict__ lengths, float* __restrict__ out,
                    int* __restrict__ argd, float* __restrict__ zout,
-                   int* __restrict__ lab0, int T, int L, int Dmax, int ps,
+                   int* __restrict__ lab0, float* __restrict__ off,
+                   float* __restrict__ zhat, int T, int L, int Dmax, int ps,
                    int use_thr, float thr) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -461,6 +470,7 @@ seg_forward_kernel(const float* __restrict__ frame,
   const float* fb = frame + (size_t)b * T * L;
   float* ob = out + (size_t)b * T * L;
   int* ab = VIT ? argd + (size_t)b * T * L : nullptr;
+  float* offb = !VIT && off ? off + (size_t)b * T : nullptr;
 
   stage_bias(bias_g, invd_g, biasv, invd, L, Dmax);
   for (int l = tid; l < L; l += nth) {
@@ -472,13 +482,23 @@ seg_forward_kernel(const float* __restrict__ frame,
     ob[i] = kNegInf;
     if (VIT) ab[i] = 0;
   }
+  if (offb)
+    for (int i = len + tid; i < T; i += nth) offb[i] = 0.0f;
   __syncthreads();
 
   const int g = tid % kGroup, l = tid / kGroup;
   const bool ok = l < L, mine = ok && g == 0;
   float cum = 0.0f;                            // CS[t + 1, l]
   int r = 0;                                   // t mod Dmax
+  float base = 0.0f, mrow = 0.0f;              // the rebasing (K9's note)
   for (int t = 0; t < len; ++t) {
+    if (offb && r == 0 && t > 0) {             // a cycle's first frame
+      const float shift = rebase_shift(mrow);
+      base += shift;
+      if (ok)
+        for (int s = g; s < Dmax; s += kGroup) qw[s * L + l] -= shift;
+      __syncwarp();
+    }
     if (ok) cum += fb[(size_t)t * L + l];
     const int dhi = min(t, Dmax - 1);
     float m[1];
@@ -537,6 +557,8 @@ seg_forward_kernel(const float* __restrict__ frame,
       }
       __syncthreads();
       row_max<1>(a, L, m);
+      mrow = m[0];
+      if (offb && tid == 0) offb[t] = base;
       if (mine) e[l] = expf(alpha - m[0]);
       __syncthreads();
       float acc[1];
@@ -571,13 +593,18 @@ seg_forward_kernel(const float* __restrict__ frame,
       for (int k = tid; k < L; k += 32) sum += expf(a[k] - m[0]);
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (tid == 0) zout[b] = m[0] + logf(fmaxf(sum, kProdFloor));
+      const float z = m[0] + logf(fmaxf(sum, kProdFloor));
+      if (tid == 0) {
+        zout[b] = z + base;
+        if (zhat) zhat[b] = z;
+      }
     }
   }
 }
 
 // K10.  The window holds beta[v] and R[v + 1] of the frames above, R[k] the
-// sum of the frames k .. length - 1: CS[b] - CS[a] = R[a] - R[b].
+// sum of the frames k .. length - 1: CS[b] - CS[a] = R[a] - R[b].  Rebased
+// where off is given.
 __global__ void __launch_bounds__(kMaxThreads)
 seg_backward_kernel(const float* __restrict__ frame,
                     const float* __restrict__ Ptg,
@@ -585,7 +612,7 @@ seg_backward_kernel(const float* __restrict__ frame,
                     const float* __restrict__ bias_g,
                     const float* __restrict__ invd_g,
                     const int* __restrict__ lengths, float* __restrict__ betas,
-                    int T, int L, int Dmax, int ps) {
+                    float* __restrict__ off, int T, int L, int Dmax, int ps) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x, nth = blockDim.x;
   const float* Pm = smem;
@@ -602,18 +629,29 @@ seg_backward_kernel(const float* __restrict__ frame,
   const int len = min(max(lengths[b], 0), T);
   const float* fb = frame + (size_t)b * T * L;
   float* ob = betas + (size_t)b * T * L;
+  float* offb = off ? off + (size_t)b * T : nullptr;
 
   stage_bias(bias_g, invd_g, biasv, invd, L, Dmax);
   for (int l = tid; l < L; l += nth) tmx[l] = tmaxr_g[l];
   for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth)
     ob[i] = kNegInf;
+  if (offb)
+    for (int i = len + tid; i < T; i += nth) offb[i] = 0.0f;
   __syncthreads();
 
   const int g = tid % kGroup, l = tid / kGroup;
   const bool ok = l < L, mine = ok && g == 0;
   float rnow = 0.0f;                           // R[t + 1, l]
   int r = len > 0 ? (len - 1) % Dmax : 0;      // t mod Dmax
+  float base = 0.0f, mrow = 0.0f;              // the rebasing (K10's note)
   for (int t = len - 1; t >= 0; --t) {
+    if (offb && r == Dmax - 1 && t < len - 1) {  // a cycle's top frame
+      const float shift = rebase_shift(mrow);
+      base += shift;
+      if (ok)
+        for (int s = g; s < Dmax; s += kGroup) bw[s * L + l] -= shift;
+      __syncwarp();
+    }
     float beta = 0.0f;                         // beta[length - 1] = 0
     if (t < len - 1) {
       const int dhi = min(Dmax - 1, len - 2 - t);
@@ -638,12 +676,14 @@ seg_backward_kernel(const float* __restrict__ frame,
       __syncthreads();
       float zm[1];
       row_max<1>(x, L, zm);
+      mrow = zm[0];
       if (mine) v[l] = expf(z - zm[0]);
       __syncthreads();
       float acc[1];
       group_dot<1>(v, Pm, ps, L, ok ? l : 0, g, ok, acc);
       beta = zm[0] + tmx[l < L ? l : 0] + logf(fmaxf(acc[0], kProdFloor));
     }
+    if (offb && tid == 0) offb[t] = base;
     if (mine) {
       ob[(size_t)t * L + l] = beta;
       bw[r * L + l] = beta;
@@ -706,13 +746,29 @@ __device__ __forceinline__ float quarter_max(
 // `slot` (kGroup lanes) owns destinations l[d] = slot + d nslots; its lane g
 // takes the window terms of durations g, g + 4, ... of each, and finishes
 // destination g (g < D): the alpha entry, the message and the slots.
+//
+// Rebased (off given): the alphas grow by ~log L a frame (logZ ~2e3 at T =
+// 512, config 4), and fp32 rows at that size round each step at ~1e-4, which
+// left ~1e-3 on the gradient's posteriors.  So the frames are taken in cycles
+// of Dmax (frame t in cycle t / Dmax, in slot r = t mod Dmax), and each
+// cycle's rows are kept less a whole number base, off[t] (B, T): at a cycle's
+// first frame the base rises by the last row's maximum, rounded
+// (rebase_shift), and the messages in the window's slots, all of the cycle
+// before, are lowered by that shift there, once (each group its own labels'
+// slots).  Every offset is a whole number,
+// so each difference of them is exact; the rows, messages and window terms
+// stay within ~Dmax log L of 0.  alphas + off[..., None] are the alphas;
+// logZ = zhat + off[length - 1], zhat (B,) the last row's log-sum itself.
+// Every thread takes the same row maximum, so every thread keeps the base in
+// registers; without off the rows are the alphas themselves.
 template <int QV, int D, bool SHARED>
 __global__ void __launch_bounds__(kFrameThreads)
 seg_alpha_kernel(const float* __restrict__ frame,
                  const float* __restrict__ trans,
                  const float* __restrict__ bias_g, int mean_pool,
                  const int* __restrict__ lengths, float* __restrict__ alphas,
-                 float* __restrict__ logZ, int T, int L, int Dmax, int ws) {
+                 float* __restrict__ logZ, float* __restrict__ off,
+                 float* __restrict__ zhat, int T, int L, int Dmax, int ws) {
   constexpr int Lq = 16 * QV;
   extern __shared__ float4 smem4[];
   float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
@@ -735,6 +791,7 @@ seg_alpha_kernel(const float* __restrict__ frame,
   const int len = min(max(lengths[b], 0), T);
   const float* fb = frame + (size_t)b * T * L;
   float* ob = alphas + (size_t)b * T * L;
+  float* offb = off ? off + (size_t)b * T : nullptr;
 
   // the factor, destination-major, formed here from trans: F[l, p] =
   // exp(trans[p, l] - tmax[l]), tmax the column maxima clamped at NEG_INF
@@ -770,6 +827,8 @@ seg_alpha_kernel(const float* __restrict__ frame,
   for (int j = tid; j < 2 * Lq; j += nth) arow[j] = kNegInf;
   for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth)
     ob[i] = kNegInf;
+  if (offb)
+    for (int i = len + tid; i < T; i += nth) offb[i] = 0.0f;
   // the bias and invd of durations g + 4 i (i < kWin), constant over frames
   float bz[D][kWin], iv[kWin];
 #pragma unroll
@@ -788,77 +847,91 @@ seg_alpha_kernel(const float* __restrict__ frame,
   }
   __syncthreads();
 
-  int r = 0;                           // t mod Dmax
-  for (int t = 0; t < len; ++t) {
-    float nxt[D];                      // a frame ahead of its use
+  float base = 0.0f, mrow = 0.0f;      // the rebasing, above
+  for (int t0 = 0; t0 < len; t0 += Dmax) {   // a cycle of Dmax frames
+    if (offb && t0 > 0) {
+      const float shift = rebase_shift(mrow);
+      base += shift;
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      nxt[k] = t + 1 < len && ok[k] ? fb[(size_t)(t + 1) * L + l[k]] : 0.0f;
-      cum[k] += cur[k];
+      for (int k = 0; k < D; ++k)
+        if (ok[k])
+          for (int s = g; s < Dmax; s += kGroup) qw[s * ws + l[k]] -= shift;
+      __syncwarp();
     }
-    const int dhi = min(t, Dmax - 1);
-    float alpha[D];
+    const int t1 = min(t0 + Dmax, len);
+    if (offb)
+      for (int t = t0 + tid; t < t1; t += nth) offb[t] = base;
+    for (int t = t0, r = 0; t < t1; ++t, ++r) {  // r = t mod Dmax
+      float nxt[D];                      // a frame ahead of its use
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float mx = kNegInf, sum = 0.0f;
-      for (int c = 0; c <= dhi; c += kWinPass) {
-        float w[kWin];
-        float cm = kNegInf;
+      for (int k = 0; k < D; ++k) {
+        nxt[k] = t + 1 < len && ok[k] ? fb[(size_t)(t + 1) * L + l[k]] : 0.0f;
+        cum[k] += cur[k];
+      }
+      const int dhi = min(t, Dmax - 1);
+      float alpha[D];
 #pragma unroll
-        for (int i = 0; i < kWin; ++i) {
-          const int d = c + g + kGroup * i;
-          w[i] = -INFINITY;
-          if (ok[k] && d <= dhi) {
-            float q = 0.0f, cs = 0.0f;
-            if (d < t) {
-              const int s = source_slot(r, d, Dmax);
-              q = qw[s * ws + l[k]];
-              cs = csw[s * ws + l[k]];
+      for (int k = 0; k < D; ++k) {
+        float mx = kNegInf, sum = 0.0f;
+        for (int c = 0; c <= dhi; c += kWinPass) {
+          float w[kWin];
+          float cm = kNegInf;
+#pragma unroll
+          for (int i = 0; i < kWin; ++i) {
+            const int d = c + g + kGroup * i;
+            w[i] = -INFINITY;
+            if (ok[k] && d <= dhi) {
+              float q = 0.0f, cs = 0.0f;
+              if (d < t) {
+                const int s = source_slot(r, d, Dmax);
+                q = qw[s * ws + l[k]];
+                cs = csw[s * ws + l[k]];
+              }
+              const float bv = c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
+              const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
+              w[i] = q + ((cum[k] - cs) * in + bv);
+              cm = fmaxf(cm, w[i]);
             }
-            const float bv = c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
-            const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
-            w[i] = q + ((cum[k] - cs) * in + bv);
-            cm = fmaxf(cm, w[i]);
           }
+          cm = group_max(cm);
+          if (c == 0) {
+            mx = cm;
+          } else if (cm > mx) {          // a deeper pass: rescale online
+            sum *= __expf(mx - cm);
+            mx = cm;
+          }
+#pragma unroll
+          for (int i = 0; i < kWin; ++i)
+            if (w[i] != -INFINITY) sum += __expf(w[i] - mx);
         }
-        cm = group_max(cm);
-        if (c == 0) {
-          mx = cm;
-        } else if (cm > mx) {          // a deeper pass: rescale online
-          sum *= __expf(mx - cm);
-          mx = cm;
+        alpha[k] = mx + __logf(fmaxf(group_sum(sum), kProdFloor));
+      }
+      float* at = arow + (t & 1) * Lq;
+      float am = alpha[0], cm = cum[0];
+#pragma unroll
+      for (int k = 1; k < D; ++k)
+        if (g == k) {
+          am = alpha[k];
+          cm = cum[k];
         }
-#pragma unroll
-        for (int i = 0; i < kWin; ++i)
-          if (w[i] != -INFINITY) sum += __expf(w[i] - mx);
+      if (own) {
+        at[lo] = am;
+        ob[(size_t)t * L + lo] = am;
       }
-      alpha[k] = mx + __logf(fmaxf(group_sum(sum), kProdFloor));
-    }
-    float* at = arow + (t & 1) * Lq;
-    float am = alpha[0], cm = cum[0];
-#pragma unroll
-    for (int k = 1; k < D; ++k)
-      if (g == k) {
-        am = alpha[k];
-        cm = cum[k];
+      __syncthreads();
+      float m[1];
+      row_max_redux<1, (QV + 1) / 2>(at, L, m);
+      mrow = m[0];
+      float acc[(D + 3) / 4];
+      quarter_dot<1, D, QV, SHARED, true>(at, f, g, acc, m[0]);
+      if (own) {
+        qw[r * ws + lo] = m[0] + tm + __logf(fmaxf(acc[0], kProdFloor));
+        csw[r * ws + lo] = cm;
       }
-    if (own) {
-      at[lo] = am;
-      ob[(size_t)t * L + lo] = am;
-    }
-    __syncthreads();
-    float m[1];
-    row_max_redux<1, (QV + 1) / 2>(at, L, m);
-    float acc[(D + 3) / 4];
-    quarter_dot<1, D, QV, SHARED, true>(at, f, g, acc, m[0]);
-    if (own) {
-      qw[r * ws + lo] = m[0] + tm + __logf(fmaxf(acc[0], kProdFloor));
-      csw[r * ws + lo] = cm;
-    }
-    __syncwarp();                      // the group's slots, for frame t + 1
-    r = r + 1 == Dmax ? 0 : r + 1;
+      __syncwarp();                    // the group's slots, for frame t + 1
 #pragma unroll
-    for (int k = 0; k < D; ++k) cur[k] = nxt[k];
+      for (int k = 0; k < D; ++k) cur[k] = nxt[k];
+    }
   }
 
   // logZ = lse(alpha[length - 1]); an empty row reads NEG_INF
@@ -870,7 +943,11 @@ seg_alpha_kernel(const float* __restrict__ frame,
     for (int k = tid; k < L; k += 32) sum += expf(last[k] - m[0]);
     for (int o = 16; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (tid == 0) logZ[b] = m[0] + logf(fmaxf(sum, kProdFloor));
+    const float z = m[0] + logf(fmaxf(sum, kProdFloor));
+    if (tid == 0) {
+      logZ[b] = z + base;
+      if (zhat) zhat[b] = z;
+    }
   }
 }
 
@@ -880,14 +957,19 @@ seg_alpha_kernel(const float* __restrict__ frame,
 // length - 1 (CS[b] - CS[a] = R[a] - R[b]); the window of frame t takes the
 // segments [t + 1, v], v = t + d + 1 < length.  Group `slot` owns
 // destinations l[d] = slot + d nslots as in K9; destination l's factor row
-// is row l of trans: F[l, p] = exp(trans[l, p] - tmax_r[l]).
+// is row l of trans: F[l, p] = exp(trans[l, p] - tmax_r[l]).  Rebased as K9
+// where off is given, its cycles walked down: the base rises at a cycle's
+// top frame (r = Dmax - 1, below frame length - 1) by the last z row's
+// maximum, rounded, and the window's betas, all of the cycle above, are
+// lowered by that shift in their slots; betas + off[..., None] are the
+// betas.
 template <int QV, int D, bool SHARED>
 __global__ void __launch_bounds__(kFrameThreads)
 seg_beta_kernel(const float* __restrict__ frame,
                 const float* __restrict__ trans,
                 const float* __restrict__ bias_g, int mean_pool,
                 const int* __restrict__ lengths, float* __restrict__ betas,
-                int T, int L, int Dmax, int ws) {
+                float* __restrict__ off, int T, int L, int Dmax, int ws) {
   constexpr int Lq = 16 * QV;
   extern __shared__ float4 smem4[];
   float* Fs = reinterpret_cast<float*>(smem4);       // SHARED: (L, Lq)
@@ -910,6 +992,7 @@ seg_beta_kernel(const float* __restrict__ frame,
   const int len = min(max(lengths[b], 0), T);
   const float* fb = frame + (size_t)b * T * L;
   float* ob = betas + (size_t)b * T * L;
+  float* offb = off ? off + (size_t)b * T : nullptr;
 
   // the factor, destination-major, formed here from trans's rows
   FactorRows<D, QV, SHARED> f;
@@ -944,6 +1027,8 @@ seg_beta_kernel(const float* __restrict__ frame,
   for (int j = tid; j < 2 * Lq; j += nth) zrow[j] = kNegInf;
   for (size_t i = (size_t)len * L + tid; i < (size_t)T * L; i += nth)
     ob[i] = kNegInf;
+  if (offb)
+    for (int i = len + tid; i < T; i += nth) offb[i] = 0.0f;
   // the bias and invd of durations g + 4 i (i < kWin), constant over frames
   float bz[D][kWin], iv[kWin];
 #pragma unroll
@@ -962,79 +1047,94 @@ seg_beta_kernel(const float* __restrict__ frame,
   }
   __syncthreads();
 
-  int r = len > 0 ? (len - 1) % Dmax : 0;  // t mod Dmax
-  for (int t = len - 1; t >= 0; --t) {
-    float nxt[D];                      // a frame ahead of its use
+  float base = 0.0f, mrow = 0.0f;      // the rebasing, above
+  for (int t1 = len - 1; t1 >= 0;) {  // a cycle's frames, from its top t1
+    const int t0 = t1 - t1 % Dmax;
+    if (offb && t1 < len - 1) {
+      const float shift = rebase_shift(mrow);
+      base += shift;
 #pragma unroll
-    for (int k = 0; k < D; ++k)
-      nxt[k] = t > 0 && ok[k] ? fb[(size_t)(t - 1) * L + l[k]] : 0.0f;
-    float beta = 0.0f;                 // beta[length - 1] = 0
-    if (t < len - 1) {                 // the same for the whole block
-      const int dhi = min(Dmax - 1, len - 2 - t);
-      float z[D];
+      for (int k = 0; k < D; ++k)
+        if (ok[k])
+          for (int s = g; s < Dmax; s += kGroup) bw[s * ws + l[k]] -= shift;
+      __syncwarp();
+    }
+    if (offb)
+      for (int t = t0 + tid; t <= t1; t += nth) offb[t] = base;
+    for (int t = t1, r = t1 - t0; t >= t0; --t, --r) {  // r = t mod Dmax
+      float nxt[D];                      // a frame ahead of its use
 #pragma unroll
-      for (int k = 0; k < D; ++k) {
-        float mx = kNegInf, sum = 0.0f;
-        for (int c = 0; c <= dhi; c += kWinPass) {
-          float w[kWin];
-          float cm = kNegInf;
+      for (int k = 0; k < D; ++k)
+        nxt[k] = t > 0 && ok[k] ? fb[(size_t)(t - 1) * L + l[k]] : 0.0f;
+      float beta = 0.0f;                 // beta[length - 1] = 0
+      if (t < len - 1) {                 // the same for the whole block
+        const int dhi = min(Dmax - 1, len - 2 - t);
+        float z[D];
 #pragma unroll
-          for (int i = 0; i < kWin; ++i) {
-            const int d = c + g + kGroup * i;
-            w[i] = -INFINITY;
-            if (ok[k] && d <= dhi) {
-              int s = r + 1 + d;       // the slot of frame t + d + 1
-              if (s >= Dmax) s -= Dmax;
-              const float bv =
-                  c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
-              const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
-              w[i] = ((rnow[k] - rw[s * ws + l[k]]) * in + bv) +
-                     bw[s * ws + l[k]];
-              cm = fmaxf(cm, w[i]);
+        for (int k = 0; k < D; ++k) {
+          float mx = kNegInf, sum = 0.0f;
+          for (int c = 0; c <= dhi; c += kWinPass) {
+            float w[kWin];
+            float cm = kNegInf;
+#pragma unroll
+            for (int i = 0; i < kWin; ++i) {
+              const int d = c + g + kGroup * i;
+              w[i] = -INFINITY;
+              if (ok[k] && d <= dhi) {
+                int s = r + 1 + d;       // the slot of frame t + d + 1
+                if (s >= Dmax) s -= Dmax;
+                const float bv =
+                    c == 0 ? bz[k][i] : bias_g[(size_t)d * L + l[k]];
+                const float in = c == 0 ? iv[i] : pool_weight(d, mean_pool);
+                w[i] = ((rnow[k] - rw[s * ws + l[k]]) * in + bv) +
+                       bw[s * ws + l[k]];
+                cm = fmaxf(cm, w[i]);
+              }
             }
-          }
-          cm = group_max(cm);
-          if (c == 0) {
-            mx = cm;
-          } else if (cm > mx) {        // a deeper pass: rescale online
-            sum *= __expf(mx - cm);
-            mx = cm;
-          }
+            cm = group_max(cm);
+            if (c == 0) {
+              mx = cm;
+            } else if (cm > mx) {        // a deeper pass: rescale online
+              sum *= __expf(mx - cm);
+              mx = cm;
+            }
 #pragma unroll
-          for (int i = 0; i < kWin; ++i)
-            if (w[i] != -INFINITY) sum += __expf(w[i] - mx);
+            for (int i = 0; i < kWin; ++i)
+              if (w[i] != -INFINITY) sum += __expf(w[i] - mx);
+          }
+          z[k] = mx + __logf(fmaxf(group_sum(sum), kProdFloor));
         }
-        z[k] = mx + __logf(fmaxf(group_sum(sum), kProdFloor));
+        float* zt = zrow + (t & 1) * Lq;
+        float zo = z[0];
+#pragma unroll
+        for (int k = 1; k < D; ++k)
+          if (g == k) zo = z[k];
+        if (own) zt[lo] = zo;
+        __syncthreads();
+        float m[1];
+        row_max_redux<1, (QV + 1) / 2>(zt, L, m);
+        mrow = m[0];
+        float acc[(D + 3) / 4];
+        quarter_dot<1, D, QV, SHARED, true>(zt, f, g, acc, m[0]);
+        beta = m[0] + tm + __logf(fmaxf(acc[0], kProdFloor));
       }
-      float* zt = zrow + (t & 1) * Lq;
-      float zo = z[0];
+      float ro = rnow[0];
 #pragma unroll
       for (int k = 1; k < D; ++k)
-        if (g == k) zo = z[k];
-      if (own) zt[lo] = zo;
-      __syncthreads();
-      float m[1];
-      row_max_redux<1, (QV + 1) / 2>(zt, L, m);
-      float acc[(D + 3) / 4];
-      quarter_dot<1, D, QV, SHARED, true>(zt, f, g, acc, m[0]);
-      beta = m[0] + tm + __logf(fmaxf(acc[0], kProdFloor));
-    }
-    float ro = rnow[0];
+        if (g == k) ro = rnow[k];
+      if (own) {
+        ob[(size_t)t * L + lo] = beta;
+        bw[r * ws + lo] = beta;
+        rw[r * ws + lo] = ro;
+      }
+      __syncwarp();                    // the group's slots, for frame t - 1
 #pragma unroll
-    for (int k = 1; k < D; ++k)
-      if (g == k) ro = rnow[k];
-    if (own) {
-      ob[(size_t)t * L + lo] = beta;
-      bw[r * ws + lo] = beta;
-      rw[r * ws + lo] = ro;
+      for (int k = 0; k < D; ++k) {
+        rnow[k] += cur[k];
+        cur[k] = nxt[k];
+      }
     }
-    __syncwarp();                      // the group's slots, for frame t - 1
-    r = r == 0 ? Dmax - 1 : r - 1;
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      rnow[k] += cur[k];
-      cur[k] = nxt[k];
-    }
+    t1 = t0 - 1;
   }
 }
 
@@ -1352,21 +1452,30 @@ seg_message_kernel(const float* __restrict__ alphas,
 // start frames that end there feed S and F).  Rows no segment reaches are
 // zeroed here; the block's CS and beta - logZ of end frames [k0, te), the
 // bias and invd are staged into shared memory.
+//
+// Rebased rows (K9's note; aoff and boff given): alphas, so q and m, are
+// less the whole numbers aoff (B, T), betas less boff, and logZ less aoff
+// at frame length - 1 (oz).  A term's exponent is then the sum of a part of
+// rebased rows and the whole number aoff[u] + boff[t] - oz, which is exact:
+// the staged ko[t] = boff[t] - oz of each end frame, and a source's aoff[u]
+// in a register.  Without offsets both are 0.
 struct XiChunk {
   int len, k0, k1, kh, te;    // start frames [kh, k1) read, ends [k0, te)
   size_t row0;
   float lz, gb;
   float* gdb;                 // this block's gd partial
+  const float* aoff;          // rebased alphas' offsets, or null
 };
 
 __device__ __forceinline__ bool xi_begin(
     XiChunk& c, const float* __restrict__ csg, const float* __restrict__ betas,
     const float* __restrict__ logZ, const float* __restrict__ gvec,
+    const float* __restrict__ aoff, const float* __restrict__ boff,
     const float* __restrict__ bias_g, int mean_pool,
     const int* __restrict__ lengths, float* __restrict__ A,
     float* __restrict__ S, float* __restrict__ F,
-    float* __restrict__ gd_part, float* cums, float* x0s, float* bs,
-    float* iv, int T, int L, int Dmax, int TX) {
+    float* __restrict__ gd_part, float* cums, float* x0s, float* kos,
+    float* bs, float* iv, int T, int L, int Dmax, int TX) {
   const int tid = threadIdx.x, nth = blockDim.x, L4 = round_up4(L);
   const int b = blockIdx.y;
   c.k0 = blockIdx.x * TX;
@@ -1394,6 +1503,10 @@ __device__ __forceinline__ bool xi_begin(
   c.te = min(c.k1 + Dmax - 1, c.len);
   c.lz = logZ[b];
   c.gb = gvec[b];
+  c.aoff = aoff;
+  const float oz = aoff ? aoff[c.row0 + c.len - 1] : 0.0f;
+  for (int i = tid; i < c.te - c.k0; i += nth)
+    kos[i] = (boff ? boff[c.row0 + c.k0 + i] : 0.0f) - oz;
   const int ne = (c.te - c.k0) * L;
   const size_t o = (c.row0 + c.k0) * L;
   for (int i = tid; i < ne; i += nth) {
@@ -1408,20 +1521,21 @@ __device__ __forceinline__ bool xi_begin(
   return true;
 }
 
-// The message, CS and m of start frame k's source u = k - 1 (0 for k == 0:
-// the segment from frame 0 has no source).
+// The message, CS, m and offset of start frame k's source u = k - 1 (0 for
+// k == 0: the segment from frame 0 has no source).
 __device__ __forceinline__ void xi_source(const float* __restrict__ qg,
                                           const float* __restrict__ csg,
                                           const float* __restrict__ mg,
                                           const XiChunk& c, int k, int l,
                                           int L, bool live, float& q,
-                                          float& cs, float& m) {
-  q = cs = m = 0.0f;
+                                          float& cs, float& m, float& ov) {
+  q = cs = m = ov = 0.0f;
   if (live && k > 0) {
     const size_t o = (c.row0 + k - 1) * L + l;
     q = qg[o];
     cs = csg[o];
     m = mg[c.row0 + k - 1];
+    if (c.aoff) ov = c.aoff[c.row0 + k - 1];
   }
 }
 
@@ -1437,6 +1551,7 @@ __global__ void __launch_bounds__(xi_threads(NSRC))
 seg_xi_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
               const float* __restrict__ mg, const float* __restrict__ betas,
               const float* __restrict__ logZ, const float* __restrict__ gvec,
+              const float* __restrict__ aoff, const float* __restrict__ boff,
               const float* __restrict__ bias_g, int mean_pool,
               const int* __restrict__ lengths, float* __restrict__ A,
               float* __restrict__ S, float* __restrict__ F,
@@ -1451,10 +1566,12 @@ seg_xi_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
   float* bs = As + (size_t)TX * L;                 // (Dmax, L)
   float* iv = bs + (size_t)Dmax * L;               // (Dmax)
   float* gdp = iv + Dmax;                          // (kGdPass, NJ, L)
+  float* kos = gdp + (size_t)kGdPass * NJ * L;     // (NSmax) offsets
   const int tid = threadIdx.x, nth = blockDim.x;
   XiChunk c;
-  if (!xi_begin(c, csg, betas, logZ, gvec, bias_g, mean_pool, lengths, A, S,
-                F, gd_part, cums, x0s, bs, iv, T, L, Dmax, TX))
+  if (!xi_begin(c, csg, betas, logZ, gvec, aoff, boff, bias_g, mean_pool,
+                lengths, A, S, F, gd_part, cums, x0s, kos, bs, iv, T, L,
+                Dmax, TX))
     return;
   const int k0 = c.k0;
   for (int i = tid; i < TX * L; i += nth) As[i] = 0.0f;
@@ -1462,7 +1579,7 @@ seg_xi_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
   // that end in [k0, te)
   const int jl = tid / L, l = tid % L;
   const bool act = jl < NJ;
-  float qv[NSRC], cv[NSRC], mv[NSRC], sacc[NSRC], facc[NSRC];
+  float qv[NSRC], cv[NSRC], mv[NSRC], ov[NSRC], sacc[NSRC], facc[NSRC];
   int kk[NSRC], dlo[NSRC], dhi[NSRC];
 #pragma unroll
   for (int i = 0; i < NSRC; ++i) {
@@ -1471,7 +1588,8 @@ seg_xi_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
     kk[i] = k - k0;
     dlo[i] = max(k0 - k, 0);
     dhi[i] = act && k < c.k1 ? c.te - k : 0;
-    xi_source(qg, csg, mg, c, k, l, L, dhi[i] > 0, qv[i], cv[i], mv[i]);
+    xi_source(qg, csg, mg, c, k, l, L, dhi[i] > 0, qv[i], cv[i], mv[i],
+              ov[i]);
   }
   __syncthreads();
 
@@ -1486,13 +1604,14 @@ seg_xi_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
         const int e = kk[i] + d;                   // end frame t - k0
         const float xv = ((cums[e * L + l] - cv[i]) * in + bv) +
                          x0s[e * L + l];
-        const float xi = __expf(qv[i] + xv);
+        const float kv = ov[i] + kos[e];           // exact: whole numbers
+        const float xi = __expf((qv[i] + xv) + kv);
         const float y = in * xi;
         if (e < TX) As[e * L + l] += y;
         if (kk[i] >= 0) {                          // a start frame of mine
           sacc[i] += y;
           gdl += xi;
-          if (kk[i] + k0 > 0) facc[i] += __expf(xv + mv[i]);
+          if (kk[i] + k0 > 0) facc[i] += __expf((xv + mv[i]) + kv);
         }
       }
       gdp[((d % kGdPass) * NJ + jl) * L + l] = gdl;
@@ -1539,6 +1658,8 @@ seg_xi16_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
                 const float* __restrict__ betas,
                 const float* __restrict__ logZ,
                 const float* __restrict__ gvec,
+                const float* __restrict__ aoff,
+                const float* __restrict__ boff,
                 const float* __restrict__ bias_g, int mean_pool,
                 const int* __restrict__ lengths, float* __restrict__ A,
                 float* __restrict__ S, float* __restrict__ F,
@@ -1554,21 +1675,23 @@ seg_xi16_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
   float* iv = bs + (size_t)Dmax * L;               // (Dmax)
   float* gdp = iv + Dmax;                          // (Dmax, NJ, L)
   float* Ap = gdp + (size_t)Dmax * NJ * L;         // (NJ, W, L)
+  float* kos = Ap + (size_t)NJ * W * L;            // (NSmax) offsets
   const int tid = threadIdx.x, nth = blockDim.x;
   XiChunk c;
-  if (!xi_begin(c, csg, betas, logZ, gvec, bias_g, mean_pool, lengths, A, S,
-                F, gd_part, cums, x0s, bs, iv, T, L, Dmax, TX))
+  if (!xi_begin(c, csg, betas, logZ, gvec, aoff, boff, bias_g, mean_pool,
+                lengths, A, S, F, gd_part, cums, x0s, kos, bs, iv, T, L,
+                Dmax, TX))
     return;
   const int k0 = c.k0;
   const int jl = tid / L, l = tid % L;
   const bool act = jl < NJ;
   const int klo = c.kh + NSRC * jl;
-  float qv[NSRC], cv[NSRC], mv[NSRC], sacc[NSRC], facc[NSRC], a[W];
+  float qv[NSRC], cv[NSRC], mv[NSRC], ov[NSRC], sacc[NSRC], facc[NSRC], a[W];
 #pragma unroll
   for (int i = 0; i < NSRC; ++i) {
     sacc[i] = facc[i] = 0.0f;
     xi_source(qg, csg, mg, c, klo + i, l, L, act && klo + i < c.k1, qv[i],
-              cv[i], mv[i]);
+              cv[i], mv[i], ov[i]);
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) a[w] = 0.0f;
@@ -1586,13 +1709,14 @@ seg_xi16_kernel(const float* __restrict__ qg, const float* __restrict__ csg,
         if (k >= c.k1 || e < 0 || k + d >= c.te) continue;
         const float xv = ((cums[e * L + l] - cv[i]) * in + bv) +
                          x0s[e * L + l];
-        const float xi = __expf(qv[i] + xv);
+        const float kv = ov[i] + kos[e];           // exact: whole numbers
+        const float xi = __expf((qv[i] + xv) + kv);
         const float y = in * xi;
         a[i + d] += y;
         if (k >= k0) {                             // a start frame of mine
           sacc[i] += y;
           gdl += xi;
-          if (k > 0) facc[i] += __expf(xv + mv[i]);
+          if (k > 0) facc[i] += __expf((xv + mv[i]) + kv);
         }
       }
       gdp[((size_t)d * NJ + jl) * L + l] = gdl;
@@ -1807,8 +1931,9 @@ int recursion_frame(int L, int Dmax, size_t* bytes, int* ws) {
   return 0;
 }
 
-// A launch of K9 (out = alphas, zout = logZ), K10 (out = betas) or K12 (out
-// = deltas, argd, zout = scores, lab0).
+// A launch of K9 (out = alphas, zout = logZ; rebased where off is given:
+// off, zhat), K10 (out = betas; rebased where off is given) or K12 (out =
+// deltas, argd, zout = scores, lab0).
 struct SegLaunch {
   const float* frame;
   const float* trans;
@@ -1819,6 +1944,8 @@ struct SegLaunch {
   int* argd;
   float* zout;
   int* lab0;
+  float* off;
+  float* zhat;
   int B, T, L, Dmax, use_thr;
   float thr;
 };
@@ -1834,14 +1961,15 @@ int launch_frame(Kind kind, const SegLaunch& a, size_t bytes, int ws,
     if (err == cudaSuccess)
       kernel<<<a.B, threads, bytes, s>>>(a.frame, a.trans, a.bias,
                                          a.mean_pool, a.lengths, a.out,
-                                         a.zout, a.T, a.L, a.Dmax, ws);
+                                         a.zout, a.off, a.zhat, a.T, a.L,
+                                         a.Dmax, ws);
   } else if (kind == kBackward) {
     auto kernel = seg_beta_kernel<QV, D, SHARED>;
     err = opt_in(kernel, bytes);
     if (err == cudaSuccess)
       kernel<<<a.B, threads, bytes, s>>>(a.frame, a.trans, a.bias,
-                                         a.mean_pool, a.lengths, a.out, a.T,
-                                         a.L, a.Dmax, ws);
+                                         a.mean_pool, a.lengths, a.out,
+                                         a.off, a.T, a.L, a.Dmax, ws);
   } else {
     auto kernel = seg_delta_kernel<QV, D, SHARED>;
     err = opt_in(kernel, bytes);
@@ -1893,7 +2021,7 @@ int launch_recursion(Kind kind, const SegLaunch& a, const float* P,
     err = opt_in(seg_backward_kernel, p.bytes);
     if (err == cudaSuccess)
       seg_backward_kernel<<<a.B, threads, p.bytes, s>>>(
-          a.frame, P, pmax, a.bias, invd, a.lengths, a.out, a.T, a.L,
+          a.frame, P, pmax, a.bias, invd, a.lengths, a.out, a.off, a.T, a.L,
           a.Dmax, p.ps);
   } else {
     auto kernel = vit ? seg_forward_kernel<true> : seg_forward_kernel<false>;
@@ -1901,7 +2029,8 @@ int launch_recursion(Kind kind, const SegLaunch& a, const float* P,
     if (err == cudaSuccess)
       kernel<<<a.B, threads, p.bytes, s>>>(
           a.frame, vit ? a.trans : P, pmax, a.bias, invd, a.lengths, a.out,
-          a.argd, a.zout, a.lab0, a.T, a.L, a.Dmax, p.ps, a.use_thr, a.thr);
+          a.argd, a.zout, a.lab0, a.off, a.zhat, a.T, a.L, a.Dmax, p.ps,
+          a.use_thr, a.thr);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -1910,17 +2039,19 @@ int launch_recursion(Kind kind, const SegLaunch& a, const float* P,
 template <int NSRC, bool WINDOWED>
 int launch_xi(const XiPlan& x, const float* q, const float* cs,
               const float* m, const float* betas, const float* logZ,
-              const float* g, const float* bias, int mean_pool,
-              const int* lengths, float* A, float* S, float* F,
-              float* gd_part, int B, int T, int L, int Dmax, cudaStream_t s) {
+              const float* g, const float* aoff, const float* boff,
+              const float* bias, int mean_pool, const int* lengths, float* A,
+              float* S, float* F, float* gd_part, int B, int T, int L,
+              int Dmax, cudaStream_t s) {
   auto kernel = seg_xi_kernel<NSRC>;
   if constexpr (WINDOWED) kernel = seg_xi16_kernel<NSRC>;
   const cudaError_t err = opt_in(kernel, x.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + x.tx - 1) / x.tx, B);
-  kernel<<<grid, x.threads, x.bytes, s>>>(q, cs, m, betas, logZ, g, bias,
-                                          mean_pool, lengths, A, S, F,
-                                          gd_part, T, L, Dmax, x.tx, x.nj);
+  kernel<<<grid, x.threads, x.bytes, s>>>(q, cs, m, betas, logZ, g, aoff,
+                                          boff, bias, mean_pool, lengths, A,
+                                          S, F, gd_part, T, L, Dmax, x.tx,
+                                          x.nj);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1953,15 +2084,25 @@ int seg_grad_chunk(int L, int Dmax) {
   return grad_bytes(L, Dmax) ? xi_plan(L, Dmax).tx : 0;
 }
 
-// K9: alphas (B, T, L), logZ (B,).  the three-barrier frame takes P (L, L)
-// source-major, tmax and invd from the caller.
+// The xi kernel K11 takes at (L, Dmax): 1 for seg_xi16_kernel (windows of
+// at most 16 durations), 0 for seg_xi_kernel, -1 where it takes neither.
+int seg_grad_xi16(int L, int Dmax) {
+  if (!grad_bytes(L, Dmax)) return -1;
+  return xi_plan(L, Dmax).windowed ? 1 : 0;
+}
+
+// K9: alphas (B, T, L), logZ (B,); off (B, T) and zhat (B,) null, or the
+// rebased rows' offsets and the last row's log-sum (K9's note).  The
+// three-barrier frame takes P (L, L) source-major, tmax and invd from the
+// caller.
 int seg_forward(const float* frame, const float* trans, const float* P,
                 const float* tmax, const float* bias, const float* invd,
                 int mean_pool, const int* lengths, float* alphas,
-                float* logZ, int B, int T, int L, int Dmax, void* stream) {
-  const SegLaunch a{frame,  trans,   bias, mean_pool, lengths, alphas,
-                    nullptr, logZ,  nullptr, B,       T,       L,
-                    Dmax,   0,       0.0f};
+                float* logZ, float* off, float* zhat, int B, int T, int L,
+                int Dmax, void* stream) {
+  const SegLaunch a{frame, trans, bias, mean_pool, lengths, alphas, nullptr,
+                    logZ,  nullptr, off, zhat,     B,       T,      L,
+                    Dmax,  0,       0.0f};
   return launch_recursion(kForward, a, P, tmax, invd,
                           static_cast<cudaStream_t>(stream));
 }
@@ -1973,22 +2114,22 @@ int seg_viterbi(const float* frame, const float* trans, const float* bias,
                 float* deltas, int* argd, float* scores, int* lab0, int B,
                 int T, int L, int Dmax, int use_thr, float thr,
                 void* stream) {
-  const SegLaunch a{frame, trans,  bias, mean_pool, lengths, deltas,
-                    argd,  scores, lab0, B,         T,       L,
-                    Dmax,  use_thr, thr};
+  const SegLaunch a{frame,   trans,   bias, mean_pool, lengths, deltas,
+                    argd,    scores,  lab0, nullptr,   nullptr, B,
+                    T,       L,       Dmax, use_thr,   thr};
   return launch_recursion(kViterbi, a, nullptr, nullptr, invd,
                           static_cast<cudaStream_t>(stream));
 }
 
-// K10: betas (B, T, L).  The three-barrier frame takes Pt (L, L), tmax_r
-// and invd from the caller.
+// K10: betas (B, T, L); off (B, T) null, or the rebased rows' offsets.
+// The three-barrier frame takes Pt (L, L), tmax_r and invd from the caller.
 int seg_backward(const float* frame, const float* trans, const float* Pt,
                  const float* tmax_r, const float* bias, const float* invd,
-                 int mean_pool, const int* lengths, float* betas, int B,
-                 int T, int L, int Dmax, void* stream) {
-  const SegLaunch a{frame,  trans,   bias, mean_pool, lengths, betas,
-                    nullptr, nullptr, nullptr, B,     T,       L,
-                    Dmax,   0,       0.0f};
+                 int mean_pool, const int* lengths, float* betas, float* off,
+                 int B, int T, int L, int Dmax, void* stream) {
+  const SegLaunch a{frame, trans,   bias,    mean_pool, lengths, betas,
+                    nullptr, nullptr, nullptr, off,     nullptr, B,
+                    T,     L,       Dmax,    0,         0.0f};
   return launch_recursion(kBackward, a, Pt, tmax_r, invd,
                           static_cast<cudaStream_t>(stream));
 }
@@ -2013,19 +2154,22 @@ int seg_grad_message(const float* alphas, const float* frame,
 
 // K11's xi pass: A, S (B, T, L), F (B, T, L4), the gd partials gd_part
 // (B ceil(T / seg_grad_chunk), Dmax, L), then gd (Dmax, L) = their sum in
-// block order.
+// block order.  aoff, boff (B, T): null, or the offsets of rebased alphas
+// and betas, logZ then K9's zhat.
 int seg_grad_xi(const float* q, const float* cs, const float* m,
                 const float* betas, const float* logZ, const float* g,
-                const float* bias, int mean_pool, const int* lengths,
-                float* A, float* S, float* F, float* gd_part, float* gd,
-                int B, int T, int L, int Dmax, void* stream) {
+                const float* aoff, const float* boff, const float* bias,
+                int mean_pool, const int* lengths, float* A, float* S,
+                float* F, float* gd_part, float* gd, int B, int T, int L,
+                int Dmax, void* stream) {
   if (!grad_bytes(L, Dmax)) return static_cast<int>(cudaErrorInvalidValue);
   const XiPlan x = xi_plan(L, Dmax);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
 #define XI(NSRC, WIN)                                                    \
-  launch_xi<NSRC, WIN>(x, q, cs, m, betas, logZ, g, bias, mean_pool,     \
-                       lengths, A, S, F, gd_part, B, T, L, Dmax, s)
+  launch_xi<NSRC, WIN>(x, q, cs, m, betas, logZ, g, aoff, boff, bias,   \
+                       mean_pool, lengths, A, S, F, gd_part, B, T, L, Dmax, \
+                       s)
   switch (x.windowed ? 0 : x.nsrc) {
     case 0: err = XI(4, true); break;
     case 4: err = XI(4, false); break;

@@ -33,6 +33,19 @@ scores, ``trans (L, L)``, ``bias (Dmax, L)`` the combined duration and label
 bias of a segment, ``lengths (B,)`` int32.  Rows at and past a length hold
 NEG_INF (alphas, betas, deltas) or 0 (A, S, arg_d).
 
+Rebased rows (``scaled=True`` in K9 and K10; ``aoff``, ``boff`` in K11):
+the alphas and betas grow by ~log L a frame, so in fp32 their rounding
+grows with the utterance (logZ ~2e3 at T = 512 at config 4: ~1e-4 a step,
+~1e-3 on the gradient's posteriors).  Rebased, the frames go in cycles of
+Dmax and each cycle's rows are kept less a whole number, ``off (B, T)``
+(the alphas are ``alphas + off[..., None]``), raised at each cycle's start
+by the last row's maximum, rounded; K9 also returns ``zhat (B,)``, the last
+row's log-sum, with ``logZ = zhat + off[length - 1]``.  Offsets are whole
+numbers, so their differences are exact and every rounding happens within
+~Dmax log L of 0.  K11 takes the offsets and zhat in place of logZ.  The
+training path (``ops.segmental_stream``) rebases; unrebased calls return
+the rows themselves, as before.
+
 Where the port's outputs differ from the JAX functions':
 
 - logZ (K9) and the final score and label (K12) are taken inside the kernel
@@ -58,7 +71,12 @@ fits).  K11's message and xi passes hold ~50 MB of temporaries at config 4
 The dispatchers follow :func:`asr_craft_tpu_torch.kernels.use_kernel`: a
 CUDA tensor under ``auto`` launches the kernel or raises, a CPU tensor takes
 the plain version.  ``launches`` counts each wrapper's kernel launches
-(K11: one for each of its three parts).
+(K11: one for each of its three parts).  The diagnostics counters
+``kernels.seg_path[own]`` and ``kernels.seg_path[three_barrier]`` count
+the frame each K9, K10 and K12 launch took (:func:`recursion_path`), and
+``kernels.seg_xi[16]`` and ``kernels.seg_xi[deep]`` the xi kernel each of
+K11's launches took (:func:`xi_kernel`); under a CUDA graph both count at
+capture, once a captured shape.
 
 What bounds the kernels on the card, what was measured and what was tried
 and dropped is in the note of ``csrc/segmental.cu`` and in PERF.md.
@@ -66,6 +84,7 @@ and dropped is in the note of ``csrc/segmental.cu`` and in PERF.md.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -79,6 +98,7 @@ from asr_craft_tpu_torch.kernels.fwdbwd import (backward_dual_contract_plain,
                                                 forward_factors, row_max,
                                                 row_width, safe_log)
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
 launches = {"segmental_forward": 0, "segmental_backward": 0,
             "segmental_grad_message": 0, "segmental_grad": 0,
@@ -139,14 +159,22 @@ def _window(msg_all, cs_all, cum, bias, invd, t: int):
     return msg, (cum[:, None] - cs) * invd[:n, None] + bias[:n]
 
 
+def _rebase_shift(mrow):
+    """The kernels' ``rebase_shift``: the row maxima ``mrow (B,)`` rounded
+    to whole numbers (0 for a row of NEG_INF alone)."""
+    return torch.where(mrow > 0.5 * NEG_INF, torch.round(mrow), 0.0)
+
+
 def _forward_plain(frame, trans, bias, lengths, mean_pool, tropical,
-                   beam_threshold=None):
-    """K9 (log semiring) or K12 (tropical) as a frame loop: alphas and logZ,
-    or deltas, arg_d, lab0 and scores."""
+                   beam_threshold=None, scaled=False):
+    """K9 (log semiring) or K12 (tropical) as a frame loop: alphas and logZ
+    (and, ``scaled``, the rebased rows' offsets and zhat), or deltas, arg_d,
+    lab0 and scores."""
     B, T, L = frame.shape
     dev = frame.device
     lengths = lengths.to(dev)
-    invd = pool_weights(bias.shape[0], mean_pool, dev)
+    Dmax = bias.shape[0]
+    invd = pool_weights(Dmax, mean_pool, dev)
     if not tropical:
         tmax, P = forward_factors(trans)
     msg_all = torch.zeros_like(frame)              # q[u] or M[u]
@@ -154,9 +182,18 @@ def _forward_plain(frame, trans, bias, lengths, mean_pool, tropical,
     out = torch.full_like(frame, NEG_INF)
     arg_d = torch.zeros((B, T, L), dtype=torch.int32, device=dev)
     cum = torch.zeros((B, L), dtype=frame.dtype, device=dev)
+    off = torch.zeros((B, T), dtype=frame.dtype, device=dev)
+    base = shift = mrow = torch.zeros((B,), dtype=frame.dtype, device=dev)
     for t in range(T):
+        if scaled and t and t % Dmax == 0:         # a cycle's first frame
+            shift = _rebase_shift(mrow)
+            base = base + shift
         cum = cum + frame[:, t]
         msg, seg = _window(msg_all, cs_all, cum, bias, invd, t)
+        if scaled:                                 # sources of the cycle before
+            before = torch.arange(msg.shape[1], device=dev) >= t % Dmax
+            msg = torch.where(before[None, :, None],
+                              msg - shift[:, None, None], msg)
         cand = msg + seg                           # (B, n, L)
         live = (t < lengths)[:, None]
         if tropical:
@@ -173,23 +210,30 @@ def _forward_plain(frame, trans, bias, lengths, mean_pool, tropical,
             row = torch.where(live, row, NEG_INF)
             m = row_max(row)
             msg_all[:, t] = m + tmax + safe_log(torch.exp(row - m) @ P)
+            mrow = m[:, 0]
+            off[:, t] = torch.where(live[:, 0], base, 0.0)
         out[:, t] = row
         cs_all[:, t] = cum
     last = last_row(out, lengths)
     if not tropical:
         m = row_max(last)
-        return out, (m + safe_log(torch.exp(last - m).sum(-1, keepdim=True))
-                     )[:, 0]
+        z = (m + safe_log(torch.exp(last - m).sum(-1, keepdim=True)))[:, 0]
+        if not scaled:
+            return out, z
+        return out, z + last_row(off[..., None], lengths)[:, 0], off, z
     scores, lab0 = last.max(dim=-1)
     empty = lengths <= 0
     return (out, arg_d, torch.where(empty, 0, lab0).to(torch.int32),
             torch.where(empty, NEG_INF, scores))
 
 
-def segmental_forward_plain(frame, trans, bias, lengths, mean_pool=True):
+def segmental_forward_plain(frame, trans, bias, lengths, mean_pool=True,
+                            scaled=False):
     """The plain version of :func:`segmental_forward_cuda` (K9): ``(alphas
-    (B, T, L), logZ (B,))``."""
-    return _forward_plain(frame, trans, bias, lengths, mean_pool, False)
+    (B, T, L), logZ (B,))``; ``scaled``: ``(alphas, logZ, off (B, T), zhat
+    (B,))``, the rows rebased (the module's note)."""
+    return _forward_plain(frame, trans, bias, lengths, mean_pool, False,
+                          scaled=scaled)
 
 
 def segmental_viterbi_plain(frame, trans, bias, lengths, mean_pool=True,
@@ -200,9 +244,12 @@ def segmental_viterbi_plain(frame, trans, bias, lengths, mean_pool=True,
                           beam_threshold)
 
 
-def segmental_backward_plain(frame, trans, bias, lengths, mean_pool=True):
+def segmental_backward_plain(frame, trans, bias, lengths, mean_pool=True,
+                             scaled=False):
     """The plain version of :func:`segmental_backward_cuda` (K10): ``betas
-    (B, T, L)``, 0 at frame ``length - 1``."""
+    (B, T, L)``, 0 at frame ``length - 1``; ``scaled``: ``(betas, off (B,
+    T))``, the rows rebased as K10 rebases them, a cycle's base raised at its
+    top frame below ``length - 1``."""
     B, T, L = frame.shape
     dev = frame.device
     lengths = lengths.to(dev)
@@ -215,12 +262,23 @@ def segmental_backward_plain(frame, trans, bias, lengths, mean_pool=True):
     # R[k] = the sum of frames k .. length - 1: CS[b] - CS[a] = R[a] - R[b]
     r_all = torch.zeros((B, T + 1, L), dtype=frame.dtype, device=dev)
     rnow = torch.zeros((B, L), dtype=frame.dtype, device=dev)
+    off = torch.zeros((B, T), dtype=frame.dtype, device=dev)
+    base = shift = mrow = torch.zeros((B,), dtype=frame.dtype, device=dev)
     for t in range(T - 1, -1, -1):
+        inner = t < lengths - 1                    # (B,): below the last
+        if scaled and t % Dmax == Dmax - 1:        # a cycle's top frame
+            shift = torch.where(inner, _rebase_shift(mrow), shift)
+            base = base + torch.where(inner, shift, 0.0)
         nd = min(Dmax, T - 1 - t)
         if nd:
             # segments [t + 1, t + d + 1], d < nd
+            bv = betas[:, t + 1:t + 1 + nd]
+            if scaled:                             # ... in the cycle above
+                above = torch.arange(nd, device=dev) >= Dmax - 1 - t % Dmax
+                bv = torch.where(above[None, :, None],
+                                 bv - shift[:, None, None], bv)
             w = ((rnow[:, None] - r_all[:, t + 2:t + 2 + nd])
-                 * invd[:nd, None] + bias[:nd]) + betas[:, t + 1:t + 1 + nd]
+                 * invd[:nd, None] + bias[:nd]) + bv
             cm = torch.clamp(w.amax(dim=1), min=NEG_INF)
             z = cm + safe_log(torch.exp(w - cm[:, None]).sum(dim=1))
         else:
@@ -229,9 +287,11 @@ def segmental_backward_plain(frame, trans, bias, lengths, mean_pool=True):
         beta = zm + tmax_r + safe_log(torch.exp(z - zm) @ Pt)
         beta = torch.where((t == lengths - 1)[:, None], 0.0, beta)
         betas[:, t] = torch.where((t >= lengths)[:, None], NEG_INF, beta)
+        mrow = torch.where(inner, zm[:, 0], mrow)
+        off[:, t] = torch.where(t < lengths, base, 0.0)
         r_all[:, t + 1] = rnow
         rnow = rnow + fm[:, t]
-    return betas
+    return (betas, off) if scaled else betas
 
 
 def _running_sum(frame):
@@ -268,7 +328,7 @@ def segmental_grad_message_plain(frame, trans, bias, lengths, alphas):
 
 
 def segmental_grad_xi_plain(q, cs, m, betas, logZ, g, bias, lengths,
-                            mean_pool=True):
+                            mean_pool=True, aoff=None, boff=None):
     """The plain version of :func:`segmental_grad_xi_cuda` (K11's xi pass),
     gathered by duration as the kernel gathers: ``(A (B, T, L), S (B, T, L),
     F (B, T, L4), gd (Dmax, L))``.  Segment ``[k, t]`` (``t = k + d <
@@ -277,7 +337,10 @@ def segmental_grad_xi_plain(q, cs, m, betas, logZ, g, bias, lengths,
     ``xi = g exp(q[u] + x)``; ``A[t]`` and ``S[k]`` gather ``invd[d] xi``,
     ``gd[d]`` gathers ``xi``, ``F[u]`` gathers ``g exp(x + m[u])``, each over
     ``d`` in ascending order.  Rows at and past a length (and ``F`` at
-    ``length - 1``) hold 0."""
+    ``length - 1``) hold 0.  ``aoff``, ``boff (B, T)``: the offsets of
+    rebased alphas (so of ``q`` and ``m``) and betas, ``logZ`` then K9's
+    ``zhat``; each exponent adds the exact whole number ``aoff[u] + boff[t]
+    - aoff[length - 1]`` last."""
     B, T, L = q.shape
     dev = q.device
     Dmax = bias.shape[0]
@@ -290,21 +353,27 @@ def segmental_grad_xi_plain(q, cs, m, betas, logZ, g, bias, lengths,
     F = torch.zeros((B, T, row_width(L)), dtype=q.dtype, device=dev)
     gd = torch.zeros((Dmax, L), dtype=q.dtype, device=dev)
     zero = torch.zeros_like(q[:, :1])
+    if aoff is not None:                           # boff[t] - oz, each end
+        ko = boff - last_row(aoff[..., None], lengths)
     for d in range(min(Dmax, T)):
         n = T - d                                  # ends d.., starts 0..n-1
         q_src = torch.cat([zero, q[:, :n - 1]], 1)
         cs_src = torch.cat([zero, cs[:, :n - 1]], 1)
         xv = ((cs[:, d:] - cs_src) * invd[d] + bias[d]) + x0[:, d:]
         valid = (ts[d:][None, :] < lengths[:, None])[..., None]
-        xi = torch.where(valid, torch.exp(q_src + xv) * gB, 0.0)
+        e_xi, e_f = q_src + xv, xv[:, 1:] + m[:, :n - 1, None]
+        if aoff is not None:
+            kv = (torch.cat([zero[..., 0], aoff[:, :n - 1]], 1)
+                  + ko[:, d:])[..., None]
+            e_xi, e_f = e_xi + kv, e_f + kv[:, 1:]
+        xi = torch.where(valid, torch.exp(e_xi) * gB, 0.0)
         y = invd[d] * xi
         A[:, d:] += y
         S[:, :n] += y
         gd[d] = xi.sum(dim=(0, 1))
         if n > 1:                                  # starts k >= 1: u = k - 1
-            F[:, :n - 1, :L] += torch.where(
-                valid[:, 1:], torch.exp(xv[:, 1:] + m[:, :n - 1, None]) * gB,
-                0.0)
+            F[:, :n - 1, :L] += torch.where(valid[:, 1:],
+                                            torch.exp(e_f) * gB, 0.0)
     return A, S, F, gd
 
 
@@ -315,18 +384,19 @@ def segmental_grad_contract_plain(E, F, L: int):
 
 
 def segmental_grad_plain(frame, trans, bias, lengths, alphas, betas, logZ, g,
-                         mean_pool=True):
+                         mean_pool=True, aoff=None, boff=None):
     """The plain version of :func:`segmental_grad_cuda` (K11): the xi pass.
     Returns ``(A (B, T, L), S (B, T, L), gd (Dmax, L), gt (L, L))``: the
     pooled posteriors of the segments ending (A) and starting (S) at each
     frame, the bias gradient, and the transition partial with ``g_trans =
     sign(gt) * exp(trans + log|gt|)`` left to the caller.  ``g (B,)``: the
     cotangent of logZ, folded into every term.  The message pass, the xi
-    pass and the contraction, as the kernels run them."""
+    pass and the contraction, as the kernels run them.  ``aoff``, ``boff``:
+    rebased rows' offsets (:func:`segmental_grad_xi_plain`)."""
     E, q, cs, m = segmental_grad_message_plain(frame, trans, bias, lengths,
                                                alphas)
     A, S, F, gd = segmental_grad_xi_plain(q, cs, m, betas, logZ, g, bias,
-                                          lengths, mean_pool)
+                                          lengths, mean_pool, aoff, boff)
     return A, S, gd, segmental_grad_contract_plain(E, F, frame.shape[-1])
 
 
@@ -389,24 +459,25 @@ def _library():
     if _lib is None:
         lib = _build.load_library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.seg_forward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3 + [i32] * 4
+        lib.seg_forward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 5 + [i32] * 4
                                     + [ptr])
         lib.seg_viterbi.argtypes = ([ptr] * 4 + [i32] + [ptr] * 5 + [i32] * 5
                                     + [f32, ptr])
-        lib.seg_backward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2
+        lib.seg_backward.argtypes = ([ptr] * 6 + [i32] + [ptr] * 3
                                      + [i32] * 4 + [ptr])
         lib.seg_grad_message.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
-        lib.seg_grad_xi.argtypes = ([ptr] * 7 + [i32] + [ptr] * 6 + [i32] * 4
+        lib.seg_grad_xi.argtypes = ([ptr] * 9 + [i32] + [ptr] * 6 + [i32] * 4
                                     + [ptr])
         lib.seg_traceback.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
         lib.seg_traceback_frames.argtypes = [i32, ctypes.POINTER(i32)]
         lib.seg_traceback_frames.restype = i32
         for name in ("seg_forward", "seg_viterbi", "seg_backward",
                      "seg_grad_message", "seg_grad_xi", "seg_traceback",
-                     "seg_frame", "seg_grad_chunk"):
+                     "seg_frame", "seg_grad_chunk", "seg_grad_xi16"):
             getattr(lib, name).restype = i32
         lib.seg_frame.argtypes = [i32] * 2
         lib.seg_grad_chunk.argtypes = [i32] * 2
+        lib.seg_grad_xi16.argtypes = [i32] * 2
         lib.seg_smem_bytes.argtypes = [i32] * 3
         lib.seg_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
@@ -438,6 +509,22 @@ def recursion_frame(L: int, max_dur: int) -> int:
     ``seg_backward_kernel``: a smaller footprint) fits their windows, -1
     where they do not take them."""
     return _library().seg_frame(L, max_dur)
+
+
+@functools.lru_cache(maxsize=None)
+def recursion_path(L: int, max_dur: int) -> str:
+    """The frame K9, K10 and K12 take at ``(L, Dmax)`` (:func:`
+    recursion_frame`), as the counter ``kernels.seg_path[...]`` names it:
+    ``"own"`` or ``"three_barrier"``."""
+    return "three_barrier" if recursion_frame(L, max_dur) == 0 else "own"
+
+
+@functools.lru_cache(maxsize=None)
+def xi_kernel(L: int, max_dur: int) -> str:
+    """The kernel of K11's xi pass at ``(L, Dmax)``, as the counter
+    ``kernels.seg_xi[...]`` names it: ``"16"`` (``seg_xi16_kernel``:
+    windows of at most 16 durations) or ``"deep"`` (``seg_xi_kernel``)."""
+    return "16" if _library().seg_grad_xi16(L, max_dur) == 1 else "deep"
 
 
 def _check(name, frame, trans, bias, lengths):
@@ -478,13 +565,19 @@ def _old_invd(old: bool, max_dur: int, mean_pool: bool, dev):
     return pool_weights(max_dur, mean_pool, dev) if old else None
 
 
-def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True):
-    """K9 on the card: ``(alphas (B, T, L), logZ (B,))``, as
+def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True,
+                           scaled=False):
+    """K9 on the card: ``(alphas (B, T, L), logZ (B,))``, with ``scaled``
+    ``(alphas, logZ, off (B, T), zhat (B,))``, as
     :func:`segmental_forward_plain` returns."""
     B, T, L, Dmax = _check("segmental_forward", frame, trans, bias, lengths)
     dev = frame.device
     alphas = torch.empty((B, T, L), dtype=torch.float32, device=dev)
     logZ = torch.empty((B,), dtype=torch.float32, device=dev)
+    off = zhat = None
+    if scaled:
+        off = torch.zeros((B, T), dtype=torch.float32, device=dev)
+        zhat = torch.zeros((B,), dtype=torch.float32, device=dev)
     if B:
         old = recursion_frame(L, Dmax) == 0
         tmax, P = forward_factors(trans) if old else (None, None)
@@ -493,11 +586,12 @@ def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True):
             code = _library().seg_forward(
                 frame.data_ptr(), trans.data_ptr(), _ptr(P), _ptr(tmax),
                 bias.data_ptr(), _ptr(invd), int(mean_pool),
-                lengths.data_ptr(), alphas.data_ptr(), logZ.data_ptr(), B, T,
-                L, Dmax, _stream(dev))
+                lengths.data_ptr(), alphas.data_ptr(), logZ.data_ptr(),
+                _ptr(off), _ptr(zhat), B, T, L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental forward launch")
         launches["segmental_forward"] += 1
-    return alphas, logZ
+        diagnostics.count(f"kernels.seg_path[{recursion_path(L, Dmax)}]")
+    return (alphas, logZ, off, zhat) if scaled else (alphas, logZ)
 
 
 def segmental_viterbi_cuda(frame, trans, bias, lengths, mean_pool=True,
@@ -522,15 +616,19 @@ def segmental_viterbi_cuda(frame, trans, bias, lengths, mean_pool=True,
                 float(beam_threshold or 0.0), _stream(dev))
         _build.raise_on_error(code, "segmental viterbi launch")
         launches["segmental_viterbi"] += 1
+        diagnostics.count(f"kernels.seg_path[{recursion_path(L, Dmax)}]")
     return deltas, arg_d, lab0, scores
 
 
-def segmental_backward_cuda(frame, trans, bias, lengths, mean_pool=True):
-    """K10 on the card: ``betas (B, T, L)``, as
-    :func:`segmental_backward_plain` returns."""
+def segmental_backward_cuda(frame, trans, bias, lengths, mean_pool=True,
+                            scaled=False):
+    """K10 on the card: ``betas (B, T, L)``, with ``scaled`` ``(betas, off
+    (B, T))``, as :func:`segmental_backward_plain` returns."""
     B, T, L, Dmax = _check("segmental_backward", frame, trans, bias, lengths)
     dev = frame.device
     betas = torch.empty((B, T, L), dtype=torch.float32, device=dev)
+    off = (torch.zeros((B, T), dtype=torch.float32, device=dev) if scaled
+           else None)
     if B:
         old = recursion_frame(L, Dmax) == 0
         tmax_r, Pt = backward_factors(trans) if old else (None, None)
@@ -539,11 +637,12 @@ def segmental_backward_cuda(frame, trans, bias, lengths, mean_pool=True):
             code = _library().seg_backward(
                 frame.data_ptr(), trans.data_ptr(), _ptr(Pt), _ptr(tmax_r),
                 bias.data_ptr(), _ptr(invd), int(mean_pool),
-                lengths.data_ptr(), betas.data_ptr(), B, T, L, Dmax,
-                _stream(dev))
+                lengths.data_ptr(), betas.data_ptr(), _ptr(off), B, T, L,
+                Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental backward launch")
         launches["segmental_backward"] += 1
-    return betas
+        diagnostics.count(f"kernels.seg_path[{recursion_path(L, Dmax)}]")
+    return (betas, off) if scaled else betas
 
 
 def _check_rows(B, T, L, dev, **tensors):
@@ -586,7 +685,7 @@ def segmental_grad_message_cuda(frame, trans, bias, lengths, alphas):
 
 
 def segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias, lengths,
-                           mean_pool=True):
+                           mean_pool=True, aoff=None, boff=None):
     """K11's xi pass on the card: ``(A, S, F, gd)``, as
     :func:`segmental_grad_xi_plain` returns.  Each block of start frames
     writes its gd partial and a second kernel adds them in block order, so
@@ -596,6 +695,15 @@ def segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias, lengths,
     B, T, L = q.shape
     _check_rows(B, T, L, dev, cs=cs, betas=betas)
     _check_per_row(B, dev, logZ=logZ, g=g)
+    if (aoff is None) != (boff is None):
+        raise ValueError("aoff and boff come together: rebased alphas and "
+                         "betas")
+    for name, o in (("aoff", aoff), ("boff", boff)):
+        if o is not None:
+            _build.check_tensor(name, o, torch.float32, 2, dev)
+            if tuple(o.shape) != (B, T):
+                raise ValueError(f"{name} {tuple(o.shape)}, expected "
+                                 f"{(B, T)}")
     _build.check_tensor("m", m, torch.float32, 2, dev)
     _build.check_tensor("bias", bias, torch.float32, 2, dev)
     _build.check_tensor("lengths", lengths, torch.int32, 1, dev)
@@ -618,12 +726,13 @@ def segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias, lengths,
         with torch.cuda.device(dev):
             code = _library().seg_grad_xi(
                 q.data_ptr(), cs.data_ptr(), m.data_ptr(), betas.data_ptr(),
-                logZ.data_ptr(), g.data_ptr(), bias.data_ptr(),
-                int(mean_pool), lengths.data_ptr(), A.data_ptr(),
-                S.data_ptr(), F.data_ptr(), gd_part.data_ptr(), gd.data_ptr(),
-                B, T, L, Dmax, _stream(dev))
+                logZ.data_ptr(), g.data_ptr(), _ptr(aoff), _ptr(boff),
+                bias.data_ptr(), int(mean_pool), lengths.data_ptr(),
+                A.data_ptr(), S.data_ptr(), F.data_ptr(), gd_part.data_ptr(),
+                gd.data_ptr(), B, T, L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental grad xi launch")
         launches["segmental_grad"] += 1
+        diagnostics.count(f"kernels.seg_xi[{xi_kernel(L, Dmax)}]")
     else:
         gd.zero_()
     return A, S, F, gd
@@ -640,7 +749,7 @@ def segmental_grad_contract_cuda(E, F, L: int):
 
 
 def segmental_grad_cuda(frame, trans, bias, lengths, alphas, betas, logZ, g,
-                        mean_pool=True):
+                        mean_pool=True, aoff=None, boff=None):
     """K11 on the card: ``(A, S, gd, gt)``, as :func:`segmental_grad_plain`
     returns: the message pass, the xi pass and the contraction, five kernel
     launches in all, every sum in a fixed order: the same result on every
@@ -656,7 +765,7 @@ def segmental_grad_cuda(frame, trans, bias, lengths, alphas, betas, logZ, g,
     E, q, cs, m = segmental_grad_message_cuda(frame, trans, bias, lengths,
                                               alphas)
     A, S, F, gd = segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias,
-                                         lengths, mean_pool)
+                                         lengths, mean_pool, aoff, boff)
     return A, S, gd, segmental_grad_contract_cuda(E, F, L)
 
 
@@ -703,34 +812,42 @@ def _i32(t, dev):
     return t.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def segmental_forward(frame, trans, bias, lengths, mean_pool=True):
-    """SCRF alpha pass and logZ: K9 or its plain version."""
+def segmental_forward(frame, trans, bias, lengths, mean_pool=True,
+                      scaled=False):
+    """SCRF alpha pass and logZ: K9 or its plain version (``scaled``: the
+    rows rebased, with their offsets and zhat)."""
     if kernels.use_kernel(frame):
         return segmental_forward_cuda(
             frame.contiguous(), trans.contiguous(), bias.contiguous(),
-            _i32(lengths, frame.device), mean_pool)
-    return segmental_forward_plain(frame, trans, bias, lengths, mean_pool)
+            _i32(lengths, frame.device), mean_pool, scaled)
+    return segmental_forward_plain(frame, trans, bias, lengths, mean_pool,
+                                   scaled)
 
 
-def segmental_backward(frame, trans, bias, lengths, mean_pool=True):
-    """SCRF beta pass: K10 or its plain version."""
+def segmental_backward(frame, trans, bias, lengths, mean_pool=True,
+                       scaled=False):
+    """SCRF beta pass: K10 or its plain version (``scaled``: the rows
+    rebased, with their offsets)."""
     if kernels.use_kernel(frame):
         return segmental_backward_cuda(
             frame.contiguous(), trans.contiguous(), bias.contiguous(),
-            _i32(lengths, frame.device), mean_pool)
-    return segmental_backward_plain(frame, trans, bias, lengths, mean_pool)
+            _i32(lengths, frame.device), mean_pool, scaled)
+    return segmental_backward_plain(frame, trans, bias, lengths, mean_pool,
+                                    scaled)
 
 
 def segmental_grad(frame, trans, bias, lengths, alphas, betas, logZ, g,
-                   mean_pool=True):
-    """The xi pass: K11 or its plain version."""
+                   mean_pool=True, aoff=None, boff=None):
+    """The xi pass: K11 or its plain version (``aoff``, ``boff``: the
+    offsets of rebased alphas and betas, ``logZ`` then K9's zhat)."""
     if kernels.use_kernel(frame):
         return segmental_grad_cuda(
             frame.contiguous(), trans.contiguous(), bias.contiguous(),
             _i32(lengths, frame.device), alphas.contiguous(),
-            betas.contiguous(), logZ.contiguous(), g.contiguous(), mean_pool)
+            betas.contiguous(), logZ.contiguous(), g.contiguous(), mean_pool,
+            aoff, boff)
     return segmental_grad_plain(frame, trans, bias, lengths, alphas, betas,
-                                logZ, g, mean_pool)
+                                logZ, g, mean_pool, aoff, boff)
 
 
 def segmental_viterbi(frame, trans, bias, lengths, mean_pool=True,

@@ -31,6 +31,7 @@ from asr_craft_tpu_torch.models.feature_map import (FeatureMapConfig,
                                                     dense_potentials,
                                                     densify_sparse,
                                                     sparse_potentials)
+from asr_craft_tpu_torch.models import segmental as seg_mod
 from asr_craft_tpu_torch.models.topology import Topology
 from asr_craft_tpu_torch.ops import fdt, fwdbwd, mxu
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
@@ -145,7 +146,14 @@ def crf_loss(cfg: CrfConfig, params: dict, feats, labels, lengths,
     the features.  On the shared-transition path, as in the JAX package,
     the flag is not read: autograd carries the state gradient through the
     potentials matmul to whatever requires it.
+
+    The criterion of both CRF families: a segmental CRF's config
+    (:class:`asr_craft_tpu_torch.models.segmental.SegCrfConfig`) takes
+    :func:`~asr_craft_tpu_torch.models.segmental.scrf_loss_fused` (``sparse``,
+    ``label_kind`` and ``grad_feats`` are the linear chain's).
     """
+    if isinstance(cfg, seg_mod.SegCrfConfig):
+        return seg_mod.scrf_loss_fused(cfg, params, feats, labels, lengths)
     clamp_ns = 1 if label_kind == "state" else cfg.num_states
     if cfg.fmap.frame_dependent_trans:
         feats = _fdt_feats(cfg, feats, sparse)

@@ -35,6 +35,7 @@ from asr_craft_tpu_torch.ops.segmental_stream import (
     seg_log_partition_stream_ns, seg_viterbi_stream)
 from asr_craft_tpu_torch.ops.precision import product
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
 __all__ = ["SegCrfConfig", "nstate_cuts", "seg_potentials",
            "gold_segment_score", "gold_segment_score_stream",
@@ -295,24 +296,35 @@ def scrf_loss_fused(cfg: SegCrfConfig, params, feats, labels, lengths):
     runs the streaming classical-gradient Function (K9, K10 and K11 for CUDA
     tensors) and the numerator scores gold segments from the frame scores.
     ``num_states > 1``: the same streaming recursion with sub-state span
-    pooling, as frame loops."""
-    frame, bias = _frame_scores_and_bias(cfg, params, feats)
-    mean_pool = cfg.pooling == "mean"
-    trans = params["b_trans"]
-    if cfg.num_states > 1:
-        logZ = seg_log_partition_stream_ns(
-            frame, bias, trans, lengths, cfg.max_dur, cfg.num_states,
-            mean_pool)
-        cuts = nstate_cuts(cfg.max_dur, cfg.num_states)
-        gold = torch.stack([gold_segment_score_stream_ns(
-            f, bias, trans, l, int(n), cuts, mean_pool)
-            for f, l, n in zip(frame, labels, lengths)])
-    else:
-        logZ = seg_log_partition_stream(frame, bias, trans, lengths,
-                                        cfg.max_dur, mean_pool)
-        gold = gold_segment_score_batch(frame, bias, trans, labels, lengths,
-                                        mean_pool)
-    return _nll(logZ, gold, lengths)
+    pooling, as frame loops.
+
+    Per-call spans (``utils.diagnostics``; recorded while a profiler
+    records, at capture under a CUDA graph): ``scrf.loss`` around the
+    whole, with the children ``scrf.frame_scores``, ``scrf.log_partition``
+    and ``scrf.numerator``."""
+    with diagnostics.span("scrf.loss"):
+        with diagnostics.span("scrf.frame_scores"):
+            frame, bias = _frame_scores_and_bias(cfg, params, feats)
+        mean_pool = cfg.pooling == "mean"
+        trans = params["b_trans"]
+        if cfg.num_states > 1:
+            with diagnostics.span("scrf.log_partition"):
+                logZ = seg_log_partition_stream_ns(
+                    frame, bias, trans, lengths, cfg.max_dur,
+                    cfg.num_states, mean_pool)
+            with diagnostics.span("scrf.numerator"):
+                cuts = nstate_cuts(cfg.max_dur, cfg.num_states)
+                gold = torch.stack([gold_segment_score_stream_ns(
+                    f, bias, trans, l, int(n), cuts, mean_pool)
+                    for f, l, n in zip(frame, labels, lengths)])
+        else:
+            with diagnostics.span("scrf.log_partition"):
+                logZ = seg_log_partition_stream(frame, bias, trans, lengths,
+                                                cfg.max_dur, mean_pool)
+            with diagnostics.span("scrf.numerator"):
+                gold = gold_segment_score_batch(frame, bias, trans, labels,
+                                                lengths, mean_pool)
+        return _nll(logZ, gold, lengths)
 
 
 def scrf_decode(cfg: SegCrfConfig, params, feats, lengths,

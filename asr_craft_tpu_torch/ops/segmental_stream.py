@@ -48,6 +48,7 @@ from asr_craft_tpu_torch.kernels.fwdbwd import (backward_factors,
                                                 safe_log)
 from asr_craft_tpu_torch.ops.segmental import traceback_segments
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
 __all__ = ["seg_log_partition_stream", "seg_forward_stream",
            "seg_backward_stream", "seg_log_partition_stream_ns",
@@ -375,23 +376,57 @@ def seg_log_partition_stream_ns(frame, bias, trans, lengths, max_dur: int,
 # one sub-state per segment: K9 in the forward, K10 and K11 in the backward
 # ---------------------------------------------------------------------------
 
+def _centred_bias(bias, L: int):
+    """``(bias - c (d + 1), c)``, ``c = log(L + 1)`` to the nearest 1/8.
+
+    The lattice's rows grow by about c a frame (with level scores, ``sum_d
+    L exp(-c d) ~ 1``), which is what puts them far from 0 in fp32.  A
+    segment of ``d + 1`` frames less ``c (d + 1)`` takes ``c n`` off every
+    segmentation of a row of n frames alike, so the posteriors, and so
+    every gradient, are the lattice's own, logZ is the centred one plus
+    ``c n``, and the rows drift by only what the scores add to c.  ``c (d +
+    1)`` is exact (a few bits); the centred bias rounds at its size (a
+    long segment's, whose weight is small, the most)."""
+    c = round(8.0 * float(np.log(L + 1.0))) / 8.0
+    d = torch.arange(1, bias.shape[0] + 1, dtype=bias.dtype,
+                     device=bias.device)
+    return bias - c * d[:, None], c
+
+
 class _LogPartitionStream(torch.autograd.Function):
+    """K9 on the centred lattice (:func:`_centred_bias`) with its rows
+    rebased (``kernels.segmental``'s note: whole-number offsets a cycle of
+    Dmax frames), K10 the same, and K11 taking the offsets, so that fp32
+    rounds near 0 at any length."""
+
     @staticmethod
     def forward(ctx, frame, bias, trans, lengths, mean_pool):
-        alphas, logZ = K.segmental_forward(frame, trans, bias, lengths,
-                                           mean_pool)
-        ctx.save_for_backward(frame, bias, trans, lengths, alphas, logZ)
+        centred, c = _centred_bias(bias, frame.shape[-1])
+        alphas, _, aoff, zhat = K.segmental_forward(
+            frame, trans, centred, lengths, mean_pool, scaled=True)
+        n = lengths.to(frame.device).long()
+        # the whole number and c n are exact, so logZ rounds once
+        last = aoff.gather(1, (n - 1).clamp(min=0)[:, None])[:, 0]
+        logZ = zhat + (last + c * n.to(zhat.dtype))
+        ctx.save_for_backward(frame, centred, trans, lengths, alphas, aoff,
+                              zhat)
         ctx.mean_pool = mean_pool
         return logZ
 
     @staticmethod
     def backward(ctx, g):
-        frame, bias, trans, lengths, alphas, logZ = ctx.saved_tensors
-        betas = K.segmental_backward(frame, trans, bias, lengths,
-                                     ctx.mean_pool)
-        A, S, gd, gt = K.segmental_grad(frame, trans, bias, lengths, alphas,
-                                        betas, logZ, g, ctx.mean_pool)
-        return K.frame_grad(A, S), gd, _g_trans(trans, gt), None, None
+        """K10, K11 and the frame gradient's assembly: the per-call span
+        ``scrf.grad``.  The centred bias's gradient is the bias's."""
+        frame, centred, trans, lengths, alphas, aoff, zhat = \
+            ctx.saved_tensors
+        with diagnostics.span("scrf.grad"):
+            betas, boff = K.segmental_backward(frame, trans, centred,
+                                               lengths, ctx.mean_pool,
+                                               scaled=True)
+            A, S, gd, gt = K.segmental_grad(frame, trans, centred, lengths,
+                                            alphas, betas, zhat, g,
+                                            ctx.mean_pool, aoff, boff)
+            return K.frame_grad(A, S), gd, _g_trans(trans, gt), None, None
 
 
 def seg_log_partition_stream(frame, bias, trans, lengths, max_dur: int,

@@ -36,9 +36,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -354,10 +355,11 @@ def crf_loss_fn(cfg: CrfConfig, label_kind: str = "phone") -> Callable:
 def scrf_loss_fn(cfg: seg_mod.SegCrfConfig, dense: bool = False
                  ) -> Callable:
     """``loss_fn(params, batch) -> (loss, aux)`` of the segmental CRF
-    (``models.segmental.scrf_loss_fused``; ``dense``: the materialized
+    (``models.segmental.scrf_loss_fused``, reached through the criterion
+    of both families, ``models.crf.crf_loss``; ``dense``: the materialized
     oracle ``scrf_loss``, whose numerator reads lengths on the host and so
     runs only eagerly), with the frames the step's metrics count."""
-    loss = seg_mod.scrf_loss if dense else seg_mod.scrf_loss_fused
+    loss = seg_mod.scrf_loss if dense else crf_mod.crf_loss
 
     def loss_fn(params, batch):
         value, aux = loss(cfg, params, batch["feats"], batch["labels"],
@@ -366,6 +368,46 @@ def scrf_loss_fn(cfg: seg_mod.SegCrfConfig, dense: bool = False
                        "frames": batch["lengths"].sum().clamp(min=1)}
     loss_fn.precision = cfg.precision
     return loss_fn
+
+
+class _Model(NamedTuple):
+    """What the trainer needs of a model family: its criterion, the body of
+    its CV step, the writer of an epoch's weights ``save(out_dir, epoch,
+    params)``, and whether its steps run only eagerly (their code reads the
+    device from the host, which a CUDA graph cannot capture)."""
+    loss_fn: Callable
+    eval_body: Callable
+    save: Callable
+    eager: bool
+
+
+def _model(cfg, label_kind: str = "phone") -> _Model:
+    """The one place the trainer tells the models apart, by the config's
+    type: a :class:`CrfConfig` (linear-chain, its flat weight files) or a
+    :class:`asr_craft_tpu_torch.models.segmental.SegCrfConfig` (the
+    segmental CRF, ``scrf_weights``-style ``.npz`` files; with
+    ``num_states > 1`` its numerator reads lengths on the host, so its
+    steps stay eager)."""
+    if isinstance(cfg, seg_mod.SegCrfConfig):
+        return _Model(scrf_loss_fn(cfg), _scrf_eval_body(cfg), _save_npz,
+                      cfg.num_states > 1)
+    return _Model(crf_loss_fn(cfg, label_kind),
+                  _crf_eval_body(cfg, label_kind),
+                  functools.partial(_save_raw, cfg.fmap), False)
+
+
+def _save_raw(fmap, out_dir: str, epoch: int, params: dict) -> None:
+    """The reference-style flat weight file ``weights.i<epoch>.dat``."""
+    weights_mod.save_raw(os.path.join(out_dir, f"weights.i{epoch}.dat"),
+                         fmap, params)
+
+
+def _save_npz(out_dir: str, epoch: int, params: dict) -> None:
+    """``weights.i<epoch>.npz``, one named array a parameter, as the
+    segmental recipe writes ``scrf_weights.npz``
+    (:func:`asr_craft_tpu_torch.models.weights.load_npz` reads it)."""
+    weights_mod.save_npz(os.path.join(out_dir, f"weights.i{epoch}.npz"),
+                         params)
 
 
 def _global_norm(grads: dict):
@@ -531,27 +573,35 @@ class TrainStep:
         return params, opt_state, avg_params, m
 
 
-def make_train_step(cfg: CrfConfig, tc: TrainConfig,
-                    label_kind: str = "phone",
+def make_train_step(cfg, tc: TrainConfig, label_kind: str = "phone",
                     loss_fn: Optional[Callable] = None,
                     mesh: Optional[mesh_mod.Mesh] = None):
     """``(step, opt)``: the compiled :class:`TrainStep` of ``tc`` and its
     optimizer built at lr 1 (``opt.init(params)`` makes the state), as the
     JAX ``make_train_step`` returns them.  The step's updates are scaled by
-    the ``lr`` of each call (the epoch's schedule value).  ``loss_fn(params,
-    batch) -> (loss, aux)`` with ``aux["logZ"]`` and ``aux["frames"]``
-    replaces ``cfg``'s criterion (the segmental recipe passes its own).
-    ``mesh``: the step is data-parallel over its ranks."""
+    the ``lr`` of each call (the epoch's schedule value).  ``cfg``: a
+    :class:`CrfConfig` (criterion :func:`crf_loss_fn`) or a ``SegCrfConfig``
+    (:func:`scrf_loss_fn`).  ``loss_fn(params, batch) -> (loss, aux)`` with
+    ``aux["logZ"]`` and ``aux["frames"]`` replaces ``cfg``'s criterion (the
+    segmental recipe's ``--dense_loss`` passes its own).  ``mesh``: the
+    step is data-parallel over its ranks."""
     opt = make_optimizer(dataclasses.replace(tc, lr=1.0))
-    return TrainStep(loss_fn or crf_loss_fn(cfg, label_kind), opt, tc,
+    return TrainStep(loss_fn or _model(cfg, label_kind).loss_fn, opt, tc,
                      mesh), opt
 
 
-def make_eval_step(cfg: CrfConfig, label_kind: str = "phone"):
-    """``eval_step(params, batch)``: loss, correct / valid frame counts and
-    the decoded phones, all device tensors; one CUDA graph a batch shape on
-    the card (:class:`graphs.Graphed`: the loss and the decode, K1 and K3
-    at config 2, K4, K7 or K8 and the traceback at configs 1, 3, 5)."""
+def _frame_metrics(loss, phones, ref, lengths, frames) -> dict:
+    """The CV step's metrics: the loss, the frames whose decoded phone is
+    the reference's among the real ones (``correct``, ``valid``), the
+    phones and the frame count."""
+    T = ref.shape[-1]
+    valid = (torch.arange(T, device=ref.device)[None, :]
+             < lengths[:, None])
+    return {"loss": loss, "correct": ((phones == ref) & valid).sum(),
+            "valid": valid.sum(), "phones": phones, "frames": frames}
+
+
+def _crf_eval_body(cfg: CrfConfig, label_kind: str):
     @torch.no_grad()
     def eval_step(params, batch):
         sparse = _batch_sparse(batch)
@@ -561,15 +611,33 @@ def make_eval_step(cfg: CrfConfig, label_kind: str = "phone"):
         phones, _, _ = crf_mod.decode(cfg, params, batch.get("feats"),
                                       batch["lengths"], sparse=sparse)
         labels = batch["labels"]
-        T = labels.shape[-1]
-        valid = (torch.arange(T, device=labels.device)[None, :]
-                 < batch["lengths"][:, None])
         ref = (cfg.topology.phone_of(labels) if label_kind == "state"
                else labels)
-        return {"loss": loss, "correct": ((phones == ref) & valid).sum(),
-                "valid": valid.sum(), "phones": phones,
-                "frames": aux["frames"]}
-    return graphs.Graphed(eval_step, name="eval step")
+        return _frame_metrics(loss, phones, ref, batch["lengths"],
+                              aux["frames"])
+    return eval_step
+
+
+def _scrf_eval_body(cfg: seg_mod.SegCrfConfig):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        feats, lengths = batch["feats"], batch["lengths"]
+        loss, _ = seg_mod.scrf_loss_fused(cfg, params, feats,
+                                          batch["labels"], lengths)
+        phones, _ = seg_mod.scrf_frame_labels(cfg, params, feats, lengths)
+        return _frame_metrics(loss, phones, batch["labels"], lengths,
+                              lengths.sum().clamp(min=1))
+    return eval_step
+
+
+def make_eval_step(cfg, label_kind: str = "phone"):
+    """``eval_step(params, batch)``: loss, correct / valid frame counts and
+    the decoded phones, all device tensors; one CUDA graph a batch shape on
+    the card (:class:`graphs.Graphed`: the loss and the decode, K1 and K3
+    at config 2, K4, K7 or K8 and the traceback at configs 1, 3, 5; K9,
+    K12, K13 and the frames' labels (``scrf_frame_labels``) at config 4)."""
+    return graphs.Graphed(_model(cfg, label_kind).eval_body,
+                          name="eval step")
 
 
 class Trainer:
@@ -582,6 +650,12 @@ class Trainer:
     card, eager under ``--debug_nans`` (its checks read the device) and
     ``check_sync_every``, and on the CPU.
 
+    ``cfg``: a :class:`CrfConfig` or a segmental CRF's ``SegCrfConfig``
+    (its criterion ``scrf_loss_fused``, its CV pass the segmental decode
+    through ``scrf_frame_labels``, its weights written with
+    ``weights.save_npz``; with ``num_states > 1`` every step eager, as its
+    numerator reads lengths on the host).
+
     ``mesh``: data-parallel training over its ranks, each on its own
     loader shard and device (``mesh.device``).  Rank 0's parameters are
     broadcast at the start; every epoch runs as many steps on every rank
@@ -589,7 +663,7 @@ class Trainer:
     frame and no gradient); the CV pass sums its counts over the ranks;
     only rank 0 writes weight files."""
 
-    def __init__(self, cfg: CrfConfig, tc: TrainConfig,
+    def __init__(self, cfg, tc: TrainConfig,
                  params: Optional[dict] = None, label_kind: str = "phone",
                  logger: Optional[MetricsLogger] = None, device=None,
                  mesh: Optional[mesh_mod.Mesh] = None):
@@ -610,10 +684,11 @@ class Trainer:
         self.device = next(iter(self.params.values())).device
         if mesh is not None:
             mesh_mod.replicate_tree(mesh, self.params)
-        self.step_fn, self.opt = make_train_step(cfg, tc, label_kind,
-                                                 mesh=mesh)
+        self.model = _model(cfg, label_kind)
+        self.step_fn, self.opt = make_train_step(
+            cfg, tc, label_kind, loss_fn=self.model.loss_fn, mesh=mesh)
         self.opt_state = self.opt.init(self.params)
-        self.eval_fn = make_eval_step(cfg, label_kind)
+        self.eval_fn = graphs.Graphed(self.model.eval_body, name="eval step")
         self.avg_params = {k: v.detach().clone()
                            for k, v in self.params.items()}
         self.grad_acc = None              # made at the first grad_step
@@ -632,8 +707,10 @@ class Trainer:
 
     def _eager(self):
         """Eager steps where the run reads the device between them:
-        ``--debug_nans`` and ``check_sync_every``; else the graphs."""
-        if diagnostics.debug_nans_enabled() or self.tc.check_sync_every:
+        ``--debug_nans`` and ``check_sync_every``, or inside them (the
+        model's ``eager``); else the graphs."""
+        if (self.model.eager or diagnostics.debug_nans_enabled()
+                or self.tc.check_sync_every):
             return graphs.disabled()
         return contextlib.nullcontext()
 
@@ -795,10 +872,7 @@ class Trainer:
         self.logger.log("train_epoch", **out)
         if self.tc.out_dir and self.is_chief:
             os.makedirs(self.tc.out_dir, exist_ok=True)
-            # reference-style per-epoch flat weight file
-            weights_mod.save_raw(
-                os.path.join(self.tc.out_dir, f"weights.i{self.epoch}.dat"),
-                self.cfg.fmap, self.params)
+            self.model.save(self.tc.out_dir, self.epoch, self.params)
         self.epoch += 1
         return out
 

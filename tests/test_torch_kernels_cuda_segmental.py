@@ -15,7 +15,9 @@ logZ (magnitude up to ~1e3 at T = 512, fp32 ulp 6e-5 there) within rtol
 a difference of such sums) within atol 1e-3; gd and gt within 1e-4 of their
 largest entry plus rtol 1e-3.  K11's parts alone, on the same inputs: E and
 the messages q as alphas (E within 1e-5 absolute: values <= 1), the running
-sums cs equal (the same adds in the same order), F as gt.  The max-plus kernel computes single IEEE
+sums cs equal (the same adds in the same order), F as gt.  Rebased rows
+(``scaled``) are held to the same tolerances once their offsets are added
+back, in float64.  The max-plus kernel computes single IEEE
 operations in the plain version's order: deltas, duration argmaxes, scores,
 labels and segment markers are equal bit for bit.
 """
@@ -110,6 +112,65 @@ def test_log_semiring_kernels_match_plain(dev, B, T, Dmax, L, mean_pool):
     if B > 2:
         assert float(out[0][-1].abs().max()) == 0.0
         assert float(out[1][-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mean_pool", [True, False])
+@pytest.mark.parametrize("B,T,Dmax,L", SHAPES)
+def test_rebased_kernels_match_plain(dev, B, T, Dmax, L, mean_pool):
+    """K9 and K10 rebased (``scaled``) against their rebased plain twins:
+    whole-number offsets, rows plus offsets within Z_TOL (a row maximum
+    within rounding of a half may round the other way), logZ = zhat +
+    off[length - 1] as the kernel adds it; K11 taking the offsets, on the
+    plain twins' rows, against the plain K11."""
+    args = _problem(dev, B, T, Dmax, L)
+    lengths = args[3]
+    sa, sz, aoff, zhat = K.segmental_forward_cuda(*args, mean_pool,
+                                                  scaled=True)
+    sb, boff = K.segmental_backward_cuda(*args, mean_pool, scaled=True)
+    ra, rz, raoff, rzhat = K.segmental_forward_plain(*args, mean_pool,
+                                                     scaled=True)
+    rb, rboff = K.segmental_backward_plain(*args, mean_pool, scaled=True)
+    live = (torch.arange(T, device=dev)[None, :] < lengths[:, None].long())
+    for off in (aoff, boff):
+        assert torch.equal(off, off.round())
+    for got, off, want, woff in ((sa, aoff, ra, raoff), (sb, boff, rb,
+                                                          rboff)):
+        _close((got.double() + off.double()[..., None])[live],
+               (want.double() + woff.double()[..., None])[live], **Z_TOL)
+    _close(sz, rz, **Z_TOL)
+    assert torch.equal(zhat + K.last_row(aoff[..., None], lengths)[:, 0],
+                       sz)
+    g = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1.5, 1.5, B).astype(np.float32)).to(dev)
+    grad_in = (ra, rb, rzhat, g, mean_pool, raoff, rboff)
+    out = K.segmental_grad_cuda(*args, *grad_in)
+    want = K.segmental_grad_plain(*args, *grad_in)
+    _close(out[0], want[0], rtol=0.0, atol=G_ATOL)
+    _close(out[1], want[1], rtol=0.0, atol=G_ATOL)
+    _rel(out[2], want[2])
+    _rel(out[3], want[3])
+
+
+@pytest.mark.parametrize("pooling", ["mean", "sum"])
+def test_rebased_gradient_holds_fp32_over_1024_frames(dev, pooling):
+    """K9, K10 and K11 rebased, at config 4's widths over 1024 frames
+    (logZ ~4e3): A, S, gd and gt within 1e-4 of the float64 plain
+    version's, by norm."""
+    args = _problem(dev, 4, 1024, 16, 48, seed=4, scale=0.6)
+    mean_pool = pooling == "mean"
+    d = [x.double() if x.is_floating_point() else x for x in args]
+    a64, z64 = K.segmental_forward_plain(*d, mean_pool)
+    b64 = K.segmental_backward_plain(*d, mean_pool)
+    g = torch.ones(4, device=dev)
+    want = K.segmental_grad_plain(*d, a64, b64, z64, g.double(), mean_pool)
+    sa, _, aoff, zhat = K.segmental_forward_cuda(*args, mean_pool,
+                                                 scaled=True)
+    sb, boff = K.segmental_backward_cuda(*args, mean_pool, scaled=True)
+    got = K.segmental_grad_cuda(*args, sa, sb, zhat, g, mean_pool, aoff,
+                                boff)
+    for x, w, what in zip(got, want, "A S gd gt".split()):
+        err = float((x.double() - w).norm() / w.norm())
+        assert err < 1e-4, (what, err)
 
 
 @pytest.mark.parametrize("thr", [None, 8.0, 1.0])

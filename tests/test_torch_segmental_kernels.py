@@ -307,3 +307,65 @@ def test_cuda_wrappers_and_backend_raise_on_cpu_tensors():
         "segmental_forward", "segmental_backward", "segmental_grad_message",
         "segmental_grad", "segmental_grad_contract", "segmental_viterbi",
         "segmental_viterbi_traceback"}
+
+
+@pytest.mark.parametrize("mean_pool", [True, False])
+@pytest.mark.parametrize("B,T,Dmax,L", [(3, 40, 4, 5), (2, 33, 1, 6),
+                                        (3, 50, 7, 4), (2, 5, 8, 3)])
+def test_rebased_rows_plus_their_offsets_are_the_rows(B, T, Dmax, L,
+                                                      mean_pool):
+    """K9's and K10's plain twins rebased (``scaled``): whole-number
+    offsets, rows that stay small, and rows plus offsets the rows within
+    fp32; K11 on the rebased rows and offsets gives the same gradient."""
+    frame, bias, trans, lengths = _t(*_problem(5, B, T, Dmax, L, scale=2.0))
+    args = (frame, trans, bias, lengths)
+    a, z = K.segmental_forward_plain(*args, mean_pool)
+    b = K.segmental_backward_plain(*args, mean_pool)
+    sa, sz, aoff, zhat = K.segmental_forward_plain(*args, mean_pool,
+                                                   scaled=True)
+    sb, boff = K.segmental_backward_plain(*args, mean_pool, scaled=True)
+    for off in (aoff, boff):
+        assert torch.equal(off, off.round())
+    live = (torch.arange(T)[None, :] < lengths[:, None])[..., None]
+    for rows, off, want in ((sa, aoff, a), (sb, boff, b)):
+        got = rows.double() + off.double()[..., None]
+        assert torch.allclose(got[live.expand_as(got)],
+                              want.double()[live.expand_as(got)],
+                              rtol=1e-6, atol=2e-4)
+        assert float(rows[live.expand_as(rows)].abs().max()) < \
+            float(want[live.expand_as(want)].abs().max()) + 1
+    np.testing.assert_allclose(sz.numpy(), z.numpy(), rtol=1e-6, atol=1e-4)
+    np.testing.assert_allclose(
+        (zhat + K.last_row(aoff[..., None], lengths)[:, 0]).numpy(),
+        z.numpy(), rtol=1e-6, atol=1e-4)
+    g = torch.linspace(-1.5, 1.5, B)
+    want = K.segmental_grad_plain(*args, a, b, z, g, mean_pool)
+    got = K.segmental_grad_plain(*args, sa, sb, zhat, g, mean_pool, aoff,
+                                 boff)
+    for x, y, what in zip(got, want, "A S gd gt".split()):
+        _rel(x, y, what)
+
+
+def test_rebasing_keeps_long_rows_gradient_at_fp32():
+    """Over 400 frames (logZ ~900) the rebased fp32 gradient stays within
+    1e-4 of float64's, where rows kept whole drift ~1e-3 (the rounding of
+    each step at the rows' size)."""
+    frame, bias, trans, lengths = _t(*_problem(7, 2, 400, 16, 8, scale=0.6))
+    lengths[1] = 350
+    args = (frame, trans, bias, lengths)
+    d = [x.double() if x.is_floating_point() else x for x in args]
+    a64, z64 = K.segmental_forward_plain(*d)
+    want = K.segmental_grad_plain(*d, a64, K.segmental_backward_plain(*d),
+                                  z64, torch.ones(2, dtype=torch.float64))
+    sa, _, aoff, zhat = K.segmental_forward_plain(*args, scaled=True)
+    sb, boff = K.segmental_backward_plain(*args, scaled=True)
+    got = K.segmental_grad_plain(*args, sa, sb, zhat, torch.ones(2), True,
+                                 aoff, boff)
+    a, z = K.segmental_forward_plain(*args)
+    whole = K.segmental_grad_plain(*args, a, K.segmental_backward_plain(*args),
+                                   z, torch.ones(2))
+    for x, y, w, what in zip(got, whole, want, "A S gd gt".split()):
+        err = float((x.double() - w).norm() / w.norm())
+        drift = float((y.double() - w).norm() / w.norm())
+        assert err < 1e-4, (what, err)
+        assert drift > 5 * err, (what, err, drift)
