@@ -5,7 +5,8 @@
 // calibrate.cu: K15):
 // the semiring zero, the block-wide first argmax of the max-plus decodes,
 // the asynchronous copies (the planes' rows reach the fdt recursions by
-// cp.async.bulk on an mbarrier, one frame ahead), the 3xTF32 pieces of the
+// cp.async.bulk on an mbarrier: K1's and K2's one frame ahead, K3's through
+// a ring of stages), the 3xTF32 pieces of the
 // tensor-core products, the guarded three-way log-sum-exp of the reference
 // and, at the end, the pieces of the recursions over one (L, L) transition
 // factor: held in shared memory and read a strided column a lane (K10, K12),

@@ -15,7 +15,9 @@ versions the kernels are compared with:
   planes ``[x; 1] @ Wall^T`` followed by it.
 - :func:`fdt_viterbi_cuda`: the kernels (planes and recursion over
   sub-batches of at most ``PLANE_BUDGET`` bytes of planes, then the
-  traceback).
+  traceback).  The recursion takes one of two designs by
+  :func:`recursion_path` (a cluster of two blocks an utterance, or one
+  block an utterance), counted in ``kernels.vit_path[<path>]``.
 - :func:`fdt_viterbi_wall`: the dispatch of :mod:`asr_craft_tpu_torch.kernels`
   (kernel for CUDA tensors under ``auto``; never a silent fallback).
 
@@ -27,6 +29,7 @@ that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -38,6 +41,7 @@ from asr_craft_tpu_torch.kernels.fdt_train import (fdt_planes_cuda,
 from asr_craft_tpu_torch.kernels.wall import (MAX_LABELS, SMEM_LIMIT,
                                               check_inputs, plane_blocks)
 from asr_craft_tpu_torch.ops import fdt
+from asr_craft_tpu_torch.utils import diagnostics
 
 launches = {"fdt_viterbi_plane": 0, "fdt_viterbi_fwd": 0,
             "fdt_viterbi_traceback": 0}
@@ -50,6 +54,9 @@ TB_RING, TB_MAX_FRAMES, TB_SLOT_BYTES = 3, 128, 32768
 # sub-batches of utterances whose (b, T, R4) planes fit (191 utterances at
 # the flagship's T = 512, R4 = 2736), at least one at a time.
 PLANE_BUDGET = 1 << 30
+# The plane rows in flight in the recursion's ring (fewer where a block's
+# shared memory would pass SMEM_LIMIT).
+VIT_RING = 8
 
 _lib = None
 
@@ -117,13 +124,13 @@ def _library():
         lib = _build.load_library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fdt_viterbi_fwd.argtypes = ([ptr] * 5 + [i32] * 5
-                                        + [i32, f32, i32, ptr])
+                                        + [i32, f32] + [i32] * 3 + [ptr])
         lib.fdt_viterbi_fwd.restype = i32
         lib.fdt_viterbi_traceback.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         lib.fdt_viterbi_traceback.restype = i32
         lib.fdt_viterbi_traceback_frames.argtypes = [i32]
         lib.fdt_viterbi_traceback_frames.restype = i32
-        lib.fdt_viterbi_fwd_smem_bytes.argtypes = [i32] * 2
+        lib.fdt_viterbi_fwd_smem_bytes.argtypes = [i32] * 4
         lib.fdt_viterbi_fwd_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
@@ -137,6 +144,37 @@ def sub_batches(B: int, T: int, R: int, budget: int):
     return [(s, min(s + per, B)) for s in range(0, B, per)]
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def recursion_path(B: int, device, *, beams: bool = False) -> str:
+    """The design the recursion takes for B utterances on ``device``:
+    ``"cluster"`` (a cluster of two blocks an utterance, each half of its
+    destination phones, the plane rows multicast to both) where the decode
+    is exact and its 2 B blocks run at once, at most two an SM (B up to the
+    SM count: faster than one block an utterance at B = 64-132 on an H100,
+    slower at 160 and 191, whose clusters take two waves); else
+    ``"block"``, one block an utterance (a beam's pruning reads the whole
+    row of every frame)."""
+    if beams or B > _sm_count(torch.device(device)):
+        return "block"
+    return "cluster"
+
+
+def forward_stages(lib, ns: int, P: int, path: str) -> int:
+    """The plane rows the recursion's ring holds: ``VIT_RING``, fewer where
+    a block's shared memory would pass ``SMEM_LIMIT``; 0 where two rows do
+    not fit."""
+    cluster = 2 if path == "cluster" else 1
+    for stages in range(VIT_RING, 1, -1):
+        if lib.fdt_viterbi_fwd_smem_bytes(ns, P, stages,
+                                          cluster) <= SMEM_LIMIT:
+            return stages
+    return 0
+
+
 def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
                                 ns: int, P: int, boundaries: bool = True,
                                 beam_threshold: Optional[float] = None,
@@ -145,7 +183,9 @@ def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
     (B, T, R4) layout): writes ``bp (B, T, L')`` int32, ``last (B,)`` int32
     and ``scores (B,)`` (contiguous, on the planes' device; a sub-batch's
     rows of the decode's outputs), as
-    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns them."""
+    :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns them.
+    Takes the design :func:`recursion_path` chooses and counts it in the
+    diagnostics counter ``kernels.vit_path[<path>]``."""
     dev = planes.device
     _build.check_tensor("planes", planes, torch.float32, 3, dev)
     _build.check_tensor("lengths", lengths, torch.int32, 1, dev)
@@ -166,12 +206,15 @@ def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
             raise ValueError(f"{name} {tuple(t.shape)}, expected {shape}")
     if beam_width is not None and beam_width < 1:
         raise ValueError(f"beam_width must be >= 1, got {beam_width}")
+    bw = 0 if beam_width is None or beam_width >= Lp else beam_width
     lib = _library()
-    smem = lib.fdt_viterbi_fwd_smem_bytes(ns, P)
-    if smem > SMEM_LIMIT:
+    path = recursion_path(B, dev, beams=beam_threshold is not None or bw > 0)
+    stages = forward_stages(lib, ns, P, path)
+    if not stages:
+        smem = lib.fdt_viterbi_fwd_smem_bytes(
+            ns, P, 2, 2 if path == "cluster" else 1)
         raise ValueError(f"fdt Viterbi kernel needs {smem} B of shared "
                          f"memory, over the {SMEM_LIMIT} B a block can use")
-    bw = 0 if beam_width is None or beam_width >= Lp else beam_width
     if B == 0:
         return
     with torch.cuda.device(dev):
@@ -179,10 +222,12 @@ def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
             planes.data_ptr(), lengths.data_ptr(), bp.data_ptr(),
             last.data_ptr(), scores.data_ptr(), B, T, ns, P,
             int(boundaries), int(beam_threshold is not None),
-            float(beam_threshold or 0.0), bw,
+            float(beam_threshold or 0.0), bw, stages,
+            2 if path == "cluster" else 1,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(code, "fdt_viterbi_fwd launch")
     launches["fdt_viterbi_fwd"] += 1
+    diagnostics.count(f"kernels.vit_path[{path}]")
 
 
 def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,

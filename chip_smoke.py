@@ -418,12 +418,12 @@ CAL_SRC = "asr_craft_tpu/utils/roofline.py:519"   # the inner `kernel`
 # so the gap stays at a few 1e-8 relative on values in (0, 1].
 CAL_ATOL = 2e-6
 # Per-frame costs the T-sweep fits are held to (+-30%), from PERF.md: the
-# config-2 decode (the plane kernel on its wgmma path, K3's recursion and
-# the traceback, its rows streamed through shared memory) is 1.829 us a
-# frame at B=64; the segmental decode at one segment a frame (the bench's
-# zero model), K12 on K9's frame and K13 on the traceback's stream, is
-# 0.852 us.
-FDT_FRAME_US, SCRF_FRAME_US = 1.829, 0.852
+# config-2 decode (the plane kernel on its wgmma path, K3's recursion on a
+# cluster of two blocks an utterance and the traceback, its rows streamed
+# through shared memory) is 1.241 us a frame at B=64; the segmental decode
+# at one segment a frame (the bench's zero model), K12 on K9's frame and
+# K13 on the traceback's stream, is 0.852 us.
+FDT_FRAME_US, SCRF_FRAME_US = 1.241, 0.852
 # The time-sharded decode's scores against the unsharded decode's (phase
 # (t)): rtol 1e-5 at T=512, as the JAX tests hold them; at T=16384 the two
 # fp32 sums of 16,384 frames, associated chunk by chunk and frame by frame,

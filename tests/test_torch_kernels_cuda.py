@@ -13,6 +13,13 @@ sums in 3xTF32, in another order than cuBLAS's fp32 product).  The
 recursion alone on the plane kernel's planes against its plain version on
 the same planes: paths equal and scores within rtol=1e-6 (the same fp32
 additions in the same order).
+
+K3's recursion has two paths (``kernels.fdt_viterbi.recursion_path``): a
+cluster of two blocks an utterance for exact decodes of up to one utterance
+an SM, one block an utterance otherwise.  The fixture ``path`` forces either
+(a beam always takes one block); the two give the same bits as each other
+and as the plain recursion on the same planes, and each launch counts one
+``kernels.vit_path[<path>]``.
 """
 import numpy as np
 import pytest
@@ -26,6 +33,7 @@ from asr_craft_tpu_torch.kernels.fdt_viterbi import (fdt_viterbi_cuda,
 from asr_craft_tpu_torch.kernels.wall import build_wall, wall_planes
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.ops import fdt
+from asr_craft_tpu_torch.utils import diagnostics
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -40,6 +48,16 @@ def dev():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture(params=["cluster", "block"])
+def path(request, monkeypatch):
+    """K3's recursion forced onto one path (beams: one block)."""
+    forced = request.param
+    monkeypatch.setattr(
+        V, "recursion_path",
+        lambda B, device, beams=False: "block" if beams else forced)
+    return forced
 
 
 def _problem(dev, P, ns, B=5, T=33, D=12, seed=0, integer=False):
@@ -81,7 +99,7 @@ def _compare(Wall, feats, lengths, kw, beams, exact_paths):
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 1),
                                   (128, 3)])
-def test_kernel_matches_plain(dev, P, ns, mode):
+def test_kernel_matches_plain(dev, path, P, ns, mode):
     Wall, feats, lengths, kw = _problem(dev, P, ns, seed=P + ns)
     _compare(Wall, feats, lengths, kw, MODES[mode], exact_paths=False)
 
@@ -89,7 +107,7 @@ def test_kernel_matches_plain(dev, P, ns, mode):
 @pytest.mark.parametrize("integer", [False, True], ids=["zero", "integer"])
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("ns", [1, 3])
-def test_kernel_tie_order(dev, ns, mode, integer):
+def test_kernel_tie_order(dev, path, ns, mode, integer):
     Wall, feats, lengths, kw = _problem(dev, 5, ns, seed=ns, integer=integer)
     if not integer:
         Wall = torch.zeros_like(Wall)
@@ -99,7 +117,7 @@ def test_kernel_tie_order(dev, ns, mode, integer):
 @pytest.mark.parametrize("integer", [False, True], ids=["normal", "integer"])
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 3)])
-def test_recursion_matches_plain_on_the_same_planes(dev, P, ns, mode,
+def test_recursion_matches_plain_on_the_same_planes(dev, path, P, ns, mode,
                                                     integer):
     """K3's recursion and traceback on the plane kernel's planes against
     the plain planes-in version on the same planes; the empty last row
@@ -127,7 +145,7 @@ def test_recursion_matches_plain_on_the_same_planes(dev, P, ns, mode,
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_sub_batches_give_one_calls_results(dev, mode, monkeypatch):
+def test_sub_batches_give_one_calls_results(dev, path, mode, monkeypatch):
     """A decode split into sub-batches of at most one or two utterances'
     planes (PLANE_BUDGET set small): one plane launch and one recursion a
     sub-batch, and the paths and scores of one call."""
@@ -147,6 +165,116 @@ def test_sub_batches_give_one_calls_results(dev, mode, monkeypatch):
                      ("fdt_viterbi_traceback", 1)):
             assert launches[k] == before[k] + n
         assert torch.equal(split[0], one[0]) and torch.equal(split[1], one[1])
+
+
+def _vit_paths(since=None):
+    """The recursion's ``kernels.vit_path[...]`` counters, or what they
+    gained since an earlier reading."""
+    now = {k: v for k, v in diagnostics.summary()["counters"].items()
+           if k.startswith("kernels.vit_path[")}
+    if since is None:
+        return now
+    return {k: v - since.get(k, 0) for k, v in now.items()
+            if v != since.get(k, 0)}
+
+
+def _planes(dev, B, T, ns, P, seed, integer=False, lengths="cell"):
+    """Random plane rows in the plane kernel's (B, T, R4) layout and
+    lengths: the cell's (T times a lognormal, one row at T), or edges."""
+    R4 = (3 * ns * P + P * P + 3) // 4 * 4
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, T, R4)).astype(np.float32)
+    if integer:
+        x = np.round(x * 2)
+    if lengths == "cell":
+        ln = np.clip(np.round(T * np.exp(rng.normal(-0.35, 0.27, B))), 1, T)
+        ln[0] = T
+    else:
+        ln = rng.integers(0, T + 1, size=B)
+        ln[:4] = [0, 1, T, T - 1][:B]
+    return (torch.from_numpy(x).to(dev),
+            torch.from_numpy(ln.astype(np.int32)).to(dev))
+
+
+def _forward_both(planes, lengths, ns, P, monkeypatch):
+    """K3's recursion and traceback on each path: {path: (bp, last, scores,
+    paths)}, each launch's counter checked."""
+    B, T, _ = planes.shape
+    out = {}
+    for forced in ("cluster", "block"):
+        monkeypatch.setattr(V, "recursion_path",
+                            lambda B, device, beams=False: forced)
+        bp = torch.empty((B, T, ns * P), dtype=torch.int32,
+                         device=planes.device)
+        last = torch.empty((B,), dtype=torch.int32, device=planes.device)
+        scores = torch.empty((B,), dtype=torch.float32, device=planes.device)
+        before, runs = _vit_paths(), launches["fdt_viterbi_fwd"]
+        V.viterbi_forward_planes_cuda(planes, lengths, bp, last, scores,
+                                      ns=ns, P=P)
+        paths = V.viterbi_traceback_cuda(bp, last, lengths)
+        torch.cuda.synchronize()
+        assert launches["fdt_viterbi_fwd"] == runs + 1
+        assert _vit_paths(before) == {f"kernels.vit_path[{forced}]": 1}
+        out[forced] = (bp, last, scores, paths)
+    return out
+
+
+def _assert_bits(got, want):
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["normal", "integer"])
+def test_paths_agree_at_the_decode_cells_shape(dev, integer, monkeypatch):
+    """B=64, T=512, P=48, ns=3 with the cell's lengths: both paths give the
+    plain recursion's bits (bp, last, scores, paths) on the same planes."""
+    ns, P = 3, 48
+    planes, lengths = _planes(dev, 64, 512, ns, P, seed=64, integer=integer)
+    out = _forward_both(planes, lengths, ns, P, monkeypatch)
+    bp, last, scores = fdt.fdt_viterbi_forward(
+        *V.plane_blocks(planes, ns, P), lengths, ns, True)
+    paths = fdt.fdt_viterbi_traceback(bp, last, lengths)
+    for got in out.values():
+        _assert_bits(got, (bp, last, scores, paths))
+
+
+@pytest.mark.parametrize("B,T,lengths", [(1, 40, "cell"), (6, 40, "edges"),
+                                         (1, 1, "cell")])
+@pytest.mark.parametrize("P,ns", [(5, 3), (47, 3), (47, 1), (128, 3),
+                                  (128, 1)])
+def test_paths_agree_on_unequal_halves_and_edges(dev, P, ns, B, T, lengths,
+                                                 monkeypatch):
+    """Unequal halves (P = 5, 47), P = 128 (a ring of fewer stages), B = 1,
+    lengths 0, 1, T - 1 and T: both paths give the plain bits."""
+    planes, ln = _planes(dev, B, T, ns, P, seed=P * 8 + ns + B,
+                         integer=True, lengths=lengths)
+    out = _forward_both(planes, ln, ns, P, monkeypatch)
+    bp, last, scores = fdt.fdt_viterbi_forward(
+        *V.plane_blocks(planes, ns, P), ln, ns, True)
+    paths = fdt.fdt_viterbi_traceback(bp, last, ln)
+    for got in out.values():
+        _assert_bits(got, (bp, last, scores, paths))
+
+
+def test_each_launch_counts_its_path(dev):
+    """The rule's own choice: B=64 on the cluster, one utterance more than
+    the card's SMs on one block an utterance, a beam on one block; one
+    counter a launch."""
+    ns, P = 3, 8
+    over = V._sm_count(dev) + 1
+    for B, beams, want in ((64, {}, "cluster"), (over, {}, "block"),
+                           (64, {"beam_width": 4}, "block")):
+        planes, lengths = _planes(dev, B, 12, ns, P, seed=B)
+        bp = torch.empty((B, 12, ns * P), dtype=torch.int32, device=dev)
+        last = torch.empty((B,), dtype=torch.int32, device=dev)
+        scores = torch.empty((B,), dtype=torch.float32, device=dev)
+        before = _vit_paths()
+        V.viterbi_forward_planes_cuda(planes, lengths, bp, last, scores,
+                                      ns=ns, P=P, **beams)
+        torch.cuda.synchronize()
+        assert _vit_paths(before) == {f"kernels.vit_path[{want}]": 1}
 
 
 def test_traceback_kernel_exact_on_plain_backpointers(dev):
