@@ -10,10 +10,11 @@ Counterpart of :mod:`asr_craft_tpu.kernels`.  The backend is one of
 
 The sources live in ``asr_craft_tpu_torch/csrc`` and are built with nvcc at
 first use (:mod:`asr_craft_tpu_torch.kernels._build`).  One module per
-family, each with its kernels' wrappers, plain versions and launch counts:
-``fdt_viterbi`` (K3), ``fdt_train`` (K1, K2), ``viterbi`` (K7, K8),
-``fwdbwd`` (K4, K5, K6a, K6b, K14), ``segmental`` (K9-K13) and ``calibrate``
-(K15).
+family, each with its kernels' wrappers and plain versions: ``fdt_viterbi``
+(K3), ``fdt_train`` (K1, K2), ``viterbi`` (K7, K8), ``fwdbwd`` (K4, K5,
+K6a, K6b, K14), ``segmental`` (K9-K13) and ``calibrate`` (K15).  A wrapper
+counts each launch in the counter ``kernels.<kernel>`` (``[<design>]``
+added where it chooses one) of :mod:`asr_craft_tpu_torch.utils.diagnostics`.
 """
 from __future__ import annotations
 

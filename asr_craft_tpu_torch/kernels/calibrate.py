@@ -19,7 +19,7 @@ All three return the whole window ``(Dmax, Ls, Bk)``; slot 0 is what the
 TPU kernel returns.  The dispatcher follows
 :func:`asr_craft_tpu_torch.kernels.use_kernel`: a CUDA tensor under ``auto``
 launches the kernel or raises, a CPU tensor takes the plain version.
-``launches`` counts the wrapper's kernel launches.
+The wrapper counts its launches in the counter ``kernels.calibrate``.
 
 The kernel and the plain version agree to ~1e-6, not bit for bit: nvcc
 contracts ``z * 0.999 + 1e-4`` into one fused multiply-add where PyTorch
@@ -38,17 +38,13 @@ import torch
 
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
+from asr_craft_tpu_torch.utils import diagnostics
 
-launches = {"calibrate": 0}
 SMEM_LIMIT = 232448         # bytes of shared memory a Hopper block may use
 LO_N, HI_N = 2, 6           # launches in the two timed runs of one slope
+COUNTER = "kernels.calibrate"   # the wrapper's launch counter
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def calibrate_chain_plain(x, Dmax: int = 16, passes: int = 16,
@@ -98,7 +94,7 @@ def calibrate_chain_cuda(x, Dmax: int = 16, passes: int = 16,
             x.data_ptr(), window.data_ptr(), Dmax, Ls, Bk, passes, steps,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(code, "calibrate launch")
-    launches["calibrate"] += 1
+    diagnostics.count(COUNTER)
     return window
 
 
@@ -166,7 +162,7 @@ def measure(Dmax: int = 16, Ls: int = 48, Bk: int = 128, passes: int = 16,
             state["x"] = calibrate_chain_cuda(state["x"], Dmax, passes,
                                               steps)[0]
 
-    before = launches["calibrate"]
+    before = diagnostics.launches().get(COUNTER, 0)
     run(LO_N)
     run(HI_N)
     torch.cuda.synchronize(device)
@@ -183,7 +179,7 @@ def measure(Dmax: int = 16, Ls: int = 48, Bk: int = 128, passes: int = 16,
     slopes.sort()
     dt = slopes[len(slopes) // 2]        # median: robust to a clock spike
     out.update(calibration="kernel", steps=steps,
-               launches=launches["calibrate"] - before,
+               launches=diagnostics.launches()[COUNTER] - before,
                ms_per_launch=dt * 1e3,
                geps=steps * passes * elems / dt / 1e9)
     return out

@@ -34,7 +34,8 @@ PyTorch versions the kernels are compared with:
 
 ``Wall`` comes from :func:`asr_craft_tpu_torch.kernels.wall.build_wall`,
 whose gathers autograd differentiates, so ``dWall`` flows back into the
-canonical parameters.  ``launches`` counts each wrapper's launches.
+canonical parameters.  Each wrapper counts its launches in the counter
+``kernels.<kernel>[...]`` of :mod:`asr_craft_tpu_torch.utils.diagnostics`.
 """
 from __future__ import annotations
 
@@ -51,8 +52,6 @@ from asr_craft_tpu_torch.ops import fdt, precision as prec
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 from asr_craft_tpu_torch.utils import diagnostics
 
-launches = {"fdt_train_fwd": 0, "fdt_train_plane": 0, "fdt_train_bwd": 0,
-            "fdt_train_contract": 0}
 # the deepest Du the plane kernel's wgmma path holds (csrc/fdt_mma.cu
 # kPlaneKP)
 PLANE_WGMMA_DEPTH = 144
@@ -61,12 +60,6 @@ PLANE_WGMMA_DEPTH = 144
 CONTRACT_SPLITS, CONTRACT_CHUNK = 16, 4096
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 def contract_splits(N: int, R: int, *, tile_rows: int, blocks: int) -> int:
     """The chunks dWall's contraction splits ``N`` frames into: enough
@@ -338,7 +331,7 @@ def fdt_forward_planes_cuda(planes, labels, lengths, *, ns: int, P: int,
             alphas.data_ptr(), zf.data_ptr(), zc.data_ptr(), B, T, ns, P,
             clamp_ns, int(boundaries), _stream(dev))
     _build.raise_on_error(code, "fdt_train_fwd launch")
-    launches["fdt_train_fwd"] += 1
+    diagnostics.count("kernels.fdt_train_fwd")
     return alphas, zf, zc
 
 
@@ -376,18 +369,18 @@ def plane_path(feats, *, u0: int, Du: int) -> str:
     return "wgmma" if ok else "mma_sync"
 
 
-def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
-                    key: str = "fdt_train_plane", precision: str = "highest"):
+def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int,
+                    key: str = "kernels.fdt_train_plane",
+                    precision: str = "highest"):
     """The plane kernel: every frame's plane ``[x; 1] @ Wall^T`` on the
     tensor cores in ``precision`` (``highest``: 3xTF32; ``bf16x3``: the
     split on the bf16 tensor cores; ``default``: one TF32 pass), as
     :func:`fdt_planes_torch` returns it, but in
     rows of R4 = R rounded up to 4 floats, (B, T, R4), the pad zero: the
     layout the recursions (K1, K2, K3) copy a frame's row from.  Counts its
-    launch in ``counts[key]`` (default this module's ``launches``; the
-    decode counts its own planes in ``kernels/fdt_viterbi.py``) and the
-    design it took (:func:`plane_path`) in the diagnostics counter
-    ``kernels.plane_path[<path>]``."""
+    launch, with the design it took (:func:`plane_path`), in the
+    diagnostics counter ``<key>[<path>]`` (the decode counts its planes as
+    ``kernels.fdt_viterbi_plane``)."""
     dev = feats.device
     _build.check_tensor("feats", feats, torch.float32, 3, dev)
     _build.check_tensor("Wall", Wall, torch.float32, 2, dev)
@@ -410,8 +403,7 @@ def fdt_planes_cuda(Wall, feats, *, u0: int, u1: int, counts=None,
             prec.CODES[prec.check(precision)], int(path == "wgmma"),
             _stream(dev))
     _build.raise_on_error(code, f"{key} launch")
-    (launches if counts is None else counts)[key] += 1
-    diagnostics.count(f"kernels.plane_path[{path}]")
+    diagnostics.count(f"{key}[{path}]")
     return planes
 
 
@@ -448,7 +440,7 @@ def contract_cuda(dplane, src, out, *, mode: int, D: int, u0: int, Du: int,
             u0, Du, Dk, splits, prec.CODES[prec.check(precision)],
             _stream(dev))
     _build.raise_on_error(code, "fdt_train_contract launch")
-    launches["fdt_train_contract"] += 1
+    diagnostics.count("kernels.fdt_train_contract")
     return out
 
 
@@ -487,7 +479,7 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
                 wf.data_ptr(), wc.data_ptr(), dplane.data_ptr(), B, T, ns,
                 P, clamp_ns, int(boundaries), _stream(dev))
         _build.raise_on_error(code, "fdt_train_bwd launch")
-        launches["fdt_train_bwd"] += 1
+        diagnostics.count("kernels.fdt_train_bwd")
     return dplane
 
 

@@ -4,10 +4,10 @@ Counterpart of the decode half of :mod:`asr_craft_tpu.kernels.fdt_pallas`
 (``build_wall`` + ``fdt_viterbi_pallas``).  The kernels are the plane
 kernel (``csrc/fdt_mma.cu``, shared with training, launched through
 :func:`asr_craft_tpu_torch.kernels.fdt_train.fdt_planes_cuda` and counted
-here as ``fdt_viterbi_plane``), then the recursion and the traceback
-(``csrc/fdt_viterbi.cu``; the notes there say what bounds them on the
-card).  This module checks and launches them, and holds the plain PyTorch
-versions the kernels are compared with:
+here as ``kernels.fdt_viterbi_plane[<design>]``), then the recursion and
+the traceback (``csrc/fdt_viterbi.cu``; the notes there say what bounds
+them on the card).  This module checks and launches them, and holds the
+plain PyTorch versions the kernels are compared with:
 
 - :func:`fdt_viterbi_planes_torch`: the plain version of the recursion and
   the traceback on given plane rows (:func:`asr_craft_tpu_torch.ops.fdt.
@@ -17,14 +17,14 @@ versions the kernels are compared with:
   sub-batches of at most ``PLANE_BUDGET`` bytes of planes, then the
   traceback).  The recursion takes one of two designs by
   :func:`recursion_path` (a cluster of two blocks an utterance, or one
-  block an utterance), counted in ``kernels.vit_path[<path>]``.
+  block an utterance), counted in ``kernels.fdt_viterbi_fwd[<path>]``.
 - :func:`fdt_viterbi_wall`: the dispatch of :mod:`asr_craft_tpu_torch.kernels`
   (kernel for CUDA tensors under ``auto``; never a silent fallback).
 
 The parameters are packed by
 :func:`asr_craft_tpu_torch.kernels.wall.build_wall`.
-``launches`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels.
+Each wrapper counts its launches in the counter ``kernels.<kernel>[...]``
+of :mod:`asr_craft_tpu_torch.utils.diagnostics`.
 """
 from __future__ import annotations
 
@@ -43,8 +43,6 @@ from asr_craft_tpu_torch.kernels.wall import (MAX_LABELS, SMEM_LIMIT,
 from asr_craft_tpu_torch.ops import fdt
 from asr_craft_tpu_torch.utils import diagnostics
 
-launches = {"fdt_viterbi_plane": 0, "fdt_viterbi_fwd": 0,
-            "fdt_viterbi_traceback": 0}
 # The tracebacks' stream (csrc/fdt_common.cuh; K13 shares it): a ring of
 # TB_RING shared-memory slots, each a block of C frames of rows, C as many
 # as fill TB_SLOT_BYTES, at most TB_MAX_FRAMES, fewer where the block would
@@ -59,11 +57,6 @@ PLANE_BUDGET = 1 << 30
 VIT_RING = 8
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def fdt_viterbi_planes_torch(planes, lengths, *, ns: int, P: int,
@@ -184,8 +177,8 @@ def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
     and ``scores (B,)`` (contiguous, on the planes' device; a sub-batch's
     rows of the decode's outputs), as
     :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_forward` returns them.
-    Takes the design :func:`recursion_path` chooses and counts it in the
-    diagnostics counter ``kernels.vit_path[<path>]``."""
+    Takes the design :func:`recursion_path` chooses and counts the launch
+    in the diagnostics counter ``kernels.fdt_viterbi_fwd[<path>]``."""
     dev = planes.device
     _build.check_tensor("planes", planes, torch.float32, 3, dev)
     _build.check_tensor("lengths", lengths, torch.int32, 1, dev)
@@ -226,8 +219,7 @@ def viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, *,
             2 if path == "cluster" else 1,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(code, "fdt_viterbi_fwd launch")
-    launches["fdt_viterbi_fwd"] += 1
-    diagnostics.count(f"kernels.vit_path[{path}]")
+    diagnostics.count(f"kernels.fdt_viterbi_fwd[{path}]")
 
 
 def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
@@ -254,7 +246,7 @@ def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     for s, e in sub_batches(B, T, Wall.shape[0], PLANE_BUDGET):
         planes = fdt_planes_cuda(Wall, feats[s:e], u0=u0, u1=u1,
-                                 counts=launches, key="fdt_viterbi_plane",
+                                 key="kernels.fdt_viterbi_plane",
                                  precision=precision)
         viterbi_forward_planes_cuda(
             planes, lengths[s:e], bp[s:e], last[s:e], scores[s:e], ns=ns,
@@ -263,13 +255,14 @@ def viterbi_forward_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,
     return bp, last, scores
 
 
-def launch_traceback(bp, last, lengths, counts: dict, key: str):
+def launch_traceback(bp, last, lengths, key: str):
     """Launch the traceback kernel (one block an utterance, its rows
     streamed through shared memory in blocks of :func:`traceback_frames`
     frames): (B, T) int32 paths, as
     :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback` returns on
     labels clamped into ``[0, L')``.  Each decode counts its launches in
-    its own ``counts[key]`` (here and in ``kernels/viterbi.py``)."""
+    its own diagnostics counter ``key`` (here and in
+    ``kernels/viterbi.py``)."""
     dev = bp.device
     _build.check_tensor("bp", bp, torch.int32, 3, dev)
     _build.check_tensor("last", last, torch.int32, 1, dev)
@@ -291,7 +284,7 @@ def launch_traceback(bp, last, lengths, counts: dict, key: str):
             paths.data_ptr(), B, T, Lp,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(code, "fdt_viterbi_traceback launch")
-    counts[key] += 1
+    diagnostics.count(key)
     return paths
 
 
@@ -299,8 +292,8 @@ def viterbi_traceback_cuda(bp, last, lengths):
     """Traceback kernel on the fdt decode's backpointers: (B, T) int32
     paths, as :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback`
     returns."""
-    return launch_traceback(bp, last, lengths, launches,
-                            "fdt_viterbi_traceback")
+    return launch_traceback(bp, last, lengths,
+                            "kernels.fdt_viterbi_traceback")
 
 
 def fdt_viterbi_cuda(Wall, feats, lengths, *, u0: int, u1: int, ns: int,

@@ -43,7 +43,8 @@ it).
 
 The dispatchers follow :func:`asr_craft_tpu_torch.kernels.use_kernel`: a
 CUDA tensor under ``auto`` launches the kernel or raises, a CPU tensor takes
-the plain version.  ``launches`` counts each wrapper's kernel launches.
+the plain version.  Each wrapper counts its launches in the counter
+``kernels.<kernel>`` of :mod:`asr_craft_tpu_torch.utils.diagnostics`.
 """
 from __future__ import annotations
 
@@ -55,10 +56,8 @@ from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import _build
 from asr_craft_tpu_torch.ops.fdt import _clamp_row
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
-launches = {"forward": 0, "backward": 0, "forward_dual": 0,
-            "backward_dual": 0, "backward_dual_grad": 0,
-            "backward_dual_contract": 0}
 LOG_FLOOR = 1e-38            # the reference's floor under every log
 MAX_L = 232                  # the widest lattice the recursions take
 # The recursions' layouts of the factor, (QV, D, shared): a group of four
@@ -73,11 +72,6 @@ SHARED_LAYOUT = (15, 4, True)
 CONTRACT_TILES, CONTRACT_MIN_ROWS = (48, 96, 144), 256
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +346,7 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_forward(name, state, trans, labels, lengths, clamp_ns):
+def _launch_forward(counter, state, trans, labels, lengths, clamp_ns):
     n_lat = 1 if labels is None else 2
     B, T, L = _check(state, trans, lengths, labels, clamp_ns, n_lat)
     dev = state.device
@@ -370,12 +364,12 @@ def _launch_forward(name, state, trans, labels, lengths, clamp_ns):
                 lengths.data_ptr(), alphas[0].data_ptr(),
                 alphas[-1].data_ptr(), z[0].data_ptr(), z[-1].data_ptr(),
                 B, T, L, n_lat, clamp_ns, qv, D, int(shared), _stream(dev))
-        _build.raise_on_error(code, f"fwdbwd {name} launch")
-        launches[name] += 1
+        _build.raise_on_error(code, f"{counter} launch")
+        diagnostics.count(counter)
     return alphas, z
 
 
-def _launch_backward(name, state, trans, labels, lengths, clamp_ns):
+def _launch_backward(counter, state, trans, labels, lengths, clamp_ns):
     n_lat = 1 if labels is None else 2
     B, T, L = _check(state, trans, lengths, labels, clamp_ns, n_lat)
     dev = state.device
@@ -391,28 +385,30 @@ def _launch_backward(name, state, trans, labels, lengths, clamp_ns):
                 lengths.data_ptr(), betas[0].data_ptr(),
                 betas[-1].data_ptr(), B, T, L, n_lat, clamp_ns, qv, D,
                 int(shared), _stream(dev))
-        _build.raise_on_error(code, f"fwdbwd {name} launch")
-        launches[name] += 1
+        _build.raise_on_error(code, f"{counter} launch")
+        diagnostics.count(counter)
     return betas
 
 
 def forward_cuda(state, trans, lengths):
     """K6a on the card: ``(alphas (B, T, L), logZ (B,))``, as
     :func:`forward_plain` returns."""
-    alphas, z = _launch_forward("forward", state, trans, None, lengths, 1)
+    alphas, z = _launch_forward("kernels.forward", state, trans, None,
+                                lengths, 1)
     return alphas[0], z[0]
 
 
 def backward_cuda(state, trans, lengths):
     """K6b on the card: ``betas (B, T, L)``, as :func:`backward_plain`
     returns."""
-    return _launch_backward("backward", state, trans, None, lengths, 1)[0]
+    return _launch_backward("kernels.backward", state, trans, None,
+                            lengths, 1)[0]
 
 
 def forward_dual_cuda(state, trans, labels, lengths, clamp_ns: int = 1):
     """K4 on the card: ``(af, ac, zf, zc)``, as :func:`forward_dual_plain`
     returns."""
-    alphas, z = _launch_forward("forward_dual", state, trans, labels,
+    alphas, z = _launch_forward("kernels.forward_dual", state, trans, labels,
                                 lengths, clamp_ns)
     return alphas[0], alphas[1], z[0], z[1]
 
@@ -420,8 +416,8 @@ def forward_dual_cuda(state, trans, labels, lengths, clamp_ns: int = 1):
 def backward_dual_cuda(state, trans, labels, lengths, clamp_ns: int = 1):
     """K14 on the card: ``(bf, bc)``, as :func:`backward_dual_plain`
     returns."""
-    betas = _launch_backward("backward_dual", state, trans, labels, lengths,
-                             clamp_ns)
+    betas = _launch_backward("kernels.backward_dual", state, trans, labels,
+                             lengths, clamp_ns)
     return betas[0], betas[1]
 
 
@@ -458,7 +454,7 @@ def backward_dual_grad_rows_cuda(state, trans, labels, lengths, af, ac, zf,
                 V.data_ptr(), B, T, L, ld, clamp_ns, qv, D, int(shared),
                 _stream(dev))
         _build.raise_on_error(code, "fwdbwd backward_dual_grad launch")
-        launches["backward_dual_grad"] += 1
+        diagnostics.count("kernels.backward_dual_grad")
     return g_state, U, V
 
 
@@ -470,7 +466,7 @@ def backward_dual_contract_cuda(U, V, L: int):
     :func:`contract_splits` chunks, then the chunks in order: the same result
     on every run."""
     UV = contract_rows(U, V, L)
-    launches["backward_dual_contract"] += 1
+    diagnostics.count("kernels.backward_dual_contract")
     return UV
 
 

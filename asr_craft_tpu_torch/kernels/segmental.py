@@ -70,13 +70,11 @@ fits).  K11's message and xi passes hold ~50 MB of temporaries at config 4
 
 The dispatchers follow :func:`asr_craft_tpu_torch.kernels.use_kernel`: a
 CUDA tensor under ``auto`` launches the kernel or raises, a CPU tensor takes
-the plain version.  ``launches`` counts each wrapper's kernel launches
-(K11: one for each of its three parts).  The diagnostics counters
-``kernels.seg_path[own]`` and ``kernels.seg_path[three_barrier]`` count
-the frame each K9, K10 and K12 launch took (:func:`recursion_path`), and
-``kernels.seg_xi[16]`` and ``kernels.seg_xi[deep]`` the xi kernel each of
-K11's launches took (:func:`xi_kernel`); under a CUDA graph both count at
-capture, once a captured shape.
+the plain version.  Each wrapper counts its launches in the counter
+``kernels.<kernel>`` of :mod:`asr_craft_tpu_torch.utils.diagnostics` (K11:
+one for each of its three parts), K9's, K10's and K12's with their frame
+(``[own]`` or ``[three_barrier]``, :func:`recursion_path`), K11's xi pass
+with its kernel (``[16]`` or ``[deep]``, :func:`xi_kernel`).
 
 What bounds the kernels on the card, what was measured and what was tried
 and dropped is in the note of ``csrc/segmental.cu`` and in PERF.md.
@@ -100,19 +98,10 @@ from asr_craft_tpu_torch.kernels.fwdbwd import (backward_dual_contract_plain,
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
 from asr_craft_tpu_torch.utils import diagnostics
 
-launches = {"segmental_forward": 0, "segmental_backward": 0,
-            "segmental_grad_message": 0, "segmental_grad": 0,
-            "segmental_grad_contract": 0, "segmental_viterbi": 0,
-            "segmental_viterbi_traceback": 0}
 KINDS = {"segmental_forward": 0, "segmental_viterbi": 1,
          "segmental_backward": 2, "segmental_grad": 3}
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def pool_weights(max_dur: int, mean_pool: bool, device="cpu"):
@@ -514,7 +503,7 @@ def recursion_frame(L: int, max_dur: int) -> int:
 @functools.lru_cache(maxsize=None)
 def recursion_path(L: int, max_dur: int) -> str:
     """The frame K9, K10 and K12 take at ``(L, Dmax)`` (:func:`
-    recursion_frame`), as the counter ``kernels.seg_path[...]`` names it:
+    recursion_frame`), as their launch counters name it:
     ``"own"`` or ``"three_barrier"``."""
     return "three_barrier" if recursion_frame(L, max_dur) == 0 else "own"
 
@@ -522,7 +511,7 @@ def recursion_path(L: int, max_dur: int) -> str:
 @functools.lru_cache(maxsize=None)
 def xi_kernel(L: int, max_dur: int) -> str:
     """The kernel of K11's xi pass at ``(L, Dmax)``, as the counter
-    ``kernels.seg_xi[...]`` names it: ``"16"`` (``seg_xi16_kernel``:
+    ``kernels.segmental_grad[...]`` names it: ``"16"`` (``seg_xi16_kernel``:
     windows of at most 16 durations) or ``"deep"`` (``seg_xi_kernel``)."""
     return "16" if _library().seg_grad_xi16(L, max_dur) == 1 else "deep"
 
@@ -589,8 +578,8 @@ def segmental_forward_cuda(frame, trans, bias, lengths, mean_pool=True,
                 lengths.data_ptr(), alphas.data_ptr(), logZ.data_ptr(),
                 _ptr(off), _ptr(zhat), B, T, L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental forward launch")
-        launches["segmental_forward"] += 1
-        diagnostics.count(f"kernels.seg_path[{recursion_path(L, Dmax)}]")
+        diagnostics.count(
+            f"kernels.segmental_forward[{recursion_path(L, Dmax)}]")
     return (alphas, logZ, off, zhat) if scaled else (alphas, logZ)
 
 
@@ -615,8 +604,8 @@ def segmental_viterbi_cuda(frame, trans, bias, lengths, mean_pool=True,
                 int(beam_threshold is not None),
                 float(beam_threshold or 0.0), _stream(dev))
         _build.raise_on_error(code, "segmental viterbi launch")
-        launches["segmental_viterbi"] += 1
-        diagnostics.count(f"kernels.seg_path[{recursion_path(L, Dmax)}]")
+        diagnostics.count(
+            f"kernels.segmental_viterbi[{recursion_path(L, Dmax)}]")
     return deltas, arg_d, lab0, scores
 
 
@@ -640,8 +629,8 @@ def segmental_backward_cuda(frame, trans, bias, lengths, mean_pool=True,
                 lengths.data_ptr(), betas.data_ptr(), _ptr(off), B, T, L,
                 Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental backward launch")
-        launches["segmental_backward"] += 1
-        diagnostics.count(f"kernels.seg_path[{recursion_path(L, Dmax)}]")
+        diagnostics.count(
+            f"kernels.segmental_backward[{recursion_path(L, Dmax)}]")
     return (betas, off) if scaled else betas
 
 
@@ -680,7 +669,7 @@ def segmental_grad_message_cuda(frame, trans, bias, lengths, alphas):
                 lengths.data_ptr(), E.data_ptr(), q.data_ptr(), cs.data_ptr(),
                 m.data_ptr(), B, T, L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental grad message launch")
-        launches["segmental_grad_message"] += 1
+        diagnostics.count("kernels.segmental_grad_message")
     return E, q, cs, m
 
 
@@ -731,8 +720,7 @@ def segmental_grad_xi_cuda(q, cs, m, betas, logZ, g, bias, lengths,
                 A.data_ptr(), S.data_ptr(), F.data_ptr(), gd_part.data_ptr(),
                 gd.data_ptr(), B, T, L, Dmax, _stream(dev))
         _build.raise_on_error(code, "segmental grad xi launch")
-        launches["segmental_grad"] += 1
-        diagnostics.count(f"kernels.seg_xi[{xi_kernel(L, Dmax)}]")
+        diagnostics.count(f"kernels.segmental_grad[{xi_kernel(L, Dmax)}]")
     else:
         gd.zero_()
     return A, S, F, gd
@@ -744,7 +732,7 @@ def segmental_grad_contract_cuda(E, F, L: int):
     of ``L4`` floats, summed in chunks and the chunks in order, as
     :func:`segmental_grad_contract_plain` returns."""
     gt = fwdbwd.contract_rows(E, F, L)
-    launches["segmental_grad_contract"] += 1
+    diagnostics.count("kernels.segmental_grad_contract")
     return gt
 
 
@@ -800,7 +788,7 @@ def segmental_viterbi_traceback_cuda(deltas, arg_d, trans, lab0, lengths):
                 lab0.data_ptr(), lengths.data_ptr(), end_lab.data_ptr(),
                 end_start.data_ptr(), B, T, L, _stream(dev))
         _build.raise_on_error(code, "segmental traceback launch")
-        launches["segmental_viterbi_traceback"] += 1
+        diagnostics.count("kernels.segmental_viterbi_traceback")
     return end_lab, end_start
 
 

@@ -20,8 +20,8 @@ with:
   traceback for CUDA tensors under ``auto`` (never a silent fallback), the
   plain version for CPU tensors.
 
-``launches`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels.
+Each wrapper counts its launches in the counter ``kernels.<kernel>`` of
+:mod:`asr_craft_tpu_torch.utils.diagnostics`.
 """
 from __future__ import annotations
 
@@ -36,9 +36,8 @@ from asr_craft_tpu_torch.kernels.wall import MAX_LABELS, SMEM_LIMIT
 from asr_craft_tpu_torch.ops import viterbi as ops_viterbi
 from asr_craft_tpu_torch.ops.fdt import prune
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
-launches = {"viterbi_dense_fwd": 0, "viterbi_nstate_fwd": 0,
-            "viterbi_traceback": 0}
 # The frame's layouts (csrc/viterbi.cu): a group of four lanes owns a
 # destination (K7) or a phone (K8), and a lane holds a contiguous quarter of
 # 4 QV of the weights that reach it (QV odd, so a quarter-warp's 16-byte
@@ -52,11 +51,6 @@ DENSE_MAX_L = 232
 NSTATE_MAX_STATES = 8
 
 _lib = None
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
 
 
 def _library():
@@ -193,7 +187,7 @@ def viterbi_dense_fwd(state, trans, lengths,
             bw, qv, int(shared),
             torch.cuda.current_stream(state.device).cuda_stream)
     _build.raise_on_error(code, "viterbi_dense_fwd launch")
-    launches["viterbi_dense_fwd"] += 1
+    diagnostics.count("kernels.viterbi_dense_fwd")
     return bp, last, scores
 
 
@@ -228,7 +222,7 @@ def viterbi_nstate_fwd(state, trans, lengths, ns: int,
             int(beam_threshold is not None), float(beam_threshold or 0.0),
             bw, qv, torch.cuda.current_stream(state.device).cuda_stream)
     _build.raise_on_error(code, "viterbi_nstate_fwd launch")
-    launches["viterbi_nstate_fwd"] += 1
+    diagnostics.count("kernels.viterbi_nstate_fwd")
     return bp, last, scores
 
 
@@ -236,8 +230,8 @@ def viterbi_traceback(bp, last, lengths):
     """The traceback kernel (K3's, ``fdt_vit_tb_kernel``) on a shared-
     transition forward's backpointers: (B, T) int32 paths, as
     :func:`asr_craft_tpu_torch.ops.fdt.fdt_viterbi_traceback` returns."""
-    return fdt_viterbi.launch_traceback(bp, last, lengths, launches,
-                                        "viterbi_traceback")
+    return fdt_viterbi.launch_traceback(bp, last, lengths,
+                                        "kernels.viterbi_traceback")
 
 
 def viterbi_shared(state, trans, lengths, ns: int = 1,

@@ -26,15 +26,17 @@ same Python code that runs eagerly, so the two give the same bits.
 - One memory pool per owner (:class:`Pool`), shared by the owner's graphs:
   they replay one at a time on one stream, so they may share what each
   frees inside its own run.
-- The kernels' launch counts stay true: what a capture added to them is
-  taken back, and added again at every replay.
+- The kernels' launch counters (``kernels.*``) count what reached the
+  device: the capture runs inside ``diagnostics.held_launches()``, and
+  each replay adds what it held, so every call of a key moves them as one
+  eager call does.
 - :func:`disabled`, the counterpart of ``jax.disable_jit()``: inside it
   every Graphed function runs its eager code.  Calls on CPU tensors are
   eager too.  Nothing else is: a capture or a replay that fails on a CUDA
   tensor raises.
 - Spans and counters (``utils.diagnostics``): a call on the card is the
-  span ``graph.call`` (its self time: the cache key and lookup, the launch
-  counts), with the children ``graph.copy_in``, ``graph.replay`` (the
+  span ``graph.call`` (its self time: the cache key and lookup, the
+  counters' add), with the children ``graph.copy_in``, ``graph.replay`` (the
   graph's launch) and ``graph.copy_out``; these record while a profiler
   does.  A first call of a key is the set-up spans ``graph.warm_up`` and
   ``graph.capture`` (the capture and the graph's instantiation).  Counters,
@@ -60,13 +62,8 @@ from typing import Callable, Iterator, Optional
 import torch
 
 from asr_craft_tpu_torch import kernels
-from asr_craft_tpu_torch.kernels import (fdt_train, fdt_viterbi, fwdbwd,
-                                         segmental, viterbi)
 from asr_craft_tpu_torch.utils import diagnostics
 
-# every kernel family's launch counts (kernels/*.py ``launches``)
-COUNTS = (fdt_train.launches, fdt_viterbi.launches, viterbi.launches,
-          fwdbwd.launches, segmental.launches)
 MAX_SHAPES = 8               # the train CLI's five default buckets fit
 
 _disabled = 0
@@ -154,16 +151,13 @@ class Pool:
 
 
 class _Entry:
-    __slots__ = ("graph", "inputs", "outputs", "launches", "index")
+    # counts: what a replay adds to the counters
+    __slots__ = ("graph", "inputs", "outputs", "counts", "index")
 
-    def __init__(self, graph, inputs, outputs, launches, index):
+    def __init__(self, graph, inputs, outputs, counts, index):
         self.graph, self.inputs = graph, inputs
-        self.outputs, self.launches = outputs, launches
+        self.outputs, self.counts = outputs, counts
         self.index = index
-
-
-def _counts() -> list:
-    return [dict(c) for c in COUNTS]
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,9 +204,7 @@ class Graphed:
                     dst.copy_(x)
             with diagnostics.span("graph.replay", shape=entry.index):
                 entry.graph.replay()
-            for counts, name, n in entry.launches:
-                counts[name] += n
-            diagnostics.count(self._counter["replays"])
+            diagnostics.add(entry.counts)
             with diagnostics.span("graph.copy_out"):
                 return tree_map(_clone, entry.outputs)
 
@@ -244,7 +236,6 @@ class Graphed:
         static = tree_map(_clone, inputs)
         # kept, so that its nodes can be counted once it is instantiated
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = _counts()
         # Dead graphs (a step and its graphs form a reference cycle) are
         # destroyed now and not by a collection inside the capture, where
         # destroying a graph invalidates the capture.
@@ -254,8 +245,9 @@ class Graphed:
         try:
             # torch.cuda.graph synchronises the device before it captures,
             # so the warm-up's tensors are no longer in use on ``side``
-            with torch.cuda.graph(graph, pool=self.pool.handle(),
-                                  capture_error_mode="thread_local"):
+            with diagnostics.held_launches() as launches, \
+                    torch.cuda.graph(graph, pool=self.pool.handle(),
+                                     capture_error_mode="thread_local"):
                 outputs = self.fn(bound, static)
         except Exception as exc:
             raise RuntimeError(
@@ -265,16 +257,10 @@ class Graphed:
         finally:
             if collecting:
                 gc.enable()
-            after = _counts()
-            for counts, old in zip(COUNTS, before):
-                counts.update(old)
         graph.instantiate()
-        launches = [(counts, k, after[i][k] - before[i][k])
-                    for i, counts in enumerate(COUNTS) for k in counts
-                    if after[i][k] != before[i][k]]
         return _Entry(
             graph, [x for x in leaves(static) if isinstance(x, torch.Tensor)],
-            outputs, launches, index)
+            outputs, {**launches, self._counter["replays"]: 1}, index)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,7 +3,7 @@
 Counterpart of :mod:`asr_craft_tpu.utils.diagnostics`, with PyTorch's tools:
 
 - ``span`` / ``count`` / ``summary`` / ``reset``: the port's one recorder of
-  spans and counters (below).
+  spans and counters, the kernels' launch counts among them (below).
 - ``profiler_session``: a ``torch.profiler`` trace (CPU and CUDA
   activities) around training, written as a Chrome trace (open it in
   Perfetto or ``chrome://tracing``) into ``--profile_dir``, with
@@ -51,9 +51,14 @@ device's kernels, on their clock.  The range is an operator-scoped one
 user annotation gets a twin interval on the device's timeline, over the
 kernels it launched, which a reader of device time would count as work.
 
-``count(name, n)`` adds to a counter (always on: an integer add).
-``summary()`` returns the spans' aggregates, the counters, and the kernel
-wrappers' own launch counts (``kernels/*.py`` ``launches``, read in place).
+``count(name, n)`` adds to a counter (always on: an integer add under a
+lock).  ``summary()`` returns the spans' aggregates and the counters.
+
+The kernel wrappers count each launch that reaches the device in the
+counter ``kernels.<kernel>`` or ``kernels.<kernel>[<design>]``.  The graph
+runner captures inside :func:`held_launches` and hands what it held to
+:func:`add` at each replay: an eager call or a warm-up counts as it
+launches, a capture nothing, a replay what its capture launched.
 """
 from __future__ import annotations
 
@@ -74,6 +79,7 @@ _spans: dict = {}          # name -> [count, total ns, self ns]
 _counters: dict = {}       # name -> int
 _local = threading.local()
 _OFF = contextlib.nullcontext()
+LAUNCHES = "kernels."      # the prefix of the kernels' launch counters
 
 
 def recording() -> bool:
@@ -136,26 +142,51 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def add(counts: dict) -> None:
+    """Add each ``counts[name]`` to the counter ``name``, under one lock
+    acquire (a graph's replay: what its capture held back)."""
+    with _lock:
+        for name, n in counts.items():
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def launches() -> dict:
+    """The kernels' launch counters, ``{"kernels.<...>": n}`` (a copy)."""
+    with _lock:
+        return {k: n for k, n in _counters.items() if k.startswith(LAUNCHES)}
+
+
+@contextlib.contextmanager
+def held_launches() -> Iterator[dict]:
+    """Hold back the launch counts made inside the context, on every thread
+    (autograd's device thread launches a capture's backward): on exit the
+    launch counters are as they were at entry, and the dict the context
+    gives holds what was counted inside it, ``{name: n}``, for :func:`add`.
+    Other counters are left alone."""
+    before, held = launches(), {}
+    try:
+        yield held
+    finally:
+        with _lock:
+            now = {k: _counters.pop(k) for k in list(_counters)
+                   if k.startswith(LAUNCHES)}
+            _counters.update(before)
+        held.update((k, n - before.get(k, 0)) for k, n in now.items()
+                    if n != before.get(k, 0))
+
+
 def summary() -> dict:
     """``{"spans": {name: {"count", "total_s", "self_s"}}, "counters":
-    {name: n}, "launches": {kernel family: its wrappers' launch counts}}``
-    (plain data, a copy)."""
-    from asr_craft_tpu_torch.kernels import (calibrate, fdt_train,
-                                             fdt_viterbi, fwdbwd, segmental,
-                                             viterbi)
+    {name: n}}`` (plain data, a copy; the launch counts are counters)."""
     with _lock:
         spans = {k: {"count": c, "total_s": t * 1e-9, "self_s": s * 1e-9}
                  for k, (c, t, s) in _spans.items()}
-        counters = dict(_counters)
-    launches = {m.__name__.rsplit(".", 1)[-1]: dict(m.launches)
-                for m in (fdt_train, fdt_viterbi, viterbi, fwdbwd,
-                          segmental, calibrate)}
-    return {"spans": spans, "counters": counters, "launches": launches}
+        return {"spans": spans, "counters": dict(_counters)}
 
 
 def reset() -> None:
-    """Forget every span's aggregate and every counter (the kernels'
-    launch counts are theirs to reset)."""
+    """Forget every span's aggregate and every counter, the launch counts
+    included."""
     with _lock:
         _spans.clear()
         _counters.clear()

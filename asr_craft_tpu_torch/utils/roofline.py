@@ -552,7 +552,7 @@ def _k_seg_traceback(B, T, L, segments=None, **_):
                  segments * (per_label * L + per_seg))
 
 
-# name (the wrappers' launch-count keys) -> its count
+# name (the wrappers' launch counters, kernels.<name>[...]) -> its count
 KERNELS = {
     "fdt_viterbi_plane": _k_fdt_plane("fdt_viterbi_plane"),
     "fdt_viterbi_fwd": _k_fdt_viterbi_fwd,
@@ -587,7 +587,7 @@ def kernel_phase(name: str, **shape) -> Phase:
     fp32 operations and element operations at ``shape`` (``B``, ``T``,
     ``L`` and what the family needs of ``D``, ``ns``, ``Du``, ``Dmax``;
     ``frames``: the frames that exist, default ``B * T``; ``segments``:
-    K13's walk).  ``name`` is a key of the wrappers' launch counts."""
+    K13's walk).  ``name`` names a launch counter, ``kernels.<name>``."""
     return KERNELS[name](**shape)
 
 

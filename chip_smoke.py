@@ -469,6 +469,39 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# each kernel family's kernels; a wrapper counts its launches in the
+# diagnostics counter kernels.<kernel>, or kernels.<kernel>[<design>]
+FAMILIES = {
+    "fdt_viterbi": ("fdt_viterbi_plane", "fdt_viterbi_fwd",
+                    "fdt_viterbi_traceback"),
+    "fdt_train": ("fdt_train_fwd", "fdt_train_plane", "fdt_train_bwd",
+                  "fdt_train_contract"),
+    "viterbi": ("viterbi_dense_fwd", "viterbi_nstate_fwd",
+                "viterbi_traceback"),
+    "fwdbwd": ("forward", "backward", "forward_dual", "backward_dual",
+               "backward_dual_grad", "backward_dual_contract"),
+    "segmental": ("segmental_forward", "segmental_backward",
+                  "segmental_grad_message", "segmental_grad",
+                  "segmental_grad_contract", "segmental_viterbi",
+                  "segmental_viterbi_traceback"),
+    "calibrate": ("calibrate",),
+}
+
+
+def launches(*families, since=None) -> dict:
+    """``{kernel: launches}`` for every kernel of ``families`` (all where
+    none is named), each kernel's designs summed, from the launch
+    counters; less ``since``, an earlier reading of the same families."""
+    from asr_craft_tpu_torch.utils import diagnostics
+    out = {k: -(since or {}).get(k, 0)
+           for f in families or FAMILIES for k in FAMILIES[f]}
+    for name, n in diagnostics.launches().items():
+        k = name[len(diagnostics.LAUNCHES):].split("[")[0]
+        if k in out:
+            out[k] += n
+    return out
+
+
 class Smoke:
     B, T = 64, 512                        # the flagship decode batch
 
@@ -642,15 +675,15 @@ class Smoke:
                 "--crf_states", "3", "--window_extent", "1",
                 "--crf_transftr_end", "144", "--batch_size", "64",
                 "--weight_file", str(wfile), "--device", "cuda"]
-        K.reset_launches()
+        mark = launches("fdt_viterbi")
         rec, secs = self.run_cli(argv + ["--kernel_backend", "auto",
                                          "--out_mlf", str(OUT / "auto.mlf")])
-        self.counts = dict(K.launches)
-        K.reset_launches()
+        self.counts = launches("fdt_viterbi", since=mark)
+        mark = launches("fdt_viterbi")
         rec_t, secs_t = self.run_cli(argv + ["--kernel_backend", "torch",
                                              "--out_mlf",
                                              str(OUT / "torch.mlf")])
-        plain_counts = dict(K.launches)
+        plain_counts = launches("fdt_viterbi", since=mark)
         kernels.set_backend("auto")
         log(f"decode CLI: per {rec['per']} (kernels, {secs:.3f} s wall, "
             f"launches {self.counts}); per {rec_t['per']} (plain, "
@@ -873,7 +906,7 @@ class Smoke:
                   clamp_ns=1 if state_labels else cfg.num_states,
                   boundaries=True)
         args = (Wall, feats, labels, lengths)
-        before = dict(K.launches)
+        before = launches("fdt_train")
         alphas, zf, zc, planes = K.fdt_forward_cuda(*args, **kw)
         ra, rzf, rzc = K.fdt_forward_wall_torch(*args, **kw)
         z_err = max(self.close(f"{label} zf", zf, rzf, **Z_TOL),
@@ -921,13 +954,13 @@ class Smoke:
         ref = K.contract_wall_torch(dplane, feats, mode=0, u0=u0, u1=u1)
         c_err = self.close(f"{label} contraction", dWs[0], ref, 0.0,
                            CONTRACT_REL_MAX * float(ref.abs().max()))
-        mid = dict(K.launches)
+        mid = launches("fdt_train")
         out = K.fdt_backward_grad_cuda(*args, alphas, zf, zc, wf, wc, **kw,
                                        want_dfeats=grad_feats, planes=planes)
         # K1 whole (one plane kernel) and the recursion alone (K1's kernel
         # twice in all); then K2 handed K1's planes: no plane kernel
         ran = {k: mid[k] - before[k] for k in before}
-        ran2 = {k: K.launches[k] - mid[k] for k in before}
+        ran2 = launches("fdt_train", since=mid)
         if (ran["fdt_train_plane"], ran["fdt_train_fwd"],
                 ran2["fdt_train_plane"], ran2["fdt_train_bwd"]) \
                 != (1, 2, 0, 1):
@@ -1063,15 +1096,12 @@ class Smoke:
 
     def phase_train_cli(self):
         from asr_craft_tpu_torch import kernels
-        from asr_craft_tpu_torch.kernels import fdt_train, fdt_viterbi
-        for K in (fdt_train, fdt_viterbi):
-            K.reset_launches()
+        mark = launches("fdt_train", "fdt_viterbi")
         losses, evals, wfile, secs = self.run_train_cli("auto")
-        self.train_counts = {**fdt_train.launches, **fdt_viterbi.launches}
-        for K in (fdt_train, fdt_viterbi):
-            K.reset_launches()
+        self.train_counts = launches("fdt_train", "fdt_viterbi", since=mark)
+        mark = launches("fdt_train", "fdt_viterbi")
         plosses, pevals, _, psecs = self.run_train_cli("torch")
-        plain_counts = {**fdt_train.launches, **fdt_viterbi.launches}
+        plain_counts = launches("fdt_train", "fdt_viterbi", since=mark)
         kernels.set_backend("auto")
         log(f"train CLI: losses {losses}, final PER {evals[-1]['per']} "
             f"(kernels, {secs:.3f} s wall, launches {self.train_counts}); "
@@ -1180,13 +1210,13 @@ class Smoke:
         # backward, beside dplane
         step("auto")
         torch.cuda.synchronize()
-        before = dict(K.launches)
+        before = launches("fdt_train")
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         step("auto")
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        ran = {k: K.launches[k] - before[k] for k in before}
+        ran = launches("fdt_train", since=before)
         log(f"train step B={B} T={T}: launches {ran}; peak device memory "
             f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
             f"before it (planes {planes.numel() * 4 / 2**20:.1f} MiB, dplane "
@@ -1351,7 +1381,6 @@ class Smoke:
     def phase_shared_decode(self):
         from asr_craft_tpu_torch import kernels
         from asr_craft_tpu_torch.flagship import posterior_model, word_corpus
-        from asr_craft_tpu_torch.kernels import viterbi as KV
         from asr_craft_tpu_torch.models.crf import CrfConfig
         from asr_craft_tpu_torch.models.weights import (params_from_numpy,
                                                         save_raw)
@@ -1369,13 +1398,13 @@ class Smoke:
                     "--device", "cuda"] + flags
             runs[key] = argv
         # the main path: every count 0 before it, read after it
-        KV.reset_launches()
+        mark = launches("viterbi")
         recs = {key: self.run_cli(argv + ["--kernel_backend", "auto",
                                           "--out_mlf",
                                           str(OUT / f"{key}_auto.mlf")])
                 for key, argv in runs.items()}
-        self.shared_counts = dict(KV.launches)
-        KV.reset_launches()
+        self.shared_counts = launches("viterbi", since=mark)
+        mark = launches("viterbi")
         for key, argv in runs.items():
             rec, secs = recs[key]
             rec_t, secs_t = self.run_cli(argv + [
@@ -1394,7 +1423,7 @@ class Smoke:
                     != (OUT / f"{key}_torch.mlf").read_bytes()):
                 raise AssertionError(f"{key}: kernel and plain PER or MLF "
                                      "differ")
-        plain_counts = dict(KV.launches)
+        plain_counts = launches("viterbi", since=mark)
         log(f"shared decode CLI launches {self.shared_counts} (kernels), "
             f"{plain_counts} (plain)")
         if min(self.shared_counts.values()) < 1:
@@ -1583,9 +1612,9 @@ class Smoke:
         wf, wc = torch.ones_like(zf), -torch.ones_like(zf)   # d(zf - zc)
         grad_in = (raf, rac, rzf, rzc, wf, wc)
         rg, rUV = K.backward_dual_grad_plain(*dual, *grad_in, cns)
-        before = dict(K.launches)
+        before = launches("fwdbwd")
         g, UV = K.backward_dual_grad_cuda(*dual, *grad_in, cns)
-        ran = {k: K.launches[k] - before[k] for k in before}
+        ran = launches("fwdbwd", since=before)
         if ran != {**dict.fromkeys(before, 0), "backward_dual_grad": 1,
                    "backward_dual_contract": 1}:
             raise AssertionError(f"{label}: backward_dual_grad launched "
@@ -1737,18 +1766,12 @@ class Smoke:
 
     def phase_shared_train_cli(self):
         from asr_craft_tpu_torch import kernels
-        from asr_craft_tpu_torch.kernels import fwdbwd, viterbi
+        from asr_craft_tpu_torch.kernels import fwdbwd
         from asr_craft_tpu_torch.models.crf import (apply_boundaries,
                                                     frame_posteriors,
                                                     potentials)
         torch = self.torch
         configs = self.shared_configs()
-        mods = (fwdbwd, viterbi)
-
-        def reset():
-            for K in mods:
-                K.reset_launches()
-
         def require(path, counts, names):
             log(f"{path} launches {counts}")
             missing = [n for n in names if counts[n] < 1]
@@ -1757,10 +1780,10 @@ class Smoke:
 
         # Three paths, each with every count 0 before it and read after it.
         # The train CLI: K4, K5 and the CV decode's K7 / K8 + traceback.
-        reset()
+        mark = launches("fwdbwd", "viterbi")
         runs = {key: self.run_shared_train_cli(key, "auto")
                 for key in configs}
-        train_counts = {**fwdbwd.launches, **viterbi.launches}
+        train_counts = launches("fwdbwd", "viterbi", since=mark)
         require("shared train CLI", train_counts,
                 ("forward_dual", "backward_dual_grad",
                  "backward_dual_contract", "viterbi_dense_fwd",
@@ -1768,12 +1791,12 @@ class Smoke:
         # frame_posteriors of the trained models: K6a, K6b.
         problems = {key: self.trained_problem(cfg, runs[key][2])
                     for key, cfg in configs.items()}
-        reset()
+        mark = launches("fwdbwd")
         with torch.no_grad():
             posts = {key: frame_posteriors(cfg, *problems[key][:2],
                                            problems[key][3])
                      for key, cfg in configs.items()}
-        post_counts = dict(fwdbwd.launches)
+        post_counts = launches("fwdbwd", since=mark)
         require("frame_posteriors", post_counts, ("forward", "backward"))
         # kernels.fwdbwd.backward_dual on the same potentials: K14.  It is
         # a public function that no higher entry point calls (the training
@@ -1785,9 +1808,9 @@ class Smoke:
                 state, trans = potentials(cfg, params, feats)
                 state = apply_boundaries(cfg, state, lengths)
                 duals[key] = (state, trans, labels, lengths, cfg.num_states)
-        reset()
+        mark = launches("fwdbwd")
         betas = {key: fwdbwd.backward_dual(*duals[key]) for key in configs}
-        dual_counts = dict(fwdbwd.launches)
+        dual_counts = launches("fwdbwd", since=mark)
         require("kernels.fwdbwd.backward_dual", dual_counts,
                 ("backward_dual",))
         self.fb_counts = {
@@ -1800,7 +1823,7 @@ class Smoke:
         for key, cfg in configs.items():
             self.check_trained_posteriors(key, cfg, problems[key],
                                           posts[key], betas[key])
-        reset()
+        mark = launches("fwdbwd", "viterbi")
         for key, cfg in configs.items():
             jax_losses, jax_per = SHARED_TRAIN[key][2:]
             losses, evals, wfile, secs = runs[key]
@@ -1827,7 +1850,7 @@ class Smoke:
                 if abs(a - b) > 1e-4 * abs(b):
                     raise AssertionError(f"{key}: kernel losses {losses} vs "
                                          f"plain {plosses} (rtol 1e-4)")
-        plain_counts = {**fwdbwd.launches, **viterbi.launches}
+        plain_counts = launches("fwdbwd", "viterbi", since=mark)
         log(f"shared train CLI launches {plain_counts} (plain)")
         if max(plain_counts.values()) != 0:
             raise AssertionError(f"plain backend launched {plain_counts}")
@@ -2173,12 +2196,11 @@ class Smoke:
 
     def phase_seg_recipe(self):
         from asr_craft_tpu_torch import kernels
-        from asr_craft_tpu_torch.kernels import segmental as K
-        # the main path: every count 0 before it, read after it
-        K.reset_launches()
+        # the main path: the counts it added
+        mark = launches("segmental")
         losses, ev, wfile = self.run_scrf("train", "auto",
                                           ["--epochs", "300"])
-        self.seg_counts = dict(K.launches)
+        self.seg_counts = launches("segmental", since=mark)
         log(f"scrf recipe launches {self.seg_counts}")
         if min(self.seg_counts.values()) < 1:
             raise AssertionError(f"a kernel never launched: "
@@ -2194,16 +2216,16 @@ class Smoke:
             raise AssertionError(f"eval {ev}, JAX reference PER "
                                  f"{JAX_SCRF_PER} (+-0.003) on "
                                  f"{JAX_SCRF_TOKENS} tokens")
-        K.reset_launches()
+        mark = launches("segmental")
         _, dec, _ = self.run_scrf("decode_auto", "auto",
                                   ["--decode_only", str(wfile)])
-        dec_counts = dict(K.launches)
-        K.reset_launches()
+        dec_counts = launches("segmental", since=mark)
+        mark = launches("segmental")
         _, dec_t, _ = self.run_scrf("decode_torch", "torch",
                                     ["--decode_only", str(wfile)])
         l30, _, _ = self.run_scrf("train30_torch", "torch",
                                   ["--epochs", "30"])
-        plain_counts = dict(K.launches)
+        plain_counts = launches("segmental", since=mark)
         kernels.set_backend("auto")
         k30, _, _ = self.run_scrf("train30", "auto", ["--epochs", "30"])
         if (dec_counts["segmental_viterbi"],
@@ -2407,9 +2429,9 @@ class Smoke:
         """One path of phase (s).  ``make()`` builds its state and
         ``warm(state)`` makes its first call (the graph's warm-up: eager
         by design, then the capture); ``run(state)`` is the compared call.
-        Eager (``graphs.disabled()``) and through the graph, each with
-        every launch count 0 before ``run`` and read after it: the results
-        and the counts must agree.  Then the timing rows of ``timed(state)``
+        Eager (``graphs.disabled()``) and through the graph, each with the
+        launches ``run`` added to the counters: the results and the counts
+        must agree.  Then the timing rows of ``timed(state)``
         (default ``run``): ms a call by events (eager, graph, graph,
         eager), and from a trace (``ab_timing.trace``) the wall and
         device-busy ms a call, the busy share, kernels a call and host
@@ -2425,12 +2447,10 @@ class Smoke:
                 state = make()
                 warm(state)
                 torch.cuda.synchronize()
-                for c in graphs.COUNTS:
-                    c.update({k: 0 for k in c})
+                mark = launches()
                 got = run(state)
                 torch.cuda.synchronize()
-                counts = {k: v for c in graphs.COUNTS for k, v in c.items()
-                          if v}
+                counts = {k: v for k, v in launches(since=mark).items() if v}
             out[mode] = (state, got, counts)
         (_, want, ecounts), (state, got, gcounts) = out["eager"], \
             out["graph"]
@@ -2562,7 +2582,7 @@ class Smoke:
         Dmax, Ls, Bk, passes = 16, 48, 128, 16
         x = torch.from_numpy(np.random.default_rng(0).uniform(
             0.0, 1.0, size=(Ls, Bk)).astype(np.float32)).to(self.dev)
-        before = K.launches["calibrate"]
+        before = launches("calibrate")["calibrate"]
         for label, steps in (("a short chain (grid_n=1, frames=2)", 2),
                              ("grid_n=2, frames=32", 64)):
             got = K.calibrate_chain_cuda(x, Dmax, passes, steps)
@@ -2576,9 +2596,9 @@ class Smoke:
             log(f"calibrate parity {label}: max |kernel - plain| {err:.3e} "
                 f"over the whole ({Dmax}, {Ls}, {Bk}) window (atol "
                 f"{CAL_ATOL})")
-        if K.launches["calibrate"] != before + 2:
-            raise AssertionError(f"calibrate launch count "
-                                 f"{K.launches['calibrate']} after 2 "
+        now = launches("calibrate")["calibrate"]
+        if now != before + 2:
+            raise AssertionError(f"calibrate launch count {now} after 2 "
                                  f"launches from {before}")
         # dead work: half the slots must take half the time
         recs = {d: K.measure(Dmax=d, Ls=Ls, Bk=Bk, passes=passes,
@@ -2711,19 +2731,16 @@ class Smoke:
 
     def phase_bench(self):
         from asr_craft_tpu_torch import bench
-        from asr_craft_tpu_torch.kernels import (calibrate, fdt_train,
-                                                 fdt_viterbi, segmental)
-        mods = (calibrate, fdt_train, fdt_viterbi, segmental)
-        # the main path: every count 0 before it, read after it
-        for K in mods:
-            K.reset_launches()
+        mods = ("calibrate", "fdt_train", "fdt_viterbi", "segmental")
+        # the main path: the counts it added
+        mark = launches(*mods)
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = bench.main(["--device", "cuda"])
         self.torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        self.bench_counts = {k: v for K in mods for k, v in K.launches.items()}
+        self.bench_counts = launches(*mods, since=mark)
         lines = buf.getvalue().splitlines()
         for ln in lines:
             log(f"  bench: {ln}")
@@ -2856,7 +2873,6 @@ class Smoke:
         from asr_craft_tpu_torch.flagship import tiny_batch
         from asr_craft_tpu_torch.kernels import fdt_train as K
         from asr_craft_tpu_torch.kernels import fdt_viterbi as KV
-        from asr_craft_tpu_torch.kernels import fwdbwd as KF
         from asr_craft_tpu_torch.models.crf import decode
         from asr_craft_tpu_torch.ops import precision as prec
         from asr_craft_tpu_torch.train import TrainConfig, Trainer
@@ -2922,7 +2938,7 @@ class Smoke:
             # K3: the decode's planes at this mode, then its recursion and
             # traceback, against the plain version (near-tie rule)
             dB = self.B
-            before = KV.launches["fdt_viterbi_plane"]
+            before = launches("fdt_viterbi")["fdt_viterbi_plane"]
             dkw = dict(u0=u0, u1=u1, ns=cfg.num_states, P=dims["P"],
                        precision=mode)
             paths, scores = KV.fdt_viterbi_cuda(Wall, feats[:dB],
@@ -2930,7 +2946,7 @@ class Smoke:
             rpaths, rscores = KV.fdt_viterbi_wall_torch(Wall, feats[:dB],
                                                         lengths[:dB], **dkw)
             torch.cuda.synchronize()
-            if KV.launches["fdt_viterbi_plane"] <= before:
+            if launches("fdt_viterbi")["fdt_viterbi_plane"] <= before:
                 raise AssertionError("K3 launched no plane kernel")
             errs["K3 scores"] = self.close(f"{mode} K3 scores", scores,
                                            rscores, SCORE_TOL["rtol"],
@@ -2959,8 +2975,7 @@ class Smoke:
         tbatch, phones = self.precision_batch(B, T, seed=1)
         for mode in ("highest",) + modes:
             mcfg = dataclasses.replace(cfg, precision=mode)
-            for M in (K, KV):
-                M.reset_launches()
+            mark = launches("fdt_train", "fdt_viterbi")
             tr = Trainer(mcfg, TrainConfig(lr=0.5), device=self.dev)
             ls = [float(tr.train_step(tbatch, 0.5)["loss"])
                   for _ in range(3)]
@@ -2968,7 +2983,7 @@ class Smoke:
                 ph, _, _ = decode(mcfg, tr.params, tbatch["feats"],
                                   tbatch["lengths"])
             torch.cuda.synchronize()
-            counts[mode] = {**K.launches, **KV.launches}
+            counts[mode] = launches("fdt_train", "fdt_viterbi", since=mark)
             sc = ErrorRateScorer()
             score_batch(sc, phones, ph.cpu().numpy(),
                         tbatch["lengths"].cpu().numpy())
@@ -3001,16 +3016,17 @@ class Smoke:
         sp = {}
         for mode in ("highest", "bf16x3"):
             scfg = dataclasses.replace(shared, precision=mode)
-            KF.reset_launches()
+            mark = launches("fwdbwd")
             sbatch = tiny_batch(scfg, B, T, 3, self.dev)
             params5 = scfg.init_params(torch.Generator().manual_seed(3), 0.1,
                                        self.dev)
             tr = Trainer(scfg, TrainConfig(lr=0.03), params=params5)
             sp[mode] = float(tr.train_step(sbatch, 0.03)["loss"])
+            ran = launches("fwdbwd", since=mark)
             if mode == "bf16x3" and min(
-                    KF.launches[k] for k in ("forward_dual",
-                                             "backward_dual_grad")) < 1:
-                raise AssertionError(f"config 5 step: {KF.launches}")
+                    ran[k] for k in ("forward_dual",
+                                     "backward_dual_grad")) < 1:
+                raise AssertionError(f"config 5 step: {ran}")
         d5 = abs(sp["bf16x3"] - sp["highest"])
         self.precision["config5 step bf16x3 loss_delta"] = d5
         if d5 > 2e-4 * (1 + abs(sp["highest"])):
@@ -3078,12 +3094,11 @@ class Smoke:
             }
             for name, (kern, plain, lib, nb) in rows.items():
                 p1 = self.cuda_ms(plain, 1)
-                before = dict(diagnostics.summary()["counters"])
+                before = diagnostics.launches()
                 k1, k2 = self.cuda_ms(kern, 10), self.cuda_ms(kern, 10)
-                took = [k[len("kernels.plane_path["):-1] for k, v in
-                        diagnostics.summary()["counters"].items()
-                        if k.startswith("kernels.plane_path[")
-                        and v > before.get(k, 0)]
+                took = [k[k.index("[") + 1:-1] for k, v in
+                        diagnostics.launches().items()
+                        if "_plane[" in k and v > before.get(k, 0)]
                 p2 = self.cuda_ms(plain, 1)
                 lib_ms = None
                 if mode != "bf16x3":
@@ -3111,10 +3126,10 @@ class Smoke:
     def dp_path(self, mesh, label, cfg, lr):
         """The data-parallel step against the single-process one (phase
         (s)'s): 8 steps one a replay, then 8 in one multi_step, each side
-        with every launch count 0 before it; bit-equal metrics and
+        with the launches it added counted; bit-equal metrics and
         parameters, equal counts; ms a step through the graphs."""
         from asr_craft_tpu_torch import flagship
-        from asr_craft_tpu_torch.train import TrainConfig, Trainer, graphs
+        from asr_craft_tpu_torch.train import TrainConfig, Trainer
         from asr_craft_tpu_torch.utils.logging import MetricsLogger
         torch, dev = self.torch, self.dev
         B, T, STEPS = 128, 512, 8
@@ -3129,12 +3144,11 @@ class Smoke:
             tr.train_step(batches[0], lr)           # warm-up and capture
             tr.multi_step(batches, lr)
             torch.cuda.synchronize()
-            for c in graphs.COUNTS:
-                c.update({k: 0 for k in c})
+            mark = launches()
             ms = [tr.train_step(b, lr) for b in batches]
             multi = tr.multi_step(batches, lr)
             torch.cuda.synchronize()
-            counts = {k: v for c in graphs.COUNTS for k, v in c.items() if v}
+            counts = {k: v for k, v in launches(since=mark).items() if v}
             step_ms = self.cuda_ms(lambda: tr.train_step(batches[0], lr), 5)
             multi_ms = self.cuda_ms(lambda: tr.multi_step(batches, lr),
                                     2) / STEPS

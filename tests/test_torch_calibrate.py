@@ -17,6 +17,7 @@ from asr_craft_tpu.utils import roofline as jrl
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import calibrate as K
 from asr_craft_tpu_torch.utils import roofline as rl
+from asr_craft_tpu_torch.utils import diagnostics
 
 ATOL = 5e-7
 
@@ -51,9 +52,9 @@ def test_plain_matches_the_tpu_body(shape):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
     assert torch.equal(got, got[:1].expand_as(got))     # every slot alike
     # the dispatcher takes the plain version for a CPU tensor
-    before = dict(K.launches)
+    before = diagnostics.launches()
     again = K.calibrate_chain(torch.from_numpy(x), Dmax, passes, steps)
-    assert torch.equal(again, got) and K.launches == before
+    assert torch.equal(again, got) and diagnostics.launches() == before
 
 
 def test_the_chain_is_a_contraction():
@@ -73,7 +74,7 @@ def test_jax_function_returns_none_on_a_cpu():
 
 def test_cuda_backend_on_a_cpu_tensor_raises():
     x = torch.full((4, 3), 0.1)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.calibrate_chain_cuda(x, 2, 8, 1)
     kernels.set_backend("cuda")
@@ -86,7 +87,7 @@ def test_cuda_backend_on_a_cpu_tensor_raises():
             rl.measure_vpu_geps_pallas(Dmax=2, Ls=4, Bk=3, device="cpu")
     finally:
         kernels.set_backend("auto")
-    assert K.launches == before
+    assert diagnostics.launches() == before
 
 
 def test_measure_on_the_cpu_says_plain():

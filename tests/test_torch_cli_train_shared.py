@@ -21,7 +21,7 @@ from asr_craft_tpu.cli import train as jax_cli
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.cli import decode as port_decode
 from asr_craft_tpu_torch.cli import train as port_cli
-from asr_craft_tpu_torch.kernels import fwdbwd as K
+from asr_craft_tpu_torch.utils import diagnostics
 
 RECIPES = Path(__file__).resolve().parent.parent / "recipes"
 # the recipe's corpus and schedule cut to a test's size; its model,
@@ -61,12 +61,12 @@ def _flag(args, name):
 def test_shared_recipe_trains_as_the_jax_cli(recipe, tmp_path):
     flags = list(_recipe(recipe).TRAIN_ARGS) + TINY
     assert "--crf_transftr_end" not in flags          # shared transitions
-    before = dict(K.launches)
+    before = diagnostics.launches()
     port = _run(port_cli.main, flags + ["--device", "cpu", "--out_dir",
                                         str(tmp_path / "port")])
     ref = _run(jax_cli.main, flags + ["--platform", "cpu", "--out_dir",
                                       str(tmp_path / "jax")])
-    assert K.launches == before                       # CPU: plain only
+    assert diagnostics.launches() == before           # CPU: plain only
     pe, je = _kind(port, "train_epoch"), _kind(ref, "train_epoch")
     assert len(pe) == len(je) == 2
     for a, b in zip(pe, je):

@@ -17,8 +17,8 @@ import torch
 from asr_craft_tpu.models import crf as jcrf
 from asr_craft_tpu.models import weights as jweights
 from asr_craft_tpu_torch import kernels
-from asr_craft_tpu_torch.kernels import fwdbwd as K
 from asr_craft_tpu_torch.models import crf, weights
+from asr_craft_tpu_torch.utils import diagnostics
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 GRAD = dict(rtol=2e-3, atol=1e-5)
@@ -105,12 +105,12 @@ def _compare(jout, tout, lengths):
 def test_shared_crf_loss_matches_jax(name, label_kind):
     jcfg, tcfg = _configs(name)
     params, feats, labels, lengths = _inputs(tcfg, 1, label_kind=label_kind)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     _compare(_jax_loss_and_grads(jcfg, params, feats, labels, lengths,
                                  label_kind=label_kind),
              _port_loss_and_grads(tcfg, params, feats, labels, lengths,
                                   label_kind=label_kind), lengths)
-    assert K.launches == before                   # CPU tensors: plain only
+    assert diagnostics.launches() == before       # CPU tensors: plain only
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -203,7 +203,7 @@ def test_shared_guards_on_the_kernel_path():
             torch.from_numpy(lengths))
     crf.crf_loss(low, tp, *args)
     crf.frame_posteriors(low, tp, args[0], args[2])
-    before = dict(K.launches)
+    before = diagnostics.launches()
     kernels.set_backend("cuda")
     try:
         for cfg in (low, tcfg):
@@ -213,4 +213,4 @@ def test_shared_guards_on_the_kernel_path():
                 crf.frame_posteriors(cfg, tp, args[0], args[2])
     finally:
         kernels.set_backend("auto")
-    assert K.launches == before
+    assert diagnostics.launches() == before

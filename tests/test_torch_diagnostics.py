@@ -5,12 +5,15 @@ through both packages' train CLIs on the same poisoned weight file: each
 raises ``FloatingPointError``, and each runs to its end without the flag.
 And the port's recorder of spans and counters: nesting and self time, the
 per-call spans' gate, the set-up spans, the export beside the trace, the
-counters, the kernels' launch counts read in place, the spans of the
-kernels' loader, of the epoch loop and of a graph's eager call.
+counters, the kernels' launch counters (a wrapper's launch under its
+design's name; the graph runner's hold and add), the spans of the kernels'
+loader, of the epoch loop and of a graph's eager call.
 """
+import contextlib
 import json
 import os
 import socket
+import threading
 import time
 
 import jax
@@ -24,7 +27,7 @@ from asr_craft_tpu.models.crf import CrfConfig as JaxCrfConfig
 from asr_craft_tpu.utils import diagnostics as jax_diagnostics
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.cli import train as port_cli
-from asr_craft_tpu_torch.kernels import _build, fdt_viterbi
+from asr_craft_tpu_torch.kernels import _build, fdt_train
 from asr_craft_tpu_torch.train import graphs
 from asr_craft_tpu_torch.utils import diagnostics
 
@@ -39,6 +42,7 @@ TRAIN = ["--synthetic_utts", "12", "--crf_label_size", str(P),
 def _debug_flags_off():
     diagnostics.reset()
     yield
+    diagnostics.reset()
     diagnostics.enable_debug_nans(False)
     jax_diagnostics.enable_debug_nans(False)
     kernels.set_backend("auto")
@@ -186,15 +190,71 @@ def test_counters_add_and_reset():
 
 
 def test_the_summary_reads_the_kernels_launch_counts_in_place(monkeypatch):
-    before = diagnostics.summary()["launches"]
-    assert set(before) == {"fdt_train", "fdt_viterbi", "viterbi", "fwdbwd",
-                           "segmental", "calibrate"}
-    monkeypatch.setitem(fdt_viterbi.launches, "fdt_viterbi_fwd",
-                        fdt_viterbi.launches["fdt_viterbi_fwd"] + 3)
-    after = diagnostics.summary()["launches"]
-    assert after["fdt_viterbi"]["fdt_viterbi_fwd"] == \
-        before["fdt_viterbi"]["fdt_viterbi_fwd"] + 3
-    assert after["fdt_viterbi"] == fdt_viterbi.launches
+    """A wrapper's launch is a counter of ``summary()``, named for the
+    kernel and the design it took; the summary has no other launch record.
+    The plane kernel's wrapper runs on CPU tensors here, its library a
+    stand-in that succeeds."""
+    class Lib:
+        def fdt_train_plane(self, *args):
+            return 0
+
+    monkeypatch.setattr(fdt_train, "_library", Lib)
+    monkeypatch.setattr(fdt_train, "_stream", lambda dev: 0)
+    monkeypatch.setattr(_build, "check_tensor", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    feats = torch.zeros((2, 3, 144))
+    assert fdt_train.plane_path(feats, u0=0, Du=144) == "wgmma"
+    for key in ("kernels.fdt_train_plane", "kernels.fdt_viterbi_plane",
+                "kernels.fdt_train_plane"):
+        fdt_train.fdt_planes_cuda(torch.zeros((70, 145)), feats, u0=0,
+                                  u1=144, key=key)
+    got = diagnostics.summary()
+    assert set(got) == {"spans", "counters"}
+    assert got["counters"] == {"kernels.fdt_train_plane[wgmma]": 2,
+                               "kernels.fdt_viterbi_plane[wgmma]": 1}
+    assert diagnostics.launches() == got["counters"]
+
+
+def test_held_launches_take_every_threads_launch_counts_until_added():
+    """The graph runner's primitive: inside ``held_launches()`` the
+    ``kernels.*`` counts of every thread are taken off the counters and
+    given back as a dict; other counters count as ever; ``add`` puts the
+    held counts back, under one lock."""
+    diagnostics.count("kernels.fdt_train_fwd", 2)
+    diagnostics.count("graph.replays[x]")
+    with diagnostics.held_launches() as held:
+        diagnostics.count("kernels.fdt_train_fwd")
+        diagnostics.count("kernels.fdt_train_plane[wgmma]")
+        diagnostics.count("graph.replays[x]")
+        # autograd's device thread launches a backward during a capture
+        other = threading.Thread(target=diagnostics.count,
+                                 args=("kernels.fdt_train_bwd", 3))
+        other.start()
+        other.join()
+        assert held == {}                   # filled when the context ends
+    assert held == {"kernels.fdt_train_fwd": 1,
+                    "kernels.fdt_train_plane[wgmma]": 1,
+                    "kernels.fdt_train_bwd": 3}
+    assert diagnostics.summary()["counters"] == {
+        "kernels.fdt_train_fwd": 2, "graph.replays[x]": 2}
+    for n in (1, 2):
+        diagnostics.add(held)
+        assert diagnostics.launches() == {
+            "kernels.fdt_train_fwd": 2 + n,
+            "kernels.fdt_train_plane[wgmma]": n,
+            "kernels.fdt_train_bwd": 3 * n}
+    assert diagnostics.summary()["counters"]["graph.replays[x]"] == 2
+
+
+def test_held_launches_restore_the_counters_when_the_body_raises():
+    diagnostics.count("kernels.calibrate")
+    with pytest.raises(RuntimeError, match="capture"):
+        with diagnostics.held_launches() as held:
+            diagnostics.count("kernels.calibrate", 5)
+            raise RuntimeError("capture failed")
+    assert held == {"kernels.calibrate": 5}
+    assert diagnostics.launches() == {"kernels.calibrate": 1}
 
 
 def test_the_kernels_library_load_and_build_are_setup_spans(monkeypatch,

@@ -30,6 +30,7 @@ from asr_craft_tpu.kernels.dual_pallas import (backward_dual_grad_pallas,
                                                forward_dual_pallas)
 from asr_craft_tpu.models.topology import Topology
 from asr_craft_tpu_torch.kernels import fwdbwd as K
+from asr_craft_tpu_torch.utils import diagnostics
 
 TOL = dict(rtol=5e-4, atol=5e-5)
 DEAD = 60.0
@@ -205,10 +206,11 @@ def test_gradient_is_bit_equal_on_two_runs(name):
     args = _torch(state, trans, labels, lengths)
     af, ac, zf, zc = K.forward_dual_plain(*args, cns)
     w = torch.ones(len(lengths))
-    first = K.backward_dual_grad(*args, af, ac, zf, zc, w, -w, cns)
-    again = K.backward_dual_grad(*args, af, ac, zf, zc, w, -w, cns)
+    with diagnostics.held_launches() as ran:
+        first = K.backward_dual_grad(*args, af, ac, zf, zc, w, -w, cns)
+        again = K.backward_dual_grad(*args, af, ac, zf, zc, w, -w, cns)
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
-    assert K.launches["backward_dual_grad"] == 0     # CPU: plain only
+    assert ran == {}                                 # CPU: plain only
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -216,9 +218,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     raises, and no launch is counted."""
     state, trans, labels, lengths, cns = _problem("mono")
     args = _torch(state, trans, labels, lengths)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.forward_dual_cuda(*args, cns)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.backward_cuda(args[0], args[1], args[3])
-    assert K.launches == before
+    assert diagnostics.launches() == before

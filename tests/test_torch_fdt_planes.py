@@ -34,6 +34,7 @@ from asr_craft_tpu_torch.kernels import fdt_train as K
 from asr_craft_tpu_torch.kernels import fdt_viterbi as V
 from asr_craft_tpu_torch.kernels.wall import build_wall, plane_blocks
 from asr_craft_tpu_torch.ops import fdt
+from asr_craft_tpu_torch.utils import diagnostics
 from tests.test_torch_fdt_train import _jax, _problem, _torch
 from tests.test_torch_fdt_viterbi import MODES, TOL, _jax_pallas, _jax_xla
 from tests.test_torch_fdt_viterbi import _problem as _vit_problem
@@ -104,19 +105,19 @@ def test_viterbi_planes_plain_matches_pallas_and_xla(P, ns, mode):
     assert torch.equal(paths, wall[0]) and torch.equal(scores, wall[1])
 
 
-def _plane_stand_in(formed, counts_default):
+def _plane_stand_in(formed):
     """A CPU stand-in for ``fdt_planes_cuda``: the plain planes in the
-    kernel's (B, T, R4) layout (pad 0), counted where the wrapper counts."""
+    kernel's (B, T, R4) layout (pad 0), counted as the wrapper counts."""
 
-    def planes_cpu(Wall, feats, *, u0, u1, counts=None,
-                   key="fdt_train_plane", precision="highest"):
+    def planes_cpu(Wall, feats, *, u0, u1, key="kernels.fdt_train_plane",
+                   precision="highest"):
         planes = K.fdt_planes_torch(Wall, feats, u0=u0, u1=u1,
                                     precision=precision)
         B, T, R = planes.shape
         out = torch.zeros((B, T, (R + 3) // 4 * 4))
         out[..., :R] = planes
         formed.append(out)
-        (counts_default if counts is None else counts)[key] += 1
+        diagnostics.count(f"{key}[{K.plane_path(feats, u0=u0, Du=u1 - u0)}]")
         return out
     return planes_cpu
 
@@ -133,7 +134,6 @@ def test_nll_dual_forms_the_planes_once(monkeypatch, grad_feats):
     tp, tf, tl, tn = _torch(params, feats, labels, lengths)
     W, u0, u1, _ = build_wall(tp, tc, ns)
     formed, seen = [], []
-    counts = dict(K.launches)
 
     def forward_planes_cpu(planes, labels, lengths, **kw):
         assert planes is formed[-1]
@@ -150,27 +150,27 @@ def test_nll_dual_forms_the_planes_once(monkeypatch, grad_feats):
                                                u0=u0, u1=u0 + Du,
                                                precision=precision))
 
-    grads = {}
+    grads, ran = {}, {}
     for path in ("kernel", "plain"):
         with monkeypatch.context() as m:
             if path == "kernel":
                 m.setattr(kernels, "use_kernel", lambda t: True)
                 m.setattr(K, "_check_train", lambda *a, **kw: None)
-                m.setattr(K, "launches", counts)
-                m.setattr(K, "fdt_planes_cuda", _plane_stand_in(formed,
-                                                                counts))
+                m.setattr(K, "fdt_planes_cuda", _plane_stand_in(formed))
                 m.setattr(K, "fdt_forward_planes_cuda", forward_planes_cpu)
                 m.setattr(K, "fdt_dplane_cuda", dplane_cpu)
                 m.setattr(K, "contract_cuda", contract_cpu)
             Wg = W.detach().clone().requires_grad_(True)
             xg = tf.clone().requires_grad_(True)
-            zf, zc = K.fdt_nll_dual_wall(Wg, xg, tl, tn, u0=u0, u1=u1, ns=ns,
-                                         P=P, clamp_ns=ns,
-                                         grad_feats=grad_feats)
-            (2.0 * zf.sum() - zc.sum()).backward()
+            with diagnostics.held_launches() as ran[path]:
+                zf, zc = K.fdt_nll_dual_wall(Wg, xg, tl, tn, u0=u0, u1=u1,
+                                             ns=ns, P=P, clamp_ns=ns,
+                                             grad_feats=grad_feats)
+                (2.0 * zf.sum() - zc.sum()).backward()
             grads[path] = (zf, zc, Wg.grad, xg.grad)
-    assert len(formed) == 1 and counts["fdt_train_plane"] == \
-        K.launches["fdt_train_plane"] + 1
+    assert len(formed) == 1 and ran["plain"] == {}
+    ((name, n),) = ran["kernel"].items()
+    assert name.startswith("kernels.fdt_train_plane[") and n == 1
     assert len(seen) == 1 and seen[0] is formed[0]
     for got, want in zip(grads["kernel"], grads["plain"]):
         if want is None:
@@ -190,6 +190,13 @@ def test_sub_batches_plan(B, T, R, budget, plan):
     """The decode's sub-batches: as many utterances as keep their (b, T,
     R4) fp32 planes within the budget, at least one, in order."""
     assert V.sub_batches(B, T, R, budget) == plan
+
+
+def _planes(ran):
+    """The decode's plane launches among the launch counts ``ran``, every
+    design summed; and nothing else counted (the stand-ins count none)."""
+    assert all(k.startswith("kernels.fdt_viterbi_plane[") for k in ran)
+    return sum(ran.values())
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -221,23 +228,22 @@ def test_decode_sub_batches_give_one_calls_results(monkeypatch, budget,
     def traceback_cpu(bp, last, lengths):
         return fdt.fdt_viterbi_traceback(bp, last, lengths)
 
-    counts = {k: 0 for k in V.launches}
-    monkeypatch.setattr(V, "launches", counts)
     monkeypatch.setattr(V, "check_inputs",
                         lambda name, Wall, feats, *a, **kw: feats.shape)
-    monkeypatch.setattr(V, "fdt_planes_cuda", _plane_stand_in(formed, None))
+    monkeypatch.setattr(V, "fdt_planes_cuda", _plane_stand_in(formed))
     monkeypatch.setattr(V, "viterbi_forward_planes_cuda",
                         forward_planes_cpu)
     monkeypatch.setattr(V, "viterbi_traceback_cuda", traceback_cpu)
     kw = dict(u0=u0, u1=u1, ns=ns, P=P, beam_threshold=thr, beam_width=bw)
-    with monkeypatch.context() as m:
+    with monkeypatch.context() as m, diagnostics.held_launches() as ran:
         m.setattr(V, "PLANE_BUDGET", budget)
         split = V.fdt_viterbi_cuda(W, tf, tl, **kw)
     plan = V.sub_batches(5, 19, W.shape[0], budget)
     assert len(plan) > 1 and rows == [e - s for s, e in plan]
-    assert counts["fdt_viterbi_plane"] == len(plan)
-    one = V.fdt_viterbi_cuda(W, tf, tl, **kw)
-    assert rows[-1] == 5 and counts["fdt_viterbi_plane"] == len(plan) + 1
+    assert _planes(ran) == len(plan)
+    with diagnostics.held_launches() as ran:
+        one = V.fdt_viterbi_cuda(W, tf, tl, **kw)
+    assert rows[-1] == 5 and _planes(ran) == 1
     plain = V.fdt_viterbi_wall_torch(W, tf, tl, **kw)
     for got in (split, one):
         assert torch.equal(got[0], plain[0])

@@ -1,7 +1,9 @@
 """The compiled step and decodes on the card: each path's CUDA graph
 against its eager code, bit for bit (the graph replays the same kernels on
-the same inputs in the same order), the kernels' launch counts on every
-replay, and a capture that fails.
+the same inputs in the same order), the kernels' launch counters
+(``kernels.*``, each design's name included) moved by every call through
+the graph, the call that warms up and captures and each replay, exactly as
+by one eager call, and a capture that fails.
 
 Marked ``cuda``: CUDA graphs need the card, so these tests skip on a host
 without an NVIDIA GPU.  On one, from the repository root:
@@ -32,6 +34,7 @@ from asr_craft_tpu_torch.train import (TrainConfig, Trainer, graphs,
 from asr_craft_tpu_torch.train.trainer import scrf_loss_fn
 from asr_craft_tpu_torch.utils import diagnostics
 from asr_craft_tpu_torch.utils.logging import MetricsLogger
+from launch_counts import moved
 
 pytestmark = pytest.mark.cuda
 B, T, STEPS = 16, 128, 8
@@ -47,13 +50,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _counts():
-    return [dict(c) for c in graphs.COUNTS]
-
-
-def _moved(before):
-    return {k: c[k] - b[k] for c, b in zip(graphs.COUNTS, before)
-            for k in c if c[k] != b[k]}
+def _launched(call):
+    """``call()``'s result and the launch counters it moved, by how much."""
+    before = diagnostics.launches()
+    return call(), moved(before)
 
 
 def _same(got, want, what):
@@ -64,38 +64,46 @@ def _same(got, want, what):
 
 def _train(dev, cfg, spc, eager):
     """Eight steps on eight batches: one ``train_step`` each (spc 1; the
-    first the graph's warm-up, seven replays) or one ``multi_step`` after
-    a first, warm-up call; the metrics and the parameters after them."""
+    first the graph's warm-up and capture, seven replays) or one
+    ``multi_step`` after a first, warm-up call; the metrics, the parameters
+    after them and the launch counters each call moved."""
     params = cfg.init_params(torch.Generator().manual_seed(0), 0.01, dev)
     tr = Trainer(cfg, TrainConfig(lr=0.3, momentum=0.9), params=params,
                  logger=MetricsLogger(quiet=True))
     batches = [flagship.tiny_batch(cfg, B, T, s, dev) for s in range(STEPS)]
     with graphs.disabled() if eager else contextlib.nullcontext():
         if spc == 1:
-            ms = [tr.train_step(b, 0.3) for b in batches]
+            ms, ran = zip(*[_launched(lambda: tr.train_step(b, 0.3))
+                            for b in batches])
             m = {k: torch.stack([x[k] for x in ms]) for k in ms[0]}
         else:
-            tr.multi_step(batches, 0.3)
-            m = tr.multi_step(batches, 0.3)
-    return m, tr.params
+            ran = [_launched(lambda: tr.multi_step(batches, 0.3))[1]]
+            m, last = _launched(lambda: tr.multi_step(batches, 0.3))
+            ran.append(last)
+    return m, tr.params, list(ran)
 
 
 @pytest.mark.parametrize("spc", [1, STEPS])
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_train_steps_graph_equals_eager(dev, name, spc):
+    """And every call through the graphs moves the launch counters as its
+    eager call does (the backward's kernels launch on autograd's device
+    thread, inside the capture too)."""
     cfg = CONFIGS[name]()
-    m_e, p_e = _train(dev, cfg, spc, eager=True)
-    m_g, p_g = _train(dev, cfg, spc, eager=False)
+    m_e, p_e, ran_e = _train(dev, cfg, spc, eager=True)
+    m_g, p_g, ran_g = _train(dev, cfg, spc, eager=False)
     for k in ("loss", "grad_norm", "mean_logZ", "frames"):
         _same(m_g[k], m_e[k], k)
     for k in p_e:
         _same(p_g[k].detach(), p_e[k].detach(), k)
+    assert ran_e[0] and ran_e == [ran_e[0]] * len(ran_e)
+    assert ran_g == ran_e
 
 
 def test_segmental_step_graph_equals_eager(dev):
     cfg = flagship.scrf()
     batch = flagship.scrf_batch(cfg, B, T, 0, dev)
-    out = []
+    out, ran = [], []
     for eager in (True, False):
         params = {k: v.requires_grad_(True) for k, v in cfg.init_params(
             torch.Generator().manual_seed(0), 0.1, dev).items()}
@@ -103,13 +111,17 @@ def test_segmental_step_graph_equals_eager(dev):
                                     loss_fn=scrf_loss_fn(cfg))
         state = opt.init(params)
         with graphs.disabled() if eager else contextlib.nullcontext():
-            ms = [step(params, state, {}, batch, 0.05)[3]
-                  for _ in range(STEPS)]
+            ms, counts = zip(*[_launched(
+                lambda: step(params, state, {}, batch, 0.05)[3])
+                for _ in range(STEPS)])
         out.append((torch.stack([m["loss"] for m in ms]),
                     torch.stack([m["grad_norm"] for m in ms]), params,
                     state["count"]))
+        ran.append(list(counts))
     (le, ge, pe, ce), (lg, gg, pg, cg) = out
     assert torch.equal(lg, le) and torch.equal(gg, ge)
+    # each call through the graph moves the counters as an eager call does
+    assert ran[0][0] and ran[0] == [ran[0][0]] * STEPS == ran[1]
     assert float(cg) == float(ce) == STEPS
     for k in pe:
         assert torch.equal(pg[k], pe[k]), k
@@ -123,15 +135,16 @@ def test_decode_graph_equals_eager_and_counts_launches(dev, name):
     inputs = {"feats": batch["feats"], "lengths": batch["lengths"]}
     dec = graphs.Graphed(
         lambda p, b: decode(cfg, p, b["feats"], b["lengths"]), name="decode")
-    before = _counts()
     with graphs.disabled():
-        want = dec(params, inputs)
-    eager_launches = _moved(before)
+        want, eager_launches = _launched(lambda: dec(params, inputs))
     assert eager_launches and len(dec) == 0
+    if name == "config2":               # K3: B = 16 utterances, exact
+        assert set(eager_launches) >= {"kernels.fdt_viterbi_fwd[cluster]",
+                                       "kernels.fdt_viterbi_traceback"}
+        assert not any(k.endswith("[block]") for k in eager_launches)
     for i in range(3):                  # warm-up and capture, then replays
-        before = _counts()
-        got = dec(params, inputs)
-        assert _moved(before) == eager_launches, i
+        got, counts = _launched(lambda: dec(params, inputs))
+        assert counts == eager_launches, i
         for g, w in zip(got, want):
             assert torch.equal(g, w), i
     assert len(dec) == 1
@@ -294,9 +307,7 @@ def test_a_replayed_call_is_spans_around_the_graphs_kernels(dev):
     fn, params, inputs = _decoder(dev)
     dec = graphs.Graphed(fn, name="decode")
     dec(params, inputs)                   # warm-up and capture
-    before = _counts()
-    dec(params, inputs)
-    per_call = sum(_moved(before).values())
+    per_call = sum(_launched(lambda: dec(params, inputs))[1].values())
     torch.cuda.synchronize()
     n = 3
     with profile(activities=[ProfilerActivity.CPU,

@@ -17,10 +17,10 @@ from asr_craft_tpu_torch.cli import decode as port_cli
 from asr_craft_tpu_torch.cli import train as port_train_cli
 from asr_craft_tpu_torch.kernels import _build, fdt_train
 from asr_craft_tpu_torch.kernels.fdt_viterbi import (fdt_viterbi_cuda,
-                                                     fdt_viterbi_wall,
-                                                     launches)
+                                                     fdt_viterbi_wall)
 from asr_craft_tpu_torch.kernels.wall import build_wall
 from asr_craft_tpu_torch.models.crf import CrfConfig, crf_loss, decode
+from asr_craft_tpu_torch.utils import diagnostics
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -122,7 +122,7 @@ def test_cuda_backend_on_cpu_tensor_raises_in_fdt_nll_dual():
     feats = torch.zeros((2, 5, 4))
     labels = torch.zeros((2, 5), dtype=torch.int32)
     lengths = torch.tensor([5, 3], dtype=torch.int32)
-    before = dict(fdt_train.launches)
+    before = diagnostics.launches()
     kernels.set_backend("cuda")
     try:
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -132,7 +132,7 @@ def test_cuda_backend_on_cpu_tensor_raises_in_fdt_nll_dual():
             crf_loss(cfg, params, feats, labels, lengths)
     finally:
         kernels.set_backend("auto")
-    assert fdt_train.launches == before
+    assert diagnostics.launches() == before
 
 
 def test_library_hash_covers_headers(tmp_path):
@@ -162,7 +162,7 @@ def _tiny_wall():
 
 def test_cuda_backend_on_cpu_tensor_raises():
     cfg, params, Wall, feats, lengths, kw = _tiny_wall()
-    before = dict(launches)
+    before = diagnostics.launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
         fdt_viterbi_cuda(Wall, feats, lengths, **kw)
     kernels.set_backend("cuda")
@@ -174,7 +174,7 @@ def test_cuda_backend_on_cpu_tensor_raises():
             decode(cfg, params, feats, lengths)
     finally:
         kernels.set_backend("auto")
-    assert launches == before
+    assert diagnostics.launches() == before
 
 
 def test_auto_backend_takes_plain_only_for_cpu_tensors():
@@ -188,10 +188,10 @@ def test_auto_backend_takes_plain_only_for_cpu_tensors():
     with pytest.raises(ValueError):
         kernels.set_backend("xla")
     cfg, params, Wall, feats, lengths, kw = _tiny_wall()
-    before = dict(launches)
+    before = diagnostics.launches()
     paths, scores = fdt_viterbi_wall(Wall, feats, lengths, **kw)
     assert paths.shape == (2, 5) and torch.isfinite(scores).all()
-    assert launches == before
+    assert diagnostics.launches() == before
 
 
 def test_nvcc_command_targets_sm90a_from_csrc_only():
@@ -227,7 +227,6 @@ def test_nvcc_command_targets_sm90a_from_csrc_only():
 def test_cuda_backend_on_cpu_tensor_raises_in_the_segmental_path():
     """Under the 'cuda' backend the segmental loss and decode launch K9 /
     K12 or raise: a CPU tensor never reaches the plain version."""
-    from asr_craft_tpu_torch.kernels import segmental
     from asr_craft_tpu_torch.models.segmental import (SegCrfConfig,
                                                       scrf_decode,
                                                       scrf_loss_fused)
@@ -236,7 +235,7 @@ def test_cuda_backend_on_cpu_tensor_raises_in_the_segmental_path():
     feats = torch.zeros((2, 6, 4))
     labels = torch.zeros((2, 6), dtype=torch.int32)
     lengths = torch.tensor([6, 2], dtype=torch.int32)
-    before = dict(segmental.launches)
+    before = diagnostics.launches()
     kernels.set_backend("cuda")
     try:
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -245,9 +244,9 @@ def test_cuda_backend_on_cpu_tensor_raises_in_the_segmental_path():
             scrf_decode(cfg, params, feats, lengths)
     finally:
         kernels.set_backend("auto")
-    assert segmental.launches == before
+    assert diagnostics.launches() == before
     loss, _ = scrf_loss_fused(cfg, params, feats, labels, lengths)
-    assert torch.isfinite(loss) and segmental.launches == before
+    assert torch.isfinite(loss) and diagnostics.launches() == before
 
 
 def test_flagship_entry_runs_on_the_card_unless_asked():
@@ -313,7 +312,7 @@ def test_cuda_backend_on_cpu_tensor_raises_in_the_calibration():
     """Under the 'cuda' backend the calibration launches K15 or raises."""
     from asr_craft_tpu_torch.kernels import calibrate
     from asr_craft_tpu_torch.utils import roofline
-    before = dict(calibrate.launches)
+    before = diagnostics.launches()
     kernels.set_backend("cuda")
     try:
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -321,6 +320,6 @@ def test_cuda_backend_on_cpu_tensor_raises_in_the_calibration():
                                              device="cpu")
     finally:
         kernels.set_backend("auto")
-    assert calibrate.launches == before
+    assert diagnostics.launches() == before
     rec = calibrate.measure(Dmax=2, Ls=3, Bk=2, device="cpu")
-    assert rec["calibration"] == "plain" and calibrate.launches == before
+    assert rec["calibration"] == "plain" and diagnostics.launches() == before

@@ -19,7 +19,7 @@ cluster of two blocks an utterance for exact decodes of up to one utterance
 an SM, one block an utterance otherwise.  The fixture ``path`` forces either
 (a beam always takes one block); the two give the same bits as each other
 and as the plain recursion on the same planes, and each launch counts one
-``kernels.vit_path[<path>]``.
+``kernels.fdt_viterbi_fwd[<path>]``.
 """
 import numpy as np
 import pytest
@@ -28,12 +28,12 @@ import torch
 from asr_craft_tpu_torch.kernels import fdt_viterbi as V
 from asr_craft_tpu_torch.kernels.fdt_train import fdt_planes_cuda
 from asr_craft_tpu_torch.kernels.fdt_viterbi import (fdt_viterbi_cuda,
-                                                     fdt_viterbi_wall_torch,
-                                                     launches)
+                                                     fdt_viterbi_wall_torch)
 from asr_craft_tpu_torch.kernels.wall import build_wall, wall_planes
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.ops import fdt
 from asr_craft_tpu_torch.utils import diagnostics
+from launch_counts import moved, ran
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-4)
@@ -80,12 +80,13 @@ def _problem(dev, P, ns, B=5, T=33, D=12, seed=0, integer=False):
 
 
 def _compare(Wall, feats, lengths, kw, beams, exact_paths):
-    before = dict(launches)
+    before = diagnostics.launches()
     paths, scores = fdt_viterbi_cuda(Wall, feats, lengths, **kw, **beams)
     ref_paths, ref_scores = fdt_viterbi_wall_torch(Wall, feats, lengths,
                                                    **kw, **beams)
     torch.cuda.synchronize()
-    assert launches["fdt_viterbi_fwd"] == before["fdt_viterbi_fwd"] + 1
+    assert ran(before) == {"fdt_viterbi_plane": 1, "fdt_viterbi_fwd": 1,
+                           "fdt_viterbi_traceback": 1}
     torch.testing.assert_close(scores, ref_scores, **TOL)
     diff = (paths != ref_paths).any(dim=1)
     if exact_paths or not bool(diff.any()):
@@ -129,13 +130,12 @@ def test_recursion_matches_plain_on_the_same_planes(dev, path, P, ns, mode,
     bp = torch.empty((B, T, ns * P), dtype=torch.int32, device=dev)
     last = torch.empty((B,), dtype=torch.int32, device=dev)
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
-    before = dict(launches)
+    before = diagnostics.launches()
     V.viterbi_forward_planes_cuda(planes, lengths, bp, last, scores, ns=ns,
                                   P=P, **MODES[mode])
     paths = V.viterbi_traceback_cuda(bp, last, lengths)
     torch.cuda.synchronize()
-    assert launches["fdt_viterbi_fwd"] == before["fdt_viterbi_fwd"] + 1
-    assert launches["fdt_viterbi_plane"] == before["fdt_viterbi_plane"]
+    assert ran(before) == {"fdt_viterbi_fwd": 1, "fdt_viterbi_traceback": 1}
     ref_paths, ref_scores = V.fdt_viterbi_planes_torch(
         planes, lengths, ns=ns, P=P, **MODES[mode])
     assert torch.equal(paths, ref_paths)
@@ -156,26 +156,14 @@ def test_sub_batches_give_one_calls_results(dev, path, mode, monkeypatch):
     for budget in (1, 2 * 4 * T * R4):
         plan = V.sub_batches(B, T, Wall.shape[0], budget)
         assert len(plan) > 1
-        before = dict(launches)
+        before = diagnostics.launches()
         monkeypatch.setattr(V, "PLANE_BUDGET", budget)
         split = fdt_viterbi_cuda(Wall, feats, lengths, **kw, **MODES[mode])
         torch.cuda.synchronize()
-        for k, n in (("fdt_viterbi_plane", len(plan)),
-                     ("fdt_viterbi_fwd", len(plan)),
-                     ("fdt_viterbi_traceback", 1)):
-            assert launches[k] == before[k] + n
+        assert ran(before) == {"fdt_viterbi_plane": len(plan),
+                               "fdt_viterbi_fwd": len(plan),
+                               "fdt_viterbi_traceback": 1}
         assert torch.equal(split[0], one[0]) and torch.equal(split[1], one[1])
-
-
-def _vit_paths(since=None):
-    """The recursion's ``kernels.vit_path[...]`` counters, or what they
-    gained since an earlier reading."""
-    now = {k: v for k, v in diagnostics.summary()["counters"].items()
-           if k.startswith("kernels.vit_path[")}
-    if since is None:
-        return now
-    return {k: v - since.get(k, 0) for k, v in now.items()
-            if v != since.get(k, 0)}
 
 
 def _planes(dev, B, T, ns, P, seed, integer=False, lengths="cell"):
@@ -208,13 +196,13 @@ def _forward_both(planes, lengths, ns, P, monkeypatch):
                          device=planes.device)
         last = torch.empty((B,), dtype=torch.int32, device=planes.device)
         scores = torch.empty((B,), dtype=torch.float32, device=planes.device)
-        before, runs = _vit_paths(), launches["fdt_viterbi_fwd"]
+        before = diagnostics.launches()
         V.viterbi_forward_planes_cuda(planes, lengths, bp, last, scores,
                                       ns=ns, P=P)
         paths = V.viterbi_traceback_cuda(bp, last, lengths)
         torch.cuda.synchronize()
-        assert launches["fdt_viterbi_fwd"] == runs + 1
-        assert _vit_paths(before) == {f"kernels.vit_path[{forced}]": 1}
+        assert moved(before) == {f"kernels.fdt_viterbi_fwd[{forced}]": 1,
+                                 "kernels.fdt_viterbi_traceback": 1}
         out[forced] = (bp, last, scores, paths)
     return out
 
@@ -270,11 +258,11 @@ def test_each_launch_counts_its_path(dev):
         bp = torch.empty((B, 12, ns * P), dtype=torch.int32, device=dev)
         last = torch.empty((B,), dtype=torch.int32, device=dev)
         scores = torch.empty((B,), dtype=torch.float32, device=dev)
-        before = _vit_paths()
+        before = diagnostics.launches()
         V.viterbi_forward_planes_cuda(planes, lengths, bp, last, scores,
                                       ns=ns, P=P, **beams)
         torch.cuda.synchronize()
-        assert _vit_paths(before) == {f"kernels.vit_path[{want}]": 1}
+        assert moved(before) == {f"kernels.fdt_viterbi_fwd[{want}]": 1}
 
 
 def test_traceback_kernel_exact_on_plain_backpointers(dev):
@@ -311,12 +299,12 @@ def test_traceback_stream_borders(dev, Lp, dT, garbage):
     T = {"C-1": max(C - 1, 1), "C": C, "C+1": C + 1, "2C+1": 2 * C + 1}[dT]
     bp, last, lengths = _backpointers(dev, 9, T, Lp, seed=Lp + T,
                                       garbage=garbage)
-    before = launches["fdt_viterbi_traceback"]
+    before = diagnostics.launches()
     got = V.viterbi_traceback_cuda(bp, last, lengths)
     want = fdt.fdt_viterbi_traceback(bp.clamp(0, Lp - 1),
                                      last.clamp(0, Lp - 1), lengths)
     torch.cuda.synchronize()
-    assert launches["fdt_viterbi_traceback"] == before + 1
+    assert moved(before) == {"kernels.fdt_viterbi_traceback": 1}
     assert torch.equal(got, want)
 
 

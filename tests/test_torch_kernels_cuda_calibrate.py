@@ -19,6 +19,7 @@ import torch
 
 from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import calibrate as K
+from asr_craft_tpu_torch.utils import diagnostics
 
 pytestmark = pytest.mark.cuda
 ATOL = 2e-6
@@ -40,14 +41,19 @@ def _x(dev, Ls, Bk, seed=0):
     return torch.from_numpy(x.astype(np.float32)).to(dev)
 
 
+def _count():
+    """K15's launches so far: its counter, ``kernels.calibrate``."""
+    return diagnostics.launches().get(K.COUNTER, 0)
+
+
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_kernel_matches_plain(dev, shape):
     Dmax, Ls, Bk, passes, steps = shape
     x = _x(dev, Ls, Bk)
-    before = K.launches["calibrate"]
+    before = _count()
     got = K.calibrate_chain_cuda(x, Dmax, passes, steps)
     torch.cuda.synchronize()
-    assert K.launches["calibrate"] == before + 1
+    assert _count() == before + 1
     want = K.calibrate_chain_plain(x, Dmax, passes, steps)
     assert got.shape == (Dmax, Ls, Bk) and torch.isfinite(got).all()
     assert torch.allclose(got, want, rtol=0.0, atol=ATOL), \
@@ -71,15 +77,15 @@ def test_long_chain_settles_where_the_plain_version_does(dev):
 
 def test_dispatch_and_refusals(dev):
     x = _x(dev, 48, 8)
-    before = K.launches["calibrate"]
+    before = _count()
     out = K.calibrate_chain(x, 16, 16, 2)                     # auto: kernel
-    assert out.is_cuda and K.launches["calibrate"] == before + 1
+    assert out.is_cuda and _count() == before + 1
     kernels.set_backend("torch")
     try:
         plain = K.calibrate_chain(x, 16, 16, 2)
     finally:
         kernels.set_backend("auto")
-    assert K.launches["calibrate"] == before + 1
+    assert _count() == before + 1
     assert torch.allclose(out, plain, rtol=0.0, atol=ATOL)
     with pytest.raises(ValueError, match="shared memory"):
         K.calibrate_chain_cuda(_x(dev, 4000, 2), 16, 16, 1)
@@ -87,16 +93,16 @@ def test_dispatch_and_refusals(dev):
         K.calibrate_chain_cuda(_x(dev, 8, 48).T, 16, 16, 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.calibrate_chain_cuda(x.cpu(), 16, 16, 1)
-    assert K.launches["calibrate"] == before + 1
+    assert _count() == before + 1
 
 
 def test_measure_runs_the_kernel(dev):
     """A short calibration: the record names the kernel, counts its
     launches, and the rate follows from the time it reports."""
-    before = K.launches["calibrate"]
+    before = _count()
     rec = K.measure(grid_n=4, frames=8, reps=2, device=dev)
     assert rec["calibration"] == "kernel" and rec["steps"] == 32
-    assert rec["launches"] == K.launches["calibrate"] - before == \
+    assert rec["launches"] == _count() - before == \
         K.LO_N + K.HI_N + 2 * (K.LO_N + K.HI_N)
     want = 32 * 16 * 16 * 48 * 128 / (rec["ms_per_launch"] / 1e3) / 1e9
     assert rec["geps"] == pytest.approx(want)

@@ -29,6 +29,8 @@ from asr_craft_tpu_torch.kernels import fwdbwd as K
 from asr_craft_tpu_torch.models import crf
 from asr_craft_tpu_torch.models.topology import Topology
 from asr_craft_tpu_torch.ops import mxu
+from asr_craft_tpu_torch.utils import diagnostics
+from launch_counts import ran
 
 pytestmark = pytest.mark.cuda
 Z_TOL = dict(rtol=1e-5, atol=2e-3)
@@ -85,12 +87,11 @@ def _close(got, want, **tol):
 @pytest.mark.parametrize("P,ns,B,T", SHAPES)
 def test_single_lattice_kernels_match_plain(dev, P, ns, B, T):
     state, trans, _, lengths = _problem(dev, P, ns, B, T)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     alphas, z = K.forward_cuda(state, trans, lengths)
     betas = K.backward_cuda(state, trans, lengths)
     torch.cuda.synchronize()
-    assert K.launches["forward"] == before["forward"] + 1
-    assert K.launches["backward"] == before["backward"] + 1
+    assert ran(before) == {"forward": 1, "backward": 1}
     ra, rz = K.forward_plain(state, trans, lengths)
     _close(alphas, ra, **Z_TOL)
     _close(z, rz, **Z_TOL)
@@ -104,7 +105,7 @@ def test_dual_kernels_match_plain(dev, P, ns, B, T, state_labels):
                                              state_labels)
     cns = 1 if state_labels else ns
     args = (state, trans, labels, lengths)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     af, ac, zf, zc = K.forward_dual_cuda(*args, cns)
     bf, bc = K.backward_dual_cuda(*args, cns)
     raf, rac, rzf, rzc = K.forward_dual_plain(*args, cns)
@@ -123,10 +124,9 @@ def test_dual_kernels_match_plain(dev, P, ns, B, T, state_labels):
     g_state, UV = K.backward_dual_grad_cuda(*args, *grad_in, cns)
     g_again, UV_again = K.backward_dual_grad_cuda(*args, *grad_in, cns)
     torch.cuda.synchronize()
-    for name in ("forward_dual", "backward_dual"):
-        assert K.launches[name] == before[name] + 1
-    assert K.launches["backward_dual_grad"] == \
-        before["backward_dual_grad"] + 2
+    assert ran(before) == {"forward_dual": 1, "backward_dual": 1,
+                           "backward_dual_grad": 2,
+                           "backward_dual_contract": 2}
     rg, rUV = K.backward_dual_grad_plain(*args, *grad_in, cns)
     _close(g_state, rg, rtol=0.0, atol=G_ATOL)
     _close(UV, rUV, rtol=1e-3, atol=1e-4 * float(rUV.abs().max()))
@@ -175,21 +175,19 @@ def test_k5_halves_match_plain_at_the_configs(dev, P, ns):
     for b in (1, B - 1):
         n = max(int(lengths[b]) - 1, 0)
         assert not U[b, n:, :, :L].any() and not V[b, n:, :, :L].any()
-    before = dict(K.launches)
+    before = diagnostics.launches()
     UV = K.backward_dual_contract_cuda(U, V, L)
     UV2 = K.backward_dual_contract_cuda(U, V, L)
     rUV = K.backward_dual_contract_plain(U, V, L)
     torch.cuda.synchronize()
     _close(UV, rUV, rtol=1e-3, atol=1e-4 * float(rUV.abs().max()))
     assert torch.equal(UV, UV2)
-    assert K.launches["backward_dual_contract"] == \
-        before["backward_dual_contract"] + 2
-    before = dict(K.launches)
+    assert ran(before) == {"backward_dual_contract": 2}
+    before = diagnostics.launches()
     g3, UV3 = K.backward_dual_grad(*args, *grad_in, ns)
     assert torch.equal(g3, g) and torch.equal(UV3, UV)
-    ran = {k: K.launches[k] - before[k] for k in before}
-    assert ran == {**dict.fromkeys(before, 0), "backward_dual_grad": 1,
-                   "backward_dual_contract": 1}
+    assert ran(before) == {"backward_dual_grad": 1,
+                           "backward_dual_contract": 1}
 
 
 @pytest.mark.parametrize("P,ns", CONFIGS)
@@ -197,9 +195,9 @@ def test_forward_dual_matches_plain_at_the_configs(dev, P, ns):
     """K4 at B=128, T=512 with ragged lengths, phone labels."""
     state, trans, labels, lengths = _problem(dev, P, ns, 128, 512, 9)
     args = (state, trans, labels, lengths)
-    before = K.launches["forward_dual"]
+    before = diagnostics.launches()
     got = K.forward_dual_cuda(*args, ns)
-    assert K.launches["forward_dual"] == before + 1
+    assert ran(before) == {"forward_dual": 1}
     for a, b in zip(got, K.forward_dual_plain(*args, ns)):
         _close(a, b, **Z_TOL)
 
@@ -254,7 +252,7 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     rg, rUV = K.backward_dual_grad_plain(*args, af, ac, zf, zc, w, -w, 1)
     _close(g, rg, rtol=0.0, atol=G_ATOL)
     _close(UV, rUV, rtol=1e-3, atol=1e-4 * float(rUV.abs().max()))
-    before = dict(K.launches)
+    before = diagnostics.launches()
     wide = _problem(dev, 233, 1, 2, 8)
     with pytest.raises(ValueError, match="L <= 232"):
         K.forward_cuda(wide[0], wide[1], wide[3])
@@ -263,7 +261,7 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     w = torch.ones((2,), device=dev)
     with pytest.raises(ValueError, match="L <= 232"):
         K.backward_dual_grad_cuda(*wide, wide[0], wide[0], w, w, w, w, 1)
-    assert K.launches == before
+    assert diagnostics.launches() == before
 
 
 @pytest.mark.parametrize("kind", ["phone", "state"])
@@ -317,10 +315,10 @@ def test_posteriors_and_log_partition_on_the_card(dev):
                           atol=1e-3)
     s = state.clone().requires_grad_(True)
     tr = trans.clone().requires_grad_(True)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     mxu.log_partition_mxu(s, tr, lengths).sum().backward()
-    assert K.launches["forward"] == before["forward"] + 1
-    assert K.launches["backward"] == before["backward"] + 1
+    launched = ran(before)
+    assert launched["forward"] == launched["backward"] == 1
     assert torch.isfinite(s.grad).all() and torch.isfinite(tr.grad).all()
 
 

@@ -31,6 +31,8 @@ from asr_craft_tpu_torch import flagship, kernels
 from asr_craft_tpu_torch.kernels import segmental as K
 from asr_craft_tpu_torch.models import segmental as M
 from asr_craft_tpu_torch.ops import segmental_stream as S
+from asr_craft_tpu_torch.utils import diagnostics
+from launch_counts import ran
 
 pytestmark = pytest.mark.cuda
 Z_TOL = dict(rtol=1e-5, atol=2e-3)
@@ -81,7 +83,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("B,T,Dmax,L", SHAPES)
 def test_log_semiring_kernels_match_plain(dev, B, T, Dmax, L, mean_pool):
     args = _problem(dev, B, T, Dmax, L)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     alphas, logZ = K.segmental_forward_cuda(*args, mean_pool)
     betas = K.segmental_backward_cuda(*args, mean_pool)
     ra, rz = K.segmental_forward_plain(*args, mean_pool)
@@ -95,12 +97,9 @@ def test_log_semiring_kernels_match_plain(dev, B, T, Dmax, L, mean_pool):
     out = K.segmental_grad_cuda(*args, *grad_in, mean_pool)
     again = K.segmental_grad_cuda(*args, *grad_in, mean_pool)
     torch.cuda.synchronize()
-    assert K.launches["segmental_forward"] == before["segmental_forward"] + 1
-    assert K.launches["segmental_backward"] == \
-        before["segmental_backward"] + 1
-    for name in ("segmental_grad_message", "segmental_grad",
-                 "segmental_grad_contract"):
-        assert K.launches[name] == before[name] + 2
+    assert ran(before) == {"segmental_forward": 1, "segmental_backward": 1,
+                           "segmental_grad_message": 2, "segmental_grad": 2,
+                           "segmental_grad_contract": 2}
     rA, rS, rgd, rgt = K.segmental_grad_plain(*args, *grad_in, mean_pool)
     _close(out[0], rA, rtol=0.0, atol=G_ATOL)
     _close(out[1], rS, rtol=0.0, atol=G_ATOL)
@@ -178,7 +177,7 @@ def test_rebased_gradient_holds_fp32_over_1024_frames(dev, pooling):
 @pytest.mark.parametrize("B,T,Dmax,L", SHAPES)
 def test_max_plus_kernels_equal_plain(dev, B, T, Dmax, L, mean_pool, thr):
     args = _problem(dev, B, T, Dmax, L, seed=2)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     got = K.segmental_viterbi_cuda(*args, mean_pool, thr)
     want = K.segmental_viterbi_plain(*args, mean_pool, thr)
     for x, y in zip(got, want):
@@ -189,9 +188,8 @@ def test_max_plus_kernels_equal_plain(dev, B, T, Dmax, L, mean_pool, thr):
     rtb = K.segmental_viterbi_traceback_plain(want[0], want[1], trans,
                                               want[2], lengths)
     torch.cuda.synchronize()
-    assert K.launches["segmental_viterbi"] == before["segmental_viterbi"] + 1
-    assert K.launches["segmental_viterbi_traceback"] == \
-        before["segmental_viterbi_traceback"] + 1
+    assert ran(before) == {"segmental_viterbi": 1,
+                           "segmental_viterbi_traceback": 1}
     assert torch.equal(tb[0], rtb[0]) and torch.equal(tb[1], rtb[1])
     for x, y in zip(S._pack_segment_markers(*tb),
                     S._pack_segment_markers(*rtb)):
@@ -344,7 +342,7 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     _close(out[1], want[1], rtol=0.0, atol=G_ATOL)
     _rel(out[2], want[2])
     _rel(out[3], want[3])
-    before = dict(K.launches)
+    before = diagnostics.launches()
     wide = _problem(dev, 2, 8, 16, 206)
     for fn in (K.segmental_forward_cuda, K.segmental_backward_cuda,
                K.segmental_viterbi_cuda):
@@ -353,7 +351,7 @@ def test_widest_lattices_match_plain_and_wider_ones_raise(dev):
     w = wide[0]
     with pytest.raises(ValueError, match="L <= 205"):
         K.segmental_grad_cuda(*wide, w, w, w[:, 0, 0], w[:, 0, 0])
-    assert K.launches == before
+    assert diagnostics.launches() == before
 
 
 def _segments(dev, B, T, L, Dmax, seed, kind):
@@ -391,11 +389,11 @@ def test_traceback_stream_borders(dev, L, dT, kind):
     C = K.traceback_plan(L)[0]
     T = {"C-1": max(C - 1, 1), "C": C, "C+1": C + 1, "2C+1": 2 * C + 1}[dT]
     args = _segments(dev, 7, T, L, 16, seed=L + T, kind=kind)
-    before = K.launches["segmental_viterbi_traceback"]
+    before = diagnostics.launches()
     got = K.segmental_viterbi_traceback_cuda(*args)
     want = K.segmental_viterbi_traceback_plain(*args)
     torch.cuda.synchronize()
-    assert K.launches["segmental_viterbi_traceback"] == before + 1
+    assert ran(before) == {"segmental_viterbi_traceback": 1}
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -538,10 +536,10 @@ def test_backward_matches_plain_at_config4(dev, pooling):
     a call, betas within Z_TOL of the plain version, the same bits on two
     runs."""
     args, mean_pool, (_, rb, _, _) = _config4(dev, pooling, seed=2)
-    before = K.launches["segmental_backward"]
+    before = diagnostics.launches()
     betas = K.segmental_backward_cuda(*args, mean_pool)
     again = K.segmental_backward_cuda(*args, mean_pool)
-    assert K.launches["segmental_backward"] == before + 2
+    assert ran(before) == {"segmental_backward": 2}
     _close(betas, rb, **Z_TOL)
     assert torch.equal(betas, again)
 
@@ -608,11 +606,11 @@ def test_decode_on_the_card_equals_the_plain_decode(dev):
     cfg = flagship.scrf()
     batch = flagship.scrf_batch(cfg, 16, 128, 4, dev, ragged=True)
     params = cfg.init_params(torch.Generator().manual_seed(4), 0.05, dev)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     got = M.scrf_decode(cfg, params, batch["feats"], batch["lengths"])
-    assert K.launches["segmental_viterbi"] == before["segmental_viterbi"] + 1
-    assert K.launches["segmental_viterbi_traceback"] == \
-        before["segmental_viterbi_traceback"] + 1
+    launched = ran(before)
+    assert launched["segmental_viterbi"] == 1
+    assert launched["segmental_viterbi_traceback"] == 1
     kernels.set_backend("torch")
     try:
         want = M.scrf_decode(cfg, params, batch["feats"], batch["lengths"])

@@ -26,6 +26,7 @@ from asr_craft_tpu_torch.kernels import fdt_train as K
 from asr_craft_tpu_torch.kernels.wall import build_wall
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.utils import diagnostics
+from launch_counts import moved, ran
 
 pytestmark = pytest.mark.cuda
 Z_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -73,7 +74,7 @@ def test_kernels_match_plain(dev, P, ns, clamp):
     clamp_ns = ns if clamp == "phone" else 1
     Wall, feats, labels, lengths, kw = _problem(dev, P, ns, clamp_ns,
                                                 seed=P + ns)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     alphas, zf, zc, planes = K.fdt_forward_cuda(Wall, feats, labels,
                                                 lengths, **kw)
     ra, rzf, rzc = K.fdt_forward_wall_torch(Wall, feats, labels, lengths,
@@ -94,11 +95,8 @@ def test_kernels_match_plain(dev, P, ns, clamp):
     torch.testing.assert_close(dW, rdW, **G_TOL)
     torch.testing.assert_close(dX, rdX, **G_TOL)
     assert float(dX[-1].abs().max()) == 0.0          # the empty row
-    assert K.launches["fdt_train_fwd"] == before["fdt_train_fwd"] + 1
-    assert K.launches["fdt_train_plane"] == before["fdt_train_plane"] + 1
-    assert K.launches["fdt_train_bwd"] == before["fdt_train_bwd"] + 1
-    assert (K.launches["fdt_train_contract"]
-            == before["fdt_train_contract"] + 2)
+    assert ran(before) == {"fdt_train_fwd": 1, "fdt_train_plane": 1,
+                            "fdt_train_bwd": 1, "fdt_train_contract": 2}
 
 
 def test_dead_lattice_gets_zero_gradient(dev):
@@ -122,15 +120,14 @@ def test_autograd_function_matches_plain(dev):
     for d in (dev, torch.device("cpu")):
         W = Wall.detach().to(d).requires_grad_(True)
         x = feats.detach().to(d).requires_grad_(True)
-        before = dict(K.launches)
+        before = diagnostics.launches()
         zf, zc = K.fdt_nll_dual_wall(W, x, labels.to(d), lengths.to(d),
                                      **kw, grad_feats=True)
         (2.0 * zf.sum() - zc[zc > -1e29].sum()).backward()
         grads.append((W.grad.cpu(), x.grad.cpu()))
-        ran = {k: K.launches[k] - before[k] for k in before}
-        assert ran == ({"fdt_train_fwd": 1, "fdt_train_plane": 1,
-                        "fdt_train_bwd": 1, "fdt_train_contract": 2}
-                       if d == dev else {k: 0 for k in before})
+        assert ran(before) == ({"fdt_train_fwd": 1, "fdt_train_plane": 1,
+                                 "fdt_train_bwd": 1, "fdt_train_contract": 2}
+                                if d == dev else {})
     torch.testing.assert_close(grads[0][0], grads[1][0], **G_TOL)
     torch.testing.assert_close(grads[0][1], grads[1][1], **G_TOL)
 
@@ -146,11 +143,10 @@ def test_forward_recursion_matches_plain_on_the_same_planes(dev, P, ns,
     Wall, feats, labels, lengths, kw = _problem(dev, P, ns, clamp_ns,
                                                 seed=2 * P + ns)
     planes = K.fdt_planes_cuda(Wall, feats, u0=kw.pop("u0"), u1=kw.pop("u1"))
-    before = dict(K.launches)
+    before = diagnostics.launches()
     alphas, zf, zc = K.fdt_forward_planes_cuda(planes, labels, lengths, **kw)
     torch.cuda.synchronize()
-    assert K.launches["fdt_train_fwd"] == before["fdt_train_fwd"] + 1
-    assert K.launches["fdt_train_plane"] == before["fdt_train_plane"]
+    assert ran(before) == {"fdt_train_fwd": 1}
     ra, rzf, rzc = K.fdt_forward_planes_torch(planes, labels, lengths, **kw)
     torch.testing.assert_close(alphas, ra, **Z_TOL)
     torch.testing.assert_close(zf, rzf, **Z_TOL)
@@ -177,10 +173,10 @@ def test_plane_kernel_matches_plain(dev, B, T, D, u0, u1, P, ns):
     R = 3 * ns * P + P * P
     Wall = torch.randn((R, u1 - u0 + 1), generator=g).to(dev)
     feats = torch.randn((B, T, D), generator=g).to(dev)
-    before = K.launches["fdt_train_plane"]
+    before = diagnostics.launches()
     planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1)
     torch.cuda.synchronize()
-    assert K.launches["fdt_train_plane"] == before + 1
+    assert ran(before) == {"fdt_train_plane": 1}
     assert planes.shape == (B, T, -(-R // 4) * 4)
     ref = K.fdt_planes_torch(Wall.double(), feats.double(), u0=u0, u1=u1)
     mag = K.fdt_planes_torch(Wall.double().abs(), feats.double().abs(),
@@ -205,12 +201,12 @@ def test_contraction_chunks_sum_to_the_product(dev, N, mode):
     src = feats if mode == 0 else Wall
     outs = []
     for _ in range(2):
-        before = K.launches["fdt_train_contract"]
+        before = diagnostics.launches()
         out = (torch.full((R, Du + 1), float("nan"), device=dev) if mode == 0
                else torch.zeros_like(feats))
         outs.append(K.contract_cuda(dplane, src, out, mode=mode, D=D, u0=u0,
                                     Du=Du))
-        assert K.launches["fdt_train_contract"] == before + 1
+        assert ran(before) == {"fdt_train_contract": 1}
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1])
     d64 = lambda x: x.double()
@@ -281,17 +277,6 @@ def _ref64(fn, a, b, precision):
     return ref, mag
 
 
-def _plane_paths(since=None):
-    """The plane kernel's ``kernels.plane_path[...]`` counters, or what
-    they gained since ``since``."""
-    now = {k: v for k, v in diagnostics.summary()["counters"].items()
-           if k.startswith("kernels.plane_path[")}
-    if since is None:
-        return now
-    return {k: v - since.get(k, 0) for k, v in now.items()
-            if v != since.get(k, 0)}
-
-
 @pytest.mark.parametrize("precision", ["highest"] + PRECISIONS)
 @pytest.mark.parametrize("B,T,D,u0,u1,P,ns", [
     (5, 33, 12, 2, 12, 5, 3),       # part tiles; 4-byte copies
@@ -308,23 +293,23 @@ def test_plane_kernel_precisions_match_plain(dev, precision, B, T, D, u0,
     default (one TF32 pass) against the same rounded products, and the
     plain version (fdt_planes_torch) within the same bar; the same bits on
     two calls; 16-byte aligned rows of frames take the wgmma path, the
-    others the mma.sync tiles (the counter ``kernels.plane_path``)."""
+    others the mma.sync tiles (the counter
+    ``kernels.fdt_train_plane[<path>]``)."""
     g = torch.Generator().manual_seed(B * T + P)
     R = 3 * ns * P + P * P
     Wall = torch.randn((R, u1 - u0 + 1), generator=g).to(dev)
     feats = torch.randn((B, T, D), generator=g).to(dev)
-    before = K.launches["fdt_train_plane"]
-    paths = _plane_paths()
+    before = diagnostics.launches()
     planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
                                precision=precision)
     torch.cuda.synchronize()
-    assert K.launches["fdt_train_plane"] == before + 1
+    assert ran(before) == {"fdt_train_plane": 1}
     again = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
                               precision=precision)
     assert torch.equal(again, planes)
     aligned = D % 4 == 0 and u0 % 4 == 0 and (u1 - u0) % 4 == 0
     path = "wgmma" if aligned else "mma_sync"
-    assert _plane_paths(paths) == {f"kernels.plane_path[{path}]": 2}
+    assert moved(before) == {f"kernels.fdt_train_plane[{path}]": 2}
     xu = K.feats_xu(feats, u0, u1)
     ref, mag = _ref64(lambda a, b: a @ b.T, xu, Wall, precision)
     assert _within(planes[..., :R], ref, mag)

@@ -23,6 +23,8 @@ from asr_craft_tpu_torch.models import crf
 from asr_craft_tpu_torch.models.topology import Topology
 from asr_craft_tpu_torch.ops import fdt
 from asr_craft_tpu_torch.ops import viterbi as V
+from asr_craft_tpu_torch.utils import diagnostics
+from launch_counts import ran
 
 pytestmark = pytest.mark.cuda
 MODES = {"exact": (None, None), "threshold": (2.0, None),
@@ -62,11 +64,11 @@ def _problem(dev, P, ns, B=6, T=29, seed=0, kind="normal"):
 
 
 def _compare(fwd, state, trans, lengths, thr, bw, name):
-    before = KV.launches[name]
+    before = diagnostics.launches()
     bp, last, scores = fwd(thr, bw)
     rbp, rlast, rscores = V.viterbi_forward(state, trans, lengths, bw, thr)
     torch.cuda.synchronize()
-    assert KV.launches[name] == before + (state.shape[0] > 0)
+    assert ran(before) == ({name: 1} if state.shape[0] > 0 else {})
     assert torch.equal(scores, rscores)
     assert torch.equal(last, rlast)
     assert torch.equal(bp, rbp)
@@ -164,9 +166,9 @@ def test_traceback_stream_borders_after_each_forward(dev, P, ns, dT, beams):
     else:
         fwd = lambda t, w: KV.viterbi_dense_fwd(state, trans, lengths, t, w)
         name = "viterbi_dense_fwd"
-    before = KV.launches["viterbi_traceback"]
+    before = diagnostics.launches()
     _compare(fwd, state, trans, lengths, thr, bw, name)
-    assert KV.launches["viterbi_traceback"] == before + 1
+    assert ran(before) == {name: 1, "viterbi_traceback": 1}
 
 
 @pytest.mark.parametrize("L", [48, 138, 390])
@@ -193,21 +195,20 @@ def test_many_states_a_phone_go_to_the_dense_kernel(dev):
     state, trans, lengths = _problem(dev, 3, 9, B=3, T=10)
     with pytest.raises(ValueError, match="at most 8"):
         KV.viterbi_nstate_fwd(state, trans, lengths, 9)
-    KV.reset_launches()
+    before = diagnostics.launches()
     paths, scores = KV.viterbi_shared(state, trans, lengths, 9)
-    assert KV.launches["viterbi_dense_fwd"] == 1
-    assert KV.launches["viterbi_nstate_fwd"] == 0
+    assert ran(before) == {"viterbi_dense_fwd": 1, "viterbi_traceback": 1}
     want, wscores = V.viterbi_batch(state, trans, lengths)
     assert torch.equal(paths, want) and torch.equal(scores, wscores)
 
 
 def test_empty_batch_launches_nothing(dev):
     state, trans, lengths = _problem(dev, 4, 3, B=0, T=5)
-    before = dict(KV.launches)
+    before = diagnostics.launches()
     bp, last, scores = KV.viterbi_nstate_fwd(state, trans, lengths, 3)
     assert bp.shape == (0, 5, 12) and last.shape == scores.shape == (0,)
     assert KV.viterbi_traceback(bp, last, lengths).shape == (0, 5)
-    assert KV.launches == before
+    assert diagnostics.launches() == before
 
 
 @pytest.mark.parametrize("P,ns", [(6, 1), (5, 3), (130, 3)])
@@ -219,18 +220,17 @@ def test_decode_runs_the_kernels_and_matches_plain(dev, P, ns):
     feats = torch.from_numpy(rng.normal(size=(5, 21, 9)).astype(
         np.float32)).to(dev)
     lengths = torch.tensor([21, 3, 17, 9, 0], dtype=torch.int32, device=dev)
-    KV.reset_launches()
+    before = diagnostics.launches()
     got = crf.decode(cfg, params, feats, lengths, beam_width=5)
     kind = ("viterbi_nstate_fwd" if ns > 1 and P <= 128
             else "viterbi_dense_fwd")
-    assert KV.launches[kind] == 1 and KV.launches["viterbi_traceback"] == 1
-    assert sum(KV.launches.values()) == 2
+    assert ran(before) == {kind: 1, "viterbi_traceback": 1}
     kernels.set_backend("torch")
     try:
         want = crf.decode(cfg, params, feats, lengths, beam_width=5)
     finally:
         kernels.set_backend("auto")
-    assert sum(KV.launches.values()) == 2
+    assert ran(before) == {kind: 1, "viterbi_traceback": 1}
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -287,12 +287,12 @@ def test_fdt_decode_planes_at_each_precision_match_plain(dev, precision, P,
     from asr_craft_tpu_torch.kernels.wall import build_wall
     Wall, u0, u1, _ = build_wall(params, cfg.fmap, ns)
     kw = dict(u0=u0, u1=u1, ns=ns, P=P, precision=precision)
-    before = fdt_viterbi.launches["fdt_viterbi_plane"]
+    before = diagnostics.launches()
     paths, scores = fdt_viterbi.fdt_viterbi_cuda(Wall, feats, lengths, **kw)
     ref_paths, ref_scores = fdt_viterbi.fdt_viterbi_wall_torch(
         Wall, feats, lengths, **kw)
     torch.cuda.synchronize()
-    assert fdt_viterbi.launches["fdt_viterbi_plane"] > before
+    assert ran(before)["fdt_viterbi_plane"] > 0
     torch.testing.assert_close(scores, ref_scores, rtol=1e-5, atol=1e-4)
     diff = (paths != ref_paths).any(dim=1)
     if bool(diff.any()):

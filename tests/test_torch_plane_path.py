@@ -6,9 +6,9 @@ the wgmma path, which reads tiles of frames by TMA and so needs each
 frame's row of ``Du`` floats 16-byte aligned (the base of ``feats``,
 ``D``, ``u0`` and ``Du`` multiples of 4) and ``0 < Du <= 144``, and the
 mma.sync tiles for every other input.  The wrapper chooses, passes the
-choice to the library and counts it in the diagnostics counter
-``kernels.plane_path[<path>]``, once a call; its launch count
-(``launches["fdt_train_plane"]``) stays one a call.  The library here is a
+choice to the library and counts the launch, once a call, in the
+diagnostics counter ``<key>[<path>]`` (``kernels.fdt_train_plane[...]``, or
+the decode's ``kernels.fdt_viterbi_plane[...]``).  The library here is a
 stand-in that records its arguments.
 """
 import contextlib
@@ -75,25 +75,25 @@ class _Library:
 def test_planes_wrapper_passes_and_counts_the_path(monkeypatch, precision):
     """fdt_planes_cuda on CPU tensors with the stand-in library: each call
     hands the library the path its inputs allow (1 wgmma, 0 mma.sync) and
-    the precision's code, counts one ``kernels.plane_path[...]`` and one
-    launch under its key."""
+    the precision's code, and counts one launch under its key and path."""
     from asr_craft_tpu_torch.ops import precision as prec
     lib = _Library()
     _stand_ins(monkeypatch, lib)
-    counts = {"fdt_train_plane": 0, "fdt_viterbi_plane": 0}
-    monkeypatch.setattr(K, "launches", counts)
     R = 3 * 3 * 5 + 5 * 5                      # P = 5, ns = 3: R = 70
-    paths = {k: v for k, v in diagnostics.summary()["counters"].items()
-             if k.startswith("kernels.plane_path[")}
+    ran = {}
     cases = [(_feats(2, 5, 144), 0, 144, 1),
              (_feats(2, 5, 12), 2, 12, 0),
              (_feats(3, 4, 144, offset=1), 0, 144, 0),
              (_feats(1, 7, 20), 4, 16, 1)]
     for i, (feats, u0, u1, code) in enumerate(cases):
         Wall = torch.zeros((R, u1 - u0 + 1))
-        key = "fdt_viterbi_plane" if i % 2 else "fdt_train_plane"
-        planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1, counts=counts,
-                                   key=key, precision=precision)
+        key = ("kernels.fdt_viterbi_plane" if i % 2
+               else "kernels.fdt_train_plane")
+        with diagnostics.held_launches() as one:
+            planes = K.fdt_planes_cuda(Wall, feats, u0=u0, u1=u1, key=key,
+                                       precision=precision)
+        assert len(one) == 1
+        ran.update(one)
         B, T, D = feats.shape
         assert planes.shape == (B, T, 72)
         args = lib.calls[-1]
@@ -102,24 +102,18 @@ def test_planes_wrapper_passes_and_counts_the_path(monkeypatch, precision):
                               R, 72)
         assert args[11:13] == (prec.CODES[precision], code)
     assert len(lib.calls) == len(cases)
-    assert counts == {"fdt_train_plane": 2, "fdt_viterbi_plane": 2}
-    now = diagnostics.summary()["counters"]
-    gained = {k: now[k] - paths.get(k, 0) for k in now
-              if k.startswith("kernels.plane_path[")
-              and now[k] != paths.get(k, 0)}
-    assert gained == {"kernels.plane_path[wgmma]": 2,
-                      "kernels.plane_path[mma_sync]": 2}
+    assert ran == {"kernels.fdt_train_plane[wgmma]": 1,
+                   "kernels.fdt_viterbi_plane[mma_sync]": 1,
+                   "kernels.fdt_train_plane[mma_sync]": 1,
+                   "kernels.fdt_viterbi_plane[wgmma]": 1}
 
 
 def test_planes_wrapper_counts_nothing_for_no_frames(monkeypatch):
     """No frames: no launch, no count, an empty (B, 0, R4) result."""
     lib = _Library()
     _stand_ins(monkeypatch, lib)
-    counts = {"fdt_train_plane": 0}
-    monkeypatch.setattr(K, "launches", counts)
-    before = dict(diagnostics.summary()["counters"])
+    before = diagnostics.summary()["counters"]
     planes = K.fdt_planes_cuda(torch.zeros((70, 145)), _feats(3, 0, 144),
                                u0=0, u1=144)
     assert planes.shape == (3, 0, 72) and not lib.calls
-    assert counts == {"fdt_train_plane": 0}
     assert diagnostics.summary()["counters"] == before

@@ -20,6 +20,7 @@ from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import segmental as K
 from asr_craft_tpu_torch.kernels.fwdbwd import (forward_factors, row_max,
                                                 row_width, safe_log)
+from asr_craft_tpu_torch.utils import diagnostics
 
 
 def _scan_form(frame, trans, bias, lengths, alphas, betas, logZ, g,
@@ -193,7 +194,7 @@ def test_dispatch_and_wrappers_on_cpu_tensors():
     frame, bias, trans, lengths, g = _problem(3, 3, 6, 3, 4)
     f, tr, b, n, alphas, betas, logZ, gg = _inputs(frame, bias, trans,
                                                    lengths, g, True)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     got = K.segmental_grad(f, tr, b, n, alphas, betas, logZ, gg)
     want = K.segmental_grad_plain(f, tr, b, n, alphas, betas, logZ, gg)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
@@ -210,4 +211,4 @@ def test_dispatch_and_wrappers_on_cpu_tensors():
             K.segmental_grad(f, tr, b, n, alphas, betas, logZ, gg)
     finally:
         kernels.set_backend("auto")
-    assert K.launches == before
+    assert diagnostics.launches() == before

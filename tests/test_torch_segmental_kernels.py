@@ -19,6 +19,7 @@ from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import segmental as K
 from asr_craft_tpu_torch.ops import segmental_stream as tss
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 # (B, T, Dmax, L): T % Dmax != 0, T < Dmax, T == Dmax, one frame, L = 12
@@ -99,11 +100,11 @@ def test_forward_backward_plain_match_pallas_and_stream(shape, mean_pool):
     np.testing.assert_allclose(alphas.numpy(), sa.numpy(), **TOL)
     np.testing.assert_allclose(betas.numpy(), sb.numpy(), **TOL)
     # the dispatch takes the plain version for a CPU tensor, under 'auto'
-    before = dict(K.launches)
+    before = diagnostics.launches()
     da, dz = K.segmental_forward(f, tr, b, n, mean_pool)
     assert torch.equal(da, alphas) and torch.equal(dz, logZ)
     assert torch.equal(K.segmental_backward(f, tr, b, n, mean_pool), betas)
-    assert K.launches == before
+    assert diagnostics.launches() == before
 
 
 @pytest.mark.parametrize("with_bias", ["both", "dur", "seg", "none"])
@@ -163,10 +164,10 @@ def test_grad_plain_matches_pallas_and_grad_scan(shape, mean_pool):
     assert torch.allclose(K.frame_grad(A, S),
                           tss._assemble_frame_grad(A, S_emit, acc_fin),
                           rtol=0, atol=0)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     out = K.segmental_grad(f, tr, b, n, a_in, b_in, z_in, g_in, mean_pool)
     assert all(torch.equal(x, y) for x, y in zip(out, (A, S, gd, gt)))
-    assert K.launches == before
+    assert diagnostics.launches() == before
 
 
 def _decode_jax(frame, bias, trans, lengths, Dmax, mean_pool, thr):
@@ -215,13 +216,13 @@ def test_viterbi_and_traceback_plain_match_pallas(shape, mean_pool, thr):
     np.testing.assert_array_equal(tn.numpy(), np.asarray(sn))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(ss))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(sl))
-    before = dict(K.launches)
+    before = diagnostics.launches()
     out = K.segmental_viterbi(f, tr, b, n, mean_pool, thr)
     assert all(torch.equal(x, y)
                for x, y in zip(out, (deltas, arg_d, lab0, scores)))
     tb = K.segmental_viterbi_traceback(deltas, arg_d, tr, lab0, n)
     assert torch.equal(tb[0], end_lab) and torch.equal(tb[1], end_start)
-    assert K.launches == before
+    assert diagnostics.launches() == before
 
 
 @pytest.mark.parametrize("thr", [None, 1.0])
@@ -282,7 +283,7 @@ def test_cuda_wrappers_and_backend_raise_on_cpu_tensors():
     the dispatch under the 'cuda' backend; nothing is counted."""
     frame, bias, trans, lengths = _problem(5, 2, 6, 3, 4)
     f, b, tr, n = _t(frame, bias, trans, lengths)
-    before = dict(K.launches)
+    before = diagnostics.launches()
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.segmental_forward_cuda(f, tr, b, n)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -302,11 +303,7 @@ def test_cuda_wrappers_and_backend_raise_on_cpu_tensors():
                 call()
     finally:
         kernels.set_backend("auto")
-    assert K.launches == before
-    assert set(K.launches) == {
-        "segmental_forward", "segmental_backward", "segmental_grad_message",
-        "segmental_grad", "segmental_grad_contract", "segmental_viterbi",
-        "segmental_viterbi_traceback"}
+    assert diagnostics.launches() == before
 
 
 @pytest.mark.parametrize("mean_pool", [True, False])

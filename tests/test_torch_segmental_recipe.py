@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from asr_craft_tpu_torch import kernels
-from asr_craft_tpu_torch.kernels import segmental as K
 from asr_craft_tpu_torch.recipes import scrf as port_recipe
+from asr_craft_tpu_torch.utils import diagnostics
 
 REPO = Path(__file__).resolve().parent.parent
 FLAGS = ["--utts", "40", "--eval_utts", "60", "--epochs", "30"]
@@ -62,7 +62,7 @@ def _same_counts(ev, jev):
 
 def test_recipe_matches_jax_recipe(jax_run, tmp_path):
     jlosses, jev, _ = jax_run
-    before = dict(K.launches)
+    before = diagnostics.launches()
     losses, ev = _run(port_recipe.main,
                       FLAGS + ["--device", "cpu", "--out_dir", str(tmp_path)])
     assert sorted(losses) == sorted(jlosses) == [0, 25, 29]
@@ -70,7 +70,7 @@ def test_recipe_matches_jax_recipe(jax_run, tmp_path):
         np.testing.assert_allclose(losses[epoch], want, rtol=1e-4)
     assert losses[29] < losses[0]
     _same_counts(ev, jev)
-    assert K.launches == before                  # CPU tensors: plain versions
+    assert diagnostics.launches() == before  # CPU tensors: plain versions
     lines = [json.loads(ln) for ln in
              (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in lines] == ["train_epoch"] * 3 + ["eval"]

@@ -83,9 +83,10 @@ def test_multi_step_replays_one_graph_a_shape(dev):
     assert c["graph.replays[multi_step]"] == 4
     assert c.get("graph.eager_calls[multi_step]", 0) == 0
     # config 4 takes K9's and K10's own frame and the 16-duration xi pass
-    assert c["kernels.seg_path[own]"] > 0 and c["kernels.seg_xi[16]"] > 0
-    assert "kernels.seg_path[three_barrier]" not in c
-    assert "kernels.seg_xi[deep]" not in c
+    assert c["kernels.segmental_forward[own]"] > 0
+    assert c["kernels.segmental_backward[own]"] > 0
+    assert c["kernels.segmental_grad[16]"] > 0
+    assert not any(k.endswith(("[three_barrier]", "[deep]")) for k in c)
     diagnostics.reset()
 
 

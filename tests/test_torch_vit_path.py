@@ -7,8 +7,8 @@ exact decode of up to one utterance an SM on clusters of two blocks (CL = 2:
 each block half of the destination phones, the plane rows multicast to
 both, the last states exchanged through the peer's shared memory) and every
 other decode, larger batches and beams, one block an utterance (CL = 1).
-The wrapper counts the path in the diagnostics counter
-``kernels.vit_path[<path>]``, once a launch.  The library here is a
+The wrapper counts each launch, with its path, in the diagnostics counter
+``kernels.fdt_viterbi_fwd[<path>]``.  The library here is a
 stand-in that records its arguments.
 
 The model follows one frame of either path: a block's destinations
@@ -86,12 +86,6 @@ def _buffers(B, T, ns, P):
             torch.empty((B,), dtype=torch.int32), torch.empty((B,)))
 
 
-def _paths_gained(before):
-    now = diagnostics.summary()["counters"]
-    return {k: now[k] - before.get(k, 0) for k in now
-            if k.startswith("kernels.vit_path[") and now[k] != before.get(k, 0)}
-
-
 @pytest.mark.parametrize("B,beams,path", [
     (64, {}, "cluster"),                 # the decode cell
     (132, {}, "cluster"),
@@ -103,20 +97,17 @@ def _paths_gained(before):
 def test_forward_wrapper_passes_and_counts_the_path(monkeypatch, B, beams,
                                                     path):
     """Each launch hands the library the path's cluster size and the ring's
-    stages, counts one launch and one ``kernels.vit_path[<path>]``."""
+    stages, and counts one launch in ``kernels.fdt_viterbi_fwd[<path>]``."""
     lib = _Library()
     _stand_ins(monkeypatch, lib)
-    counts = {k: 0 for k in V.launches}
-    monkeypatch.setattr(V, "launches", counts)
-    before = dict(diagnostics.summary()["counters"])
     ns, P = 3, 48
-    V.viterbi_forward_planes_cuda(*_buffers(B, 4, ns, P), ns=ns, P=P,
-                                  **beams)
+    with diagnostics.held_launches() as ran:
+        V.viterbi_forward_planes_cuda(*_buffers(B, 4, ns, P), ns=ns, P=P,
+                                      **beams)
     (args,) = lib.calls
     assert args[5:9] == (B, 4, ns, P)
     assert args[-3:-1] == (V.VIT_RING, 2 if path == "cluster" else 1)
-    assert counts["fdt_viterbi_fwd"] == 1
-    assert _paths_gained(before) == {f"kernels.vit_path[{path}]": 1}
+    assert ran == {f"kernels.fdt_viterbi_fwd[{path}]": 1}
 
 
 def test_forward_wrapper_shrinks_the_ring_and_refuses_two_rows(monkeypatch):
@@ -142,12 +133,9 @@ def test_forward_wrapper_shrinks_the_ring_and_refuses_two_rows(monkeypatch):
 def test_forward_wrapper_counts_nothing_for_no_utterances(monkeypatch):
     lib = _Library()
     _stand_ins(monkeypatch, lib)
-    counts = {k: 0 for k in V.launches}
-    monkeypatch.setattr(V, "launches", counts)
-    before = dict(diagnostics.summary()["counters"])
-    V.viterbi_forward_planes_cuda(*_buffers(0, 4, 3, 5), ns=3, P=5)
-    assert not lib.calls and counts["fdt_viterbi_fwd"] == 0
-    assert _paths_gained(before) == {}
+    with diagnostics.held_launches() as ran:
+        V.viterbi_forward_planes_cuda(*_buffers(0, 4, 3, 5), ns=3, P=5)
+    assert not lib.calls and ran == {}
 
 
 # --- the frame, modelled ---------------------------------------------------

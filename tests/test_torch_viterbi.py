@@ -23,6 +23,7 @@ from asr_craft_tpu_torch import kernels
 from asr_craft_tpu_torch.kernels import viterbi as KV
 from asr_craft_tpu_torch.ops import viterbi as V
 from asr_craft_tpu_torch.ops.semiring import NEG_INF
+from asr_craft_tpu_torch.utils import diagnostics
 
 MODES = {"exact": (None, None), "threshold": (2.0, None),
          "topk": (None, 4), "threshold+topk": (1.0, 3)}
@@ -150,7 +151,7 @@ def test_dispatch_takes_plain_only_for_cpu_tensors():
     state, trans, lengths = problem(2, 4, 3)
     st, tr, ln = (torch.from_numpy(x) for x in (state, trans, lengths))
     want = V.viterbi_batch(st, tr, ln, 3, 2.0)
-    before = dict(KV.launches)
+    before = diagnostics.launches()
     for got in (KV.viterbi_shared(st, tr, ln, 1, 2.0, 3),
                 KV.viterbi_shared(st, tr, ln, 3, 2.0, 3)):
         assert torch.equal(got[0], want[0])
@@ -170,4 +171,4 @@ def test_dispatch_takes_plain_only_for_cpu_tensors():
                                             ln, ln)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             fn()
-    assert KV.launches == before
+    assert diagnostics.launches() == before
