@@ -5,8 +5,8 @@
 // calibrate.cu: K15):
 // the semiring zero, the block-wide first argmax of the max-plus decodes,
 // the asynchronous copies (the planes' rows reach the fdt recursions by
-// cp.async.bulk on an mbarrier: K1's and K2's one frame ahead, K3's through
-// a ring of stages), the 3xTF32 pieces of the
+// cp.async.bulk on an mbarrier: K1's one frame ahead, K2's and K3's
+// through a ring of stages), the 3xTF32 pieces of the
 // tensor-core products, the guarded three-way log-sum-exp of the reference
 // and, at the end, the pieces of the recursions over one (L, L) transition
 // factor: held in shared memory and read a strided column a lane (K10, K12),
@@ -163,6 +163,26 @@ __device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_addr(bar))
                : "memory");
+}
+
+// whether the phase of parity `parity` of `bar` has completed, without
+// waiting
+__device__ __forceinline__ bool mbar_test(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// `count` threads (whole warps) meet at the named barrier `id`
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // one arrival of this thread on `bar` once every cp.async it has issued so

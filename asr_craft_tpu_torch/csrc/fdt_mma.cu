@@ -102,6 +102,7 @@ using fdtk::cp_async16;
 using fdtk::cp_async4;
 using fdtk::mma;
 using fdtk::mma_bf16;
+using fdtk::named_sync;
 using fdtk::split;
 using fdtk::split_bf16;
 using fdtk::tf32;
@@ -377,11 +378,6 @@ struct PlaneCfg {
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// `count` threads (whole warps) meet at the named barrier `id`
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // one arrival on `bar` that also expects `bytes` of copies on it

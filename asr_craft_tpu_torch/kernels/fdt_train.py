@@ -58,6 +58,8 @@ PLANE_WGMMA_DEPTH = 144
 # dWall's split of the frames: chunks of at least CONTRACT_CHUNK frames, at
 # most CONTRACT_SPLITS of them
 CONTRACT_SPLITS, CONTRACT_CHUNK = 16, 4096
+# the deepest ring of frames K2's recursion keeps (csrc/fdt_train.cu)
+BWD_RING = 8
 
 _lib = None
 
@@ -249,14 +251,14 @@ def _library():
         lib.fdt_train_fwd.restype = i32
         lib.fdt_train_plane.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         lib.fdt_train_plane.restype = i32
-        lib.fdt_train_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+        lib.fdt_train_bwd.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
         lib.fdt_train_bwd.restype = i32
         lib.fdt_train_contract.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
         lib.fdt_train_contract.restype = i32
         lib.fdt_mma_tile_rows.restype = i32
         lib.fdt_mma_blocks_per_sm.restype = i32
         lib.fdt_train_fwd_smem_bytes.argtypes = [i32] * 2
-        lib.fdt_train_bwd_smem_bytes.argtypes = [i32] * 2
+        lib.fdt_train_bwd_smem_bytes.argtypes = [i32] * 3
         for name in ("fdt_train_fwd_smem_bytes", "fdt_train_bwd_smem_bytes"):
             getattr(lib, name).restype = ctypes.c_size_t
         _lib = lib
@@ -281,6 +283,19 @@ def _smem(lib, which: str, *dims: int) -> int:
         raise ValueError(f"fdt_train_{which} needs {smem} B of shared "
                          f"memory, over the {SMEM_LIMIT} B a block can use")
     return smem
+
+
+def backward_stages(lib, ns: int, P: int) -> int:
+    """The frames K2's ring holds (a slot: the plane row, alpha and the
+    label the feeder loads, the chain's xs, cross max and beta):
+    ``BWD_RING``, fewer where a block's shared memory would pass
+    ``SMEM_LIMIT``; 0 where two do not fit.  At the flagship (P=48, ns=3) a
+    slot is 14.8 KB, so the ring is ``BWD_RING`` deep; at P=128, ns=3 it is
+    80 KB, so 2."""
+    for stages in range(BWD_RING, 1, -1):
+        if lib.fdt_train_bwd_smem_bytes(ns, P, stages) <= SMEM_LIMIT:
+            return stages
+    return 0
 
 
 def _stream(dev) -> int:
@@ -451,7 +466,9 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
     """K2's recursion kernel: ``dplane (B, T, R)``, as
     :func:`fdt_dplane_wall_torch` returns.  It reads every frame's plane
     from ``planes`` (:func:`fdt_planes_cuda`'s (B, T, R4) layout), which
-    the plane kernel forms first when none is given."""
+    the plane kernel forms first when none is given, through a ring of
+    :func:`backward_stages` rows, and counts the launch in the diagnostics
+    counter ``kernels.fdt_train_bwd[ring<stages>]``."""
     B, T, D = _check_train(Wall, feats, labels, lengths, u0=u0, u1=u1,
                            ns=ns, P=P, clamp_ns=clamp_ns)
     dev, Lp = feats.device, ns * P
@@ -464,7 +481,7 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
         if v.shape[0] != B:
             raise ValueError(f"{name} has {v.shape[0]} rows, expected {B}")
     lib = _library()
-    _smem(lib, "bwd", ns, P)
+    stages = backward_stages(lib, ns, P) or _smem(lib, "bwd", ns, P, 2)
     R = Wall.shape[0]
     if planes is None:
         planes = fdt_planes_cuda(Wall, feats, u0=u0, u1=u1,
@@ -477,9 +494,9 @@ def fdt_dplane_cuda(Wall, feats, labels, lengths, alphas, zf, zc, wf, wc,
                 planes.data_ptr(), labels.data_ptr(), lengths.data_ptr(),
                 alphas.data_ptr(), zf.data_ptr(), zc.data_ptr(),
                 wf.data_ptr(), wc.data_ptr(), dplane.data_ptr(), B, T, ns,
-                P, clamp_ns, int(boundaries), _stream(dev))
+                P, clamp_ns, int(boundaries), stages, _stream(dev))
         _build.raise_on_error(code, "fdt_train_bwd launch")
-        diagnostics.count("kernels.fdt_train_bwd")
+        diagnostics.count(f"kernels.fdt_train_bwd[ring{stages}]")
     return dplane
 
 

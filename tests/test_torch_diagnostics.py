@@ -229,13 +229,13 @@ def test_held_launches_take_every_threads_launch_counts_until_added():
         diagnostics.count("graph.replays[x]")
         # autograd's device thread launches a backward during a capture
         other = threading.Thread(target=diagnostics.count,
-                                 args=("kernels.fdt_train_bwd", 3))
+                                 args=("kernels.fdt_train_bwd[ring8]", 3))
         other.start()
         other.join()
         assert held == {}                   # filled when the context ends
     assert held == {"kernels.fdt_train_fwd": 1,
                     "kernels.fdt_train_plane[wgmma]": 1,
-                    "kernels.fdt_train_bwd": 3}
+                    "kernels.fdt_train_bwd[ring8]": 3}
     assert diagnostics.summary()["counters"] == {
         "kernels.fdt_train_fwd": 2, "graph.replays[x]": 2}
     for n in (1, 2):
@@ -243,7 +243,7 @@ def test_held_launches_take_every_threads_launch_counts_until_added():
         assert diagnostics.launches() == {
             "kernels.fdt_train_fwd": 2 + n,
             "kernels.fdt_train_plane[wgmma]": n,
-            "kernels.fdt_train_bwd": 3 * n}
+            "kernels.fdt_train_bwd[ring8]": 3 * n}
     assert diagnostics.summary()["counters"]["graph.replays[x]"] == 2
 
 

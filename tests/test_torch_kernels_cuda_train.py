@@ -11,10 +11,13 @@ Tolerances: ``zf``/``zc`` and alphas at rtol=1e-5, atol=1e-4
 3xTF32 where the plain version takes cuBLAS's fp32 product, and the
 recursion takes a three-way lse and a shuffle tree where the plain loop
 chains logaddexp).
-``dWall``/``dfeats`` at rtol=1e-4, atol=1e-4 (sums of posteriors times
-features over B*T frames, accumulated in another order by the
-contraction kernel than by cuBLAS).  The tensor-core products (planes,
-dWall, dfeats; 3xTF32) against the float64 product within 1e-5 of the sum
+``dWall``/``dfeats`` and K2's ``dplane`` at rtol=1e-4, atol=1e-4 (sums
+of posteriors times features over B*T frames, accumulated in another order
+by the contraction kernel than by cuBLAS; the posteriors, gated by exp(s -
+z), s - z a difference of two such sums).  At the ``triphone-train``
+cell's shape (B=128, T=512) ``dplane`` at atol=1e-3, ``chip_smoke.py``'s
+bar there: s and z are sums over up to 512 frames of ~2.5e3 magnitude.
+The tensor-core products (planes, dWall, dfeats; 3xTF32) against the float64 product within 1e-5 of the sum
 of the terms' magnitudes: 3xTF32 keeps ~2^-21 of each term, and a lost
 or doubled tile or chunk exceeds the bar many times over.
 """
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from asr_craft_tpu_torch.kernels import fdt_train as K
-from asr_craft_tpu_torch.kernels.wall import build_wall
+from asr_craft_tpu_torch.kernels.wall import SMEM_LIMIT, build_wall
 from asr_craft_tpu_torch.models.crf import CrfConfig
 from asr_craft_tpu_torch.utils import diagnostics
 from launch_counts import moved, ran
@@ -41,11 +44,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _problem(dev, P, ns, clamp_ns, B=5, T=33, D=12, seed=0):
+def _problem(dev, P, ns, clamp_ns, B=5, T=33, D=12, seed=0, lengths=None):
     """Ragged lengths with a full first and an empty last row, topology-
     legal labels (phone runs of ns+1 frames; at clamp_ns=1 the state walk
     [0, 0, 1, .., ns-1] of each run), and row 1 cut to 2 frames inside its
-    first run, so with boundaries its clamped lattice is dead."""
+    first run, so with boundaries its clamped lattice is dead; or the
+    ``lengths`` given."""
     cfg = CrfConfig(num_labels=P, feat_dim=D, num_states=ns,
                     state_range=(0, D - 2), trans_range=(2, D))
     rng = np.random.default_rng(seed)
@@ -58,8 +62,10 @@ def _problem(dev, P, ns, clamp_ns, B=5, T=33, D=12, seed=0):
     if clamp_ns == 1:
         steps = np.asarray([0] + list(range(ns)))
         labels = labels * ns + np.tile(steps, T // run + 1)[None, :T]
-    lengths = rng.integers(ns + 1, T + 1, size=B)
-    lengths[0], lengths[1], lengths[-1] = T, 2, 0
+    if lengths is None:
+        lengths = rng.integers(ns + 1, T + 1, size=B)
+        lengths[0], lengths[1], lengths[-1] = T, 2, 0
+    lengths = np.asarray(lengths)
     params = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
     Wall, u0, u1, dims = build_wall(params, cfg.fmap, ns)
     kw = dict(u0=u0, u1=u1, ns=ns, P=P, clamp_ns=clamp_ns, boundaries=True)
@@ -69,7 +75,8 @@ def _problem(dev, P, ns, clamp_ns, B=5, T=33, D=12, seed=0):
 
 
 @pytest.mark.parametrize("clamp", ["phone", "state"])
-@pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 3)])
+@pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 3), (128, 1),
+                                  (48, 3)])
 def test_kernels_match_plain(dev, P, ns, clamp):
     clamp_ns = ns if clamp == "phone" else 1
     Wall, feats, labels, lengths, kw = _problem(dev, P, ns, clamp_ns,
@@ -130,6 +137,99 @@ def test_autograd_function_matches_plain(dev):
                                 if d == dev else {})
     torch.testing.assert_close(grads[0][0], grads[1][0], **G_TOL)
     torch.testing.assert_close(grads[0][1], grads[1][1], **G_TOL)
+
+
+def _dplane_twice(grad_args, kw, planes):
+    """Two calls of K2's recursion, each into memory the allocator last
+    held as NaN (an entry the kernel leaves unwritten shows), and what they
+    moved of the launch counters."""
+    B, T, _ = planes.shape
+    shape = (B, T, grad_args[0].shape[0])
+    before = diagnostics.launches()
+    outs = []
+    for _ in range(2):
+        torch.full(shape, float("nan"), device=planes.device)
+        outs.append(K.fdt_dplane_cuda(*grad_args, **kw, planes=planes))
+    torch.cuda.synchronize()
+    return outs, moved(before)
+
+
+@pytest.mark.parametrize("lengths", ["ragged", "empty", "one", "full"])
+@pytest.mark.parametrize("clamp", ["phone", "state"])
+@pytest.mark.parametrize("P,ns", [(5, 1), (5, 3), (8, 3), (128, 3), (128, 1)])
+def test_backward_recursion_matches_plain(dev, P, ns, clamp, lengths):
+    """K2's recursion on the plane kernel's planes against its plain
+    version, on ragged rows (T; 2, its clamped lattice dead; drawn; 0) and
+    on rows all of length 0, 1 or T; at P=128, ns=3 through the shallowest
+    ring (two rows).  Two calls give the same bits, each one launch counted
+    with its ring's depth."""
+    clamp_ns = ns if clamp == "phone" else 1
+    T = 33
+    given = {"ragged": None, "empty": [0] * 5, "one": [1] * 5,
+             "full": [T] * 5}[lengths]
+    Wall, feats, labels, lens, kw = _problem(dev, P, ns, clamp_ns, T=T,
+                                             seed=3 * P + ns,
+                                             lengths=given)
+    ra, rzf, rzc = K.fdt_forward_wall_torch(Wall, feats, labels, lens, **kw)
+    wf = torch.linspace(0.5, 1.5, len(rzf), device=dev)
+    wc = -torch.linspace(1.0, 2.0, len(rzf), device=dev)
+    grad_args = (Wall, feats, labels, lens, ra, rzf, rzc, wf, wc)
+    planes = K.fdt_planes_cuda(Wall, feats, u0=kw["u0"], u1=kw["u1"])
+    (d1, d2), counts = _dplane_twice(grad_args, kw, planes)
+    stages = K.backward_stages(K._library(), ns, P)
+    assert stages == 2 if (P, ns) == (128, 3) else stages > 2
+    assert counts == {f"kernels.fdt_train_bwd[ring{stages}]": 2}
+    assert torch.equal(d1, d2)
+    torch.testing.assert_close(d1, K.fdt_dplane_wall_torch(*grad_args, **kw),
+                               **G_TOL)
+
+
+@pytest.mark.parametrize("clamp", ["phone", "state"])
+def test_backward_recursion_at_the_cell_shape(dev, clamp):
+    """K2 at ``triphone-train``'s widest batches: B=128, T=512, P=48, ns=3,
+    rows of 257-512 frames as the T=512 bucket holds them, and a full row,
+    a row of one frame, row 1 of 5 frames (its last frame opens a phone
+    run, so its clamped lattice is dead) and three empty rows (a bucket's
+    last batch is filled with them), against
+    the plain version; the same bits on two calls; frames past a row's
+    length and frame 0's transitions exactly zero."""
+    B, T, P, ns = 128, 512, 48, 3
+    clamp_ns = ns if clamp == "phone" else 1
+    lengths = np.random.default_rng(5).integers(257, T + 1, size=B)
+    lengths[0], lengths[1], lengths[2] = T, 5, 1
+    lengths[-3:] = 0
+    Wall, feats, labels, lens, kw = _problem(dev, P, ns, clamp_ns, B=B, T=T,
+                                             seed=11, lengths=lengths)
+    ra, rzf, rzc = K.fdt_forward_wall_torch(Wall, feats, labels, lens, **kw)
+    assert float(rzc[1]) < -1e29 < float(rzf[1])     # one lattice dead
+    wf = torch.linspace(0.5, 1.5, B, device=dev)
+    wc = -torch.linspace(1.0, 2.0, B, device=dev)
+    grad_args = (Wall, feats, labels, lens, ra, rzf, rzc, wf, wc)
+    planes = K.fdt_planes_cuda(Wall, feats, u0=kw["u0"], u1=kw["u1"])
+    (d1, d2), counts = _dplane_twice(grad_args, kw, planes)
+    assert counts == {f"kernels.fdt_train_bwd[ring{K.BWD_RING}]": 2}
+    assert torch.equal(d1, d2)
+    Lp = ns * P
+    assert not d1[:, 0, Lp:].any()
+    for b, n in enumerate(lengths):
+        assert not d1[b, n:].any()
+    ref = K.fdt_dplane_wall_torch(*grad_args, **kw)
+    torch.testing.assert_close(d1, ref, rtol=0.0, atol=1e-3)
+
+
+def test_backward_stages_fit_every_width(dev):
+    """The ring's rule against the kernel's own layout: between two rows
+    and BWD_RING, within a block's shared memory, and as deep as it
+    allows, for every P <= 128 and ns <= 8."""
+    lib = K._library()
+    for P in range(1, 129):
+        for ns in range(1, 9):
+            stages = K.backward_stages(lib, ns, P)
+            assert 2 <= stages <= K.BWD_RING, (P, ns)
+            assert lib.fdt_train_bwd_smem_bytes(ns, P, stages) <= SMEM_LIMIT
+            if stages < K.BWD_RING:
+                assert lib.fdt_train_bwd_smem_bytes(ns, P, stages + 1) \
+                    > SMEM_LIMIT
 
 
 @pytest.mark.parametrize("clamp", ["phone", "state"])
